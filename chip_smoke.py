@@ -7,7 +7,8 @@ Run from the root of a checkout. It
 1. prints the card's name and power limit (nvidia-smi) and fails without CUDA;
 2. builds the CUDA kernels of hgmm_torch/csrc with nvcc (timed);
 3. checks each kernel against its plain PyTorch version on the card at small
-   shapes (weights, outlier, dead components, parent -1);
+   shapes (weights, outlier, dead components, parent -1, top_k gating with
+   exact ties, nearest neighbours with exact ties);
 4. drives the main path once: hgmm_torch.register_pair with the
    config2_tree_8x3 preset on a 437,645-point pair (the vertex count of the
    Stanford dragon; synthetic trefoil stand-in, ground truth z-rotation
@@ -18,13 +19,27 @@ Run from the root of a checkout. It
 5. times the tree fit and the registration, and checks and times each kernel
    against its plain version at the shapes the slice gives it;
 6. checks that register_pair on the card agrees with the plain CPU path on a
-   4,000-point pair.
+   4,000-point pair;
+7. drives the CLI (hgmm_torch.cli.main) in process, each command with the
+   counters set to 0 just before and read just after, on .ply pairs written
+   under chiprun_out/smoke/ (removed at the end):
+   - `icp --iters 250` on a 437,645-point pair inside ICP's basin: fails
+     unless the knn kernel launched, the registration RMSE is below 0.02 and
+     the output is finite; then checks the knn kernel against its plain
+     version at full size (float64 distances) and times both;
+   - `fit-gmm --tree` to an npz, read back with load_tree (levels 8/64/512);
+   - `register --preset config3_mahalanobis` on the config-2 pair: fails
+     unless the pose meets the bounds and reg_stats launched; then checks
+     the K=512 reg_stats with top_k=8 against its plain version at the final
+     pose and times it with and without top_k.
 Each phase prints one JSON line; the line before the last is the kernel
 table, the last line {"ok": true, "device": ...}. Any failure exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -42,6 +57,24 @@ BOUNDS = {"rmse": 0.03, "rot_deg": 3.0, "trans": 0.02, "pose_delta": 0.06}
 TOL_EM = dict(rtol=2e-3, atol=2e-4, ll_rtol=1e-4)
 TOL_REG = dict(horn=(2e-3, 2e-3), A=(2e-3, 2e-2), b=(2e-3, 2e-2), ll_rtol=1e-4)
 TIE_GAP = 1e-4  # an assign mismatch is allowed where the top-two logit gap is below this
+# ICP's pair: a pose inside its basin; RMSE bound of tests/test_knn_icp.py:43.
+ICP_OMEGA = (0.03, -0.05, 0.08)
+ICP_T = (0.02, -0.01, 0.03)
+ICP_RMSE = 0.02
+# The cloud is a dense volume (a Gaussian tube), so every nearest neighbour
+# lies within the point spacing (~0.008) and a point-to-point step moves the
+# source ~1 % of the way: on the H100 the registration RMSE falls from 0.073
+# to 0.061 in 25 iterations and snaps to the exact matches after ~190.
+ICP_ITERS = 250
+# The kernels each path must launch (each path runs with the counters at 0).
+PATH_KERNELS = {"register_pair": ("em_stats", "em_stats_masked", "assign", "reg_stats"),
+                "cli_icp": ("knn",), "cli_register_config3": ("em_stats", "em_stats_masked",
+                                                               "assign", "reg_stats")}
+SOURCES = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu", "assign": "assign.cu",
+           "reg_stats": "reg_stats.cu", "knn": "knn.cu"}
+REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops/fused_em.py:559",
+            "assign": "hgmm/ops/fused_em.py:859", "reg_stats": "hgmm/ops/fused_em.py:920",
+            "knn": "hgmm/ops/knn.py:60"}
 
 
 def log(obj) -> None:
@@ -93,17 +126,26 @@ def main() -> int:
     agreement = cpu_agreement(torch, dev)
     log({"phase": "cpu_agreement", **agreement})
 
-    sources = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu",
-               "assign": "assign.cu", "reg_stats": "reg_stats.cu"}
-    replaces = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops/fused_em.py:559",
-                "assign": "hgmm/ops/fused_em.py:859", "reg_stats": "hgmm/ops/fused_em.py:920"}
+    work = repo / "chiprun_out" / "smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        icp_counts = cli_icp(torch, dev, work, errs, timings)
+        cli_fit_tree(torch, work)
+        c3_counts = cli_register_config3(torch, dev, work, errs, timings)
+    finally:
+        for f in work.glob("*.ply"):
+            f.unlink()
+    launches = {"register_pair": counts, "cli_icp": icp_counts, "cli_register_config3": c3_counts}
+
     kernels = []
     for name in fused_em.LAUNCHES:
-        main_shape = timings[name][-1]
+        head = next(t for t in timings[name] if t.get("headline"))
+        path = "cli_icp" if name == "knn" else "register_pair"
         kernels.append({
-            "name": name, "route": "cuda", "source": f"hgmm_torch/csrc/{sources[name]}",
-            "replaces": replaces[name], "launches": counts[name], "max_abs_err": errs[name],
-            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"], "k": main_shape["k"],
+            "name": name, "route": "cuda", "source": f"hgmm_torch/csrc/{SOURCES[name]}",
+            "replaces": REPLACES[name], "launches": launches[path][name],
+            "max_abs_err": errs[name], "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "main_path": path, "launches_by_path": {p: c[name] for p, c in launches.items()},
             "shapes": timings[name],
         })
     log({"kernels": kernels})
@@ -116,9 +158,9 @@ def main() -> int:
 # helpers
 
 
-def cuda_ms(torch, fn, reps: int = 20) -> float:
+def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() over `reps` launches, by CUDA events."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -156,6 +198,7 @@ def check_em(torch, name, got, ref, n, errs):
 
 
 def check_reg(torch, got, ref, n, errs):
+    """n: the point count of the sums (the points of weight > 0)."""
     scale = n / 300.0
     e = [close(torch, f"reg_stats.{f}", getattr(got, f), getattr(ref, f), r, a * scale)
          for f, (r, a) in ((f, TOL_REG[f]) for f in ("horn", "A", "b"))]
@@ -182,6 +225,42 @@ def check_assign(torch, got, ref, points, W, parent, branch, errs):
             raise CheckFailed(f"assign: {int((gaps >= TIE_GAP).sum())} of {mism.numel()} "
                               f"mismatches are not near-ties (largest gap {gap})")
     errs["assign"] = max(errs["assign"], gap)
+
+
+def check_reg_top_k(torch, pts, w, W, mu, A6, b3, pose, top_k, outlier, errs, max_share=0.01):
+    """reg_stats with top_k gating against em_ref. Points whose gate float32
+    rounding decides (em_ref.top_k_near_ties, required below max_share) weigh
+    0 in both: there one version may keep a component the other gates out."""
+    from hgmm_torch.ops import em_ref, fused_em, prepare
+
+    near = em_ref.top_k_near_ties(pts, W, pose, top_k)
+    share = float(near.double().mean())
+    if not share < max_share:
+        raise CheckFailed(f"reg_stats top_k={top_k}: {share:.4f} of the points are near-ties")
+    w = (torch.ones_like(pts[:, 0]) if w is None else w) * (~near)
+    got = fused_em.reg_stats(prepare(pts, w).pts4, W, mu, A6, b3, pose, top_k, outlier)
+    ref = em_ref.reg_stats(pts, W, mu, A6, b3, pose, w, top_k, outlier)
+    check_reg(torch, got, ref, int((w > 0).sum()), errs)
+    return share
+
+
+def check_knn(torch, q, t, idx, d2, ref_idx, ref_d2, errs, min_agree=None):
+    """The kernel's neighbour is no farther than the twin's, by float64
+    distances (+ 1e-6 (1 + |q|^2)); its d2 is the float32 distance to it.
+    Returns the share of equal indices."""
+    q64, t64 = q.double(), t.double()
+    mine = ((q64 - t64[idx.long()]) ** 2).sum(1)
+    theirs = ((q64 - t64[ref_idx.long()]) ** 2).sum(1)
+    excess = mine - theirs - 1e-6 * (1.0 + (q64 ** 2).sum(1))
+    if not bool((excess <= 0).all()):
+        raise CheckFailed(f"knn: {int((excess > 0).sum())} queries got a farther neighbour "
+                          f"than the plain version (worst by {float(excess.max())})")
+    close(torch, "knn.d2", d2, mine, 1e-5, 1e-7)
+    errs["knn"] = max(errs["knn"], float((d2.double() - ref_d2.double()).abs().max()))
+    agree = float((idx == ref_idx).double().mean())
+    if min_agree is not None and not agree >= min_agree:
+        raise CheckFailed(f"knn: indices agree on {agree:.4f} < {min_agree}")
+    return agree
 
 
 def random_mixture(torch, k, gen, dev, dead=()):
@@ -235,6 +314,34 @@ def small_checks(torch, dev, errs) -> None:
             got = fused_em.reg_stats(prep.pts4, W, params.mu, sym_pack(A), b, pose, None, outlier)
             ref = em_ref.reg_stats(pts, W, params.mu, sym_pack(A), b, pose, weights, None, outlier)
             check_reg(torch, got, ref, n, errs)
+        # top_k gating (K itself gates nothing), on this mixture with a dead
+        # component and on one with every component twice (exact ties).
+        half = random_mixture(torch, k // 2, gen, dev, dead=(1,))
+        twice = type(half)(torch.cat([half.pi, half.pi]) / 2, torch.cat([half.mu, half.mu]),
+                           torch.cat([half.sigma, half.sigma]))
+        for mix in (params, twice):
+            A2, b2, _ = precision_terms(mix)
+            W2 = pack_loglik_weights(mix)
+            for top_k in (1, 8, 32, k):
+                for weights, outlier in ((None, None), (w, 0.0)):
+                    check_reg_top_k(torch, pts, weights, W2, mix.mu, sym_pack(A2), b2, pose,
+                                    top_k, outlier, errs)
+    # Nearest neighbours, with a copy of the target twice (exact ties) and
+    # queries that sit on targets.
+    from hgmm_torch.ops import knn
+
+    for nq, nt in ((500, 700), (3000, 5000)):
+        q = torch.randn(nq, 3, generator=gen)
+        t = torch.randn(nt, 3, generator=gen)
+        for tt in (t, torch.cat([t, t])):
+            qq = q.clone()
+            qq[: nq // 4] = tt[: nq // 4]
+            qq, tt = qq.to(dev), tt.to(dev)
+            idx, d2 = knn.nearest_neighbor_cuda(qq, tt)
+            ref_idx, ref_d2 = knn.nearest_neighbor_ref(qq, tt)
+            check_knn(torch, qq, tt, idx, d2, ref_idx, ref_d2, errs, min_agree=0.98)
+            if tt.shape[0] == 2 * nt and not int(idx.max()) < nt:
+                raise CheckFailed("knn: an exact tie went to the higher index")
     torch.cuda.synchronize()
 
 
@@ -256,14 +363,14 @@ def preset_kwargs():
                 top_k=p.top_k, outlier_logit=p.outlier_logit)
 
 
-def pose_errors(source, res, gt):
+def pose_errors(source, pose, gt):
     from hgmm_torch.eval.metrics import (pose_delta_norm, registration_rmse, rotation_error_deg,
                                          translation_error)
 
-    return {"rmse": float(registration_rmse(res.pose, source, gt)),
-            "rot_deg": float(rotation_error_deg(res.pose, gt)),
-            "trans": float(translation_error(res.pose, gt)),
-            "pose_delta": float(pose_delta_norm(res.pose, gt))}
+    return {"rmse": float(registration_rmse(pose, source, gt)),
+            "rot_deg": float(rotation_error_deg(pose, gt)),
+            "trans": float(translation_error(pose, gt)),
+            "pose_delta": float(pose_delta_norm(pose, gt))}
 
 
 def main_path(torch, dev):
@@ -280,7 +387,7 @@ def main_path(torch, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(fused_em.LAUNCHES)
-    errors = pose_errors(source, res, gt)
+    errors = pose_errors(source, res.pose, gt)
     finite = all(bool(torch.isfinite(x).all()) for x in (res.pose.R, res.pose.t, res.logliks, res.deltas))
     if not finite:
         raise CheckFailed("main path: non-finite output")
@@ -289,12 +396,16 @@ def main_path(torch, dev):
     for key, bound in BOUNDS.items():
         if not errors[key] < bound:
             raise CheckFailed(f"main path: {key} = {errors[key]} not below {bound}")
-    missing = [name for name, c in counts.items() if c == 0]
-    if missing:
-        raise CheckFailed(f"main path: kernels never launched: {missing}")
+    require_launched(counts, "register_pair")
     return counts, {"n_source": N_POINTS, "n_target": N_POINTS, "wall_s": wall, "errors": errors,
                     "bounds": BOUNDS, "converged": bool(res.converged),
                     "final_loglik": float(res.logliks[-1])}
+
+
+def require_launched(counts, path):
+    missing = [name for name in PATH_KERNELS[path] if counts[name] == 0]
+    if missing:
+        raise CheckFailed(f"{path}: kernels never launched: {missing}")
 
 
 def slice_checks(torch, dev, errs):
@@ -321,7 +432,7 @@ def slice_checks(torch, dev, errs):
     n_live = int((res.deltas >= 1e-7).sum())
     log({"phase": "timed_run", "fit_s": fit_s, "register_s": reg_s,
          "live_iterations": n_live, "register_ms_per_live_iteration": 1e3 * reg_s / max(n_live, 1),
-         "errors": pose_errors(source, res, gt)})
+         "errors": pose_errors(source, res.pose, gt)})
 
     timings = {name: [] for name in fused_em.LAUNCHES}
     tgt = prepare(target)
@@ -331,14 +442,15 @@ def slice_checks(torch, dev, errs):
     parents.append(fused_em.assign(tgt.pts4, Ws[1], parents[1], 8))
     n = N_POINTS
 
-    def record(name, k, kern, plain):
+    def record(name, k, kern, plain, headline=False):
         timings[name].append({"k": k, "n": n, "ms": cuda_ms(torch, kern),
-                              "plain_ms": cuda_ms(torch, plain, reps=5)})
+                              "plain_ms": cuda_ms(torch, plain, reps=5), "headline": headline})
 
     # Tree fit: level 0 unmasked at K=8, levels 1-2 masked at K=64 and 512.
     W0 = Ws[0]
     check_em(torch, "em_stats", fused_em.em_stats(tgt.pts4, W0), em_ref.em_stats(target, W0), n, errs)
-    record("em_stats", 8, lambda: fused_em.em_stats(tgt.pts4, W0), lambda: em_ref.em_stats(target, W0))
+    record("em_stats", 8, lambda: fused_em.em_stats(tgt.pts4, W0), lambda: em_ref.em_stats(target, W0),
+           headline=True)
     check_assign(torch, fused_em.assign(tgt.pts4, W0), em_ref.assign(target, W0), target, W0,
                  None, None, errs)
     record("assign", 8, lambda: fused_em.assign(tgt.pts4, W0), lambda: em_ref.assign(target, W0))
@@ -348,20 +460,21 @@ def slice_checks(torch, dev, errs):
         check_em(torch, "em_stats_masked", fused_em.em_stats_masked(tgt.pts4, W, par, 8),
                  em_ref.em_stats_masked(target, W, par, 8), n, errs)
         record("em_stats_masked", k, lambda: fused_em.em_stats_masked(tgt.pts4, W, par, 8),
-               lambda: em_ref.em_stats_masked(target, W, par, 8))
+               lambda: em_ref.em_stats_masked(target, W, par, 8), headline=lvl == 2)
         check_assign(torch, fused_em.assign(tgt.pts4, W, par, 8), em_ref.assign(target, W, par, 8),
                      target, W, par, 8, errs)
         record("assign", k, lambda: fused_em.assign(tgt.pts4, W, par, 8),
-               lambda: em_ref.assign(target, W, par, 8))
+               lambda: em_ref.assign(target, W, par, 8), headline=lvl == 2)
     # Registration: levels 0 and 1, then the adaptive cut, at the final pose.
     pose = (res.pose.R, res.pose.t)
-    for params in (tree.levels[0], tree.levels[1], tree.cut_mixture(kw["complexity_threshold"])):
+    for lvl, params in enumerate((tree.levels[0], tree.levels[1],
+                                  tree.cut_mixture(kw["complexity_threshold"]))):
         W, mu, A6, b3 = model_terms(params)
         k = W.shape[1]
         check_reg(torch, fused_em.reg_stats(src.pts4, W, mu, A6, b3, pose),
                   em_ref.reg_stats(source, W, mu, A6, b3, pose), n, errs)
         record("reg_stats", k, lambda: fused_em.reg_stats(src.pts4, W, mu, A6, b3, pose),
-               lambda: em_ref.reg_stats(source, W, mu, A6, b3, pose))
+               lambda: em_ref.reg_stats(source, W, mu, A6, b3, pose), headline=lvl == 2)
     log({"phase": "slice_kernels", "timings": timings, "max_abs_err": errs})
     return timings
 
@@ -379,7 +492,7 @@ def cpu_agreement(torch, dev):
         source, target, gt = make_pair(torch, 4000, d)
         res = hgmm_torch.register_pair(source, target=target,
                                        generator=torch.Generator().manual_seed(0), **preset_kwargs())
-        out[name] = pose_errors(source, res, gt)
+        out[name] = pose_errors(source, res.pose, gt)
         for key, bound in BOUNDS.items():
             if not out[name][key] < bound:
                 raise CheckFailed(f"{name} 4k pair: {key} = {out[name][key]} not below {bound}")
@@ -391,6 +504,155 @@ def cpu_agreement(torch, dev):
         raise CheckFailed(f"cuda and cpu poses differ by {gap}")
     out["pose_delta_cuda_vs_cpu"] = gap
     return out
+
+
+def run_cli(argv):
+    """hgmm_torch.cli.main.main(argv) in process; returns what it printed
+    (echoed to stderr)."""
+    from hgmm_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main(argv)
+    print(buf.getvalue(), file=sys.stderr, end="", flush=True)
+    return buf.getvalue()
+
+
+def printed_matrix(text: str):
+    """The 4x4 matrix numpy printed just before the `final match rmse` line."""
+    import numpy as np
+
+    body = text[: text.index("final match rmse")]
+    return np.array(body.replace("[", " ").replace("]", " ").split(), np.float32).reshape(4, 4)
+
+
+def save_pair(torch, work, name, source, target):
+    from hgmm_torch.data.ply import save_ply
+
+    paths = [str(work / f"{name}_{side}.ply") for side in ("source", "target")]
+    for path, pts in zip(paths, (source, target)):
+        save_ply(path, pts.cpu().numpy())
+    return paths
+
+
+def cli_icp(torch, dev, work, errs, timings):
+    """`icp` through the CLI on the 437,645-point pair; then the knn kernel
+    against its plain version at that size."""
+    from hgmm_torch.data.synthetic import make_cloud
+    from hgmm_torch.eval.metrics import registration_rmse
+    from hgmm_torch.models.se3 import Pose, so3_exp
+    from hgmm_torch.ops import fused_em, knn
+
+    target = make_cloud(N_POINTS, "trefoil", seed=4, device=dev)
+    gt = Pose(so3_exp(torch.tensor(ICP_OMEGA, device=dev)), torch.tensor(ICP_T, device=dev))
+    source = gt.inverse().apply(target)
+    src_p, tgt_p = save_pair(torch, work, "icp", source, target)
+    torch.cuda.synchronize()
+    fused_em.reset_launches()
+    t0 = time.perf_counter()
+    out = run_cli(["icp", src_p, tgt_p, "--iters", str(ICP_ITERS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fused_em.LAUNCHES)
+    T = torch.from_numpy(printed_matrix(out)).to(dev)
+    final_rmse = float(out.split("final match rmse:")[1].split()[0])
+    if not (bool(torch.isfinite(T).all()) and final_rmse == final_rmse):
+        raise CheckFailed("cli icp: non-finite output")
+    rmse = float(registration_rmse(Pose.from_matrix(T), source, gt))
+    if not rmse < ICP_RMSE:
+        raise CheckFailed(f"cli icp: registration RMSE {rmse} not below {ICP_RMSE}")
+    require_launched(counts, "cli_icp")
+
+    # One search at full size, at the identity (the first ICP iteration).
+    idx, d2 = knn.nearest_neighbor_cuda(source, target)
+    ref_idx, ref_d2 = knn.nearest_neighbor_ref(source, target)
+    agree = check_knn(torch, source, target, idx, d2, ref_idx, ref_d2, errs)
+    ms = cuda_ms(torch, lambda: knn.nearest_neighbor_cuda(source, target), reps=5, warmup=1)
+    plain = cuda_ms(torch, lambda: knn.nearest_neighbor_ref(source, target), reps=2, warmup=1)
+    timings["knn"] = [{"nq": N_POINTS, "nt": N_POINTS, "ms": ms, "plain_ms": plain,
+                       "headline": True}]
+    log({"phase": "cli_icp", "n_source": N_POINTS, "n_target": N_POINTS, "iters": ICP_ITERS,
+         "wall_s": wall,
+         "registration_rmse": rmse, "bound": ICP_RMSE, "final_match_rmse": final_rmse,
+         "launches": counts, "knn_index_agreement": agree, "knn_ms": ms, "knn_plain_ms": plain})
+    return counts
+
+
+def cli_fit_tree(torch, work):
+    """`fit-gmm --tree` to an npz and back through load_tree."""
+    from hgmm_torch.data.ply import save_ply
+    from hgmm_torch.data.synthetic import make_cloud_np
+    from hgmm_torch.utils.checkpoint import load_tree
+
+    cloud_p, tree_p = work / "fit_target.ply", work / "tree.npz"
+    save_ply(cloud_p, make_cloud_np(N_POINTS, "trefoil", seed=4))
+    t0 = time.perf_counter()
+    run_cli(["fit-gmm", str(cloud_p), "--tree", "--out", str(tree_p), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    tree = load_tree(tree_p)
+    sizes = [int(lvl.pi.shape[0]) for lvl in tree.levels]
+    if sizes != [8, 64, 512] or tree.branch != 8:
+        raise CheckFailed(f"cli fit-gmm --tree: levels {sizes}, branch {tree.branch}")
+    if not all(bool(torch.isfinite(x).all()) for lvl in tree.levels for x in lvl):
+        raise CheckFailed("cli fit-gmm --tree: non-finite parameters")
+    log({"phase": "cli_fit_tree", "wall_s": wall, "levels": sizes, "file": tree_p.name})
+
+
+def cli_register_config3(torch, dev, work, errs, timings):
+    """`register --preset config3_mahalanobis` on the config-2 pair; then the
+    K=512 reg_stats with top_k=8 at the final pose against its plain version."""
+    import numpy as np
+
+    from hgmm_torch.configs.presets import PRESETS
+    from hgmm_torch.models.se3 import Pose
+    from hgmm_torch.ops import em_ref, fused_em, prepare
+    from hgmm_torch.pipelines.register import model_terms
+    from hgmm_torch.utils.checkpoint import load_tree
+
+    p3 = PRESETS["config3_mahalanobis"]
+    source, target, gt = make_pair(torch, N_POINTS, dev)
+    src_p, tgt_p = save_pair(torch, work, "config3", source, target)
+    out_p = work / "config3_T.npy"
+    torch.cuda.synchronize()
+    fused_em.reset_launches()
+    t0 = time.perf_counter()
+    run_cli(["register", src_p, tgt_p, "--preset", p3.name, "--out", str(out_p), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fused_em.LAUNCHES)
+    T = torch.from_numpy(np.load(out_p)).to(dev)
+    if not bool(torch.isfinite(T).all()):
+        raise CheckFailed("cli register config3: non-finite transform")
+
+    final = Pose.from_matrix(T)
+    errors = pose_errors(source, final, gt)
+    for key, bound in BOUNDS.items():
+        if not errors[key] < bound:
+            raise CheckFailed(f"cli register config3: {key} = {errors[key]} not below {bound}")
+    require_launched(counts, "cli_register_config3")
+
+    # The gated kernel at the leaves (config 3 takes no cut) of the tree the
+    # CLI fits with the same seed and sweeps (tree.npz), at the final pose.
+    W, mu, A6, b3 = model_terms(load_tree(work / "tree.npz", device=dev).leaf_mixture())
+    pose = (final.R.contiguous(), final.t.contiguous())
+    # The fitted leaves are narrow, so their logits are sums of large terms
+    # that cancel, and more points sit within rounding of their gate.
+    share = check_reg_top_k(torch, source, None, W, mu, A6, b3, pose, p3.top_k, p3.outlier_logit,
+                            errs, max_share=0.05)
+    src = prepare(source)
+    k = W.shape[1]
+    for top_k in (p3.top_k, None):
+        timings["reg_stats"].append({
+            "k": k, "n": N_POINTS, "top_k": top_k, "outlier_logit": p3.outlier_logit,
+            "ms": cuda_ms(torch, lambda: fused_em.reg_stats(src.pts4, W, mu, A6, b3, pose, top_k,
+                                                            p3.outlier_logit)),
+            "plain_ms": cuda_ms(torch, lambda: em_ref.reg_stats(source, W, mu, A6, b3, pose, None,
+                                                                top_k, p3.outlier_logit), reps=5),
+            "headline": False})
+    log({"phase": "cli_register_config3", "n_source": N_POINTS, "n_target": N_POINTS,
+         "wall_s": wall, "errors": errors, "bounds": BOUNDS, "launches": counts,
+         "top_k_near_tie_share": share, "reg_stats_top_k": timings["reg_stats"][-2:]})
+    return counts
 
 
 if __name__ == "__main__":

@@ -1,8 +1,7 @@
 // Registration E-step statistics with the pose applied in the kernel.
 //
 // Replaces the TPU kernel hgmm/ops/fused_em.py:_reg_stats_kernel. Plain twin:
-// hgmm_torch/ops/em_ref.py:reg_stats (top_k is not supported here; the
-// wrapper refuses it).
+// hgmm_torch/ops/em_ref.py:reg_stats.
 //
 // Per point: y = R x + t, psi(y), the exact two-pass softmax over K with the
 // optional outlier, and in the second pass the unnormalized contraction
@@ -16,6 +15,14 @@
 // and writes a [59] partial (horn 16, A 36 filled symmetric, b 6, loglik);
 // reduce_partials sums the blocks in a fixed order in float64.
 //
+// top_k gating (em_ref.top_k_mask_logits): pass 1 also keeps the KMAX
+// largest logits, with multiplicity, in a register array sorted by an
+// unrolled compare-exchange insertion (a fixed-size array, so nothing spills
+// to local memory); the threshold is the top_k-th of them. Pass 2 skips every
+// component whose logit, recomputed by the same logit() call as in pass 1,
+// is below it, so ties at the threshold are kept and the outlier term is
+// never gated. KMAX is 0 (no gating), 8 or 32; the wrapper refuses top_k > 32.
+//
 // What bounds it on the card: at K=512 it is arithmetic, 2 logit evaluations
 // (10 FMA each) + 1 exp2 + 13 FMA per point and component, reading the
 // weights and the [K, 12] aux table from shared memory as broadcast float4
@@ -28,10 +35,39 @@ constexpr int NACC = 44;   // horn 16 + A upper 21 + b 6 + loglik 1
 constexpr int NOUT = 59;   // horn 16 + A 36 + b 6 + loglik 1
 constexpr int NWARPS = TILE / 32;
 
+// Pass 1 with gating: the exact max over the K logits and the outlier, and in
+// *th the top_k-th largest logit counted with multiplicity (1 <= top_k <= KMAX).
+template <int KMAX>
+__device__ __forceinline__ float max_logit_top_k(const float4* __restrict__ w4, const Psi& p,
+                                                 int k, int top_k, bool has_outlier,
+                                                 float outlier, float* th) {
+  float top[KMAX];  // descending
+#pragma unroll
+  for (int c = 0; c < KMAX; ++c) top[c] = -INFINITY;
+  for (int j = 0; j < k; ++j) {
+    float v = logit(w4 + 3 * j, p);
+    if (v > top[KMAX - 1]) {
+#pragma unroll
+      for (int c = 0; c < KMAX; ++c) {
+        const float hi = fmaxf(top[c], v);
+        v = fminf(top[c], v);
+        top[c] = hi;
+      }
+    }
+  }
+  float kth = top[0];
+#pragma unroll
+  for (int c = 1; c < KMAX; ++c)
+    if (c < top_k) kth = top[c];
+  *th = kth;
+  return has_outlier ? fmaxf(top[0], outlier) : top[0];
+}
+
+template <int KMAX>
 __global__ void __launch_bounds__(TILE)
     reg_stats_kernel(const float* __restrict__ pts4, int n, const float* __restrict__ pose12,
                      const float* __restrict__ wn, const float* __restrict__ aux, int k,
-                     int has_outlier, float outlier, float* __restrict__ partial) {
+                     int top_k, int has_outlier, float outlier, float* __restrict__ partial) {
   extern __shared__ float4 smem4[];
   float4* w4 = smem4;          // [k * 3] packed weights
   float4* a4 = w4 + 3 * k;     // [k * 3] aux rows: mu(3) A6(6) b3(3)
@@ -56,14 +92,24 @@ __global__ void __launch_bounds__(TILE)
     const float y1 = fmaf(P[3], x0, fmaf(P[4], x1, fmaf(P[5], x2, P[10])));
     const float y2 = fmaf(P[6], x0, fmaf(P[7], x1, fmaf(P[8], x2, P[11])));
     const Psi p = features(y0, y1, y2);
-    const float m = max_logit(w4, p, 0, k, has_outlier, outlier);
+    float th = -INFINITY;
+    float m;
+    if constexpr (KMAX == 0) {
+      m = max_logit(w4, p, 0, k, has_outlier, outlier);
+    } else {
+      m = max_logit_top_k<KMAX>(w4, p, k, top_k, has_outlier, outlier, &th);
+    }
     const float m2 = fmaxf(m, NEG_INF) * LOG2E;
     float s = 0.0f;
     float red[12];
 #pragma unroll
     for (int c = 0; c < 12; ++c) red[c] = 0.0f;
     for (int j = 0; j < k; ++j) {
-      const float e = exp2f(fmaf(logit(w4 + 3 * j, p), LOG2E, -m2));
+      const float l = logit(w4 + 3 * j, p);
+      if constexpr (KMAX > 0) {
+        if (l < th) continue;  // gated out: e = 0, as em_ref's NEG_INF gives
+      }
+      const float e = exp2f(fmaf(l, LOG2E, -m2));
       s += e;
       const float4 a = a4[3 * j], b = a4[3 * j + 1], c = a4[3 * j + 2];
       red[0] = fmaf(e, a.x, red[0]);
@@ -157,27 +203,45 @@ __global__ void __launch_bounds__(TILE)
 
 }  // namespace hgmm
 
+namespace {
+
+template <int KMAX>
+cudaError_t launch(const float* pts4, int n, const float* pose12, const float* wn,
+                   const float* aux, int k, int top_k, int has_outlier, float outlier,
+                   float* partial, int nb, cudaStream_t s) {
+  const size_t smem = sizeof(float4) * 6 * (size_t)k + sizeof(float) * hgmm::NWARPS * hgmm::NACC;
+  cudaError_t err = cudaFuncSetAttribute(hgmm::reg_stats_kernel<KMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  hgmm::reg_stats_kernel<KMAX><<<nb, hgmm::TILE, smem, s>>>(pts4, n, pose12, wn, aux, k, top_k,
+                                                            has_outlier, outlier, partial);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" {
 
 // horn [4,4], A [6,6], b [6] and loglik of em_ref.reg_stats at the pose
 // pose12 = [R row-major (9), t (3)] into out[59]. wn and aux are [K, 12].
-// partial is [nb, 59] scratch. Returns the CUDA error code (0 on success).
+// top_k: 0 = no gating, else 1..32 (< K). partial is [nb, 59] scratch.
+// Returns the CUDA error code (0 on success).
 int hgmm_reg_stats(const void* pts4, int n, const void* pose12, const void* wn, const void* aux,
-                   int k, int has_outlier, float outlier, void* partial, int nb, void* out,
-                   void* stream) {
+                   int k, int top_k, int has_outlier, float outlier, void* partial, int nb,
+                   void* out, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float4) * 6 * (size_t)k + sizeof(float) * hgmm::NWARPS * hgmm::NACC;
-  cudaError_t err = cudaFuncSetAttribute(hgmm::reg_stats_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto* p = static_cast<const float*>(pts4);
+  const auto* pose = static_cast<const float*>(pose12);
+  const auto* w = static_cast<const float*>(wn);
+  const auto* a = static_cast<const float*>(aux);
+  auto* part = static_cast<float*>(partial);
+  if (top_k < 0 || top_k > 32) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      top_k == 0  ? launch<0>(p, n, pose, w, a, k, top_k, has_outlier, outlier, part, nb, s)
+      : top_k <= 8 ? launch<8>(p, n, pose, w, a, k, top_k, has_outlier, outlier, part, nb, s)
+                   : launch<32>(p, n, pose, w, a, k, top_k, has_outlier, outlier, part, nb, s);
   if (err != cudaSuccess) return (int)err;
-  hgmm::reg_stats_kernel<<<nb, hgmm::TILE, smem, s>>>(
-      static_cast<const float*>(pts4), n, static_cast<const float*>(pose12),
-      static_cast<const float*>(wn), static_cast<const float*>(aux), k, has_outlier, outlier,
-      static_cast<float*>(partial));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)hgmm::launch_reduce_partials(static_cast<const float*>(partial), nb, hgmm::NOUT,
-                                           static_cast<float*>(out), s);
+  return (int)hgmm::launch_reduce_partials(part, nb, hgmm::NOUT, static_cast<float*>(out), s);
 }
 
 }  // extern "C"

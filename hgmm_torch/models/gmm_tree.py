@@ -32,12 +32,45 @@ _CUBE = np.array(
 ) / np.sqrt(3.0)
 
 
+def _threefry2x32(k1: np.uint32, k2: np.uint32, x1: np.ndarray, x2: np.ndarray):
+    """The Threefry-2x32 hash (20 rounds) on uint32 counter pairs."""
+    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0, x1 = x1 + ks[0], x2 + ks[1]
+    for i in range(5):
+        for r in rotations[i % 2]:
+            x0 = x0 + x1
+            x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def _jax_normal(seed: int, shape: tuple[int, ...]) -> np.ndarray:
+    """What jax.random.normal(jax.random.PRNGKey(seed), shape) draws in
+    float32, with jax's default threefry2x32 and partitionable counters:
+    counter i of the flattened shape is hashed as the pair (0, i), the two
+    words are xor-ed, the top 23 bits become a uniform in
+    [nextafter(-1, 0), 1), and sqrt(2) erfinv maps it to a normal."""
+    n = int(np.prod(shape))
+    with np.errstate(over="ignore"):
+        b0, b1 = _threefry2x32(np.uint32(seed >> 32), np.uint32(seed & 0xFFFFFFFF),
+                               np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
+    one = np.float32(1.0)
+    u = ((b0 ^ b1) >> np.uint32(9) | one.view(np.uint32)).view(np.float32) - one
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = np.maximum(lo, u * (one - lo) + lo)
+    z = np.sqrt(2.0) * torch.special.erfinv(torch.from_numpy(u.astype(np.float64)))
+    return z.numpy().astype(np.float32).reshape(shape)
+
+
 def _child_directions(branch: int) -> np.ndarray:
     if branch == 8:
         return _CUBE
-    # Deterministic pseudo-uniform directions for other branch factors. The
-    # JAX package draws these from jax.random, so they differ from its own.
-    g = np.random.default_rng(7).standard_normal((branch, 3)).astype(np.float32)
+    # Deterministic pseudo-uniform directions for other branch factors: the
+    # JAX package's draw from jax.random.PRNGKey(7), reproduced bit for bit
+    # up to the last rounding of erfinv.
+    g = _jax_normal(7, (branch, 3))
     return g / np.linalg.norm(g, axis=1, keepdims=True)
 
 

@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels of ``hgmm_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, ``hgmm_torch/_build/libhgmm_kernels-<hash>.so``,
-at first use; the hash covers the sources and the flags, so an edited source
-builds anew. The library is loaded with ``ctypes``. Nothing here runs at
-import time.
+The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+``.cu`` file, all started together, and linked into one shared library with a
+plain C interface, ``hgmm_torch/_build/libhgmm_kernels-<hash>.so``, at first
+use; the hash covers the sources and the flags, so an edited source builds
+anew. The compilers' output (``-Xptxas -v``: registers, shared memory and
+spills of every kernel) is kept beside it as ``<library>.log``. The library
+is loaded with ``ctypes``. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 _lib = None
@@ -32,8 +34,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (every pointer and the stream as c_void_p)
     "hgmm_em_stats": (_P, _I, _P, _I, _P, _I, _I, _F, _P, _I, _P, _P),
-    "hgmm_reg_stats": (_P, _I, _P, _P, _P, _I, _I, _F, _P, _I, _P, _P),
+    "hgmm_reg_stats": (_P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P),
     "hgmm_assign": (_P, _I, _P, _I, _P, _I, _I, _P, _P),
+    "hgmm_knn": (_P, _I, _P, _I, _P, _P, _P),
 }
 
 
@@ -60,25 +63,36 @@ def library_path() -> Path:
     return BUILD_DIR / f"libhgmm_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first that fails; return
+    their output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile the kernels unless a library of the same sources exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build into a temporary name and rename, so a concurrent process never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+        log = _run([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(src)]
+                    for src, o in zip(srcs, objs)])
+        # Link into a temporary name and rename, so a concurrent process never
+        # loads a half-written library.
+        lib = Path(tmp) / out.name
+        log += _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]])
+        Path(f"{out}.log").write_text(log)
+        os.replace(lib, out)
     return out
 
 

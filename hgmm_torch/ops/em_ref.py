@@ -118,6 +118,27 @@ def top_k_mask_logits(logits: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(logits >= thresh, logits, torch.full_like(logits, NEG_INF))
 
 
+def top_k_near_ties(x, W, pose, top_k: int, rel: float = 2e-6) -> torch.Tensor:
+    """[N] bool: points whose top_k gate float32 rounding can decide.
+
+    A logit that differs from the point's threshold (the top_k-th largest)
+    by less than `rel` times the sum of the magnitudes of its terms,
+    |psi(y)| . |W_j| / 2, can fall on either side of it in two float32
+    evaluations that sum in different orders (the CUDA kernel and this
+    module), and so change the point's statistics by a whole component.
+    Exact ties are not near-ties: equal logits are kept on both sides, and
+    top_k >= K gates nothing."""
+    R, t = pose
+    if top_k >= W.shape[1]:
+        return torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    psi = features(x @ R.T + t)
+    logits = -0.5 * (psi @ W[:10])
+    thresh = torch.topk(logits, top_k, dim=1).values[:, -1:]
+    scale = 0.5 * (psi.abs() @ W[:10].abs())
+    gap = (logits - thresh).abs()
+    return ((gap > 0) & (gap < rel * scale)).any(dim=1)
+
+
 def reg_stats(
     x, W, mu, A6, b3, pose, point_weights=None, top_k=None, outlier_logit=None,
 ) -> RegStats:

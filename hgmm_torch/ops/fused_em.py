@@ -22,9 +22,11 @@ from hgmm_torch.ops.em_ref import EmStats, RegStats
 TILE = 256  # points per block tile; csrc/hgmm_kernels.cuh:TILE
 MAX_BLOCKS = 1024  # cap of the grid (and of the partial-sum rows)
 MAX_K = 2048  # largest K whose tables fit in shared memory
+MAX_TOP_K = 32  # largest top_k < K that reg_stats gates (csrc/reg_stats.cu)
 
-# Kernel launches by wrapper, for showing that a run went through the kernels.
-LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "assign": 0, "reg_stats": 0}
+# Kernel launches by wrapper, for showing that a run went through the kernels
+# (ops/knn.py counts its kernel here too).
+LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "assign": 0, "reg_stats": 0, "knn": 0}
 
 
 def reset_launches() -> None:
@@ -134,15 +136,23 @@ def assign(pts4: torch.Tensor, W: torch.Tensor, parent=None, branch=None) -> tor
     return out
 
 
+def _top_k(top_k, k: int) -> int:
+    """The kernel's top_k argument: 0 (no gating) for None or top_k >= K."""
+    if top_k is None or top_k >= k:
+        return 0
+    if not 1 <= top_k <= MAX_TOP_K:
+        raise ValueError(f"reg_stats: top_k={top_k} < K={k} outside [1, {MAX_TOP_K}]")
+    return int(top_k)
+
+
 def reg_stats(pts4, W, mu, A6, b3, pose, top_k=None, outlier_logit=None) -> RegStats:
     """Kernel twin of em_ref.reg_stats: the pose (R, t) is applied in the
     kernel, so the source buffer is read as it is on every iteration."""
-    if top_k is not None:
-        raise NotImplementedError("reg_stats: top_k gating has no CUDA kernel yet")
     n = _check_points(pts4)
     dev = pts4.device
     wn = _pack_w(W, dev)
     k = wn.shape[0]
+    gate = _top_k(top_k, k)
     f32 = dict(dtype=torch.float32, device=dev)
     aux = torch.cat([mu.to(**f32), A6.to(**f32), b3.to(**f32)], dim=1).contiguous()
     _check("aux", aux, torch.float32, (k, 12))
@@ -154,8 +164,8 @@ def reg_stats(pts4, W, mu, A6, b3, pose, top_k=None, outlier_logit=None) -> RegS
     has_out, out_l = _outlier(outlier_logit)
     with torch.cuda.device(dev):
         err = _build.load().hgmm_reg_stats(
-            pts4.data_ptr(), n, pose12.data_ptr(), wn.data_ptr(), aux.data_ptr(), k, has_out,
-            out_l, partial.data_ptr(), nb, out.data_ptr(), _stream(pts4),
+            pts4.data_ptr(), n, pose12.data_ptr(), wn.data_ptr(), aux.data_ptr(), k, gate,
+            has_out, out_l, partial.data_ptr(), nb, out.data_ptr(), _stream(pts4),
         )
     _raise_on(err, "reg_stats")
     LAUNCHES["reg_stats"] += 1

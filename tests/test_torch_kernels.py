@@ -95,24 +95,46 @@ def test_assign(cuda, k):
             assert float(gap.max()) < 1e-4
 
 
-@pytest.mark.parametrize("k", [8, 64, 384])
-@pytest.mark.parametrize("weighted,outlier", [(False, None), (True, -2.0)])
-def test_reg_stats(cuda, k, weighted, outlier):
-    n = 20_000
-    pts, w = _inputs(n, k + 6, cuda)
+def _check_reg_stats(cuda, params, n, seed, weighted, top_k, outlier):
+    pts, w = _inputs(n, seed, cuda)
     w = w if weighted else None
-    params = _mixture(k, k + 7, cuda, dead=(2,))
     W = pack_loglik_weights(params)
     A, b, _ = precision_terms(params)
     pose = (so3_exp(torch.tensor([0.1, -0.2, 0.3], device=cuda)),
             torch.tensor([0.05, 0.0, -0.1], device=cuda))
-    got = fused_em.reg_stats(prepare(pts, w).pts4, W, params.mu, sym_pack(A), b, pose, None, outlier)
-    ref = em_ref.reg_stats(pts, W, params.mu, sym_pack(A), b, pose, w, None, outlier)
+    if top_k is not None and top_k < W.shape[1]:
+        # A point whose gate float32 rounding decides may keep a component in
+        # one version and not in the other: weigh those (< 1 %) 0 in both.
+        near = em_ref.top_k_near_ties(pts, W, pose, top_k)
+        assert float(near.double().mean()) < 0.01
+        w = (torch.ones_like(pts[:, 0]) if w is None else w) * (~near)
+    got = fused_em.reg_stats(prepare(pts, w).pts4, W, params.mu, sym_pack(A), b, pose, top_k,
+                             outlier)
+    ref = em_ref.reg_stats(pts, W, params.mu, sym_pack(A), b, pose, w, top_k, outlier)
     s = n / 300
     _close(got.horn, ref.horn, 2e-3, 2e-3 * s)
     _close(got.A, ref.A, 2e-3, 2e-2 * s)
     _close(got.b, ref.b, 2e-3, 2e-2 * s)
     _close(got.loglik, ref.loglik, 1e-4, 0.0)
+
+
+@pytest.mark.parametrize("k", [8, 64, 384])
+@pytest.mark.parametrize("weighted,outlier", [(False, None), (True, -2.0)])
+@pytest.mark.parametrize("top_k", [None, 1, 8, 32])
+def test_reg_stats(cuda, k, weighted, outlier, top_k):
+    """top_k >= K gates nothing (the kernel's plain path), as in em_ref."""
+    _check_reg_stats(cuda, _mixture(k, k + 7, cuda, dead=(2,)), 20_000, k + 6, weighted, top_k,
+                     outlier)
+
+
+@pytest.mark.parametrize("top_k", [1, 8, 32])
+def test_reg_stats_top_k_keeps_exact_ties(cuda, top_k):
+    """Every component twice: the top_k-th logit ties exactly with another
+    one, and both are kept (em_ref counts the threshold with multiplicity)."""
+    half = _mixture(96, 15, cuda, dead=(5,))
+    params = MixtureParams(torch.cat([half.pi, half.pi]) / 2, torch.cat([half.mu, half.mu]),
+                           torch.cat([half.sigma, half.sigma]))
+    _check_reg_stats(cuda, params, 20_000, 16, True, top_k, 0.0)
 
 
 def test_results_are_reproducible(cuda):
@@ -131,8 +153,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     A, b, _ = precision_terms(params)
     p = prepare(pts).pts4
     pose = (torch.eye(3, device=cuda), torch.zeros(3, device=cuda))
-    with pytest.raises(NotImplementedError):
-        fused_em.reg_stats(p, W, params.mu, sym_pack(A), b, pose, top_k=4)
+    p64 = _mixture(64, 12, cuda)
+    A64, b64, _ = precision_terms(p64)
+    with pytest.raises(ValueError, match="top_k"):  # 32 < top_k < K
+        fused_em.reg_stats(p, pack_loglik_weights(p64), p64.mu, sym_pack(A64), b64, pose,
+                           top_k=fused_em.MAX_TOP_K + 1)
     with pytest.raises(ValueError):
         fused_em.em_stats(p.double(), W)
     with pytest.raises(ValueError):
@@ -141,12 +166,42 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fused_em.em_stats(p, torch.zeros(10, fused_em.MAX_K + 1, device=cuda))
 
 
+@pytest.mark.parametrize("nq,nt,ties", [(1, 1, False), (500, 700, False), (3000, 5000, True),
+                                        (1025, 1023, False), (70_000, 3, False), (3, 70_000, True)])
+def test_knn(cuda, nq, nt, ties):
+    """The kernel's neighbour is as near as the twin's (float64 distances;
+    the twin's factored form cancels at close range), indices agree but for
+    near-ties, and of exact ties the lowest index wins."""
+    from hgmm_torch.ops import knn
+
+    g = torch.Generator().manual_seed(nq + nt)
+    q, t = torch.randn(nq, 3, generator=g), torch.randn(nt, 3, generator=g)
+    if ties:
+        t = torch.cat([t, t])
+        q[: nq // 4] = t[: nq // 4]
+    q, t = q.to(cuda), t.to(cuda)
+    idx, d2 = knn.nearest_neighbor_cuda(q, t)
+    ref_idx, ref_d2 = knn.nearest_neighbor_ref(q, t)
+    assert idx.dtype == torch.int32 and idx.shape == d2.shape == (nq,)
+    q64, t64 = q.double(), t.double()
+    mine = ((q64 - t64[idx.long()]) ** 2).sum(1)
+    theirs = ((q64 - t64[ref_idx.long()]) ** 2).sum(1)
+    assert bool((mine <= theirs + 1e-6 * (1 + (q64 ** 2).sum(1))).all())
+    _close(d2, mine, 1e-5, 1e-7)
+    assert float((idx == ref_idx).double().mean()) >= 0.98
+    if ties:
+        assert int(idx.max()) < t.shape[0] // 2
+
+
 def test_dispatch_sends_cuda_tensors_to_the_kernels(cuda):
     from hgmm_torch import ops
+    from hgmm_torch.ops import knn
 
     pts, _ = _inputs(1000, 13, cuda)
     W = pack_loglik_weights(_mixture(8, 14, cuda))
     fused_em.reset_launches()
     ops.em_stats(pts, W)
     ops.assign(pts, W)
+    knn.nearest_neighbor(pts, pts)
     assert fused_em.LAUNCHES["em_stats"] == 1 and fused_em.LAUNCHES["assign"] == 1
+    assert fused_em.LAUNCHES["knn"] == 1
