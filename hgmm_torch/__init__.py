@@ -20,6 +20,11 @@ _torch.backends.cudnn.allow_tf32 = False
 
 from hgmm_torch.models.gmm import Gmm  # noqa: E402,F401
 from hgmm_torch.models.gmm_tree import GmmTree, fit_gmm_tree  # noqa: E402,F401
+from hgmm_torch.pipelines.odometry import (  # noqa: E402,F401
+    OdometryConfig,
+    refine_odometry,
+    run_odometry,
+)
 from hgmm_torch.pipelines.register import register_pair  # noqa: E402,F401
 
 __version__ = "0.1.0"

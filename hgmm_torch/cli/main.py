@@ -1,14 +1,18 @@
-"""hgmm-torch command-line interface: the single-pair commands of the JAX
-package's CLI (fit-gmm, register, icp), with the same arguments and printed
-lines, run by hgmm_torch on the device that --device names.
+"""hgmm-torch command-line interface: the commands of the JAX package's CLI
+(fit-gmm, register, odometry, localize, icp), with the same arguments and
+printed lines, run by hgmm_torch on the device that --device names.
 
     python -m hgmm_torch.cli.main fit-gmm CLOUD [--tree] [--out NPZ] [--device cuda|cpu]
     python -m hgmm_torch.cli.main register SOURCE TARGET [--preset NAME] [--out NPY]
+    python -m hgmm_torch.cli.main odometry SEQ_DIR [--poses POSES] [--detect-closures]
+                                  [--refine] [--map NPZ] [--checkpoint NPZ] [--metrics JSONL]
+    python -m hgmm_torch.cli.main localize SCAN MAP_NPZ [--init NPY] [--out NPY]
     python -m hgmm_torch.cli.main icp SOURCE TARGET [--iters N]
 
 Clouds are .ply, KITTI .bin or .npy files. --device defaults to cuda and
 the command fails when CUDA is not available; --device cpu runs the plain
-PyTorch path.
+PyTorch path. --sharded (odometry, localize) is not ported: it waits for
+the torch.distributed slice and the command fails.
 """
 
 from __future__ import annotations
@@ -111,6 +115,126 @@ def cmd_register(args) -> None:
         print(f"aligned clouds -> {args.export_aligned}")
 
 
+def _outlier_logit(value: float) -> float | None:
+    return None if value != value else value  # nan disables
+
+
+def _no_sharding(args) -> None:
+    if args.sharded:
+        raise SystemExit("--sharded: the distributed path waits for the port's torch.distributed "
+                         "slice; run without --sharded")
+
+
+def cmd_odometry(args) -> None:
+    from hgmm_torch.data.kitti import (
+        load_calib_velo_to_cam,
+        load_poses,
+        load_velodyne_bin,
+        sequence_scan_paths,
+    )
+    from hgmm_torch.pipelines.odometry import OdometryConfig, refine_odometry, run_odometry
+    from hgmm_torch.utils.profiling import MetricsLog
+
+    _no_sharding(args)
+    paths = sequence_scan_paths(args.sequence)
+    if args.max_frames:
+        paths = paths[: args.max_frames]
+    scans = (load_velodyne_bin(p) for p in paths)
+    cfg = OdometryConfig(
+        model_kind=args.model,
+        voxel=args.voxel,
+        bucket=args.bucket,
+        fit_iters=args.fit_iters,
+        reg_iters=args.reg_iters,
+        complexity_threshold=args.complexity_threshold,
+        outlier_logit=_outlier_logit(args.outlier_logit),
+        device=args.device,
+    )
+    metrics = MetricsLog(args.metrics) if args.metrics else None
+    t0 = time.perf_counter()
+    res = run_odometry(scans, cfg, checkpoint_path=args.checkpoint, checkpoint_every=10,
+                       metrics=metrics, detect_closures=args.detect_closures)
+    dt = _elapsed(t0, args.device)
+    if res.closures is not None:
+        pairs = list(zip(res.closures.i.tolist(), res.closures.j.tolist()))
+        print(f"loop closures accepted: {pairs}")
+    final_poses = res.abs_poses
+    if args.refine:
+        refined = refine_odometry(res)
+        final_poses = refined.poses()
+        traj = refined.t.cpu().numpy()
+    else:
+        traj = torch.stack([p.t for p in res.abs_poses]).cpu().numpy()
+    out = args.out or "trajectory.npy"
+    np.save(out, traj)
+    print(f"{len(res.abs_poses)} poses in {dt:.1f}s -> {out}")
+
+    if args.map:
+        # Fuse the scans by the final poses into one global GMM-tree map;
+        # reload it with utils.checkpoint.load_tree and localize new scans
+        # against it. The scans are read again rather than held through the
+        # run (a KITTI sequence is GBs); --voxel 0 passes through as 0.
+        from hgmm_torch.pipelines.mapping import MapConfig, build_map
+        from hgmm_torch.utils import checkpoint as ckpt
+
+        tree = build_map([load_velodyne_bin(p) for p in paths], final_poses,
+                         MapConfig(voxel=args.voxel), device=args.device)
+        ckpt.save_tree(args.map, tree)
+        print(f"global map ({tree.n_leaves} leaves) -> {args.map}")
+
+    calib_path = args.calib or (Path(args.sequence) / "calib.txt")
+    if args.plot:
+        from hgmm_torch.viz.export import export_trajectory
+
+        gt_traj = None
+        if args.poses:
+            from hgmm_torch.eval.metrics import kitti_gt_trajectory
+
+            gt_traj = kitti_gt_trajectory(load_poses(args.poses),
+                                          load_calib_velo_to_cam(calib_path))[: len(final_poses)]
+        export_trajectory(args.plot, res.abs_poses, gt_poses=gt_traj,
+                          refined_poses=(final_poses if args.refine else None),
+                          closures=res.closures)
+        print(f"trajectory plot -> {args.plot}")
+
+    if args.poses:
+        # ATE of the trajectory written out: refined with --refine, the
+        # dead-reckoned chain otherwise.
+        from hgmm_torch.eval.metrics import kitti_ate
+
+        err = float(kitti_ate(final_poses, load_poses(args.poses),
+                              load_calib_velo_to_cam(calib_path)))
+        print(f"ATE vs ground truth: {err:.4f} m over {len(final_poses)} frames")
+        if metrics is not None:
+            metrics.log({"event": "ate", "ate_m": err, "frames": len(final_poses), "wall_s": dt,
+                         "refined": bool(args.refine)})
+
+
+def cmd_localize(args) -> None:
+    """Relocalize a scan against a saved global map (pipelines.mapping)."""
+    from hgmm_torch.convert import pose_from_numpy
+    from hgmm_torch.pipelines.mapping import localize
+    from hgmm_torch.utils import checkpoint as ckpt
+
+    _no_sharding(args)
+    tree = ckpt.load_tree(args.map, device=args.device)
+    scan = _load_cloud(args.scan, args.device)
+    init = None
+    if args.init:
+        T = np.load(args.init)
+        init = pose_from_numpy(T[:3, :3], T[:3, 3], args.device)
+    t0 = time.perf_counter()
+    res = localize(scan, tree, init_pose=init, n_iters=args.iters,
+                   outlier_logit=_outlier_logit(args.outlier_logit))
+    dt = _elapsed(t0, args.device)
+    T = res.pose.matrix().cpu().numpy()
+    print(f"converged={bool(res.converged)} in {dt:.2f}s; scan->map transform:")
+    print(T)
+    if args.out:
+        np.save(args.out, T)
+        print(f"saved -> {args.out}")
+
+
 def cmd_icp(args) -> None:
     from hgmm_torch.baselines.icp import icp
 
@@ -152,6 +276,52 @@ def main(argv=None) -> None:
     r.add_argument("--out", default=None)
     r.add_argument("--export-aligned", default=None)
     r.set_defaults(fn=cmd_register)
+
+    o = sub.add_parser("odometry", parents=[common], help="KITTI sequence odometry")
+    o.add_argument("sequence", help="KITTI sequence dir (with velodyne/)")
+    o.add_argument("--max-frames", type=int, default=None)
+    o.add_argument("--model", choices=("tree", "flat"), default="tree",
+                   help="per-frame target model")
+    o.add_argument("--voxel", type=float, default=0.3)
+    o.add_argument("--bucket", type=int, default=16384)
+    o.add_argument("--fit-iters", type=int, default=10)
+    o.add_argument("--reg-iters", type=int, default=30)
+    o.add_argument("--complexity-threshold", type=float, default=0.0)
+    o.add_argument("--outlier-logit", type=float, default=-8.0,
+                   help="uniform outlier log-density (see OdometryConfig); nan disables")
+    o.add_argument("--checkpoint", default=None)
+    o.add_argument("--refine", action="store_true",
+                   help="pose-graph refinement of the chain (+ detected closures)")
+    o.add_argument("--detect-closures", action="store_true",
+                   help="propose + registration-verify loop closures, feed --refine")
+    o.add_argument("--sharded", action="store_true",
+                   help="not ported yet (the torch.distributed slice): fails")
+    o.add_argument("--out", default=None)
+    o.add_argument("--map", default=None, metavar="NPZ",
+                   help="fuse scans by the final poses into a global GMM-tree map and save it "
+                   "(localize new scans against it with the localize command)")
+    o.add_argument("--plot", default=None, metavar="PNG",
+                   help="top-down trajectory plot (odometry vs refined vs ground truth, "
+                   "closure chords)")
+    o.add_argument("--poses", default=None, help="KITTI poses.txt for ATE eval")
+    o.add_argument("--calib", default=None, help="calib.txt (default: sequence dir)")
+    o.add_argument("--metrics", default=None, help="JSONL metrics sink path")
+    o.set_defaults(fn=cmd_odometry)
+
+    lz = sub.add_parser("localize", parents=[common],
+                        help="relocalize a scan against a saved global map")
+    lz.add_argument("scan", help="scan cloud (.bin/.ply/.npy)")
+    lz.add_argument("map", help="map .npz from `odometry --map`")
+    lz.add_argument("--init", default=None,
+                    help=".npy 4x4 initial transform guess (e.g. last known pose)")
+    lz.add_argument("--iters", type=int, default=40)
+    lz.add_argument("--outlier-logit", type=float, default=-8.0,
+                    help="uniform outlier log-density; nan disables (scans usually see "
+                    "unmapped geometry — keep gating on)")
+    lz.add_argument("--sharded", action="store_true",
+                    help="not ported yet (the torch.distributed slice): fails")
+    lz.add_argument("--out", default=None, help="save the 4x4 transform (.npy)")
+    lz.set_defaults(fn=cmd_localize)
 
     i = sub.add_parser("icp", parents=[common], help="ICP baseline registration")
     i.add_argument("source")

@@ -18,6 +18,11 @@ from hgmm_torch.models.se3 import Pose
 from hgmm_torch.ops.gaussians import MixtureParams
 
 
+def to_numpy(x) -> np.ndarray:
+    """A tensor on any device, or anything array-like, as a numpy array."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def _t(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 

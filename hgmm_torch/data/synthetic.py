@@ -60,3 +60,36 @@ def perturb(
         idx = rng.permutation(n)[: max(int(n * keep_fraction), 1)]
         out = out[torch.from_numpy(idx).to(out.device)]
     return out
+
+
+def lidar_mixture_np(k: int, seed: int = 0, extent: float = 40.0, minor: float = 0.02):
+    """A K-component mixture at LiDAR scale, numpy (pi [K], mu [K,3],
+    sigma [K,3,3] float32): means uniform in +-extent metres, near-planar
+    covariances (two axes of 0.5-3 m, a minor axis of `minor` metres) in
+    random orientations, Dirichlet weights."""
+    rng = np.random.default_rng(seed)
+    mu = rng.uniform(-extent, extent, (k, 3))
+    q, _ = np.linalg.qr(rng.standard_normal((k, 3, 3)))
+    axes = np.concatenate([rng.uniform(0.5, 3.0, (k, 2)), np.full((k, 1), minor)], axis=1)
+    sigma = np.einsum("kij,kj,klj->kil", q, axes ** 2, q)
+    pi = rng.dirichlet(np.ones(k))
+    return pi.astype(np.float32), mu.astype(np.float32), sigma.astype(np.float32)
+
+
+def lidar_points_np(n: int, mixture, seed: int = 0, extent: float = 40.0, pad: float = 0.3):
+    """[n, 3] points and [n] weights at LiDAR scale, numpy float32: of the
+    live rows, half are drawn from `mixture` (pi, mu, sigma) and half uniform
+    in +-extent metres; the last `pad` share are zero-weight rows at the
+    origin, as the odometry bucket pads a frame."""
+    rng = np.random.default_rng(seed)
+    pi, mu, sigma = (np.asarray(a, np.float64) for a in mixture)
+    n_pad = int(round(pad * n))
+    n_live = n - n_pad
+    n_mix = n_live // 2
+    comp = rng.choice(pi.size, size=n_mix, p=pi / pi.sum())
+    chol = np.linalg.cholesky(sigma)
+    on = mu[comp] + np.einsum("nij,nj->ni", chol[comp], rng.standard_normal((n_mix, 3)))
+    uniform = rng.uniform(-extent, extent, (n_live - n_mix, 3))
+    pts = np.concatenate([on, uniform, np.zeros((n_pad, 3))]).astype(np.float32)
+    w = np.concatenate([np.ones(n_live), np.zeros(n_pad)]).astype(np.float32)
+    return pts, w

@@ -1,4 +1,4 @@
-"""Registration quality metrics. Counterpart of ``hgmm/eval/metrics.py:11-44``."""
+"""Registration and odometry quality metrics. Counterpart of ``hgmm/eval/metrics.py``."""
 
 from __future__ import annotations
 
@@ -31,3 +31,32 @@ def translation_error(pose: Pose, gt_pose: Pose) -> torch.Tensor:
 def pose_delta_norm(a: Pose, b: Pose) -> torch.Tensor:
     """|| log(a b^-1) ||: scalar pose discrepancy."""
     return torch.linalg.norm(se3_log(a.compose(b.inverse())))
+
+
+def ate(est_poses, gt_poses) -> torch.Tensor:
+    """Absolute trajectory error: RMSE of the translations with no alignment
+    (odometry frames share the origin). est/gt: sequences of absolute Pose;
+    the ground truth is moved to the estimate's device."""
+    est_t = torch.stack([p.t for p in est_poses])
+    gt_t = torch.stack([p.t for p in gt_poses]).to(device=est_t.device, dtype=est_t.dtype)
+    return torch.sqrt(torch.mean(torch.sum((est_t - gt_t) ** 2, dim=-1)))
+
+
+def kitti_gt_trajectory(cam_poses, calib_velo_to_cam: Pose) -> list[Pose]:
+    """KITTI ground truth -> the velodyne-frame trajectory odometry estimates.
+
+    cam_poses: P_k = T_{cam0 <- cam_k} from data.kitti.load_poses;
+    calib_velo_to_cam: Tr = T_{cam <- velo} from load_calib_velo_to_cam.
+    Returns T_{velo0 <- velo_k} = Tr^-1 P_0^-1 P_k Tr: absolute poses in the
+    frame-0 velodyne frame, as pipelines.odometry.run_odometry gives them."""
+    tr = calib_velo_to_cam
+    tr_inv = tr.inverse()
+    p0_inv = cam_poses[0].inverse()
+    return [tr_inv.compose(p0_inv.compose(p).compose(tr)) for p in cam_poses]
+
+
+def kitti_ate(est_poses, cam_poses, calib_velo_to_cam: Pose) -> torch.Tensor:
+    """Absolute trajectory error of an odometry run against KITTI ground
+    truth (poses.txt + calib.txt), in the velodyne frame."""
+    gt = kitti_gt_trajectory(cam_poses, calib_velo_to_cam)
+    return ate(est_poses, gt[: len(est_poses)])

@@ -3,7 +3,10 @@
 Counterpart of ``hgmm/models/se3.py``. A pose is (R [3,3], t [3]) acting as
 y = R x + t; a twist xi in R^6 is ordered [omega (rotation), v (translation)].
 The small-angle series branches are selected with ``torch.where``, so no
-function here reads a value back to the host.
+function here reads a value back to the host, and every map is elementwise
+arithmetic: ``torch.func.vmap`` batches it and ``torch.func.jacfwd``
+differentiates it exactly, as ``jax.vmap``/``jax.jacfwd`` do the JAX package's
+(the pose graph evaluates every Jacobian at xi = 0, on the series branch).
 """
 
 from __future__ import annotations
@@ -26,14 +29,14 @@ class Pose(NamedTuple):
 
     def apply(self, points: torch.Tensor) -> torch.Tensor:
         """Transform points [..., 3]."""
-        return points @ self.R.T + self.t
+        return points @ self.R.mT + self.t
 
     def compose(self, other: "Pose") -> "Pose":
         """self o other: first apply `other`, then `self`."""
         return Pose(self.R @ other.R, self.R @ other.t + self.t)
 
     def inverse(self) -> "Pose":
-        Rt = self.R.T
+        Rt = self.R.mT
         return Pose(Rt, -(Rt @ self.t))
 
     def matrix(self) -> torch.Tensor:
@@ -49,11 +52,13 @@ class Pose(NamedTuple):
 
 
 def hat(omega: torch.Tensor) -> torch.Tensor:
-    """so(3) hat operator: hat(w) @ v = w x v."""
+    """so(3) hat operator: hat(w) @ v = w x v. omega [..., 3] -> [..., 3, 3]."""
     wx, wy, wz = omega.unbind(-1)
     z = torch.zeros_like(wx)
     return torch.stack(
-        [torch.stack([z, -wz, wy]), torch.stack([wz, z, -wx]), torch.stack([-wy, wx, z])]
+        [torch.stack([z, -wz, wy], -1), torch.stack([wz, z, -wx], -1),
+         torch.stack([-wy, wx, z], -1)],
+        dim=-2,
     )
 
 
@@ -81,7 +86,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Inverse of so3_exp, atan2-based; valid for theta well below pi."""
     w = torch.stack([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
     w2 = torch.sum(w * w)  # = 4 sin^2(theta)
-    c = torch.clamp((torch.trace(R) - 1.0) * 0.5, -1.0, 1.0)
+    c = torch.clamp((R[0, 0] + R[1, 1] + R[2, 2] - 1.0) * 0.5, -1.0, 1.0)
     small = w2 < 1e-12
     w2_safe = torch.where(small, torch.ones_like(w2), w2)
     s = 0.5 * torch.sqrt(w2_safe)
@@ -102,11 +107,17 @@ def se3_exp(xi: torch.Tensor) -> Pose:
     return Pose(R, V @ v)
 
 
+def _solve3(V: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """V^-1 t for a 3x3 V by Cramer's rule (triple products of V's columns)."""
+    c0, c1, c2 = V[:, 0], V[:, 1], V[:, 2]
+    x12, x20, x01 = torch.linalg.cross(c1, c2), torch.linalg.cross(c2, c0), torch.linalg.cross(c0, c1)
+    return torch.stack([t @ x12, t @ x20, t @ x01]) / (c0 @ x12)
+
+
 def se3_log(pose: Pose) -> torch.Tensor:
     """Logarithm map SE(3) -> R^6."""
     omega = so3_log(pose.R)
     _, b, c = _series_coeffs(torch.sum(omega * omega))
     K = hat(omega)
     V = torch.eye(3, dtype=omega.dtype, device=omega.device) + b * K + c * (K @ K)
-    v = torch.linalg.solve_ex(V, pose.t).result  # V is never singular here
-    return torch.cat([omega, v])
+    return torch.cat([omega, _solve3(V, pose.t)])  # V is never singular here

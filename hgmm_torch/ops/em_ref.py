@@ -20,11 +20,12 @@ The matmuls here run in full float32: ``hgmm_torch`` turns TF32 off for
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
-from hgmm_torch.ops.gaussians import features, sym_unpack
+from hgmm_torch.ops.gaussians import MixtureParams, features, precision_terms, sym_pack, sym_unpack
 
 NEG_INF = -1e30
 
@@ -152,7 +153,12 @@ def reg_stats(
         logits = top_k_mask_logits(logits, top_k)
     gamma, lse = _soft(logits, outlier_logit)
     gamma, lse = _weighted(gamma, lse, point_weights)
+    return reg_moments(x, y, gamma, lse, mu, A6, b3)
 
+
+def reg_moments(x, y, gamma, lse, mu, A6, b3) -> RegStats:
+    """The registration statistics of weighted responsibilities gamma [N, K]
+    and log-evidences lse [N] of the source x at its posed y = x R^T + t."""
     # Horn moments: P^T Q, P = [x | 1], Q = [gamma @ mu | gamma @ 1].
     w = torch.sum(gamma, dim=1)
     P = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
@@ -178,3 +184,38 @@ def reg_stats(
     A = torch.einsum("nij,nik->jk", J, MJ)
     b = -torch.einsum("nij,ni->j", J, r)
     return RegStats(horn=horn, A=A, b=b, loglik=torch.sum(lse))
+
+
+def direct_logits(points: torch.Tensor, params: MixtureParams) -> torch.Tensor:
+    """[N, K] log[pi_j N(y_i; mu_j, Sigma_j)] from the direct quadratic form
+    (y - mu)^T Sigma^-1 (y - mu), in float64: the oracle the expanded feature
+    form (features @ W, which the kernels and the functions above evaluate in
+    float32) is held against at metric scale, where its terms reach ~1e6."""
+    y = points.double()
+    pi, mu, sigma = (a.double().to(y.device) for a in params)
+    d = y[:, None, :] - mu[None]
+    maha = torch.einsum("nki,kij,nkj->nk", d, torch.linalg.inv(sigma), d)
+    return torch.log(pi) - 0.5 * (maha + torch.logdet(sigma) + 3.0 * math.log(2.0 * math.pi))
+
+
+def em_stats_direct(points, params, point_weights=None, outlier_logit=None, parent=None,
+                    branch=None) -> EmStats:
+    """em_stats (em_stats_masked with a parent) from direct_logits, float64."""
+    logits = direct_logits(points, params)
+    if parent is not None:
+        logits = child_mask_logits(logits, parent, branch)
+    gamma, lse = _soft(logits, outlier_logit)
+    gamma, lse = _weighted(gamma, lse, None if point_weights is None else point_weights.double())
+    return EmStats(S=gamma.T @ features(points.double()), loglik=torch.sum(lse))
+
+
+def reg_stats_direct(x, params, pose, point_weights=None, outlier_logit=None) -> RegStats:
+    """reg_stats (no top_k) from direct_logits, float64."""
+    x = x.double()
+    R, t = (v.double() for v in pose)
+    y = x @ R.T + t
+    gamma, lse = _soft(direct_logits(y, params), outlier_logit)
+    gamma, lse = _weighted(gamma, lse, None if point_weights is None else point_weights.double())
+    p64 = MixtureParams(*(a.double() for a in params))
+    A, b, _ = precision_terms(p64)
+    return reg_moments(x, y, gamma, lse, p64.mu, sym_pack(A), b)

@@ -10,25 +10,20 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from hgmm_torch import convert
 from hgmm_torch.models.gmm_tree import GmmTree
 from hgmm_torch.ops.gaussians import MixtureParams
 
 
-def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
 def save_odometry(path: str | Path, frame_idx: int, rel_poses, abs_poses, logliks=None) -> None:
     np.savez(
         str(path),
         frame_idx=frame_idx,
-        rel_R=np.stack([_np(p.R) for p in rel_poses]) if rel_poses else np.zeros((0, 3, 3)),
-        rel_t=np.stack([_np(p.t) for p in rel_poses]) if rel_poses else np.zeros((0, 3)),
-        abs_R=np.stack([_np(p.R) for p in abs_poses]),
-        abs_t=np.stack([_np(p.t) for p in abs_poses]),
+        rel_R=np.stack([convert.to_numpy(p.R) for p in rel_poses]) if rel_poses else np.zeros((0, 3, 3)),
+        rel_t=np.stack([convert.to_numpy(p.t) for p in rel_poses]) if rel_poses else np.zeros((0, 3)),
+        abs_R=np.stack([convert.to_numpy(p.R) for p in abs_poses]),
+        abs_t=np.stack([convert.to_numpy(p.t) for p in abs_poses]),
         # Per-pair final logliks: loop-closure acceptance compares candidate
         # quality against the chain median, so resumed runs must carry them.
         logliks=np.asarray([float(x) for x in logliks] if logliks is not None else [],
@@ -51,7 +46,7 @@ def load_odometry(path: str | Path, device=None):
 
 
 def save_mixture(path: str | Path, params: MixtureParams) -> None:
-    np.savez(str(path), pi=_np(params.pi), mu=_np(params.mu), sigma=_np(params.sigma))
+    np.savez(str(path), pi=convert.to_numpy(params.pi), mu=convert.to_numpy(params.mu), sigma=convert.to_numpy(params.sigma))
 
 
 def load_mixture(path: str | Path, device=None) -> MixtureParams:
@@ -62,9 +57,9 @@ def load_mixture(path: str | Path, device=None) -> MixtureParams:
 def save_tree(path: str | Path, tree: GmmTree) -> None:
     arrays = {"branch": np.asarray(tree.branch), "levels": np.asarray(len(tree.levels))}
     for i, lvl in enumerate(tree.levels):
-        arrays[f"pi_{i}"] = _np(lvl.pi)
-        arrays[f"mu_{i}"] = _np(lvl.mu)
-        arrays[f"sigma_{i}"] = _np(lvl.sigma)
+        arrays[f"pi_{i}"] = convert.to_numpy(lvl.pi)
+        arrays[f"mu_{i}"] = convert.to_numpy(lvl.mu)
+        arrays[f"sigma_{i}"] = convert.to_numpy(lvl.sigma)
     np.savez(str(path), **arrays)
 
 

@@ -205,3 +205,126 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(cuda):
     knn.nearest_neighbor(pts, pts)
     assert fused_em.LAUNCHES["em_stats"] == 1 and fused_em.LAUNCHES["assign"] == 1
     assert fused_em.LAUNCHES["knn"] == 1
+
+
+def _lidar(n, k, seed, dev, extent):
+    """LiDAR-like inputs (hgmm_torch.data.synthetic.lidar_*): coordinates in
+    +-extent metres, near-planar covariances with a 0.02 m minor axis, 30 %
+    zero-weight rows at the origin (the odometry bucket's padding)."""
+    from hgmm_torch.data.synthetic import lidar_mixture_np, lidar_points_np
+
+    mix = lidar_mixture_np(k, seed, extent=extent)
+    pts, w = lidar_points_np(n, mix, seed + 1, extent=extent)
+    params = MixtureParams(*(torch.from_numpy(a).to(dev) for a in mix))
+    return torch.from_numpy(pts).to(dev), torch.from_numpy(w).to(dev), params
+
+
+# At 40 m the expanded quadratic form's terms reach ~1e6 and float32 rounds
+# them at ~0.1 nat, so the kernel and its twin round differently: there the
+# kernel is held to the float64 direct form (em_ref.*_direct) within the
+# strict tolerance widened by twice the twin's own gap. At 2 m both meet the
+# strict kernel-vs-twin tolerances (chip_smoke.py, LIDAR_STRICT_EXTENT).
+EXTENTS = [2.0, 40.0]
+
+
+def _check_scaled(got, ref, ref64, tols):
+    for f, (rtol, atol) in tols.items():
+        g, r, e = (getattr(v, f).double().cpu() for v in (got, ref, ref64))
+        limit = 2.0 * float((r - e).abs().max()) + atol + rtol * float(e.abs().max())
+        assert float((g - e).abs().max()) <= limit, f
+
+
+def _hold(got, ref, ref64, extent, tols):
+    if extent <= 2.0:
+        for f, (rtol, atol) in tols.items():
+            _close(getattr(got, f), getattr(ref, f), rtol, atol)
+    _check_scaled(got, ref, ref64, tols)
+
+
+@pytest.mark.parametrize("extent", EXTENTS)
+@pytest.mark.parametrize("k", [8, 64, 512])
+@pytest.mark.parametrize("outlier", [None, -8.0])
+def test_em_stats_lidar_scale(cuda, extent, k, outlier):
+    n = 16_384
+    pts, w, params = _lidar(n, k, k, cuda, extent)
+    W = pack_loglik_weights(params)
+    _hold(fused_em.em_stats(prepare(pts, w).pts4, W, outlier), em_ref.em_stats(pts, W, w, outlier),
+          em_ref.em_stats_direct(pts, params, w, outlier), extent,
+          {"S": (2e-3, 2e-4 * n / 300), "loglik": (1e-4, 0.0)})
+
+
+@pytest.mark.parametrize("extent", EXTENTS)
+@pytest.mark.parametrize("k", [64, 512])
+def test_em_stats_masked_and_assign_lidar_scale(cuda, extent, k):
+    n = 16_384
+    pts, w, params = _lidar(n, k, k + 1, cuda, extent)
+    W = pack_loglik_weights(params)
+    prep = prepare(pts, w)
+    parent = em_ref.assign(pts, pack_loglik_weights(MixtureParams(
+        torch.full((k // 8,), 8.0 / k, device=cuda), params.mu[::8], params.sigma[::8] * 4.0)))
+    _hold(fused_em.em_stats_masked(prep.pts4, W, parent, 8), em_ref.em_stats_masked(pts, W, parent, 8, w),
+          em_ref.em_stats_direct(pts, params, w, None, parent, 8), extent,
+          {"S": (2e-3, 2e-4 * n / 300), "loglik": (1e-4, 0.0)})
+    for par, branch in ((None, None), (parent, 8)):
+        got, ref = fused_em.assign(prep.pts4, W, par, branch), em_ref.assign(pts, W, par, branch)
+        bad = (got != ref).nonzero().flatten()
+        if bad.numel():  # near-ties only: within rounding of the logit's terms
+            logits = em_ref._logits(pts[bad], W)
+            if par is not None:
+                logits = em_ref.child_mask_logits(logits, par[bad], branch)
+            rows = torch.arange(bad.numel(), device=cuda)
+            gap = logits[rows, ref[bad].long()] - logits[rows, got[bad].long()]
+            scale = 0.5 * (em_ref.features(pts[bad]).abs() @ W[:10].abs()).amax(1)
+            assert bool((gap < 1e-4 + 2e-6 * scale).all())
+
+
+@pytest.mark.parametrize("extent", EXTENTS)
+@pytest.mark.parametrize("k", [8, 64, 512])
+def test_reg_stats_lidar_scale(cuda, extent, k):
+    """The odometry registration: wls terms, outlier logit -8, padded source."""
+    n = 16_384
+    pts, w, params = _lidar(n, k, k + 2, cuda, extent)
+    W = pack_loglik_weights(params)
+    A, b, _ = precision_terms(params)
+    pose = (so3_exp(torch.tensor([0.0, 0.0, 0.05], device=cuda)),
+            torch.tensor([0.3, -0.1, 0.02], device=cuda))
+    s = float((w > 0).sum()) / 300
+    _hold(fused_em.reg_stats(prepare(pts, w).pts4, W, params.mu, sym_pack(A), b, pose, None, -8.0),
+          em_ref.reg_stats(pts, W, params.mu, sym_pack(A), b, pose, w, None, -8.0),
+          em_ref.reg_stats_direct(pts, params, pose, w, -8.0), extent,
+          {"horn": (2e-3, 2e-3 * s), "A": (2e-3, 2e-2 * s), "b": (2e-3, 2e-2 * s),
+           "loglik": (1e-4, 0.0)})
+
+
+def test_refine_pose_graph_on_the_card(cuda):
+    """Dense refinement on the card: its Hessian assembly sums with atomics,
+    so two runs may differ in the last bits (<= 1e-6); it agrees with the CPU
+    to the 1e-3 of the JAX package's dense-vs-Schur tests."""
+    from hgmm_torch.models.se3 import se3_exp
+    from hgmm_torch.pipelines.pose_graph import EdgeList, refine_pose_graph
+
+    g = torch.Generator().manual_seed(3)
+    m = 40
+    xi = torch.zeros(m - 1, 6)
+    xi[:, 2] = 2 * torch.pi / m
+    xi[:, 3] = 1.0
+    noisy = xi + 0.01 * torch.randn(m - 1, 6, generator=g)
+    steps = [se3_exp(x) for x in noisy]
+    R, t = [torch.eye(3)], [torch.zeros(3)]
+    for s in steps:
+        R.append(R[-1] @ s.R)
+        t.append(R[-2] @ s.t + t[-1])
+    closure = se3_exp(xi[0])
+    edges = EdgeList(torch.arange(m), torch.cat([torch.arange(1, m), torch.tensor([0])]),
+                     torch.stack([s.R for s in steps] + [closure.R]),
+                     torch.stack([s.t for s in steps] + [closure.t]),
+                     torch.cat([torch.ones(m - 1), torch.tensor([10.0])]))
+    R0, t0 = torch.stack(R), torch.stack(t)
+    cpu = refine_pose_graph(R0, t0, edges, n_iters=10)
+    on = [refine_pose_graph(R0.to(cuda), t0.to(cuda), EdgeList(*(e.to(cuda) for e in edges)),
+                            n_iters=10) for _ in range(2)]
+    for a, b in ((on[0].R, on[1].R), (on[0].t, on[1].t)):
+        _close(a, b, 0.0, 1e-6)
+    _close(on[0].R.cpu(), cpu.R, 0.0, 1e-3)
+    _close(on[0].t.cpu(), cpu.t, 0.0, 1e-3)
+    _close(on[0].residual_history.cpu(), cpu.residual_history, 1e-3, 1e-6)
