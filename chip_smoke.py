@@ -42,8 +42,9 @@ Run from the root of a checkout. It
      m of the JAX CLI's on the same sequence, localize recovers frame 0
      within 0.1 m and 1 degree, and every output is finite; then times a
      pair's fit and registration apart, profiles one pair, times refinement
-     and the map build, and checks and times each kernel at the odometry
-     shapes.
+     and the map build, and checks each kernel at the odometry shapes
+     against its plain version (strict tolerances) and against float64, with
+     and without zero-weight pads, and times it.
 Before the CLI phases, em_stats, em_stats_masked, assign and reg_stats (outlier
 -8) are checked against their plain versions at LiDAR scale (coordinates in
 +-40 m, a 0.02 m minor axis, 30 % zero-weight rows), and both against float64
@@ -115,8 +116,9 @@ LIDAR_TIE_REL = 2e-6
 # Dead-reckoned ATE (m) that the JAX package's CLI prints for this sequence,
 # run on the CPU: python -m hgmm.cli.main --platform cpu odometry SEQ --poses
 # SEQ/poses.txt (PERF.md, section 4; the sequence it read had the md5 sums in
-# SEQ_MD5). The port's must be within 1.5x of it + 0.02 m: the two packages
-# draw their inits differently, so the chains are different runs.
+# SEQ_MD5, and the phase fails on any other). The port's must be within 1.5x
+# of it + 0.02 m: the two packages draw their inits differently, so the
+# chains are different runs.
 JAX_CLI_DEAD_ATE = 0.1593
 SEQ_MD5 = {"poses.txt": "4bfebd3c0a469f5b6e1f8c11ce6b66c0",
            "velodyne/000000.bin": "51d8b94212a0490bd47bc5f971794fb6"}
@@ -154,8 +156,7 @@ def lidar_world(rng, n: int):
     (with 14 boxes and 10 pillars, two of its pairs fell into wrong minima
     for some init draws, in both packages). Four facades constrain every
     pair instead, but then `localize` of a forward-sector scan against the
-    whole-block map drifts off at the K=8 level with outlier -8 (ROADMAP
-    Queue 3)."""
+    whole-block map drifts off, in both packages (ROADMAP Queue 3)."""
     import numpy as np
 
     def u(lo, hi, m):
@@ -964,6 +965,13 @@ def cli_odometry(torch, dev, work, errs, metric_errs, timings):
     t0 = time.perf_counter()
     write_lidar_sequence(seq)
     write_s = time.perf_counter() - t0
+    md5 = {f: hashlib.md5((seq / f).read_bytes()).hexdigest() for f in SEQ_MD5}
+    if md5 != SEQ_MD5:
+        raise CheckFailed(
+            f"odometry sequence: md5 {md5}, but JAX_CLI_DEAD_ATE was measured on {SEQ_MD5}; "
+            f"re-measure it with the JAX CLI on the new sequence (PERF.md section 4: "
+            f"python -m hgmm.cli.main --platform cpu odometry SEQ --poses SEQ/poses.txt) "
+            f"and update JAX_CLI_DEAD_ATE and SEQ_MD5")
     ck, metrics, map_p, loc_p = (work / f for f in ("odo_ck.npz", "odo.jsonl", "map.npz", "loc.npy"))
     base = ["odometry", str(seq), "--poses", str(seq / "poses.txt"), "--checkpoint", str(ck),
             "--metrics", str(metrics), "--out", str(work / "traj.npy"), "--device", "cuda"]
@@ -1058,13 +1066,11 @@ def cli_odometry(torch, dev, work, errs, metric_errs, timings):
                         torch.full((len(pairs),), 10.0, device=dev))
     graph, refine_s = timed(lambda: odometry.refine_odometry(chain, loop_closures=closures))
     scans = [load_velodyne_bin(p) for p in paths]
-    _, map_s = timed(lambda: mapping.build_map(scans, graph.poses(), mapping.MapConfig(voxel=0.3),
-                                               device=dev), reps=1)
+    _, map_s = timed(lambda: mapping.build_map(scans, graph.poses(), mapping.MapConfig(voxel=0.3)),
+                     reps=1)
 
-    md5 = {f: hashlib.md5((seq / f).read_bytes()).hexdigest() for f in SEQ_MD5}
     log({"phase": "cli_odometry", "frames": SEQ_FRAMES, "points_per_scan": SEQ_POINTS,
          "bucket": cfg.bucket, "write_sequence_s": write_s, "sequence_md5": md5,
-         "sequence_is_the_jax_runs": md5 == SEQ_MD5,
          "ate_dead_reckoned_m": dead, "ate_refined_m": refined, "ate_bound_m": ate_bound,
          "jax_cli_dead_ate_m": JAX_CLI_DEAD_ATE, "closures": pairs,
          "localize_t_m": loc_t, "localize_rot_deg": loc_deg,
@@ -1083,57 +1089,79 @@ def cli_odometry(torch, dev, work, errs, metric_errs, timings):
 
 
 def odometry_shapes(torch, dev, frames, tree, pose, errs, metric_errs, timings):
-    """Each kernel against its twin (check_f64: metric scale) and timed at the
-    odometry shapes: frame 0's bucket (16,384 points, zero-weight pads) and
-    its fitted tree (K = 8 / 64 / 512), frame 1 registered with outlier -8."""
+    """Each kernel at the odometry shapes, held to its twin within the strict
+    tolerances (check_em / check_reg / check_assign) and to the float64
+    direct form (check_f64), and timed: frame 0's bucket (16,384 of its
+    voxels: every scan of the sequence voxelizes to more than the bucket)
+    and its fitted tree (K = 8 / 64 / 512), frame 1 registered with outlier
+    -8. The checks run again on both buckets with their last quarter made
+    zero-weight rows at the origin, the padding _bucketize gives a scan of
+    12,288 voxels."""
+    import collections
+
+    import numpy as np
+
     from hgmm_torch.ops import em_ref, fused_em, prepare
     from hgmm_torch.ops.gaussians import pack_loglik_weights
     from hgmm_torch.pipelines.register import model_terms
 
-    tgt, tw = (torch.from_numpy(a).to(dev) for a in frames[0])
-    src, sw = (torch.from_numpy(a).to(dev) for a in frames[1])
-    tp, sp = prepare(tgt, tw), prepare(src, sw)
-    n = tgt.shape[0]
+    def padded(frame):
+        pts, w = frame
+        keep = 3 * pts.shape[0] // 4
+        return (np.concatenate([pts[:keep], np.zeros_like(pts[keep:])]),
+                np.concatenate([w[:keep], np.zeros_like(w[keep:])]))
+
     Ws = [pack_loglik_weights(p) for p in tree.levels]
-    parents = [None, fused_em.assign(tp.pts4, Ws[0])]
-    parents.append(fused_em.assign(tp.pts4, Ws[1], parents[1], 8))
-    gaps = {}
-
-    def record(name, k, kern, plain):
-        timings[name].append({"k": k, "n": n, "odometry": True, "ms": cuda_ms(torch, kern),
-                              "plain_ms": cuda_ms(torch, plain, reps=5), "headline": False})
-
-    W0, lvl0 = Ws[0], tree.levels[0]
-    gaps["em_stats_K8"] = check_f64(torch, "em_stats", fused_em.em_stats(tp.pts4, W0),
-                                    em_ref.em_stats(tgt, W0, tw), em_ref.em_stats_direct(tgt, lvl0, tw),
-                                    n, metric_errs)
-    record("em_stats", 8, lambda: fused_em.em_stats(tp.pts4, W0), lambda: em_ref.em_stats(tgt, W0, tw))
-    for lvl in (0, 1, 2):
-        W, par = Ws[lvl], parents[lvl]
-        br = None if par is None else 8
-        check_assign(torch, fused_em.assign(tp.pts4, W, par, br), em_ref.assign(tgt, W, par, br),
-                     tgt, W, par, br, errs, rel=LIDAR_TIE_REL)
-        record("assign", W.shape[1], lambda: fused_em.assign(tp.pts4, W, par, br),
-               lambda: em_ref.assign(tgt, W, par, br))
-        if par is not None:
-            gaps[f"em_stats_masked_K{W.shape[1]}"] = check_f64(
-                torch, "em_stats_masked", fused_em.em_stats_masked(tp.pts4, W, par, 8),
-                em_ref.em_stats_masked(tgt, W, par, 8, tw),
-                em_ref.em_stats_direct(tgt, tree.levels[lvl], tw, None, par, 8), n, metric_errs)
-            record("em_stats_masked", W.shape[1], lambda: fused_em.em_stats_masked(tp.pts4, W, par, 8),
-                   lambda: em_ref.em_stats_masked(tgt, W, par, 8, tw))
     p = (pose.R.contiguous(), pose.t.contiguous())
-    n_live = int((sw > 0).sum())
-    for params in tree.levels:
-        W, mu, A6, b3 = model_terms(params)
-        k = W.shape[1]
-        gaps[f"reg_stats_K{k}"] = check_f64(
-            torch, "reg_stats", fused_em.reg_stats(sp.pts4, W, mu, A6, b3, p, None, -8.0),
-            em_ref.reg_stats(src, W, mu, A6, b3, p, sw, None, -8.0),
-            em_ref.reg_stats_direct(src, params, p, sw, -8.0), n_live, metric_errs)
-        record("reg_stats", k, lambda: fused_em.reg_stats(sp.pts4, W, mu, A6, b3, p, None, -8.0),
-               lambda: em_ref.reg_stats(src, W, mu, A6, b3, p, sw, None, -8.0))
-    log({"phase": "odometry_kernels", "gaps": gaps,
+    gaps, strict = {}, collections.defaultdict(float)
+    for tag, pair in (("", frames[:2]), ("_padded", [padded(f) for f in frames[:2]])):
+        tgt, tw = (torch.from_numpy(a).to(dev) for a in pair[0])
+        src, sw = (torch.from_numpy(a).to(dev) for a in pair[1])
+        tp, sp = prepare(tgt, tw), prepare(src, sw)
+        n, n_live = tgt.shape[0], int((sw > 0).sum())
+        parents = [None, fused_em.assign(tp.pts4, Ws[0])]
+        parents.append(fused_em.assign(tp.pts4, Ws[1], parents[1], 8))
+
+        def record(name, k, kern, plain):
+            if not tag:
+                timings[name].append({"k": k, "n": n, "odometry": True, "ms": cuda_ms(torch, kern),
+                                      "plain_ms": cuda_ms(torch, plain, reps=5), "headline": False})
+
+        def hold_em(name, key, got, ref, ref64):
+            check_em(torch, name, got, ref, n, strict)
+            gaps[key + tag] = check_f64(torch, name, got, ref, ref64, n, metric_errs)
+
+        W0, lvl0 = Ws[0], tree.levels[0]
+        hold_em("em_stats", "em_stats_K8", fused_em.em_stats(tp.pts4, W0),
+                em_ref.em_stats(tgt, W0, tw), em_ref.em_stats_direct(tgt, lvl0, tw))
+        record("em_stats", 8, lambda: fused_em.em_stats(tp.pts4, W0), lambda: em_ref.em_stats(tgt, W0, tw))
+        for lvl in (0, 1, 2):
+            W, par = Ws[lvl], parents[lvl]
+            br = None if par is None else 8
+            check_assign(torch, fused_em.assign(tp.pts4, W, par, br), em_ref.assign(tgt, W, par, br),
+                         tgt, W, par, br, errs, rel=LIDAR_TIE_REL)
+            record("assign", W.shape[1], lambda: fused_em.assign(tp.pts4, W, par, br),
+                   lambda: em_ref.assign(tgt, W, par, br))
+            if par is not None:
+                hold_em("em_stats_masked", f"em_stats_masked_K{W.shape[1]}",
+                        fused_em.em_stats_masked(tp.pts4, W, par, 8),
+                        em_ref.em_stats_masked(tgt, W, par, 8, tw),
+                        em_ref.em_stats_direct(tgt, tree.levels[lvl], tw, None, par, 8))
+                record("em_stats_masked", W.shape[1],
+                       lambda: fused_em.em_stats_masked(tp.pts4, W, par, 8),
+                       lambda: em_ref.em_stats_masked(tgt, W, par, 8, tw))
+        for params in tree.levels:
+            W, mu, A6, b3 = model_terms(params)
+            k = W.shape[1]
+            got = fused_em.reg_stats(sp.pts4, W, mu, A6, b3, p, None, -8.0)
+            ref = em_ref.reg_stats(src, W, mu, A6, b3, p, sw, None, -8.0)
+            check_reg(torch, got, ref, n_live, strict)
+            gaps[f"reg_stats_K{k}{tag}"] = check_f64(
+                torch, "reg_stats", got, ref, em_ref.reg_stats_direct(src, params, p, sw, -8.0),
+                n_live, metric_errs)
+            record("reg_stats", k, lambda: fused_em.reg_stats(sp.pts4, W, mu, A6, b3, p, None, -8.0),
+                   lambda: em_ref.reg_stats(src, W, mu, A6, b3, p, sw, None, -8.0))
+    log({"phase": "odometry_kernels", "strict_max_abs_err": strict, "gaps": gaps,
          "timings": {k: [t for t in v if t.get("odometry")] for k, v in timings.items()}})
 
 

@@ -178,7 +178,7 @@ def cmd_odometry(args) -> None:
         from hgmm_torch.utils import checkpoint as ckpt
 
         tree = build_map([load_velodyne_bin(p) for p in paths], final_poses,
-                         MapConfig(voxel=args.voxel), device=args.device)
+                         MapConfig(voxel=args.voxel))
         ckpt.save_tree(args.map, tree)
         print(f"global map ({tree.n_leaves} leaves) -> {args.map}")
 

@@ -96,12 +96,13 @@ def fuse_frames(frames, poses, voxel: float | None = None) -> np.ndarray:
     return fused.astype(np.float32)
 
 
-def build_map(frames, poses, config: MapConfig | None = None, device=None) -> GmmTree:
-    """Fit the global GMM-tree map to the fused world cloud on `device`
-    (the CPU when None)."""
+def build_map(frames, poses, config: MapConfig | None = None) -> GmmTree:
+    """Fit the global GMM-tree map to the fused world cloud, on the poses'
+    device."""
     cfg = config or MapConfig()
     fused = fuse_frames(frames, poses, voxel=cfg.voxel)
-    pts, weights = _to_bucket(fused, cfg.bucket, np.random.default_rng(cfg.seed), device=device)
+    pts, weights = _to_bucket(fused, cfg.bucket, np.random.default_rng(cfg.seed),
+                              device=poses[0].R.device)
     tree, _ = GmmTree.fit(pts, branch=cfg.branch, levels=cfg.levels, em_iters=cfg.em_iters,
                           generator=torch.Generator().manual_seed(cfg.seed),
                           point_weights=weights)

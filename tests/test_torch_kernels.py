@@ -207,6 +207,21 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(cuda):
     assert fused_em.LAUNCHES["knn"] == 1
 
 
+def test_build_map_fits_on_the_poses_device(cuda):
+    """build_map takes its device from the poses: poses on the card put the
+    map fit on the card's kernels, whatever the frames (numpy) are."""
+    from hgmm_torch.data.synthetic import make_cloud_np
+    from hgmm_torch.models.se3 import Pose
+    from hgmm_torch.pipelines.mapping import MapConfig, build_map
+
+    frames = [make_cloud_np(3000, "trefoil", seed=s) for s in range(3)]
+    poses = [Pose.identity(device=cuda) for _ in frames]
+    fused_em.reset_launches()
+    tree = build_map(frames, poses, MapConfig(levels=2, em_iters=4, bucket=8192, voxel=0))
+    assert tree.levels[-1].mu.device.type == "cuda"
+    assert fused_em.LAUNCHES["em_stats"] > 0 and fused_em.LAUNCHES["em_stats_masked"] > 0
+
+
 def _lidar(n, k, seed, dev, extent):
     """LiDAR-like inputs (hgmm_torch.data.synthetic.lidar_*): coordinates in
     +-extent metres, near-planar covariances with a 0.02 m minor axis, 30 %
