@@ -2,6 +2,7 @@
 """Smoke run of hgmm_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --probe-checks   # steps 1-3 and probe_checks only
 
 Run from the root of a checkout. It
 1. prints the card's name and power limit (nvidia-smi) and fails without CUDA;
@@ -45,12 +46,30 @@ Run from the root of a checkout. It
      and the map build, and checks each kernel at the odometry shapes
      against its plain version (strict tolerances) and against float64, with
      and without zero-weight pads, and times it.
+8. the bench path: each unit-rate probe (csrc/probes.cu) against its plain
+   version (probe_checks, right after the small kernel checks) at K=64/T=256,
+   K=512/T=2048 and K=64/T=8192, steps 3 with reps 2 and 6 and, at the two
+   shapes that are timed, the timed loops themselves (steps 1024, reps 2 and
+   6; vpu 512 x 512, steps 2048, reps 4 and 8); every result is read twice
+   and must not change between the reads;
+   the two microbenchmarks at the reference's defaults (mxu: K=512/T=2048 and
+   K=64/T=8192, steps 1024, reps 2 -> 6; vpu: 512 x 512, steps 2048, reps
+   4 -> 8) with the counters at 0 just before; `bench` through the CLI at
+   full size (N = 2^21, K = 512, 150 sweeps a chain) with the counters at 0
+   just before: fails unless em_stats launched at least 150 times, the JSON
+   line holds metric, value, unit and vs_baseline, value is finite and
+   positive and vs_baseline <= 1.05; then the sweep's S and loglik against the
+   plain version at N = 2^21; then benchmarks/kernel_shapes (five rows, each
+   against its bound). A share above 105 % of a bound or a peak fails: it is a
+   wrong count, not a fast kernel.
 Before the CLI phases, em_stats, em_stats_masked, assign and reg_stats (outlier
 -8) are checked against their plain versions at LiDAR scale (coordinates in
 +-40 m, a 0.02 m minor axis, 30 % zero-weight rows), and both against float64
 statistics of the direct quadratic form; the gaps are printed.
 Each phase prints one JSON line; the line before the last is the kernel
-table, the last line {"ok": true, "device": ...}. Any failure exits non-zero.
+table (every kernel with its launches on its main path, its time, its plain
+version's time, its bound from hgmm_torch.eval.roofline and, for the matrix
+probes, torch.matmul's time for the same products), the last line {"ok": true, "device": ...}. Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -87,14 +106,38 @@ ICP_RMSE = 0.02
 ICP_ITERS = 250
 # The kernels each path must launch (each path runs with the counters at 0).
 TREE_PATH = ("em_stats", "em_stats_masked", "assign", "reg_stats")
+PROBES = ("probe_logits", "probe_addonly", "probe_stats", "probe_norm", "probe_vpu")
 PATH_KERNELS = {"register_pair": TREE_PATH, "cli_icp": ("knn",), "cli_register_config3": TREE_PATH,
                 "cli_odometry": TREE_PATH, "cli_odometry_closures": TREE_PATH,
-                "cli_localize": ("reg_stats",)}
+                "cli_localize": ("reg_stats",), "cli_bench": ("em_stats",), "probes": PROBES}
 SOURCES = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu", "assign": "assign.cu",
-           "reg_stats": "reg_stats.cu", "knn": "knn.cu"}
+           "reg_stats": "reg_stats.cu", "knn": "knn.cu", **{name: "probes.cu" for name in PROBES}}
 REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops/fused_em.py:559",
             "assign": "hgmm/ops/fused_em.py:859", "reg_stats": "hgmm/ops/fused_em.py:920",
-            "knn": "hgmm/ops/knn.py:60"}
+            "knn": "hgmm/ops/knn.py:60", "probe_logits": "benchmarks/mxu_microbench.py:54",
+            "probe_addonly": "benchmarks/mxu_microbench.py:73",
+            "probe_stats": "benchmarks/mxu_microbench.py:86",
+            "probe_norm": "benchmarks/mxu_microbench.py:106",
+            "probe_vpu": "benchmarks/vpu_microbench.py:52"}
+# The path a kernel's `launches` are read from, where it is not register_pair.
+MAIN_PATH = {"knn": "cli_icp", **{name: "probes" for name in PROBES}}
+# The bench path. Probe checks: bfloat16 operands carry identical bits in the
+# kernel and its plain version and only the float32 sum order differs; float32
+# operands likewise. atol is a share of the largest |reference| (a sum of
+# products of both signs can land near zero).
+PROBE_CHECK_SHAPES = ((64, 256), (512, 2048), (64, 8192))
+PROBE_CHECK_LOOPS = ((3, 2), (3, 6))  # steps, reps; the timed loops are checked besides
+PROBE_TOL = {"bf16": (2e-3, 1e-4), "f32": (1e-5, 1e-5)}  # rtol, atol / max|ref|
+# float32 adds that one accumulator makes a product (csrc/probes.cu): the
+# float32 stats kernel accumulates by FMA over its block's T slice (ST = 32),
+# every other kernel adds one finished product. At the timed loops the check
+# allows 2^-24 for each add of that chain, beside PROBE_TOL.
+PROBE_CHAIN = {"stats_f32": 32}
+SENTINEL = 0x5A5A5A5A
+MXU_SHAPES = ((512, 2048), (64, 8192))  # the reference's defaults; K=64 needs T >= 8192
+MXU_LOOP = dict(steps=1024, r1=2, r2=6)
+VPU_LOOP = dict(k=512, t=512, steps=2048, r1=4, r2=8)
+MAX_SHARE = 1.05  # of a bound or a peak
 
 
 # The odometry phase (config 4 through the CLI) and the LiDAR-scale checks.
@@ -276,6 +319,11 @@ def main() -> int:
     errs = {name: 0.0 for name in fused_em.LAUNCHES}
     small_checks(torch, dev, errs)
     log({"phase": "kernel_checks_small", "ok": True})
+    t0 = time.perf_counter()
+    report = probe_checks(torch, dev, errs)
+    log({"phase": "probe_checks", "seconds": time.perf_counter() - t0, **report})
+    if sys.argv[1:] == ["--probe-checks"]:
+        return 0
 
     counts, main_res = main_path(torch, dev)
     log({"phase": "main_path", **main_res, "launches": counts})
@@ -283,6 +331,10 @@ def main() -> int:
     timings = slice_checks(torch, dev, errs)
     agreement = cpu_agreement(torch, dev)
     log({"phase": "cpu_agreement", **agreement})
+
+    probe_counts = probes_phase(torch, dev, timings)
+    bench_counts = cli_bench(torch, dev, errs, timings)
+    kernel_shapes_phase(dev)
 
     metric_errs = {}
     log({"phase": "kernel_checks_lidar", "extents_m": [LIDAR_EXTENT, LIDAR_STRICT_EXTENT],
@@ -300,16 +352,20 @@ def main() -> int:
             f.unlink()
         shutil.rmtree(work / "seq", ignore_errors=True)
     launches = {"register_pair": counts, "cli_icp": icp_counts, "cli_register_config3": c3_counts,
-                **odo_counts}
+                **odo_counts, "cli_bench": bench_counts, "probes": probe_counts}
 
     kernels = []
     for name in fused_em.LAUNCHES:
+        for entry in timings[name]:
+            add_bound(name, entry)
         head = next(t for t in timings[name] if t.get("headline"))
-        path = "cli_icp" if name == "knn" else "register_pair"
+        path = MAIN_PATH.get(name, "register_pair")
         kernels.append({
             "name": name, "route": "cuda", "source": f"hgmm_torch/csrc/{SOURCES[name]}",
             "replaces": REPLACES[name], "launches": launches[path][name],
             "max_abs_err": errs[name], "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head.get("library_ms"),
             "max_abs_err_metric_scale": metric_errs.get(name),
             "main_path": path, "launches_by_path": {p: c[name] for p, c in launches.items()},
             "shapes": timings[name],
@@ -577,6 +633,249 @@ def require_launched(counts, path):
         raise CheckFailed(f"{path}: kernels never launched: {missing}")
 
 
+
+def add_bound(name, entry) -> None:
+    """bound_ms, bound_by and share_of_bound of one timed shape, from
+    hgmm_torch.eval.roofline.kernel_bound on this entry's own shape."""
+    from hgmm_torch.eval.roofline import kernel_bound
+
+    if name in ("em_stats", "em_stats_masked"):
+        kb = kernel_bound(name, n=entry["n"], k=entry["k"], branch=8)
+    elif name == "assign":
+        kb = kernel_bound(name, n=entry["n"], k=entry["k"], branch=8 if entry["masked"] else None)
+    elif name == "reg_stats":
+        kb = kernel_bound(name, n=entry["n"], k=entry["k"], top_k=entry.get("top_k"))
+    elif name == "knn":
+        kb = kernel_bound(name, nq=entry["nq"], nt=entry["nt"])
+    else:
+        kb = kernel_bound(name, **entry["bound_args"])
+    entry.update(bound_ms=kb.seconds * 1e3, bound_by=kb.by,
+                 share_of_bound=kb.seconds * 1e3 / entry["ms"])
+    if entry["share_of_bound"] > MAX_SHARE:
+        raise CheckFailed(f"{name} {entry}: {entry['share_of_bound']:.3f} of its bound: a wrong count")
+
+
+def probe_checks(torch, dev, errs) -> dict:
+    """Each probe kernel against its plain version on the card: at small
+    steps, and at every shape and loop that the probes phase then times."""
+    from hgmm_torch.benchmarks.mxu_microbench import make_inputs
+    from hgmm_torch.ops import probes
+
+    report = {}
+
+    # compute-sanitizer does not support the card as the check machine exposes
+    # it, so the run guards itself. Sentinel blocks of both of the allocator's
+    # pools, every other one freed again: the wrappers' outputs and scratch land
+    # in the holes, and a write past their ends lands in a sentinel.
+    sentinels = [torch.full((size // 4,), SENTINEL, dtype=torch.int32, device=dev)
+                 for size in (1 << 19, 3 << 20, 5 << 20) for _ in range(24)]
+    del sentinels[::2]
+
+    def hold(name, label, kern, plain, mode, chain):
+        got = kern()
+        torch.cuda.synchronize()  # a fault in the kernel shows here, not in a later op
+        ref = plain()
+        first = got.cpu(), ref.cpu()
+        rtol, arel = PROBE_TOL[mode]
+        top = float(ref.abs().max())
+        chain *= PROBE_CHAIN.get(label.split("_K")[0], 1)
+        e = close(torch, label, got, ref, rtol + chain, (arel + chain) * top)
+        # The kernels sum in a fixed order: a second launch gives the same bits,
+        # unless blocks or warps race. And nothing is in flight now: a value that
+        # reads differently the second time was written by a stray store.
+        if not torch.equal(kern(), got):
+            raise CheckFailed(f"{label}: two launches on the same inputs differ")
+        if not (torch.equal(got.cpu(), first[0]) and torch.equal(ref.cpu(), first[1])):
+            raise CheckFailed(f"{label}: a result changed between two reads")
+        errs[name] = max(errs[name], e)
+        report[label] = e / top
+
+    def hold_vpu(x, steps, reps, tag):
+        for mode in ("exp2", "cast"):
+            got, ref = probes.vpu_cuda(x, steps, reps, mode), probes.vpu_ref(x, steps, reps, mode)
+            # Every value is a bfloat16; exp2f may differ from torch.exp2 in the
+            # last place, which moves the rounded value by one bfloat16 ulp at most.
+            ulp = (got.to(torch.bfloat16).view(torch.int16).int()
+                   - ref.to(torch.bfloat16).view(torch.int16).int()).abs()
+            off = int((ulp > 0).sum())
+            if int(ulp.max()) > (1 if mode == "exp2" else 0) or not bool(torch.isfinite(got).all()):
+                raise CheckFailed(f"probe_vpu {mode} {tag}: {off} elements differ, by up to "
+                                  f"{int(ulp.max())} bfloat16 ulp")
+            errs["probe_vpu"] = max(errs["probe_vpu"], float((got - ref).abs().max()))
+            report[f"vpu_{mode}_{tag}_elements_off_by_one_ulp"] = off
+
+    for k, t in PROBE_CHECK_SHAPES:
+        ins = make_inputs(k, t, dev)
+        for steps, reps in PROBE_CHECK_LOOPS + probe_timed_loops(k, t):
+            # Kernel and plain version add the steps * reps products in the same
+            # order; past the small loops each of those float32 adds may round
+            # differently on products that differ in their last bits.
+            chain = steps * reps * 2.0 ** -24 if (steps, reps) not in PROBE_CHECK_LOOPS else 0.0
+            tag = f"K{k}_T{t}_{steps}x{reps}"
+            for mode, sfx in (("bf16", ""), ("f32", "_f32")):
+                wt, phi, e = ins["wt" + sfx], ins["phi" + sfx], ins["e" + sfx]
+                hold("probe_logits", f"logits_{mode}_{tag}",
+                     lambda: probes.logits_cuda(wt, phi, steps, reps),
+                     lambda: probes.logits_ref(wt, phi, steps, reps), mode, chain)
+                hold("probe_stats", f"stats_{mode}_{tag}",
+                     lambda: probes.stats_cuda(phi[:32], e, steps, reps),
+                     lambda: probes.stats_ref(phi[:32], e, steps, reps), mode, chain)
+            hold("probe_norm", f"norm_bf16_{tag}",
+                 lambda: probes.norm_cuda(ins["ones"], ins["e"], steps, reps),
+                 lambda: probes.norm_ref(ins["ones"], ins["e"], steps, reps), "bf16", chain)
+            # Two float32 adds an element and rep in the plain version's order: equal.
+            got = probes.addonly_cuda(ins["x"], steps, reps)
+            ref = probes.addonly_ref(ins["x"], steps, reps)
+            if not torch.equal(got, ref):
+                raise CheckFailed(f"probe_addonly {tag}: differs from the plain version by "
+                                  f"{float((got - ref).abs().max())}")
+            if (steps, reps) in PROBE_CHECK_LOOPS:
+                hold_vpu(ins["x"].clamp(-1.5, -0.5), steps, reps, tag)
+    vk, vt = VPU_LOOP["k"], VPU_LOOP["t"]
+    x = make_inputs(vk, vt, dev)["x"].clamp(-1.5, -0.5)
+    for reps in (VPU_LOOP["r1"], VPU_LOOP["r2"]):
+        hold_vpu(x, VPU_LOOP["steps"], reps, f"K{vk}_T{vt}_{VPU_LOOP['steps']}x{reps}")
+    torch.cuda.synchronize()
+    if not all(bool((blk == SENTINEL).all()) for blk in sentinels):
+        raise CheckFailed("probe_checks: a sentinel block beside the kernels' buffers was written")
+    return report
+
+
+def probe_timed_loops(k: int, t: int) -> tuple:
+    """The (steps, reps) that the probes phase times at this shape."""
+    if (k, t) not in MXU_SHAPES:
+        return ()
+    return ((MXU_LOOP["steps"], MXU_LOOP["r1"]), (MXU_LOOP["steps"], MXU_LOOP["r2"]))
+
+
+def check_shares(what, shares) -> None:
+    bad = {k: v for k, v in shares.items() if not (v == v and 0.0 < v <= MAX_SHARE)}
+    if bad:
+        raise CheckFailed(f"{what}: shares outside (0, {MAX_SHARE}]: {bad}: a wrong count or a "
+                          f"timing lost in the noise")
+
+
+def probes_phase(torch, dev, timings):
+    """The two microbenchmarks at the reference's defaults, with the counters
+    at 0 just before; then each probe's headline time (steps and the larger rep
+    count of the microbenchmark, K=512, T=2048) beside its plain version's and,
+    for the matrix probes, torch.matmul's for the same steps * reps products."""
+    from hgmm_torch.benchmarks import mxu_microbench, vpu_microbench
+    from hgmm_torch.benchmarks.mxu_microbench import make_inputs
+    from hgmm_torch.ops import fused_em, probes
+
+    torch.cuda.synchronize()
+    fused_em.reset_launches()
+    mxu = [mxu_microbench.run(k, t, device=dev, **MXU_LOOP) for k, t in MXU_SHAPES]
+    vpu = vpu_microbench.run(device=dev, **VPU_LOOP)
+    torch.cuda.synchronize()
+    counts = dict(fused_em.LAUNCHES)
+    require_launched(counts, "probes")
+    for rep in mxu:
+        check_shares(f"mxu_microbench K={rep['k']}",
+                     {name: c["share_of_peak_raw"] for name, c in rep["cases"].items()})
+    check_shares("vpu_microbench", {"exp2": vpu["exp2_share_of_sfu_peak"]})
+    log({"phase": "probes", "mxu": mxu, "vpu": vpu, "launches": counts})
+
+    k, t = MXU_SHAPES[0]
+    steps, reps = MXU_LOOP["steps"], MXU_LOOP["r2"]
+    ins = make_inputs(k, t, dev)
+    phi32 = ins["phi"][:32]
+
+    def matmuls(a, b):
+        out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=dev)
+
+        def run():
+            for _ in range(steps * reps):
+                torch.matmul(a, b, out=out)
+        return run
+
+    def record(name, kern, plain, library, **bound_args):
+        timings[name].append({
+            **bound_args, "ms": cuda_ms(torch, kern, reps=5, warmup=1),
+            "plain_ms": cuda_ms(torch, plain, reps=1, warmup=1),
+            "library_ms": None if library is None else cuda_ms(torch, library, reps=1, warmup=1),
+            "library": None if library is None else f"{steps * reps} x torch.matmul",
+            "bound_args": bound_args, "headline": True})
+
+    loop = dict(k=k, t=t, steps=steps, reps=reps)
+    record("probe_logits", lambda: probes.logits_cuda(ins["wt"], ins["phi"], steps, reps),
+           lambda: probes.logits_ref(ins["wt"], ins["phi"], steps, reps),
+           matmuls(ins["wt"], ins["phi"]), dtype="bf16", **loop)
+    record("probe_stats", lambda: probes.stats_cuda(phi32, ins["e"], steps, reps),
+           lambda: probes.stats_ref(phi32, ins["e"], steps, reps),
+           matmuls(phi32, ins["e"].T), dtype="bf16", **loop)
+    record("probe_norm", lambda: probes.norm_cuda(ins["ones"], ins["e"], steps, reps),
+           lambda: probes.norm_ref(ins["ones"], ins["e"], steps, reps),
+           matmuls(ins["ones"], ins["e"]), **loop)
+    record("probe_addonly", lambda: probes.addonly_cuda(ins["x"], steps, reps),
+           lambda: probes.addonly_ref(ins["x"], steps, reps), None, **loop)
+    vk = dict(k=VPU_LOOP["k"], t=VPU_LOOP["t"], steps=VPU_LOOP["steps"], reps=VPU_LOOP["r2"])
+    x = ins["x"][: vk["k"], : vk["t"]].contiguous().clamp(-1.5, -0.5)
+    record("probe_vpu", lambda: probes.vpu_cuda(x, vk["steps"], vk["reps"], "exp2"),
+           lambda: probes.vpu_ref(x, vk["steps"], vk["reps"], "exp2"), None, mode="exp2", **vk)
+    return counts
+
+
+def cli_bench(torch, dev, errs, timings):
+    """`bench` through the CLI at full size with the counters at 0 just
+    before; then the sweep's kernel against its plain version at that size."""
+    import math
+
+    from hgmm_torch import bench, convert
+    from hgmm_torch.ops import em_ref, fused_em, prepare
+    from hgmm_torch.ops.gaussians import pack_loglik_weights
+
+    torch.cuda.synchronize()
+    fused_em.reset_launches()
+    t0 = time.perf_counter()
+    out = run_cli(["bench", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fused_em.LAUNCHES)
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    if len(lines) != 1:
+        raise CheckFailed(f"cli bench: {len(lines)} lines on stdout, expected one JSON line")
+    rec = json.loads(lines[0])
+    if set(rec) != {"metric", "value", "unit", "vs_baseline"}:
+        raise CheckFailed(f"cli bench: keys {sorted(rec)}")
+    if not (math.isfinite(rec["value"]) and rec["value"] > 0 and math.isfinite(rec["vs_baseline"])):
+        raise CheckFailed(f"cli bench: {rec}")
+    if rec["vs_baseline"] > MAX_SHARE:
+        raise CheckFailed(f"cli bench: vs_baseline {rec['vs_baseline']} above {MAX_SHARE}: a share "
+                          f"over 105 % of a roofline is a wrong count")
+    if counts["em_stats"] < bench.SWEEPS:
+        raise CheckFailed(f"cli bench: em_stats launched {counts['em_stats']} times, fewer than "
+                          f"one chain's {bench.SWEEPS}")
+    require_launched(counts, "cli_bench")
+
+    # The same problem again (the kernel sums in a fixed order, so this is the
+    # chain's last sweep), against the plain version at N = 2^21.
+    mix, pts_np = bench.bench_problem()
+    W = pack_loglik_weights(convert.mixture_from_numpy(*mix, device=dev))
+    pts = torch.from_numpy(pts_np).to(dev)
+    prep = prepare(pts)
+    n, k = pts.shape[0], W.shape[1]
+    check_em(torch, "em_stats", fused_em.em_stats(prep.pts4, W), em_ref.em_stats(pts, W), n, errs)
+    timings["em_stats"].append({"k": k, "n": n, "masked": False, "bench": True,
+                                "ms": cuda_ms(torch, lambda: fused_em.em_stats(prep.pts4, W)),
+                                "plain_ms": cuda_ms(torch, lambda: em_ref.em_stats(pts, W), reps=2,
+                                                    warmup=1), "headline": False})
+    log({"phase": "cli_bench", "wall_s": wall, "record": rec, "n": n, "k": k,
+         "sweeps": bench.SWEEPS, "launches": counts, "kernel": timings["em_stats"][-1]})
+    return counts
+
+
+def kernel_shapes_phase(dev) -> None:
+    """benchmarks/kernel_shapes at N = 2^21: five rows, each against its bound."""
+    from hgmm_torch.benchmarks import kernel_shapes
+
+    rows = kernel_shapes.run(device=dev)
+    check_shares("kernel_shapes", {f"K{r['k']}{'m' if r['masked'] else ''}": r["share_of_bound"]
+                                   for r in rows})
+    log({"phase": "kernel_shapes", "rows": rows})
+
+
 def slice_checks(torch, dev, errs):
     """Time the fit and the registration apart, then check and time every
     kernel against its plain version at the slice's shapes."""
@@ -612,7 +911,8 @@ def slice_checks(torch, dev, errs):
     n = N_POINTS
 
     def record(name, k, kern, plain, headline=False):
-        timings[name].append({"k": k, "n": n, "ms": cuda_ms(torch, kern),
+        timings[name].append({"k": k, "n": n, "masked": name in ("em_stats_masked", "assign") and k > 8,
+                              "ms": cuda_ms(torch, kern),
                               "plain_ms": cuda_ms(torch, plain, reps=5), "headline": headline})
 
     # Tree fit: level 0 unmasked at K=8, levels 1-2 masked at K=64 and 512.
@@ -1124,7 +1424,9 @@ def odometry_shapes(torch, dev, frames, tree, pose, errs, metric_errs, timings):
 
         def record(name, k, kern, plain):
             if not tag:
-                timings[name].append({"k": k, "n": n, "odometry": True, "ms": cuda_ms(torch, kern),
+                timings[name].append({"k": k, "n": n, "odometry": True,
+                                      "masked": name in ("em_stats_masked", "assign") and k > 8,
+                                      "ms": cuda_ms(torch, kern),
                                       "plain_ms": cuda_ms(torch, plain, reps=5), "headline": False})
 
         def hold_em(name, key, got, ref, ref64):

@@ -1,6 +1,6 @@
 """hgmm-torch command-line interface: the commands of the JAX package's CLI
-(fit-gmm, register, odometry, localize, icp), with the same arguments and
-printed lines, run by hgmm_torch on the device that --device names.
+(fit-gmm, register, odometry, localize, icp, bench), with the same arguments
+and printed lines, run by hgmm_torch on the device that --device names.
 
     python -m hgmm_torch.cli.main fit-gmm CLOUD [--tree] [--out NPZ] [--device cuda|cpu]
     python -m hgmm_torch.cli.main register SOURCE TARGET [--preset NAME] [--out NPY]
@@ -8,6 +8,7 @@ printed lines, run by hgmm_torch on the device that --device names.
                                   [--refine] [--map NPZ] [--checkpoint NPZ] [--metrics JSONL]
     python -m hgmm_torch.cli.main localize SCAN MAP_NPZ [--init NPY] [--out NPY]
     python -m hgmm_torch.cli.main icp SOURCE TARGET [--iters N]
+    python -m hgmm_torch.cli.main bench [--trace DIR]
 
 Clouds are .ply, KITTI .bin or .npy files. --device defaults to cuda and
 the command fails when CUDA is not available; --device cpu runs the plain
@@ -245,6 +246,13 @@ def cmd_icp(args) -> None:
     print(f"final match rmse: {float(res.rmse_history[-1]):.6f}")
 
 
+def cmd_bench(args) -> None:
+    """The headline E+M sweep benchmark (hgmm_torch.bench): one JSON line."""
+    from hgmm_torch.bench import run_bench
+
+    run_bench(trace_dir=args.trace, device=args.device, n=args.n, k=args.k, sweeps=args.sweeps)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="hgmm-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -328,6 +336,13 @@ def main(argv=None) -> None:
     i.add_argument("target")
     i.add_argument("--iters", type=int, default=30)
     i.set_defaults(fn=cmd_icp)
+
+    from hgmm_torch.bench import add_arguments as add_bench_arguments
+
+    b = sub.add_parser("bench", parents=[common],
+                       help="headline E+M sweep benchmark: one JSON line")
+    add_bench_arguments(b)
+    b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():

@@ -48,3 +48,10 @@ def pose_from_numpy(R, t, device=None) -> Pose:
 
 def pose_to_numpy(pose: Pose) -> tuple[np.ndarray, np.ndarray]:
     return pose.R.detach().cpu().numpy(), pose.t.detach().cpu().numpy()
+
+
+def probe_inputs_from_numpy(*arrays, device=None) -> tuple[torch.Tensor, ...]:
+    """float32 arrays -> bfloat16 tensors, rounded to nearest even as
+    ``jnp.astype(bfloat16)`` rounds, so that the unit-rate probes of both
+    packages compute on identical bits."""
+    return tuple(_t(a, device).to(torch.bfloat16) for a in arrays)

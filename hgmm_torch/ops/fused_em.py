@@ -25,8 +25,10 @@ MAX_K = 2048  # largest K whose tables fit in shared memory
 MAX_TOP_K = 32  # largest top_k < K that reg_stats gates (csrc/reg_stats.cu)
 
 # Kernel launches by wrapper, for showing that a run went through the kernels
-# (ops/knn.py counts its kernel here too).
-LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "assign": 0, "reg_stats": 0, "knn": 0}
+# (ops/knn.py and ops/probes.py count their kernels here too).
+LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "assign": 0, "reg_stats": 0, "knn": 0,
+            "probe_logits": 0, "probe_addonly": 0, "probe_stats": 0, "probe_norm": 0,
+            "probe_vpu": 0}
 
 
 def reset_launches() -> None:

@@ -1,0 +1,297 @@
+"""Unit-rate probes: the E-step's matrix shapes and its exp2 chain, each alone.
+
+Counterpart of the Pallas bodies of ``benchmarks/mxu_microbench.py``
+(``_logits_kernel``, ``_addonly_kernel``, ``_stats_kernel``, ``_norm_kernel``)
+and ``benchmarks/vpu_microbench.py`` (``_kernel``). Every probe repeats one
+body ``steps * reps`` times and returns its accumulator:
+
+    logits   out[K,T] += (wt[K,80] + eps_r) @ phi[80,T]
+    stats    out[32,K] += (phi32[32,T] + eps_r) @ e[K,T]^T
+    norm     out[8,T]  += (ones[8,K] + eps_r) @ e[K,T]
+    addonly  acc = x; acc += x + eps_r                  (float32)
+    vpu      x <- -f32(bf16(exp2(x)))  or  x <- -f32(bf16(x))
+
+with r the iteration modulo ``reps`` and eps_r = 1e-6 (r + 1) rounded to the
+operand's type. ``logits`` and ``stats`` take bfloat16 operands (the TPU
+bodies' arithmetic: tensor cores, float32 accumulate) or float32 operands
+(float32 FMAs, what the port's E-step kernels execute); ``norm`` is bfloat16.
+
+Dispatch is by device, as in ``hgmm_torch.ops``: CPU tensors run the plain
+versions (``*_ref``), CUDA tensors launch the hand-written kernels of
+``csrc/probes.cu`` (``*_cuda``) or raise. The launch geometry is chosen here
+(``plan_*``, from the card's SM count ``sms``), so that the grid has at least
+one block for every SM, and passed to the kernels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from hgmm_torch.ops import _build
+from hgmm_torch.ops.fused_em import LAUNCHES, _check, _raise_on, _stream
+
+DEPTH = 80  # contraction depth of the logits product (csrc/probes.cu:DEPTH)
+MAX_REPS = 64  # csrc/probes.cu:MAX_REPS
+
+PROBES = ("probe_logits", "probe_addonly", "probe_stats", "probe_norm", "probe_vpu")
+
+
+def eps_table(reps: int, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """eps_r = 1e-6 (r + 1) for r < reps, rounded to `dtype` (to nearest
+    even, as ``jnp.bfloat16(1e-6 * (r + 1))`` rounds)."""
+    eps = torch.tensor([1e-6 * (r + 1) for r in range(reps)], dtype=torch.float64)
+    return eps.to(torch.float32).to(dtype).to(device)
+
+
+# --------------------------------------------------------------------------
+# plain versions
+
+
+def _accumulate(acc: torch.Tensor, terms, steps: int) -> torch.Tensor:
+    """acc + the terms, one after the other, `steps` times over (float32,
+    in the kernels' order)."""
+    for _ in range(steps):
+        for d in terms:
+            acc = acc + d
+    return acc
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with float32 accumulation; bfloat16 products are exact in float32."""
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def _products(a, b, reps, transpose_b=False):
+    eps = eps_table(reps, a.dtype, a.device)
+    bb = b.T if transpose_b else b
+    return [_matmul_f32(a + eps[r], bb) for r in range(reps)]
+
+
+def logits_ref(wt: torch.Tensor, phi: torch.Tensor, steps: int, reps: int) -> torch.Tensor:
+    """[K, T] f32: steps times the reps products (wt + eps_r) @ phi, the add
+    in wt's type, summed in float32."""
+    out = torch.zeros((wt.shape[0], phi.shape[1]), dtype=torch.float32, device=wt.device)
+    return _accumulate(out, _products(wt, phi, reps), steps)
+
+
+def stats_ref(phi32: torch.Tensor, e: torch.Tensor, steps: int, reps: int) -> torch.Tensor:
+    """[32, K] f32: the products (phi32 + eps_r) @ e^T."""
+    out = torch.zeros((phi32.shape[0], e.shape[0]), dtype=torch.float32, device=e.device)
+    return _accumulate(out, _products(phi32, e, reps, transpose_b=True), steps)
+
+
+def norm_ref(ones: torch.Tensor, e: torch.Tensor, steps: int, reps: int) -> torch.Tensor:
+    """[8, T] f32: the products (ones + eps_r) @ e."""
+    out = torch.zeros((ones.shape[0], e.shape[1]), dtype=torch.float32, device=e.device)
+    return _accumulate(out, _products(ones, e, reps), steps)
+
+
+def addonly_ref(x: torch.Tensor, steps: int, reps: int) -> torch.Tensor:
+    """x + the steps * reps terms (x + eps_r), float32."""
+    eps = eps_table(reps, torch.float32, x.device)
+    return _accumulate(x.clone(), [x + eps[r] for r in range(reps)], steps)
+
+
+def vpu_ref(x: torch.Tensor, steps: int, reps: int, mode: str = "exp2") -> torch.Tensor:
+    """The chain of steps * reps iterations x <- -f32(bf16(exp2(x))) (mode
+    "exp2") or x <- -f32(bf16(x)) (mode "cast")."""
+    _check_mode(mode)
+    for _ in range(steps * reps):
+        y = torch.exp2(x) if mode == "exp2" else x
+        x = -(y.to(torch.bfloat16).to(torch.float32))
+    return x
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in ("exp2", "cast"):
+        raise ValueError(f"vpu: mode {mode!r} is neither 'exp2' nor 'cast'")
+
+
+# --------------------------------------------------------------------------
+# launch geometry
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    grid: tuple[int, int]  # blocks along the sliced axes
+    threads: int  # threads a block
+    tile: int  # the kernel's slice argument (columns of T a block; nk for norm)
+    partials: int  # rows of the partial-sum scratch (0: the kernel writes `out`)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def _need(ok: bool, what: str) -> None:
+    if not ok:
+        raise ValueError(what)
+
+
+def plan_logits(k: int, t: int, f32: bool, sms: int) -> Plan:
+    if f32:
+        _need(k % 16 == 0 and t % 128 == 0, f"logits f32: K={k} % 16 and T={t} % 128 must be 0")
+        return Plan((t // 128, k // 16), 128, 128, 0)
+    _need(k % 64 == 0 and t % 32 == 0, f"logits bf16: K={k} % 64 and T={t} % 32 must be 0")
+    tile = 64 if t % 64 == 0 and (t // 64) * (k // 64) >= sms else 32
+    return Plan((t // tile, k // 64), 128, tile, 0)
+
+
+def plan_stats(k: int, t: int, f32: bool, sms: int) -> Plan:
+    if f32:
+        _need(k % 32 == 0 and t % 32 == 0, f"stats f32: K={k} % 32 and T={t} % 32 must be 0")
+        threads = next(c for c in (128, 96, 64, 32) if k % c == 0)
+        return Plan((t // 32, k // threads), threads, 32, t // 32)
+    _need(k % 64 == 0 and t % 32 == 0, f"stats bf16: K={k} % 64 and T={t} % 32 must be 0")
+    tile = 64 if t % 64 == 0 and (t // 64) * (k // 64) >= sms else 32
+    return Plan((t // tile, k // 64), 128, tile, t // tile)
+
+
+def plan_norm(k: int, t: int, sms: int) -> Plan:
+    _need(k % 64 == 0 and t % 16 == 0, f"norm: K={k} % 64 and T={t} % 16 must be 0")
+    fits = [nk for nk in (4, 2, 1) if k % (64 * nk) == 0]
+    nk = next((c for c in fits if (t // 16) * (k // (64 * c)) >= sms), fits[-1])
+    return Plan((t // 16, k // (64 * nk)), 128, nk, k // (64 * nk))
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers (CUDA tensors only)
+
+
+def _loop(steps: int, reps: int) -> None:
+    _need(steps >= 0 and 1 <= reps <= MAX_REPS and steps * reps < 2 ** 31,
+          f"steps={steps}, reps={reps}: need steps >= 0 and 1 <= reps <= {MAX_REPS}")
+
+
+def _operand(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
+    _check(name, x, dtype, shape)
+    if x.data_ptr() % 32:
+        raise ValueError(f"{name}: expected a 32-byte aligned tensor")
+
+
+def _mode_dtype(name: str, a: torch.Tensor) -> bool:
+    """True for the float32 arithmetic, False for bfloat16."""
+    if a.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: expected bfloat16 or float32 operands, got {a.dtype}")
+    return a.dtype == torch.float32
+
+
+def logits_cuda(wt: torch.Tensor, phi: torch.Tensor, steps: int, reps: int) -> torch.Tensor:
+    """Kernel twin of logits_ref: wt [K, 80], phi [80, T], both bfloat16 (tensor
+    cores) or both float32 (FMA)."""
+    _loop(steps, reps)
+    f32 = _mode_dtype("logits", wt)
+    k, t = wt.shape[0], phi.shape[-1]
+    _operand("wt", wt, wt.dtype, (k, DEPTH))
+    _operand("phi", phi, wt.dtype, (DEPTH, t))
+    plan = plan_logits(k, t, f32, _sms(wt.device))
+    eps = eps_table(reps, wt.dtype, wt.device)
+    out = torch.empty((k, t), dtype=torch.float32, device=wt.device)
+    with torch.cuda.device(wt.device):
+        err = _build.load().hgmm_probe_logits(
+            wt.data_ptr(), phi.data_ptr(), eps.data_ptr(), k, t, steps, reps, int(f32), plan.tile,
+            out.data_ptr(), _stream(wt))
+    _raise_on(err, "probe_logits")
+    LAUNCHES["probe_logits"] += 1
+    return out
+
+
+def stats_cuda(phi32: torch.Tensor, e: torch.Tensor, steps: int, reps: int) -> torch.Tensor:
+    """Kernel twin of stats_ref: phi32 [32, T], e [K, T], both bfloat16 or
+    both float32."""
+    _loop(steps, reps)
+    f32 = _mode_dtype("stats", e)
+    k, t = e.shape
+    _operand("phi32", phi32, e.dtype, (32, t))
+    _operand("e", e, e.dtype, (k, t))
+    plan = plan_stats(k, t, f32, _sms(e.device))
+    eps = eps_table(reps, e.dtype, e.device)
+    partial = torch.empty((plan.partials, 32 * k), dtype=torch.float32, device=e.device)
+    out = torch.empty((32, k), dtype=torch.float32, device=e.device)
+    with torch.cuda.device(e.device):
+        err = _build.load().hgmm_probe_stats(
+            phi32.data_ptr(), e.data_ptr(), eps.data_ptr(), k, t, steps, reps, int(f32), plan.tile,
+            plan.threads, partial.data_ptr(), out.data_ptr(), _stream(e))
+    _raise_on(err, "probe_stats")
+    LAUNCHES["probe_stats"] += 1
+    return out
+
+
+def norm_cuda(ones: torch.Tensor, e: torch.Tensor, steps: int, reps: int) -> torch.Tensor:
+    """Kernel twin of norm_ref: ones [8, K], e [K, T], bfloat16. The 8 rows
+    ride a 16-row tensor-core tile whose other half is discarded."""
+    _loop(steps, reps)
+    k, t = e.shape
+    _operand("ones", ones, torch.bfloat16, (8, k))
+    _operand("e", e, torch.bfloat16, (k, t))
+    plan = plan_norm(k, t, _sms(e.device))
+    eps = eps_table(reps, torch.bfloat16, e.device)
+    partial = torch.empty((plan.partials, 8 * t), dtype=torch.float32, device=e.device)
+    out = torch.empty((8, t), dtype=torch.float32, device=e.device)
+    with torch.cuda.device(e.device):
+        err = _build.load().hgmm_probe_norm(
+            ones.data_ptr(), e.data_ptr(), eps.data_ptr(), k, t, steps, reps, plan.tile,
+            partial.data_ptr(), out.data_ptr(), _stream(e))
+    _raise_on(err, "probe_norm")
+    LAUNCHES["probe_norm"] += 1
+    return out
+
+
+def addonly_cuda(x: torch.Tensor, steps: int, reps: int) -> torch.Tensor:
+    """Kernel twin of addonly_ref: x float32, its element count a multiple of 4."""
+    _loop(steps, reps)
+    _operand("x", x, torch.float32, tuple(x.shape))
+    _need(x.numel() >= 4 and x.numel() % 4 == 0, f"addonly: {x.numel()} elements, need a multiple of 4")
+    eps = eps_table(reps, torch.float32, x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _build.load().hgmm_probe_addonly(x.data_ptr(), eps.data_ptr(), x.numel(), steps, reps,
+                                               out.data_ptr(), _stream(x))
+    _raise_on(err, "probe_addonly")
+    LAUNCHES["probe_addonly"] += 1
+    return out
+
+
+def vpu_cuda(x: torch.Tensor, steps: int, reps: int, mode: str = "exp2") -> torch.Tensor:
+    """Kernel twin of vpu_ref: x float32, any shape."""
+    _loop(steps, reps)
+    _check_mode(mode)
+    _check("x", x, torch.float32, tuple(x.shape))
+    _need(x.numel() >= 1, "vpu: empty input")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _build.load().hgmm_probe_vpu(x.data_ptr(), x.numel(), steps, reps,
+                                           int(mode == "exp2"), out.data_ptr(), _stream(x))
+    _raise_on(err, "probe_vpu")
+    LAUNCHES["probe_vpu"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# dispatch by device
+
+
+def logits(wt, phi, steps, reps):
+    return logits_cuda(wt, phi, steps, reps) if wt.is_cuda else logits_ref(wt, phi, steps, reps)
+
+
+def stats(phi32, e, steps, reps):
+    return stats_cuda(phi32, e, steps, reps) if e.is_cuda else stats_ref(phi32, e, steps, reps)
+
+
+def norm(ones, e, steps, reps):
+    return norm_cuda(ones, e, steps, reps) if e.is_cuda else norm_ref(ones, e, steps, reps)
+
+
+def addonly(x, steps, reps):
+    return addonly_cuda(x, steps, reps) if x.is_cuda else addonly_ref(x, steps, reps)
+
+
+def vpu(x, steps, reps, mode="exp2"):
+    return vpu_cuda(x, steps, reps, mode) if x.is_cuda else vpu_ref(x, steps, reps, mode)

@@ -4,7 +4,8 @@
 Counterpart of ``hgmm/pipelines/odometry.py``. A host loop over frames:
 frames stay numpy on the host, each is padded or subsampled to one fixed
 point bucket, and each pair's points go to ``OdometryConfig.device`` for the
-target fit and the registration. Warm starts: each pair starts from the
+target fit and the registration (the card unless the caller names another
+device). Warm starts: each pair starts from the
 previous relative pose (constant velocity). Resumable at frame granularity
 through ``hgmm_torch.utils.checkpoint``.
 """
@@ -31,6 +32,7 @@ from hgmm_torch.pipelines.pose_graph import (
 )
 from hgmm_torch.pipelines.register import register_points, register_tree
 from hgmm_torch.utils import checkpoint as ckpt
+from hgmm_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -55,7 +57,12 @@ class OdometryConfig:
     bucket: int = 16384  # fixed per-frame point budget (pad/subsample)
     warm_start: bool = True
     seed: int = 0
-    device: str | torch.device = "cpu"  # where the fits and registrations run
+    # Where the fits and registrations run: None is the card, and raises
+    # without one; "cpu" runs the plain PyTorch path.
+    device: str | torch.device | None = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
 
 
 @dataclasses.dataclass

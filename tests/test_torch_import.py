@@ -15,7 +15,11 @@ REPO = Path(__file__).resolve().parents[1]
 def test_import_leaves_no_jax_or_hgmm_module():
     prog = (
         "import sys, hgmm_torch, hgmm_torch.convert, hgmm_torch.ops.fused_em\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hgmm')]\n"
+        "import hgmm_torch.bench, hgmm_torch.ops.probes, hgmm_torch.eval.roofline\n"
+        "import hgmm_torch.utils.timing, hgmm_torch.utils.device, hgmm_torch.cli.main\n"
+        "import hgmm_torch.benchmarks.mxu_microbench, hgmm_torch.benchmarks.vpu_microbench\n"
+        "import hgmm_torch.benchmarks.kernel_shapes, hgmm_torch.benchmarks.trace_accounting\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hgmm', 'benchmarks')]\n"
         "assert not bad, bad\n"
         "import hgmm_torch.ops._build as b\n"
         "assert b._lib is None\n"
@@ -27,7 +31,13 @@ def test_import_leaves_no_jax_or_hgmm_module():
 
 
 def test_no_source_file_imports_jax_or_hgmm():
-    for path in sorted((REPO / "hgmm_torch").rglob("*.py")):
+    """Every module of the port (the bench path's included) and chip_smoke.py."""
+    paths = sorted((REPO / "hgmm_torch").rglob("*.py"))
+    for new in ("bench.py", "ops/probes.py", "eval/roofline.py", "utils/timing.py",
+                "benchmarks/mxu_microbench.py", "benchmarks/vpu_microbench.py",
+                "benchmarks/kernel_shapes.py", "benchmarks/trace_accounting.py"):
+        assert REPO / "hgmm_torch" / new in paths
+    for path in paths + [REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
@@ -35,7 +45,7 @@ def test_no_source_file_imports_jax_or_hgmm():
             elif isinstance(node, ast.ImportFrom) and node.module:
                 names = [node.module]
             for name in names:
-                assert name.split(".")[0] not in ("jax", "jaxlib", "hgmm"), (path, name)
+                assert name.split(".")[0] not in ("jax", "jaxlib", "hgmm", "benchmarks"), (path, name)
 
 
 def test_cpu_path_launches_no_kernel():

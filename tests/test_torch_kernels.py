@@ -343,3 +343,93 @@ def test_refine_pose_graph_on_the_card(cuda):
     _close(on[0].R.cpu(), cpu.R, 0.0, 1e-3)
     _close(on[0].t.cpu(), cpu.t, 0.0, 1e-3)
     _close(on[0].residual_history.cpu(), cpu.residual_history, 1e-3, 1e-6)
+
+
+# ---- the unit-rate probes (csrc/probes.cu) against hgmm_torch.ops.probes.*_ref.
+# bfloat16 operands carry identical bits in kernel and plain version and only
+# the float32 sum order differs (rtol 2e-3 + 1e-4 of the largest |sum|);
+# float32 operands: rtol 1e-5 + 1e-5 of the largest |sum|.
+
+PROBE_TOL = {torch.bfloat16: (2e-3, 1e-4), torch.float32: (1e-5, 1e-5)}
+
+
+def _probe_inputs(k, t, dev, dtype):
+    from hgmm_torch.benchmarks.mxu_microbench import make_inputs
+
+    ins = make_inputs(k, t, dev, seed=k + t)
+    sfx = "" if dtype == torch.bfloat16 else "_f32"
+    return ins["wt" + sfx], ins["phi" + sfx], ins["e" + sfx], ins["ones"], ins["x"]
+
+
+def _probe_close(got, ref, dtype):
+    rtol, arel = PROBE_TOL[dtype]
+    _close(got, ref, rtol, arel * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,t", [(64, 256), (128, 384), (512, 2048), (64, 8192)])
+@pytest.mark.parametrize("steps,reps", [(3, 2), (1, 5)])
+def test_probe_logits_and_stats(cuda, k, t, steps, reps, dtype):
+    from hgmm_torch.ops import probes
+
+    wt, phi, e, _, _ = _probe_inputs(k, t, cuda, dtype)
+    fused_em.reset_launches()
+    _probe_close(probes.logits(wt, phi, steps, reps), probes.logits_ref(wt, phi, steps, reps), dtype)
+    _probe_close(probes.stats(phi[:32], e, steps, reps), probes.stats_ref(phi[:32], e, steps, reps),
+                 dtype)
+    assert fused_em.LAUNCHES["probe_logits"] == 1 and fused_em.LAUNCHES["probe_stats"] == 1
+
+
+@pytest.mark.parametrize("k,t", [(64, 256), (128, 48), (256, 2048), (512, 2048), (64, 8192)])
+def test_probe_norm(cuda, k, t):
+    from hgmm_torch.ops import probes
+
+    _, _, e, ones, _ = _probe_inputs(k, t, cuda, torch.bfloat16)
+    ones = (ones * torch.linspace(0.5, 1.5, 8, device=cuda)[:, None]).to(torch.bfloat16)
+    _probe_close(probes.norm(ones, e, 3, 2), probes.norm_ref(ones, e, 3, 2), torch.bfloat16)
+
+
+@pytest.mark.parametrize("steps,reps", [(0, 1), (3, 2), (64, 7)])
+def test_probe_addonly_and_vpu(cuda, steps, reps):
+    from hgmm_torch.ops import probes
+
+    x = _probe_inputs(64, 256, cuda, torch.bfloat16)[4]
+    assert torch.equal(probes.addonly(x, steps, reps), probes.addonly_ref(x, steps, reps))
+    x = x.clamp(-1.5, -0.5)
+    for mode in ("exp2", "cast"):
+        got, ref = probes.vpu(x, steps, reps, mode), probes.vpu_ref(x, steps, reps, mode)
+        ulp = (got.to(torch.bfloat16).view(torch.int16).int()
+               - ref.to(torch.bfloat16).view(torch.int16).int()).abs()
+        assert int(ulp.max()) <= (1 if mode == "exp2" else 0)
+        assert float((ulp > 0).float().mean()) < 0.01
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from hgmm_torch.ops import probes
+
+    wt, phi, e, ones, x = _probe_inputs(64, 256, cuda, torch.bfloat16)
+    with pytest.raises(ValueError):
+        probes.logits_cuda(wt, phi.float(), 1, 1)  # mixed types
+    with pytest.raises(ValueError):
+        probes.logits_cuda(wt[:48].contiguous(), phi, 1, 1)  # K % 64
+    with pytest.raises(ValueError):
+        probes.stats_cuda(phi[:32], e, 1, probes.MAX_REPS + 1)
+    with pytest.raises(ValueError):
+        probes.norm_cuda(ones.float(), e, 1, 1)
+    with pytest.raises(ValueError):
+        probes.vpu_cuda(x, 1, 1, "log2")
+
+
+def test_bench_on_the_card(cuda, capsys):
+    """run_bench at a small size on the card: the sweep launches the kernel
+    and agrees with the plain version."""
+    from hgmm_torch import bench, convert
+
+    fused_em.reset_launches()
+    res = bench.run_bench(device="cuda", n=1 << 16, k=64, sweeps=3)
+    assert fused_em.LAUNCHES["em_stats"] == 3 * 7  # 2 warm-up chains + 5 timed
+    mix, pts = bench.bench_problem(1 << 16, 64)
+    W = pack_loglik_weights(convert.mixture_from_numpy(*mix, device=cuda))
+    _check_em(res["stats"], em_ref.em_stats(torch.from_numpy(pts).to(cuda), W), 1 << 16)
+    assert 0 < res["vs_baseline"] <= 1.05
+    assert len(capsys.readouterr().out.strip().splitlines()) == 1

@@ -34,7 +34,7 @@ def detected(same_init, tmp_path_factory):
     ref = jodo.run_odometry(frames, jodo.OdometryConfig(**CFG), detect_closures=True,
                             closure_config=jlc.ClosureConfig(**closure))
     log = tmp_path_factory.mktemp("lc") / "m.jsonl"
-    got = todo.run_odometry(frames, todo.OdometryConfig(**CFG), detect_closures=True,
+    got = todo.run_odometry(frames, todo.OdometryConfig(**CFG, device="cpu"), detect_closures=True,
                             closure_config=tlc.ClosureConfig(**closure), metrics=MetricsLog(log))
     return gt, ref, got, log
 
@@ -107,7 +107,8 @@ def test_budget_skipped_candidates_are_observable(tmp_path):
     result = todo.OdometryResult(abs_poses=gt, rel_poses=[], logliks=[0.0] * (len(gt) - 1))
     log = tmp_path / "m.jsonl"
     with pytest.warns(UserWarning, match="verification budget"):
-        out = tlc.detect_loop_closures(frames, result, todo.OdometryConfig(model_kind="flat", k=8),
+        out = tlc.detect_loop_closures(frames, result,
+                                       todo.OdometryConfig(model_kind="flat", k=8, device="cpu"),
                                        config=tlc.ClosureConfig(min_separation=5, max_candidates=0),
                                        metrics=MetricsLog(log))
     assert out is None

@@ -1,6 +1,8 @@
-"""Two places where the port once diverged from the JAX package, on the CPU:
-the child directions of a tree with branch != 8, and config 3's top_k
-gating in a whole registration; and the tie rule of the gate.
+"""Places where the port once diverged from the JAX package or from its own
+rules, on the CPU: the child directions of a tree with branch != 8, config
+3's top_k gating in a whole registration, the tie rule of the gate, and the
+default device of the entry points that take host data (the card, never a
+silent CPU run).
 
 Both packages start from the same numpy init0; tolerances are those of
 tests/test_torch_models.py (tree fits) and tests/test_torch_register.py
@@ -93,3 +95,58 @@ def test_top_k_threshold_counts_ties_with_multiplicity():
     np.testing.assert_array_equal(got > tref.NEG_INF, [[True, True, False, False]])
     tpu = np.asarray(jfused._top_k_mask(jnp.asarray(logits.T), 2)).T  # K on the sublanes
     np.testing.assert_array_equal(tpu > tref.NEG_INF, [[True, True, True, False]])
+
+
+def _two_frames():
+    rng = np.random.default_rng(0)
+    return [rng.standard_normal((600, 3)).astype(np.float32) for _ in range(2)]
+
+
+def test_default_device_is_the_card_not_the_cpu(monkeypatch):
+    """OdometryConfig() and run_odometry(frames) resolve to the card and raise
+    without one; they never fall back to a CPU run. "cpu" has to be asked for."""
+    import hgmm_torch
+    from hgmm_torch.pipelines import odometry as todo
+    from hgmm_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        todo.OdometryConfig()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        hgmm_torch.run_odometry(_two_frames())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    assert todo.OdometryConfig(device="cpu").device == torch.device("cpu")
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert todo.OdometryConfig().device == torch.device("cuda")
+    assert todo.OdometryConfig(device=torch.device("cpu")).device.type == "cpu"
+
+
+def test_explicit_cpu_still_runs_the_plain_path():
+    from hgmm_torch.ops import fused_em
+    from hgmm_torch.pipelines import odometry as todo
+
+    fused_em.reset_launches()
+    cfg = todo.OdometryConfig(model_kind="flat", k=4, fit_iters=2, reg_iters=2, bucket=256,
+                              device="cpu")
+    res = todo.run_odometry(_two_frames(), cfg)
+    assert len(res.abs_poses) == 2 and res.abs_poses[1].R.device.type == "cpu"
+    assert all(c == 0 for c in fused_em.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("entry", ["bench", "mxu_microbench", "vpu_microbench", "kernel_shapes"])
+def test_bench_entry_points_default_to_the_card(monkeypatch, entry):
+    """The bench path's entry points make their data from a seed on the host,
+    so they cannot follow an input's device either."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "bench":
+        from hgmm_torch import bench
+
+        call = lambda: bench.run_bench(n=64, k=8, sweeps=1)  # noqa: E731
+    else:
+        call = importlib.import_module(f"hgmm_torch.benchmarks.{entry}").run
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
