@@ -6,10 +6,16 @@
 
 Run from the root of a checkout. It
 1. prints the card's name and power limit (nvidia-smi) and fails without CUDA;
-2. builds the CUDA kernels of hgmm_torch/csrc with nvcc (timed);
+2. builds the CUDA kernels of hgmm_torch/csrc with nvcc (timed) and prints the
+   registers and spill bytes of the register-tiled em_stats and of knn from
+   the -Xptxas -v log; a spill fails the run;
 3. checks each kernel against its plain PyTorch version on the card at small
    shapes (weights, outlier, dead components, parent -1, top_k gating with
-   exact ties, nearest neighbours with exact ties);
+   exact ties, nearest neighbours with exact ties; for the two redesigned
+   kernels also K off the tiling, N = 1 and ragged tiles, an all-dead
+   mixture, fewer targets than a chunk, one query, target splits, equal
+   targets across chunk, tile and split boundaries, a NaN target row, and
+   equal bits on two launches);
 4. drives the main path once: hgmm_torch.register_pair with the
    config2_tree_8x3 preset on a 437,645-point pair (the vertex count of the
    Stanford dragon; synthetic trefoil stand-in, ground truth z-rotation
@@ -138,6 +144,13 @@ MXU_SHAPES = ((512, 2048), (64, 8192))  # the reference's defaults; K=64 needs T
 MXU_LOOP = dict(steps=1024, r1=2, r2=6)
 VPU_LOOP = dict(k=512, t=512, steps=2048, r1=4, r2=8)
 MAX_SHARE = 1.05  # of a bound or a peak
+# The times of knn and of the unmasked K = 512 em_stats before their redesign,
+# at the same shapes (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6),
+# shown beside `ms`.
+MS_BEFORE = {"knn": 69.6, "em_stats_bench": 4.04}
+BEFORE_NOTE = "H100 80GB HBM3, 700.00 W, the kernel before its redesign"
+# Kernels whose -Xptxas -v report the build line prints; a spill fails the run.
+REPORTED_KERNELS = ("em_stats_tiled_kernel", "knn_kernel")
 
 
 # The odometry phase (config 4 through the CLI) and the LiDAR-scale checks.
@@ -313,8 +326,15 @@ def main() -> int:
     prebuilt = _build.library_path().exists()
     t0 = time.perf_counter()
     _build.load()
-    log({"phase": "build", "seconds": time.perf_counter() - t0, "library": _build.library_path().name,
-         "compiled_here": not prebuilt})
+    build_s = time.perf_counter() - t0
+    report = {name: rep for key in REPORTED_KERNELS for name, rep in _build.kernel_report(key).items()}
+    log({"phase": "build", "seconds": build_s, "library": _build.library_path().name,
+         "compiled_here": not prebuilt, "ptxas": report})
+    spilled = {name: rep for name, rep in report.items()
+               if rep.get("spill_store_bytes") or rep.get("spill_load_bytes") or "registers" not in rep}
+    if spilled or not all(any(key in name for name in report) for key in REPORTED_KERNELS):
+        raise CheckFailed(f"build: a kernel spills registers or is missing from the ptxas log: "
+                          f"{spilled or sorted(report)}")
 
     errs = {name: 0.0 for name in fused_em.LAUNCHES}
     small_checks(torch, dev, errs)
@@ -567,7 +587,70 @@ def small_checks(torch, dev, errs) -> None:
             check_knn(torch, qq, tt, idx, d2, ref_idx, ref_d2, errs, min_agree=0.98)
             if tt.shape[0] == 2 * nt and not int(idx.max()) < nt:
                 raise CheckFailed("knn: an exact tie went to the higher index")
+    new_kernel_edges(torch, dev, gen, errs)
     torch.cuda.synchronize()
+
+
+def new_kernel_edges(torch, dev, gen, errs) -> None:
+    """The edges of the register-tiled em_stats (K >= 64 unmasked) and of the
+    chunked, split knn, at small sizes; each result twice for equal bits."""
+    from hgmm_torch.ops import em_ref, fused_em, knn, prepare
+    from hgmm_torch.ops.gaussians import MixtureParams, pack_loglik_weights
+
+    # K off the tiling (padded floor rows), every tile plan, ragged and tiny N,
+    # zero-weight rows, an outlier logit, a dead component.
+    for k in (65, 100, 513, 1024, 2048):
+        params = random_mixture(torch, k, gen, dev, dead=(3,))
+        W = pack_loglik_weights(params)
+        for n in (1, 31, 300, 4097):
+            pts = torch.randn(n, 3, generator=gen).to(dev)
+            w = torch.rand(n, generator=gen).to(dev)
+            w[::5] = 0.0
+            for weights, outlier in ((None, None), (w, -3.0)):
+                p4 = prepare(pts, weights).pts4
+                got = fused_em.em_stats(p4, W, outlier)
+                check_em(torch, "em_stats", got, em_ref.em_stats(pts, W, weights, outlier),
+                         max(n, 300), errs)
+                again = fused_em.em_stats(p4, W, outlier)
+                if not (torch.equal(got.S, again.S) and torch.equal(got.loglik, again.loglik)):
+                    raise CheckFailed(f"em_stats K={k} N={n}: two launches differ")
+                if float(got.S[3].abs().max()) != 0.0:
+                    raise CheckFailed(f"em_stats K={k} N={n}: a dead component got mass")
+    # Every component dead: every point is dead, S and loglik are exactly 0.
+    params = random_mixture(torch, 100, gen, dev)
+    W = pack_loglik_weights(MixtureParams(torch.zeros_like(params.pi), params.mu, params.sigma))
+    got = fused_em.em_stats(prepare(torch.randn(1000, 3, generator=gen).to(dev)).pts4, W)
+    if float(got.S.abs().max()) != 0.0 or float(got.loglik) != 0.0:
+        raise CheckFailed("em_stats: an all-dead mixture gave nonzero or non-finite statistics")
+
+    # knn: fewer targets than a chunk, one query, a ragged last tile, more than
+    # one target split, and every target equal (exact ties across chunk, tile
+    # and split boundaries: index 0 must win everywhere).
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for nq, nt in ((1, 1), (1, 5000), (5000, 31), (2000, 513), (16_384, 16_384), (40_000, 1025)):
+        q = torch.randn(nq, 3, generator=gen).to(dev)
+        t = torch.randn(nt, 3, generator=gen).to(dev)
+        q[: min(nq, nt) // 2] = t[: min(nq, nt) // 2]
+        idx, d2 = knn.nearest_neighbor_cuda(q, t)
+        check_knn(torch, q, t, idx, d2, *knn.nearest_neighbor_ref(q, t), errs, min_agree=0.98)
+        again = knn.nearest_neighbor_cuda(q, t)
+        if not (torch.equal(idx, again[0]) and torch.equal(d2, again[1])):
+            raise CheckFailed(f"knn {nq} x {nt}: two launches differ")
+        same = torch.full((nt, 3), 0.25, device=dev)
+        if int(knn.nearest_neighbor_cuda(q, same)[0].abs().max()) != 0:
+            raise CheckFailed(f"knn {nq} x {nt}: of equal targets a later one won")
+    if not knn.plan_knn(16_384, 16_384, sms).splits > 1:
+        raise CheckFailed("knn: the 16,384 x 16,384 case was meant to run with target splits")
+    # A NaN target row never wins; the others are found as if it were far away.
+    q = torch.randn(3000, 3, generator=gen).to(dev)
+    t = torch.randn(5000, 3, generator=gen).to(dev)
+    t[2500] = float("nan")
+    idx, d2 = knn.nearest_neighbor_cuda(q, t)
+    far = t.clone()
+    far[2500] = 1e6
+    check_knn(torch, q, far, idx, d2, *knn.nearest_neighbor_ref(q, far), errs, min_agree=0.98)
+    if bool((idx == 2500).any()):
+        raise CheckFailed("knn: a NaN target row won")
 
 
 def make_pair(torch, n, dev):
@@ -859,6 +942,7 @@ def cli_bench(torch, dev, errs, timings):
     check_em(torch, "em_stats", fused_em.em_stats(prep.pts4, W), em_ref.em_stats(pts, W), n, errs)
     timings["em_stats"].append({"k": k, "n": n, "masked": False, "bench": True,
                                 "ms": cuda_ms(torch, lambda: fused_em.em_stats(prep.pts4, W)),
+                                "ms_before": MS_BEFORE["em_stats_bench"], "before": BEFORE_NOTE,
                                 "plain_ms": cuda_ms(torch, lambda: em_ref.em_stats(pts, W), reps=2,
                                                     warmup=1), "headline": False})
     log({"phase": "cli_bench", "wall_s": wall, "record": rec, "n": n, "k": k,
@@ -1038,8 +1122,8 @@ def cli_icp(torch, dev, work, errs, timings):
     agree = check_knn(torch, source, target, idx, d2, ref_idx, ref_d2, errs)
     ms = cuda_ms(torch, lambda: knn.nearest_neighbor_cuda(source, target), reps=5, warmup=1)
     plain = cuda_ms(torch, lambda: knn.nearest_neighbor_ref(source, target), reps=2, warmup=1)
-    timings["knn"] = [{"nq": N_POINTS, "nt": N_POINTS, "ms": ms, "plain_ms": plain,
-                       "headline": True}]
+    timings["knn"] = [{"nq": N_POINTS, "nt": N_POINTS, "ms": ms, "ms_before": MS_BEFORE["knn"],
+                       "before": BEFORE_NOTE, "plain_ms": plain, "headline": True}]
     log({"phase": "cli_icp", "n_source": N_POINTS, "n_target": N_POINTS, "iters": ICP_ITERS,
          "wall_s": wall,
          "registration_rmse": rmse, "bound": ICP_RMSE, "final_match_rmse": final_rmse,

@@ -7,7 +7,8 @@ Counterpart of ``benchmarks/trace_accounting.py``. Reads DIR/trace.json, the
 Chrome trace that ``hgmm_torch.utils.profiling.trace`` wrote, and splits the
 device time of the traced sweeps into
 
-  kernel      the E+M kernel (``hgmm::em_stats_kernel``), per sweep
+  kernel      the E+M kernel (``hgmm::em_stats_tiled_kernel`` at K >= 64,
+              ``hgmm::em_stats_kernel`` below), per sweep
   reduction   the cross-block sum of the partials (``reduce_partials_kernel``)
   torch       every other device event: the small kernels and copies of the
               wrapper's torch ops (packing W, allocations that memset)
@@ -35,7 +36,7 @@ from hgmm_torch.eval.roofline import (
 )
 from hgmm_torch.utils.profiling import DEVICE_CATS
 
-KERNEL = "em_stats_kernel"
+KERNELS = ("em_stats_tiled_kernel", "em_stats_kernel")  # csrc/em_stats.cu: K >= 64, K < 64
 REDUCTION = "reduce_partials_kernel"
 
 
@@ -44,9 +45,9 @@ def account(trace_json: str | Path, k: int = 512, n: int = 1 << 21) -> dict:
     events = json.loads(Path(trace_json).read_text())["traceEvents"]
     dev = sorted(((e["ts"], e["ts"] + e["dur"], e.get("name", ""), e.get("cat"))
                   for e in events if e.get("cat") in DEVICE_CATS and "dur" in e))
-    kern = [e for e in dev if e[3] == "kernel" and KERNEL in e[2]]
+    kern = [e for e in dev if e[3] == "kernel" and any(name in e[2] for name in KERNELS)]
     if not kern:
-        raise SystemExit(f"{trace_json}: no {KERNEL} device event (a CPU trace holds none)")
+        raise SystemExit(f"{trace_json}: no {' or '.join(KERNELS)} device event (a CPU trace holds none)")
     # The window of the sweeps: first kernel event to the end of the last
     # device event that starts before the last kernel's reduction ends.
     t0 = kern[0][0]

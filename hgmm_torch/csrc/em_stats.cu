@@ -6,9 +6,58 @@
 // hgmm_torch/ops/em_ref.py:em_stats / em_stats_masked.
 //
 // Computes S = Gamma^T Psi [K, 10] and loglik = sum_i w_i lse_i without ever
-// writing the [N, K] responsibilities to memory.
+// writing the [N, K] responsibilities to memory. Every block writes a
+// [K*10 + 1] partial and reduce_partials sums the blocks in a fixed order in
+// float64, so the result is reproducible run to run (the M-step's
+// T2/T0 - mu mu^T cancels in float32; a scheduling-dependent sum order would
+// show there).
 //
-// Design. One block of TILE threads walks tiles of TILE points (grid-stride).
+// Two kernel bodies; hgmm_torch/ops/fused_em.py:plan_em_tiles picks by K and
+// the mask alone.
+//
+// em_stats_tiled_kernel: unmasked, K >= 64 (the bench sweep, K = 512).
+//   What bounds it on the card: float32 arithmetic. A point and component
+//   need 10 FMA for the logit, one exp2 and 10 FMA for the statistics; at
+//   K = 512 that is 641 us for 2^21 points at the 67 TFLOP/s peak, against
+//   10 us for the 16 bytes a point. A scheme that reads one operand of every
+//   FMA from shared memory stops at ~28 TFLOP/s on this card (the float32
+//   probes of csrc/probes.cu), so the design is about registers:
+//   - One block of 256 threads takes a tile of P points and ALL K components.
+//     Thread (pg, cg) owns an 8 x 8 tile of logits: 8 points of point group
+//     pg, 8 components of component group cg. For each feature it loads 8
+//     psi values and 8 weights from shared memory (four 16-byte loads) for 64
+//     FMAs. Every logit is evaluated ONCE and stays in its register.
+//   - Per point the max over the thread's 8 logits, then over the component
+//     groups by warp shuffles (the lanes of a warp lie along the components of
+//     one point group; the 8 points are reduced by halving, 9 shuffles in
+//     place of 40: whole butterflies cost 5 % of a sweep more,
+//     benchmarks/kernel_variants.py) and, where a point group spans several
+//     warps, one shared-memory exchange behind a named barrier that only
+//     those warps wait at. e = exp2(l log2e - m log2e) ONCE a pair, in place, by the
+//     special-function unit alone (exp2_ftz); the sum the same way; the
+//     scale w / s and the log-evidence once a point (finish_soft, the outlier
+//     term included), then shuffled to the lanes.
+//   - The thread keeps its 8 x 10 statistics in registers across all tiles of
+//     its block and adds (scale e) psi, reading psi again from shared memory.
+//     At the end the point groups' sums are added in group order.
+//   - The grid is persistent (at most one block an SM, tiles grid-stride), so
+//     there are <= 132 partial rows. 64 independent FMA chains a thread hide
+//     latency by instruction-level parallelism, not occupancy.
+//   - The next tile's points (16 bytes a point) come in by cp.async while the
+//     current tile computes, staged by the point group that will read them, so
+//     the loop has no block-wide barrier and the point groups drift apart. The
+//     tensor memory accelerator would move the same few hundred bytes a tile,
+//     and the tensor cores (wgmma) are not used on purpose: the quadratic
+//     form's terms reach ~1e6 at metric scale and cancel, which bf16 or TF32
+//     operands lose, and the product is 10 deep.
+//   - K is padded to the tiling (a power of two) with rows of zero weights
+//     and a bias at the mask floor: e = 0, never the max of a live point, and
+//     a point with every logit at the floor stays dead. Their statistics are
+//     not written.
+//
+// em_stats_kernel: masked calls and K < 64 (the tree's level 0, K = 8, where
+//   the call is bound by the 16 bytes a point and by the launch).
+//   One block of TILE threads walks tiles of TILE points (grid-stride).
 //   Phase 1, one thread per point: psi(y), then the exact two-pass softmax
 //     over the K components (or, masked, the parent's `branch` children);
 //     psi, the max and the softmax scale go to shared memory.
@@ -17,17 +66,6 @@
 //     and accumulates gamma_ij psi_i in registers; the tile's sum is added to
 //     the (g, j) slot of a block-private [G*K, 10] shared accumulator that no
 //     other thread touches. Masked, a thread skips the points of other parents.
-// Each block then writes its [K*10 + 1] partial (groups summed in order),
-// and reduce_partials sums the blocks in a fixed order in float64, so the
-// result is reproducible run to run (the M-step's T2/T0 - mu mu^T cancels
-// in float32; a scheduling-dependent sum order would show there).
-//
-// What bounds it on the card: at K=512 it is arithmetic, about 3 logit
-// evaluations (10 FMA each) + 2 exp2 + 10 FMA per point and component, from
-// shared memory that every thread of a warp reads at the same address; at
-// K=8 it is the 16 bytes a point that it reads from device memory and the
-// launch itself. Making it fast (tensor cores, fewer logit passes) is later
-// work; this kernel is the simple, exact one.
 #include "hgmm_kernels.cuh"
 
 namespace hgmm {
@@ -135,6 +173,310 @@ __global__ void __launch_bounds__(TILE)
   if (t == 0) out[k * 10] = ll_s[0];
 }
 
+// ---------------------------------------------------------------------------
+// The register-tiled kernel (unmasked, K >= 64).
+
+constexpr int EMT_THREADS = 256;
+constexpr int EMT_PT = 8;  // points a thread (ops/fused_em.py:EMT_PT)
+constexpr int EMT_CT = 8;  // components a thread (ops/fused_em.py:EMT_CT)
+
+// 2^x by the special-function unit alone (ex2.approx.ftz). exp2f wraps the
+// same instruction in a range guard (a compare and two multiplies) that keeps
+// results below 2^-126 as denormals; here they flush to 0, a change of under
+// 1.2e-38 in a softmax term whose largest is 1.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Reduce v[0..7] (one value a point) over the SEG lanes of a point group with
+// `op`, by halving: after each of three exchanges a lane carries half as many
+// points, then whole butterflies on the one that is left: 9 shuffles instead
+// of 40 at SEG = 32. Lane li ends with the total of point
+// 4 bit(SEG/2) + 2 bit(SEG/4) + bit(SEG/8) of li; lane emt_owner(i) of the
+// group's lanes is the first that holds point i.
+template <int SEG, typename Op>
+__device__ __forceinline__ float emt_reduce8(const float (&v)[8], int li, Op op) {
+  const bool b4 = li & (SEG / 2), b2 = li & (SEG / 4), b1 = li & (SEG / 8);
+  float a[4], b[2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    a[q] = op(b4 ? v[4 + q] : v[q], __shfl_xor_sync(FULL_MASK, b4 ? v[q] : v[4 + q], SEG / 2));
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    b[q] = op(b2 ? a[2 + q] : a[q], __shfl_xor_sync(FULL_MASK, b2 ? a[q] : a[2 + q], SEG / 4));
+  float c = op(b1 ? b[1] : b[0], __shfl_xor_sync(FULL_MASK, b1 ? b[0] : b[1], SEG / 8));
+#pragma unroll
+  for (int off = SEG / 16; off > 0; off >>= 1) c = op(c, __shfl_xor_sync(FULL_MASK, c, off));
+  return c;
+}
+
+template <int SEG>
+__device__ __forceinline__ constexpr int emt_owner(int i) {
+  return ((i >> 2) & 1) * (SEG / 2) + ((i >> 1) & 1) * (SEG / 4) + (i & 1) * (SEG / 8);
+}
+
+// Shared-memory floats of the tiled kernel with NCG component groups
+// (ops/fused_em.py:EmTilePlan.smem_bytes repeats this sum).
+constexpr size_t emt_smem_floats(int ncg) {
+  const int kp = ncg * EMT_CT, npg = EMT_THREADS / ncg, p = npg * EMT_PT;
+  const int nw = ncg > 32 ? ncg / 32 : 1;
+  return (size_t)10 * kp + 20 * p + 8 * p + 2 * p * nw + (size_t)npg * kp * 10 + EMT_THREADS;
+}
+
+// NCG component groups of 8 components: K_pad = 8 NCG. The 256 threads form
+// 256 / NCG point groups of 8 points: a tile is P = 2048 / NCG points.
+// Thread t: component group cg = t % NCG, point group pg = t / NCG. Its
+// components are j(c) = (c / 4) (K_pad / 2) + 4 cg + c % 4, c = 0..7: two
+// runs of 4, so that the lanes of a warp read consecutive 16-byte words of a
+// feature's weight row (no bank conflict) while they share their psi words
+// (a broadcast).
+template <int NCG>
+__global__ void __launch_bounds__(EMT_THREADS, 1)
+    em_stats_tiled_kernel(const float* __restrict__ pts4, int n, const float* __restrict__ wn,
+                          int k, int has_outlier, float outlier, float* __restrict__ partial) {
+  constexpr int KP = NCG * EMT_CT;
+  constexpr int NPG = EMT_THREADS / NCG;
+  constexpr int P = NPG * EMT_PT;
+  constexpr int SEG = NCG < 32 ? NCG : 32;  // lanes of a warp on one point group
+  constexpr int NW = NCG / SEG;             // warps a point group spans
+  extern __shared__ float4 smem4[];
+  float* w_s = reinterpret_cast<float*>(smem4);  // [10][KP], feature-major
+  float* psi_s = w_s + 10 * KP;                  // [2][10][P]: 9 features, then the weight
+  float* raw_s = psi_s + 20 * P;                 // [2][4][P]: x, y, z, w as copied
+  float* red_s = raw_s + 8 * P;                  // [2][P][NW]: max, then sum, across warps
+  float* stage_s = red_s + 2 * P * NW;           // [NPG][KP * 10]
+  float* ll_s = stage_s + NPG * KP * 10;         // [EMT_THREADS]
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int cg = t % NCG;
+  const int pg = t / NCG;
+  const int li = lane & (SEG - 1);     // position among the lanes of this point group
+  const int seg0 = lane & ~(SEG - 1);  // first of them
+  const int wi = cg / 32;              // this warp among the warps of the group
+  // After emt_reduce8 this lane holds point `mine` of its group's eight;
+  // one lane a point and warp posts it to the other warps.
+  const int mine = 4 * ((li / (SEG / 2)) & 1) + 2 * ((li / (SEG / 4)) & 1) + ((li / (SEG / 8)) & 1);
+  const bool posts = (li & (SEG / 8 - 1)) == 0;
+  const int ntiles = (n + P - 1) / P;
+
+  // The weight table [KP, 12] -> feature-major rows.
+  for (int idx = t; idx < KP * 12; idx += EMT_THREADS) {
+    const int j = idx / 12, f = idx - 12 * j;
+    if (f < 10) w_s[f * KP + j] = wn[idx];
+  }
+
+  // The first 8 threads of a point group stage its 8 points of a tile: the
+  // copy of the tile's rows into raw_s[buf] (zeros outside the cloud), and
+  // psi of a landed copy. Nobody else reads those rows, so the point groups
+  // need no barrier between them and drift apart: while one is in its exp2
+  // pass (the special-function unit), its scheduler issues another's FMAs.
+  const bool stager = cg < EMT_PT;
+  const int row = pg * EMT_PT + cg;
+  auto start_copy = [&](int tile, int buf) {
+    if (stager) {
+      float* dst = raw_s + buf * 4 * P + row;
+      const long long i = (long long)tile * P + row;
+      if (tile < ntiles && i < n) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) cp_async_f32(dst + r * P, pts4 + (size_t)r * n + i);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dst[r * P] = 0.0f;
+      }
+    }
+    cp_async_commit();
+  };
+  auto stage_psi = [&](int buf) {  // the thread reads what it copied itself
+    if (stager) {
+      const float* src = raw_s + buf * 4 * P + row;
+      const Psi p = features(src[0], src[P], src[2 * P]);
+      float* dst = psi_s + buf * 10 * P + row;
+#pragma unroll
+      for (int f = 0; f < 9; ++f) dst[f * P] = p.v[f];
+      dst[9 * P] = src[3 * P];
+    }
+  };
+  // Barrier of one point group: its NW warps, or the lanes of its one warp.
+  auto group_sync = [&]() {
+    if constexpr (NW > 1) {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + pg), "r"(NCG) : "memory");
+    } else {
+      __syncwarp();
+    }
+  };
+
+  float acc[EMT_CT][10];
+#pragma unroll
+  for (int c = 0; c < EMT_CT; ++c)
+#pragma unroll
+    for (int f = 0; f < 10; ++f) acc[c][f] = 0.0f;
+  float ll_acc = 0.0f;
+
+  start_copy(blockIdx.x, 0);
+  cp_async_wait_all();
+  stage_psi(0);
+  start_copy(blockIdx.x + gridDim.x, 1);
+  __syncthreads();  // the weight table and the first tile's psi
+
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++it) {
+    const float* psi = psi_s + (it & 1) * 10 * P + pg * EMT_PT;
+    const float* wrow = w_s + 4 * cg;
+    float* red_max = red_s + (pg * EMT_PT) * NW;  // this group's [8][NW] exchange slots
+    float* red_sum = red_max + P * NW;
+
+    // ---- One logit pass: l[i][c] = wn_j(c) . psi_i, in the order of logit().
+    float l[EMT_PT][EMT_CT];
+    float pv[EMT_PT], wv[EMT_CT];
+    auto load_psi = [&](int f) {
+      const float4 a = *reinterpret_cast<const float4*>(psi + f * P);
+      const float4 b = *reinterpret_cast<const float4*>(psi + f * P + 4);
+      pv[0] = a.x; pv[1] = a.y; pv[2] = a.z; pv[3] = a.w;
+      pv[4] = b.x; pv[5] = b.y; pv[6] = b.z; pv[7] = b.w;
+    };
+    auto load_w = [&](int f) {
+      const float4 a = *reinterpret_cast<const float4*>(wrow + f * KP);
+      const float4 b = *reinterpret_cast<const float4*>(wrow + f * KP + KP / 2);
+      wv[0] = a.x; wv[1] = a.y; wv[2] = a.z; wv[3] = a.w;
+      wv[4] = b.x; wv[5] = b.y; wv[6] = b.z; wv[7] = b.w;
+    };
+    load_psi(0);
+    load_w(0);
+#pragma unroll
+    for (int i = 0; i < EMT_PT; ++i)
+#pragma unroll
+      for (int c = 0; c < EMT_CT; ++c) l[i][c] = wv[c] * pv[i];
+#pragma unroll
+    for (int f = 1; f < 9; ++f) {
+      load_psi(f);
+      load_w(f);
+#pragma unroll
+      for (int i = 0; i < EMT_PT; ++i)
+#pragma unroll
+        for (int c = 0; c < EMT_CT; ++c) l[i][c] = fmaf(wv[c], pv[i], l[i][c]);
+    }
+    load_w(9);  // psi[9] == 1
+#pragma unroll
+    for (int i = 0; i < EMT_PT; ++i)
+#pragma unroll
+      for (int c = 0; c < EMT_CT; ++c) l[i][c] = wv[c] + l[i][c];
+
+    // ---- The exact max of each point: thread, lanes, then warps.
+    float m[EMT_PT];
+#pragma unroll
+    for (int i = 0; i < EMT_PT; ++i) {
+      m[i] = l[i][0];
+#pragma unroll
+      for (int c = 1; c < EMT_CT; ++c) m[i] = fmaxf(m[i], l[i][c]);
+    }
+    float m_mine = emt_reduce8<SEG>(m, li, [](float a, float b) { return fmaxf(a, b); });
+    if constexpr (NW > 1) {
+      if (posts) red_max[mine * NW + wi] = m_mine;
+    }
+    group_sync();  // everyone of the group has left the last tile's statistics pass
+    if constexpr (NW > 1) {
+      m_mine = red_max[mine * NW];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) m_mine = fmaxf(m_mine, red_max[mine * NW + w]);
+    }
+    if (has_outlier) m_mine = fmaxf(m_mine, outlier);
+    // The next tile's psi, for after the next group_sync; then the copy of
+    // the tile after it into the raw buffer just consumed.
+    cp_async_wait_all();
+    stage_psi((it + 1) & 1);
+    start_copy(tile + 2 * gridDim.x, it & 1);
+
+    // ---- e = exp2(l log2e - m log2e), once a pair and in place; its sum.
+    float s[EMT_PT];
+#pragma unroll
+    for (int i = 0; i < EMT_PT; ++i) {
+      const float mi = __shfl_sync(FULL_MASK, m_mine, seg0 + emt_owner<SEG>(i));
+      // A dead point (every logit at the floor) gets e = 0: the floor times
+      // log2e rounds, and exp2 of that residue would overflow.
+      const float m2 = mi > NEG_INF ? mi * LOG2E : INFINITY;
+      s[i] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < EMT_CT; ++c) {
+        l[i][c] = exp2_ftz(fmaf(l[i][c], LOG2E, -m2));
+        s[i] += l[i][c];
+      }
+    }
+    float s_mine = emt_reduce8<SEG>(s, li, [](float a, float b) { return a + b; });
+    if constexpr (NW > 1) {
+      if (posts) red_sum[mine * NW + wi] = s_mine;
+    }
+    group_sync();  // the next tile's psi is visible to the group
+    if constexpr (NW > 1) {
+      s_mine = red_sum[mine * NW];
+#pragma unroll
+      for (int w = 1; w < NW; ++w) s_mine += red_sum[mine * NW + w];
+    }
+
+    // ---- Scale and log-evidence of this lane's point (the lanes that hold
+    // the same point compute the same); the scales then go round by shuffle.
+    const Soft r = finish_soft(m_mine, fmaxf(m_mine, NEG_INF) * LOG2E, s_mine, has_outlier, outlier,
+                               psi[9 * P + mine]);
+    if (posts && wi == 0) ll_acc += r.lse;  // one lane a point
+
+    // ---- Statistics: acc[c][:] += (scale_i e_ic) psi_i.
+#pragma unroll
+    for (int i = 0; i < EMT_PT; ++i) {
+      const float scale = __shfl_sync(FULL_MASK, r.scale, seg0 + emt_owner<SEG>(i));
+#pragma unroll
+      for (int c = 0; c < EMT_CT; ++c) {
+        l[i][c] *= scale;
+        acc[c][9] += l[i][c];
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < 9; ++f) {
+      load_psi(f);
+#pragma unroll
+      for (int i = 0; i < EMT_PT; ++i)
+#pragma unroll
+        for (int c = 0; c < EMT_CT; ++c) acc[c][f] = fmaf(l[i][c], pv[i], acc[c][f]);
+    }
+  }
+
+  // ---- Block partial: the point groups summed in order, then the loglik tree.
+#pragma unroll
+  for (int c = 0; c < EMT_CT; ++c) {
+    const int j = (c / 4) * (KP / 2) + 4 * cg + (c & 3);
+#pragma unroll
+    for (int f = 0; f < 10; ++f) stage_s[(size_t)pg * KP * 10 + j * 10 + f] = acc[c][f];
+  }
+  ll_s[t] = ll_acc;
+  __syncthreads();
+  float* out = partial + (size_t)blockIdx.x * (k * 10 + 1);
+  for (int idx = t; idx < k * 10; idx += EMT_THREADS) {
+    float v = 0.0f;
+    for (int g = 0; g < NPG; ++g) v += stage_s[(size_t)g * KP * 10 + idx];
+    out[idx] = v;
+  }
+  for (int stride = EMT_THREADS / 2; stride > 0; stride >>= 1) {
+    if (t < stride) ll_s[t] += ll_s[t + stride];
+    __syncthreads();
+  }
+  if (t == 0) out[k * 10] = ll_s[0];
+}
+
+template <int NCG>
+cudaError_t launch_em_stats_tiled(const float* pts4, int n, const float* wn, int k, int has_outlier,
+                                  float outlier, float* partial, int nb, float* out,
+                                  cudaStream_t stream) {
+  const size_t smem = sizeof(float) * emt_smem_floats(NCG);
+  cudaError_t err = cudaFuncSetAttribute(em_stats_tiled_kernel<NCG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  em_stats_tiled_kernel<NCG><<<nb, EMT_THREADS, smem, stream>>>(pts4, n, wn, k, has_outlier,
+                                                                outlier, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce_partials(partial, nb, k * 10 + 1, out, stream);
+}
+
 // One warp per output: lane l sums the blocks l, l + 32, ... in float64, then
 // a butterfly over the lanes. The order is fixed, so the sum is reproducible.
 __global__ void reduce_partials_kernel(const float* __restrict__ partial, int nb, int m,
@@ -196,6 +538,29 @@ int hgmm_em_stats(const void* pts4, int n, const void* wn, int k, const void* pa
                                             has_outlier, outlier, part, nb, o, s);
   return (int)hgmm::launch_em_stats<false>(p, n, w, k, nullptr, 1, has_outlier, outlier, part,
                                            nb, o, s);
+}
+
+// The same S and loglik for an unmasked call with K >= 64 through the
+// register-tiled kernel: wn is [k_pad, 12] with rows k..k_pad-1 at the mask
+// floor, k_pad one of 64, 128, ..., 2048; partial is [nb, K*10 + 1] scratch
+// with nb <= the SM count. Returns the CUDA error code (cudaErrorInvalidValue
+// for a k_pad outside the list).
+int hgmm_em_stats_tiled(const void* pts4, int n, const void* wn, int k, int k_pad, int has_outlier,
+                        float outlier, void* partial, int nb, void* out, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto p = static_cast<const float*>(pts4);
+  const auto w = static_cast<const float*>(wn);
+  auto part = static_cast<float*>(partial);
+  auto o = static_cast<float*>(out);
+  switch (k_pad) {
+    case 64: return (int)hgmm::launch_em_stats_tiled<8>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    case 128: return (int)hgmm::launch_em_stats_tiled<16>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    case 256: return (int)hgmm::launch_em_stats_tiled<32>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    case 512: return (int)hgmm::launch_em_stats_tiled<64>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    case 1024: return (int)hgmm::launch_em_stats_tiled<128>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    case 2048: return (int)hgmm::launch_em_stats_tiled<256>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* hgmm_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -23,6 +23,7 @@ namespace hgmm {
 constexpr float NEG_INF = -1e30f;  // em_ref.NEG_INF, the mask floor
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TILE = 256;  // points per block tile == threads per block
+constexpr unsigned FULL_MASK = 0xffffffffu;  // every lane of a warp
 
 struct Psi {
   float v[10];  // [x^2, y^2, z^2, xy, xz, yz, x, y, z, 1]
@@ -107,6 +108,20 @@ __device__ __forceinline__ Soft finish_soft(float m, float m2, float s, bool has
   r.scale = w / ss;
   r.lse = w * (fmaxf(m, NEG_INF) + logf(ss));
   return r;
+}
+
+// Asynchronous 4-byte copy from device to shared memory (cp.async): the copy
+// is in flight while the thread goes on; cp_async_wait_all() waits for this
+// thread's copies, and a barrier then makes them visible to the block.
+__device__ __forceinline__ void cp_async_f32(float* smem_dst, const float* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem_src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Sum `m` per-block partials [nb, m] over blocks in a fixed order

@@ -22,10 +22,13 @@ what a kernel executes: per point and visible component one logit (10 FMA =
 20 flop, ``csrc/hgmm_kernels.cuh:logit``), one exp2 on the special-function
 unit, and the kernel's contraction (10 FMA for the sufficient statistics,
 ``csrc/em_stats.cu`` phase 2; 12 FMA + 1 add for ``csrc/reg_stats.cu``). A
-masked point needs its parent's ``branch`` children, not all K. The shipped
-``em_stats`` kernel evaluates each logit three times and ``reg_stats`` twice
-(max pass, sum pass, statistics pass): that is executed work, and shows as a
-share of the bound below 100 %.
+masked point needs its parent's ``branch`` children, not all K. Executed work
+is more, and shows as a share of the bound below 100 %: the unmasked
+``em_stats`` at K >= 64 (``em_stats_tiled_kernel``) evaluates each logit and
+each exp2 once, and adds the max, the sum, the scale and the shuffles between
+lanes to the 20 FMA a pair; the first ``em_stats`` body (K < 64 and every
+masked call) evaluates each logit three times and ``reg_stats`` twice (max
+pass, sum pass, statistics pass).
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -34,9 +35,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (every pointer and the stream as c_void_p)
     "hgmm_em_stats": (_P, _I, _P, _I, _P, _I, _I, _F, _P, _I, _P, _P),
+    "hgmm_em_stats_tiled": (_P, _I, _P, _I, _I, _I, _F, _P, _I, _P, _P),
     "hgmm_reg_stats": (_P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _I, _P, _P),
     "hgmm_assign": (_P, _I, _P, _I, _P, _I, _I, _P, _P),
-    "hgmm_knn": (_P, _I, _P, _I, _P, _P, _P),
+    "hgmm_knn": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     "hgmm_probe_logits": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "hgmm_probe_stats": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "hgmm_probe_norm": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
@@ -99,6 +101,37 @@ def build() -> Path:
         Path(f"{out}.log").write_text(log)
         os.replace(lib, out)
     return out
+
+
+def kernel_report(match: str = "") -> dict[str, dict[str, int]]:
+    """Registers, stack frame and spill bytes of every compiled kernel whose
+    (mangled) name contains `match`, read from the ``-Xptxas -v`` log that
+    build() keeps beside the library: {name: {"registers", "stack_bytes",
+    "spill_store_bytes", "spill_load_bytes"}}."""
+    return parse_ptxas_log(Path(f"{build()}.log").read_text(), match)
+
+
+def parse_ptxas_log(log: str, match: str = "") -> dict[str, dict[str, int]]:
+    report: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = entry.group(1) if match in entry.group(1) else None
+            if name is not None:
+                report[name] = {}
+            continue
+        if name is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if frame:
+            report[name].update(stack_bytes=int(frame.group(1)), spill_store_bytes=int(frame.group(2)),
+                                spill_load_bytes=int(frame.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            report[name]["registers"] = int(used.group(1))
+    return report
 
 
 def load() -> ctypes.CDLL:

@@ -10,19 +10,32 @@ stream, raises on a nonzero CUDA error code and adds one to its entry of
 The kernels compute what the TPU kernels compute with float32 FMAs and an
 exact per-point max in the softmax, so they take no softmax shift; their
 sums are reduced in a fixed order and are reproducible run to run.
+
+``em_stats`` has two kernel bodies (``csrc/em_stats.cu``): unmasked calls with
+K >= 64 run the register-tiled one on a persistent grid, with the launch
+geometry of ``plan_em_tiles``; every masked call and K < 64 run the first
+one. K and the mask alone decide, here.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from hgmm_torch.ops import _build
-from hgmm_torch.ops.em_ref import EmStats, RegStats
+from hgmm_torch.ops.em_ref import NEG_INF, EmStats, RegStats
 
 TILE = 256  # points per block tile; csrc/hgmm_kernels.cuh:TILE
 MAX_BLOCKS = 1024  # cap of the grid (and of the partial-sum rows)
 MAX_K = 2048  # largest K whose tables fit in shared memory
 MAX_TOP_K = 32  # largest top_k < K that reg_stats gates (csrc/reg_stats.cu)
+# The register-tiled em_stats kernel (csrc/em_stats.cu:em_stats_tiled_kernel).
+EMT_THREADS = 256
+EMT_PT = 8  # points a thread
+EMT_CT = 8  # components a thread
+EMT_MIN_K = 64  # below it the call is bound by bytes and the launch: the first kernel body
+SMEM_LIMIT = 232_448  # bytes of shared memory a block can use on the H100 (227 KB)
 
 # Kernel launches by wrapper, for showing that a run went through the kernels
 # (ops/knn.py and ops/probes.py count their kernels here too).
@@ -54,18 +67,77 @@ def _check_points(pts4: torch.Tensor) -> int:
     return pts4.shape[1]
 
 
-def _pack_w(W: torch.Tensor, device) -> torch.Tensor:
-    """W [>=10, K] -> [K, 12] f32 rows -1/2 W[:, j] with two zero columns."""
+def _pack_w(W: torch.Tensor, device, rows: int | None = None) -> torch.Tensor:
+    """W [>=10, K] -> [rows, 12] f32 (rows = K unless given): row j < K is
+    -1/2 W[:, j] with two zero columns; a row past K has zero weights and its
+    bias at the mask floor, so its logit is the floor for every point."""
     k = W.shape[1]
     if not 1 <= k <= MAX_K:
         raise ValueError(f"K={k} outside [1, {MAX_K}]")
-    wn = torch.zeros((k, 12), dtype=torch.float32, device=device)
-    wn[:, :10] = -0.5 * W[:10].T.to(device=device, dtype=torch.float32)
+    wn = torch.zeros((rows or k, 12), dtype=torch.float32, device=device)
+    wn[:k, :10] = -0.5 * W[:10].T.to(device=device, dtype=torch.float32)
+    wn[k:, 9] = NEG_INF
     return wn
 
 
 def _n_blocks(n: int) -> int:
     return max(1, min(MAX_BLOCKS, -(-n // TILE)))
+
+
+@dataclasses.dataclass(frozen=True)
+class EmTilePlan:
+    """Launch geometry of the register-tiled em_stats kernel: 256 threads as
+    `point_groups` x `comp_groups`, each thread EMT_PT points x EMT_CT
+    components of a tile of `points` points and all `k_pad` components."""
+
+    k: int
+    k_pad: int  # K rounded up to the tiling; rows k.. are floor rows
+    comp_groups: int  # the kernel's template argument NCG
+    point_groups: int
+    points: int  # P, points a tile
+
+    def components(self, cg: int) -> list[int]:
+        """The k_pad-row indices of component group cg: two runs of four, so
+        that neighbouring lanes read neighbouring 16-byte words."""
+        return [(c // 4) * (self.k_pad // 2) + 4 * cg + c % 4 for c in range(EMT_CT)]
+
+    def tile_points(self, pg: int) -> list[int]:
+        """The tile rows of point group pg."""
+        return list(range(pg * EMT_PT, (pg + 1) * EMT_PT))
+
+    @property
+    def smem_bytes(self) -> int:
+        """csrc/em_stats.cu:emt_smem_floats: the weight table, two psi tiles,
+        two raw tiles, the cross-warp max and sum, the end-of-block staging of
+        every thread's statistics, the loglik tree."""
+        p, warps = self.points, max(self.comp_groups // 32, 1)
+        floats = (10 * self.k_pad + 20 * p + 8 * p + 2 * p * warps
+                  + self.point_groups * self.k_pad * 10 + EMT_THREADS)
+        return 4 * floats
+
+    @property
+    def state_registers(self) -> int:
+        """Registers a thread holds across a tile: its logits, its statistics,
+        the per-point max and sum, one feature's psi and weight operands."""
+        return EMT_PT * EMT_CT + EMT_CT * 10 + 2 * EMT_PT + EMT_PT + EMT_CT
+
+    def blocks(self, n: int, sms: int) -> int:
+        """Persistent grid: one block an SM at most, never more than tiles."""
+        return max(1, min(sms, -(-n // self.points)))
+
+
+def plan_em_tiles(k: int, masked: bool = False) -> EmTilePlan | None:
+    """The tile plan of an em_stats call, or None where the first kernel body
+    (one thread a point, then threads per component) runs: every masked call
+    and K < EMT_MIN_K. The choice depends on K and the mask alone."""
+    if masked or k < EMT_MIN_K:
+        return None
+    if k > MAX_K:
+        raise ValueError(f"K={k} outside [1, {MAX_K}]")
+    k_pad = 1 << (k - 1).bit_length()
+    ncg = k_pad // EMT_CT
+    npg = EMT_THREADS // ncg
+    return EmTilePlan(k=k, k_pad=k_pad, comp_groups=ncg, point_groups=npg, points=npg * EMT_PT)
 
 
 def _parent(parent: torch.Tensor, n: int, branch: int) -> torch.Tensor:
@@ -92,18 +164,27 @@ def _outlier(outlier_logit) -> tuple[int, float]:
 
 def _em_stats(pts4, W, parent, branch, outlier_logit, counter) -> EmStats:
     n = _check_points(pts4)
-    wn = _pack_w(W, pts4.device)
-    k = wn.shape[0]
-    nb = _n_blocks(n)
+    k = W.shape[1]
+    plan = plan_em_tiles(k, masked=parent is not None)
+    wn = _pack_w(W, pts4.device, None if plan is None else plan.k_pad)
+    if plan is None:
+        nb = _n_blocks(n)
+    else:
+        nb = plan.blocks(n, torch.cuda.get_device_properties(pts4.device).multi_processor_count)
     partial = torch.empty((nb, k * 10 + 1), dtype=torch.float32, device=pts4.device)
     out = torch.empty((k * 10 + 1,), dtype=torch.float32, device=pts4.device)
     has_out, out_l = _outlier(outlier_logit)
-    par_ptr = None if parent is None else parent.data_ptr()
     with torch.cuda.device(pts4.device):
-        err = _build.load().hgmm_em_stats(
-            pts4.data_ptr(), n, wn.data_ptr(), k, par_ptr, branch or 1, has_out, out_l,
-            partial.data_ptr(), nb, out.data_ptr(), _stream(pts4),
-        )
+        if plan is None:
+            err = _build.load().hgmm_em_stats(
+                pts4.data_ptr(), n, wn.data_ptr(), k, None if parent is None else parent.data_ptr(),
+                branch or 1, has_out, out_l, partial.data_ptr(), nb, out.data_ptr(), _stream(pts4),
+            )
+        else:
+            err = _build.load().hgmm_em_stats_tiled(
+                pts4.data_ptr(), n, wn.data_ptr(), k, plan.k_pad, has_out, out_l,
+                partial.data_ptr(), nb, out.data_ptr(), _stream(pts4),
+            )
     _raise_on(err, counter)
     LAUNCHES[counter] += 1
     return EmStats(S=out[: k * 10].view(k, 10), loglik=out[k * 10])

@@ -14,9 +14,63 @@ chosen neighbour's distance, and on the index except at near-ties.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from hgmm_torch.ops import _build, fused_em
+
+KNN_QPB = 1024  # queries a block: 128 threads x 8 queries (csrc/knn.cu:KNN_QPB)
+KNN_TILE = 512  # targets a shared-memory tile (csrc/knn.cu:KNN_TILE)
+KNN_RESIDENT = 4  # blocks an SM holds (csrc/knn.cu: __launch_bounds__(128, 4))
+MAX_SPLITS = 32  # cap of the target splits (and of the partial rows a query merges)
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class KnnPlan:
+    query_blocks: int  # grid.x: blocks of KNN_QPB queries
+    splits: int  # grid.y: runs of `span` targets; > 1 needs the merge kernel
+    span: int  # targets a split, a multiple of KNN_TILE
+
+    @property
+    def blocks(self) -> int:
+        return self.query_blocks * self.splits
+
+
+def _balance(blocks: int, sms: int) -> float:
+    """Share of the SMs' time that does work when `blocks` equal blocks are
+    dealt to `sms` SMs: the blocks resident on an SM share its lanes, so the
+    SMs that get one block more set the time (on the H100 428 blocks, 3.24
+    an SM, take 24 % longer than 1,712, 12.97 an SM, for the same search:
+    benchmarks/kernel_variants.py)."""
+    return blocks / (sms * -(-blocks // sms))
+
+
+def plan_knn(nq: int, nt: int, sms: int = H100_SMS) -> KnnPlan:
+    """The grid of one search: the fewest target splits that give every SM its
+    KNN_RESIDENT blocks and load the SMs evenly (balance >= 0.98), else the
+    best balance; a search too small for that takes the most even load and
+    then the most blocks (up to MAX_SPLITS a query block) instead of a handful
+    of busy SMs. Every split but the last holds `span` targets, and no split
+    is empty."""
+    if nq < 1 or nt < 1:
+        raise ValueError(f"plan_knn: nq={nq}, nt={nt} must be >= 1")
+    qb = -(-nq // KNN_QPB)
+    tiles = -(-nt // KNN_TILE)
+    # Split counts that leave no split empty, each with its tiles a split.
+    spans = {}
+    for s in range(1, min(MAX_SPLITS, tiles) + 1):
+        span_tiles = -(-tiles // s)
+        if -(-tiles // span_tiles) == s:
+            spans[s] = span_tiles
+    full = [s for s in spans if qb * s >= sms * KNN_RESIDENT]
+    if not full:  # a small search: the most even load, then the most blocks
+        s = max(spans, key=lambda c: (_balance(qb * c, sms), c))
+    else:
+        s = next((c for c in full if _balance(qb * c, sms) >= 0.98),
+                 max(full, key=lambda c: (_balance(qb * c, sms), -c)))
+    return KnnPlan(qb, s, spans[s] * KNN_TILE)
 
 
 def nearest_neighbor_ref(query: torch.Tensor, target: torch.Tensor, chunk: int = 2048):
@@ -51,9 +105,17 @@ def nearest_neighbor_cuda(query: torch.Tensor, target: torch.Tensor):
     d2 = torch.empty((nq,), dtype=torch.float32, device=query.device)
     if nq == 0:
         return idx, d2
+    plan = plan_knn(nq, nt, torch.cuda.get_device_properties(query.device).multi_processor_count)
+    part_idx = part_d2 = None
+    if plan.splits > 1:
+        part_idx = torch.empty((plan.splits, nq), dtype=torch.int32, device=query.device)
+        part_d2 = torch.empty((plan.splits, nq), dtype=torch.float32, device=query.device)
     with torch.cuda.device(query.device):
-        err = _build.load().hgmm_knn(query.data_ptr(), nq, target.data_ptr(), nt,
-                                     idx.data_ptr(), d2.data_ptr(), fused_em._stream(query))
+        err = _build.load().hgmm_knn(
+            query.data_ptr(), nq, target.data_ptr(), nt, plan.splits, plan.span,
+            None if part_idx is None else part_idx.data_ptr(),
+            None if part_d2 is None else part_d2.data_ptr(),
+            idx.data_ptr(), d2.data_ptr(), fused_em._stream(query))
     fused_em._raise_on(err, "knn")
     fused_em.LAUNCHES["knn"] += 1
     return idx, d2

@@ -14,6 +14,7 @@ dataclass fields and the tie-break rule are shared.
 import dataclasses
 import json
 import math
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +25,8 @@ from hgmm.eval import roofline as jroof
 from hgmm.ops import em_ref as jref
 from hgmm.ops import gaussians as jg
 from hgmm_torch import bench, convert
-from hgmm_torch.benchmarks import kernel_shapes, mxu_microbench, trace_accounting, vpu_microbench
+from hgmm_torch.benchmarks import (kernel_compare, kernel_shapes, mxu_microbench, trace_accounting,
+                                   vpu_microbench)
 from hgmm_torch.cli.main import main as cli_main
 from hgmm_torch.eval import roofline
 from hgmm_torch.ops import fused_em
@@ -135,7 +137,9 @@ def test_mxu_microbench_cpu(capsys):
         assert math.isfinite(c["us_per_tile_raw"]) and c["torch_matmul_us"] > 0
         assert c["peak_tflops"] in (989.0, 67.0)  # the H100's peaks, never a TPU's
         assert len(c["grid"]) == 2
-    assert "197" not in out.split("{")[0]
+    # No line quotes the TPU's 197 TFLOP/s as a peak (a measured time may hold
+    # the digits: "197.57 ps/elem" is a timing, not a peak).
+    assert not re.search(r"\b197(\.0+)? TFLOP/s", out.split("{")[0])
     assert json.loads(out.splitlines()[-1])["k"] == 64
 
 
@@ -176,6 +180,28 @@ def test_trace_accounting_on_a_synthetic_trace(tmp_path, capsys):
     assert acc["model_ms"]["fp32"] == pytest.approx((1 << 21) * 512 * 40 / 67e12 * 1e3)
     assert acc["model_ms"]["hbm"] == pytest.approx((1 << 21) * 16 / 3.35e12 * 1e3)
     assert acc["bound"] == "fp32"
+
+
+def test_kernel_compare_cpu(tmp_path, capsys):
+    """Two runs of one tree give equal bits; a changed output shows its gap."""
+    a, b = tmp_path / "a.pt", tmp_path / "b.pt"
+    for f in (a, b):
+        times = kernel_compare.main(["--save", str(f), "--device", "cpu", "--n", "600",
+                                     "--bench-n", "512", "--bench-k", "64"])
+        assert times["em_stats_ms"] > 0 and times["knn_ms"] > 0 and times["card"] is None
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.strip()]
+    assert len(lines) == 2 and lines[0]["em_stats_shape"] == [512, 64]
+    rep = kernel_compare.main(["--diff", str(a), str(b)])
+    assert set(rep.values()) == {"bit-equal"}
+    assert {"knn", "em_stats_K8", "em_stats_K512_weighted_outlier", "em_stats_masked_K512"} <= set(rep)
+    out = torch.load(a)
+    S, ll = out["em_stats_K8"]
+    out["em_stats_K8"] = (S + 0.5, ll)
+    torch.save(out, b)
+    rep = kernel_compare.main(["--diff", str(a), str(b)])
+    assert rep["em_stats_K8"]["max_abs_gap"] == 0.5 and rep["knn"] == "bit-equal"
+    with pytest.raises(SystemExit):
+        kernel_compare.main([])
 
 
 def test_time_fn_and_sync_on_the_cpu():

@@ -50,20 +50,36 @@ def _close(got, ref, rtol, atol):
 
 
 def _check_em(got, ref, n):
-    _close(got.S, ref.S, 2e-3, 2e-4 * n / 300)
+    _close(got.S, ref.S, 2e-3, 2e-4 * max(n, 300) / 300)  # the tolerance is stated for N = 300
     _close(got.loglik, ref.loglik, 1e-4, 0.0)
 
 
-@pytest.mark.parametrize("k", [8, 12, 64, 512])
+@pytest.mark.parametrize("k", [8, 12, 64, 65, 100, 512, 513, 1024, 2048])
+@pytest.mark.parametrize("n", [1, 31, 300, 4097, 20_000])
 @pytest.mark.parametrize("weighted,outlier", [(False, None), (True, -3.0)])
-def test_em_stats(cuda, k, weighted, outlier):
-    n = 20_000
+def test_em_stats(cuda, k, n, weighted, outlier):
+    """K < 64: the first kernel body; K >= 64: the register-tiled one, with K
+    on and off its tiling (65, 100, 513 pad with floor rows) and N down to one
+    ragged tile."""
     pts, w = _inputs(n, k, cuda)
-    w = w if weighted else None
+    if weighted:
+        w[::5] = 0.0  # zero-weight rows, as the odometry bucket pads
+    else:
+        w = None
     W = pack_loglik_weights(_mixture(k, k + 1, cuda, dead=(1,)))
     got = fused_em.em_stats(prepare(pts, w).pts4, W, outlier)
     _check_em(got, em_ref.em_stats(pts, W, w, outlier), n)
     assert float(got.S[1].abs().max()) == 0.0  # pi = 0 stays inert
+
+
+@pytest.mark.parametrize("k", [8, 100, 512])
+def test_em_stats_all_components_dead(cuda, k):
+    """Every logit at the mask floor: every point is dead, S and loglik are 0."""
+    pts, _ = _inputs(3000, k, cuda)
+    mix = _mixture(k, k + 1, cuda)
+    W = pack_loglik_weights(MixtureParams(torch.zeros_like(mix.pi), mix.mu, mix.sigma))
+    got = fused_em.em_stats(prepare(pts).pts4, W)
+    assert float(got.S.abs().max()) == 0.0 and float(got.loglik) == 0.0
 
 
 @pytest.mark.parametrize("k", [64, 512])
@@ -138,12 +154,21 @@ def test_reg_stats_top_k_keeps_exact_ties(cuda, top_k):
 
 
 def test_results_are_reproducible(cuda):
-    """The cross-block sums run in a fixed order: two runs agree bit for bit."""
+    """The cross-block sums run in a fixed order: two runs agree bit for bit,
+    in both em_stats bodies (K = 8 and K = 100, 512) and in knn with target
+    splits."""
+    from hgmm_torch.ops import knn
+
     pts, w = _inputs(300_000, 9, cuda)
-    W = pack_loglik_weights(_mixture(512, 10, cuda))
     p = prepare(pts, w).pts4
-    a, b = fused_em.em_stats(p, W), fused_em.em_stats(p, W)
-    assert torch.equal(a.S, b.S) and torch.equal(a.loglik, b.loglik)
+    for k in (8, 100, 512):
+        W = pack_loglik_weights(_mixture(k, 10, cuda))
+        a, b = fused_em.em_stats(p, W), fused_em.em_stats(p, W)
+        assert torch.equal(a.S, b.S) and torch.equal(a.loglik, b.loglik)
+    q, t = pts[:50_000].contiguous(), pts[100_000:160_000].contiguous()
+    assert knn.plan_knn(q.shape[0], t.shape[0]).splits > 1
+    a, b = knn.nearest_neighbor_cuda(q, t), knn.nearest_neighbor_cuda(q, t)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -167,18 +192,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.parametrize("nq,nt,ties", [(1, 1, False), (500, 700, False), (3000, 5000, True),
-                                        (1025, 1023, False), (70_000, 3, False), (3, 70_000, True)])
+                                        (1025, 1023, False), (70_000, 3, False), (3, 70_000, True),
+                                        (1, 5000, False), (5000, 15, True), (2000, 513, True),
+                                        (16_384, 16_384, True), (120_000, 20_000, True)])
 def test_knn(cuda, nq, nt, ties):
     """The kernel's neighbour is as near as the twin's (float64 distances;
     the twin's factored form cancels at close range), indices agree but for
-    near-ties, and of exact ties the lowest index wins."""
+    near-ties, and of exact ties the lowest index wins: with fewer targets
+    than a chunk, one query, ragged tiles, and several target splits (the copy
+    of a target then lies in another chunk, tile and split)."""
     from hgmm_torch.ops import knn
 
     g = torch.Generator().manual_seed(nq + nt)
     q, t = torch.randn(nq, 3, generator=g), torch.randn(nt, 3, generator=g)
     if ties:
         t = torch.cat([t, t])
-        q[: nq // 4] = t[: nq // 4]
+        m = min(nq // 4, t.shape[0])
+        q[:m] = t[:m]
     q, t = q.to(cuda), t.to(cuda)
     idx, d2 = knn.nearest_neighbor_cuda(q, t)
     ref_idx, ref_d2 = knn.nearest_neighbor_ref(q, t)
@@ -191,6 +221,33 @@ def test_knn(cuda, nq, nt, ties):
     assert float((idx == ref_idx).double().mean()) >= 0.98
     if ties:
         assert int(idx.max()) < t.shape[0] // 2
+
+
+@pytest.mark.parametrize("nq,nt", [(1, 33), (3000, 70_000), (40_000, 1025), (16_384, 16_384)])
+def test_knn_equal_targets_go_to_index_zero(cuda, nq, nt):
+    """Every target the same point: ties across every chunk, tile and split."""
+    from hgmm_torch.ops import knn
+
+    q = torch.randn(nq, 3, generator=torch.Generator().manual_seed(nq)).to(cuda)
+    t = torch.full((nt, 3), 0.25, device=cuda)
+    idx, d2 = knn.nearest_neighbor_cuda(q, t)
+    assert int(idx.abs().max()) == 0
+    _close(d2, ((q.double() - 0.25) ** 2).sum(1), 1e-5, 1e-7)
+
+
+def test_knn_nan_target_row_never_wins(cuda):
+    from hgmm_torch.ops import knn
+
+    g = torch.Generator().manual_seed(21)
+    q, t = torch.randn(3000, 3, generator=g).to(cuda), torch.randn(5000, 3, generator=g).to(cuda)
+    t[2500] = float("nan")
+    t[77, 2] = float("nan")
+    idx, d2 = knn.nearest_neighbor_cuda(q, t)
+    far = t.clone()
+    far[2500] = far[77] = 1e6
+    ref_idx, _ = knn.nearest_neighbor_ref(q, far)
+    assert not bool(((idx == 2500) | (idx == 77)).any()) and bool(torch.isfinite(d2).all())
+    assert float((idx == ref_idx).double().mean()) >= 0.98
 
 
 def test_dispatch_sends_cuda_tensors_to_the_kernels(cuda):
