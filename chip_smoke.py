@@ -145,10 +145,10 @@ MXU_LOOP = dict(steps=1024, r1=2, r2=6)
 VPU_LOOP = dict(k=512, t=512, steps=2048, r1=4, r2=8)
 MAX_SHARE = 1.05  # of a bound or a peak
 # The times of knn and of the unmasked K = 512 em_stats before their redesign,
-# at the same shapes (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6),
-# shown beside `ms`.
-MS_BEFORE = {"knn": 69.6, "em_stats_bench": 4.04}
-BEFORE_NOTE = "H100 80GB HBM3, 700.00 W, the kernel before its redesign"
+# at the same shapes (PERF.md section 6). Constants, not readings of this run:
+# they are printed on a line of their own and never in the `kernels` line.
+MS_BEFORE_REDESIGN = {"knn_437645x437645": 69.6, "em_stats_k512_n2097152": 4.04}
+BEFORE_NOTE = "constants recorded on an NVIDIA H100 80GB HBM3, 700.00 W; not measured in this run"
 # Kernels whose -Xptxas -v report the build line prints; a spill fails the run.
 REPORTED_KERNELS = ("em_stats_tiled_kernel", "knn_kernel")
 
@@ -390,6 +390,7 @@ def main() -> int:
             "main_path": path, "launches_by_path": {p: c[name] for p, c in launches.items()},
             "shapes": timings[name],
         })
+    log({"ms_before_redesign": MS_BEFORE_REDESIGN, "note": BEFORE_NOTE})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
@@ -942,7 +943,6 @@ def cli_bench(torch, dev, errs, timings):
     check_em(torch, "em_stats", fused_em.em_stats(prep.pts4, W), em_ref.em_stats(pts, W), n, errs)
     timings["em_stats"].append({"k": k, "n": n, "masked": False, "bench": True,
                                 "ms": cuda_ms(torch, lambda: fused_em.em_stats(prep.pts4, W)),
-                                "ms_before": MS_BEFORE["em_stats_bench"], "before": BEFORE_NOTE,
                                 "plain_ms": cuda_ms(torch, lambda: em_ref.em_stats(pts, W), reps=2,
                                                     warmup=1), "headline": False})
     log({"phase": "cli_bench", "wall_s": wall, "record": rec, "n": n, "k": k,
@@ -1122,8 +1122,8 @@ def cli_icp(torch, dev, work, errs, timings):
     agree = check_knn(torch, source, target, idx, d2, ref_idx, ref_d2, errs)
     ms = cuda_ms(torch, lambda: knn.nearest_neighbor_cuda(source, target), reps=5, warmup=1)
     plain = cuda_ms(torch, lambda: knn.nearest_neighbor_ref(source, target), reps=2, warmup=1)
-    timings["knn"] = [{"nq": N_POINTS, "nt": N_POINTS, "ms": ms, "ms_before": MS_BEFORE["knn"],
-                       "before": BEFORE_NOTE, "plain_ms": plain, "headline": True}]
+    timings["knn"] = [{"nq": N_POINTS, "nt": N_POINTS, "ms": ms, "plain_ms": plain,
+                       "headline": True}]
     log({"phase": "cli_icp", "n_source": N_POINTS, "n_target": N_POINTS, "iters": ICP_ITERS,
          "wall_s": wall,
          "registration_rmse": rmse, "bound": ICP_RMSE, "final_match_rmse": final_rmse,

@@ -30,8 +30,8 @@
 //   - Per point the max over the thread's 8 logits, then over the component
 //     groups by warp shuffles (the lanes of a warp lie along the components of
 //     one point group; the 8 points are reduced by halving, 9 shuffles in
-//     place of 40: whole butterflies cost 5 % of a sweep more,
-//     benchmarks/kernel_variants.py) and, where a point group spans several
+//     place of 40: whole butterflies cost 5 % of a sweep more on the
+//     H100) and, where a point group spans several
 //     warps, one shared-memory exchange behind a named barrier that only
 //     those warps wait at. e = exp2(l log2e - m log2e) ONCE a pair, in place, by the
 //     special-function unit alone (exp2_ftz); the sum the same way; the

@@ -36,15 +36,15 @@
 //   ~ln(chunks) times over a whole search, and a rescan costs the warp ~20
 //   instructions, so rescans are well under one per cent of the work (a loop
 //   over the chunk by the one lane alone stalls its whole warp for ~300
-//   instructions: 7 % of a call at 4 target splits, 34 % at 26,
-//   benchmarks/kernel_variants.py, lone_lane_rescan).
+//   instructions: 7 % of a call at 4 target splits, 34 % at 26, timed on
+//   the H100).
 // - A thread holds KNN_QPT = 8 queries in registers: one broadcast 16-byte
 //   shared-memory load per target serves 8 pairs.
 // - Targets stream through two shared-memory tiles of float4 {x, y, z, -}.
 //   The next tile is copied with cp.async (4-byte copies straight from the
 //   [Nt, 3] rows, so the caller pads nothing; 16-byte copies from a padded
-//   [Nt, 4] copy are 0.5 % faster on the H100 and cost that copy:
-//   kernel_variants.py, copy16) while the current one is scanned: one barrier
+//   [Nt, 4] copy are 0.5 % faster on the H100 and cost that copy)
+//   while the current one is scanned: one barrier
 //   a tile. A tile is 8 KB and linear, and its copy is
 //   12 instructions a thread against ~29,000 of arithmetic, so the tensor
 //   memory accelerator (descriptor, mbarrier) would save nothing here.

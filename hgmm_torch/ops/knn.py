@@ -24,7 +24,6 @@ KNN_QPB = 1024  # queries a block: 128 threads x 8 queries (csrc/knn.cu:KNN_QPB)
 KNN_TILE = 512  # targets a shared-memory tile (csrc/knn.cu:KNN_TILE)
 KNN_RESIDENT = 4  # blocks an SM holds (csrc/knn.cu: __launch_bounds__(128, 4))
 MAX_SPLITS = 32  # cap of the target splits (and of the partial rows a query merges)
-H100_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,13 +40,13 @@ class KnnPlan:
 def _balance(blocks: int, sms: int) -> float:
     """Share of the SMs' time that does work when `blocks` equal blocks are
     dealt to `sms` SMs: the blocks resident on an SM share its lanes, so the
-    SMs that get one block more set the time (on the H100 428 blocks, 3.24
-    an SM, take 24 % longer than 1,712, 12.97 an SM, for the same search:
-    benchmarks/kernel_variants.py)."""
+    SMs that get one block more set the time (on an H100 with 132 SMs 428
+    blocks, 3.24 an SM, take 24 % longer than 1,712, 12.97 an SM, for the
+    same search)."""
     return blocks / (sms * -(-blocks // sms))
 
 
-def plan_knn(nq: int, nt: int, sms: int = H100_SMS) -> KnnPlan:
+def plan_knn(nq: int, nt: int, sms: int) -> KnnPlan:
     """The grid of one search: the fewest target splits that give every SM its
     KNN_RESIDENT blocks and load the SMs evenly (balance >= 0.98), else the
     best balance; a search too small for that takes the most even load and

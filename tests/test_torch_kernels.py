@@ -166,7 +166,8 @@ def test_results_are_reproducible(cuda):
         a, b = fused_em.em_stats(p, W), fused_em.em_stats(p, W)
         assert torch.equal(a.S, b.S) and torch.equal(a.loglik, b.loglik)
     q, t = pts[:50_000].contiguous(), pts[100_000:160_000].contiguous()
-    assert knn.plan_knn(q.shape[0], t.shape[0]).splits > 1
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    assert knn.plan_knn(q.shape[0], t.shape[0], sms).splits > 1
     a, b = knn.nearest_neighbor_cuda(q, t), knn.nearest_neighbor_cuda(q, t)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 

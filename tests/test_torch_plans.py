@@ -26,7 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-from hgmm_torch.benchmarks import kernel_variants
 from hgmm_torch.ops import _build, em_ref, fused_em, knn
 from hgmm_torch.ops.fused_em import EMT_CT, EMT_PT, EMT_THREADS, SMEM_LIMIT, plan_em_tiles
 from hgmm_torch.ops.gaussians import MixtureParams, features, pack_loglik_weights
@@ -70,9 +69,9 @@ def test_plan_knn_fills_the_card_and_small_searches_too():
     assert small.splits == MAX_SPLITS  # one query block: the targets are split instead
     assert plan_knn(1, 1, SMS) == knn.KnnPlan(1, 1, KNN_TILE)
     with pytest.raises(ValueError):
-        plan_knn(0, 5)
+        plan_knn(0, 5, SMS)
     with pytest.raises(ValueError):
-        plan_knn(5, 0)
+        plan_knn(5, 0, SMS)
 
 
 @pytest.mark.parametrize("k", KS)
@@ -148,24 +147,6 @@ def test_ptxas_log_gives_registers_and_spills_by_kernel():
     assert spilled == {"stack_bytes": 8, "spill_store_bytes": 4, "spill_load_bytes": 12,
                        "registers": 96}
     assert _build.parse_ptxas_log(PTXAS_LOG, "no_such_kernel") == {}
-
-
-@pytest.mark.parametrize("kernel,name", [(k, v) for k, vs in kernel_variants.VARIANTS.items() for v in vs])
-def test_kernel_variants_still_apply_to_the_sources(kernel, name):
-    """benchmarks/kernel_variants.py undoes design decisions by text
-    substitution: every text it replaces must still stand in the source."""
-    base = (_build.CSRC / kernel_variants.SOURCE[kernel]).read_text()
-    text = kernel_variants.variant_source(kernel, name)
-    assert (text == base) == (name == "base")
-    for old, new in kernel_variants.VARIANTS[kernel][name]["subs"]:
-        assert old not in text and (new in text or new == "")
-
-
-def test_kernel_variants_refuse_a_stale_substitution(monkeypatch):
-    monkeypatch.setitem(kernel_variants.VARIANTS["knn"], "stale",
-                        {"subs": [("no such text in the source", "x")]})
-    with pytest.raises(ValueError, match="occurs 0 times"):
-        kernel_variants.variant_source("knn", "stale")
 
 
 # --------------------------------------------------------------------------
