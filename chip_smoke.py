@@ -15,7 +15,8 @@ Run from the root of a checkout. It
    kernels also K off the tiling, N = 1 and ragged tiles, an all-dead
    mixture, fewer targets than a chunk, one query, target splits, equal
    targets across chunk, tile and split boundaries, a NaN target row, and
-   equal bits on two launches);
+   equal bits on two launches; reg_step against its twin for both solvers
+   and every first/last step, and a done scan left as it is);
 4. drives the main path once: hgmm_torch.register_pair with the
    config2_tree_8x3 preset on a 437,645-point pair (the vertex count of the
    Stanford dragon; synthetic trefoil stand-in, ground truth z-rotation
@@ -24,7 +25,11 @@ Run from the root of a checkout. It
    within the bounds of tests/test_register.py, every output is finite and
    every kernel of the path was launched;
 5. times the tree fit and the registration, and checks and times each kernel
-   against its plain version at the shapes the slice gives it;
+   against its plain version at the shapes the slice gives it (reg_stats and
+   the masked em_stats per K, the launch a scan step or a sweep makes beside
+   the standalone call; reg_step on the main path's partials); then counts
+   one register_pair's kernels, copies and memsets (profiler) and host syncs
+   (torch's sync debug mode) beside its seconds;
 6. checks that register_pair on the card agrees with the plain CPU path on a
    4,000-point pair;
 7. drives the CLI (hgmm_torch.cli.main) in process, each command with the
@@ -50,8 +55,10 @@ Run from the root of a checkout. It
      within 0.1 m and 1 degree, and every output is finite; then times a
      pair's fit and registration apart, profiles one pair, times refinement
      and the map build, and checks each kernel at the odometry shapes
-     against its plain version (strict tolerances) and against float64, with
-     and without zero-weight pads, and times it.
+     against its plain version (strict tolerances; reg_stats, at up to 40 m,
+     against float64, its gap to the twin recorded) and against float64,
+     with and without zero-weight pads, and times it per K; the profiled pair's
+     launches and host syncs are printed as register_pair's are.
 8. the bench path: each unit-rate probe (csrc/probes.cu) against its plain
    version (probe_checks, right after the small kernel checks) at K=64/T=256,
    K=512/T=2048 and K=64/T=8192, steps 3 with reps 2 and 6 and, at the two
@@ -111,15 +118,18 @@ ICP_RMSE = 0.02
 # to 0.061 in 25 iterations and snaps to the exact matches after ~190.
 ICP_ITERS = 250
 # The kernels each path must launch (each path runs with the counters at 0).
-TREE_PATH = ("em_stats", "em_stats_masked", "assign", "reg_stats")
+TREE_PATH = ("em_stats", "em_stats_masked", "assign", "reg_stats", "reg_step")
 PROBES = ("probe_logits", "probe_addonly", "probe_stats", "probe_norm", "probe_vpu")
 PATH_KERNELS = {"register_pair": TREE_PATH, "cli_icp": ("knn",), "cli_register_config3": TREE_PATH,
                 "cli_odometry": TREE_PATH, "cli_odometry_closures": TREE_PATH,
-                "cli_localize": ("reg_stats",), "cli_bench": ("em_stats",), "probes": PROBES}
+                "cli_localize": ("reg_stats", "reg_step"), "cli_bench": ("em_stats",), "probes": PROBES}
 SOURCES = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu", "assign": "assign.cu",
-           "reg_stats": "reg_stats.cu", "knn": "knn.cu", **{name: "probes.cu" for name in PROBES}}
+           "reg_stats": "reg_stats.cu", "reg_step": "reg_step.cu", "knn": "knn.cu",
+           **{name: "probes.cu" for name in PROBES}}
 REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops/fused_em.py:559",
             "assign": "hgmm/ops/fused_em.py:859", "reg_stats": "hgmm/ops/fused_em.py:920",
+            # no TPU kernel: the XLA ops of the reference's scan step
+            "reg_step": "hgmm/pipelines/register.py:80",
             "knn": "hgmm/ops/knn.py:60", "probe_logits": "benchmarks/mxu_microbench.py:54",
             "probe_addonly": "benchmarks/mxu_microbench.py:73",
             "probe_stats": "benchmarks/mxu_microbench.py:86",
@@ -148,9 +158,13 @@ MAX_SHARE = 1.05  # of a bound or a peak
 # at the same shapes (PERF.md section 6). Constants, not readings of this run:
 # they are printed on a line of their own and never in the `kernels` line.
 MS_BEFORE_REDESIGN = {"knn_437645x437645": 69.6, "em_stats_k512_n2097152": 4.04}
+# One odometry pair before the registration scan stayed on the card (PERF.md
+# section 5): kernels in the profiled window and host syncs. Constants, as above.
+PAIR_BEFORE = {"odometry_pair_kernels": 29_493, "odometry_pair_host_syncs": 179}
 BEFORE_NOTE = "constants recorded on an NVIDIA H100 80GB HBM3, 700.00 W; not measured in this run"
 # Kernels whose -Xptxas -v report the build line prints; a spill fails the run.
-REPORTED_KERNELS = ("em_stats_tiled_kernel", "knn_kernel")
+REPORTED_KERNELS = ("em_stats_tiled_kernel", "knn_kernel", "reg_stats_lanes_kernel",
+                    "reg_stats_top_k_kernel", "reg_step_kernel", "em_stats_grouped_kernel")
 
 
 # The odometry phase (config 4 through the CLI) and the LiDAR-scale checks.
@@ -349,6 +363,9 @@ def main() -> int:
     log({"phase": "main_path", **main_res, "launches": counts})
 
     timings = slice_checks(torch, dev, errs)
+    work = repo / "chiprun_out" / "smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    log({"phase": "pair_accounting", **pair_accounting(torch, dev, work)})
     agreement = cpu_agreement(torch, dev)
     log({"phase": "cpu_agreement", **agreement})
 
@@ -360,8 +377,6 @@ def main() -> int:
     log({"phase": "kernel_checks_lidar", "extents_m": [LIDAR_EXTENT, LIDAR_STRICT_EXTENT],
          "n": ODO_BUCKET, "gaps": lidar_checks(torch, dev, errs, metric_errs)})
 
-    work = repo / "chiprun_out" / "smoke"
-    work.mkdir(parents=True, exist_ok=True)
     try:
         icp_counts = cli_icp(torch, dev, work, errs, timings)
         cli_fit_tree(torch, work)
@@ -390,7 +405,7 @@ def main() -> int:
             "main_path": path, "launches_by_path": {p: c[name] for p, c in launches.items()},
             "shapes": timings[name],
         })
-    log({"ms_before_redesign": MS_BEFORE_REDESIGN, "note": BEFORE_NOTE})
+    log({"ms_before_redesign": MS_BEFORE_REDESIGN, **PAIR_BEFORE, "note": BEFORE_NOTE})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
@@ -589,7 +604,49 @@ def small_checks(torch, dev, errs) -> None:
             if tt.shape[0] == 2 * nt and not int(idx.max()) < nt:
                 raise CheckFailed("knn: an exact tie went to the higher index")
     new_kernel_edges(torch, dev, gen, errs)
+    reg_step_checks(torch, dev, gen, errs)
     torch.cuda.synchronize()
+
+
+def reg_step_checks(torch, dev, gen, errs) -> None:
+    """reg_step against its twin (em_ref.reg_step, float32 on the same
+    partials) from one state, for both solvers and every (first, last): the
+    pose within float32 rounding of the float64 solve, the outputs, the
+    done flag; then a done scan changes nothing."""
+    from hgmm_torch import ops
+    from hgmm_torch.models.se3 import so3_exp
+    from hgmm_torch.ops import em_ref, fused_em
+    from hgmm_torch.ops.gaussians import pack_loglik_weights, precision_terms, sym_pack
+
+    pts = torch.randn(5000, 3, generator=gen).to(dev)
+    params = random_mixture(torch, 64, gen, dev)
+    A, b, _ = precision_terms(params)
+    prob = ops.reg_problem(pts, pack_loglik_weights(params), params.mu, sym_pack(A), b)
+    for solver in (0, 1):
+        for first, last in ((True, True), (True, False), (False, True)):
+            scan = ops.new_scan(so3_exp(torch.tensor([0.05, 0.1, -0.1], device=dev)),
+                                torch.tensor([0.1, 0.0, 0.2], device=dev), 3)
+            scan.state[em_ref.SCAN_START:em_ref.SCAN_START + 12] = scan.state[:12] + 0.01
+            scan.state[em_ref.SCAN_LL] = -7.0
+            twin = em_ref.RegScan(*(t.cpu().clone() for t in scan))
+            part = ops.reg_partials(prob, scan).clone()
+            ops.reg_step(part, scan, 1, solver, first, last, 1e-7)
+            em_ref.reg_step(part.cpu(), twin, 1, solver, first, last, 1e-7)
+            torch.cuda.synchronize()
+            err = float((scan.state.cpu()[:24] - twin.state[:24]).abs().max())
+            if not err < 2e-5:
+                raise CheckFailed(f"reg_step solver {solver} first {first} last {last}: state off the "
+                                  f"twin's by {err}")
+            close(torch, "reg_step.logliks", scan.logliks, twin.logliks, 1e-6, 0.0)
+            close(torch, "reg_step.deltas", scan.deltas, twin.deltas, 1e-3, 1e-6)
+            errs["reg_step"] = max(errs["reg_step"], err)
+    scan.state[em_ref.SCAN_DONE] = 1.0
+    before = scan.state.clone()
+    ops.reg_step(ops.reg_partials(prob, scan), scan, 2, 1, True, True, 1e-7)
+    if not (torch.equal(scan.state, before) and float(scan.logliks[2]) == float(before[em_ref.SCAN_LL_LAST])):
+        raise CheckFailed("reg_step: a done scan changed or did not re-emit")
+    if fused_em.plan_reg_stats(16_384, 512, None, torch.cuda.get_device_properties(dev).multi_processor_count).lanes < 2:
+        raise CheckFailed("reg_stats: the odometry bucket was meant to run with lanes")
 
 
 def new_kernel_edges(torch, dev, gen, errs) -> None:
@@ -729,6 +786,8 @@ def add_bound(name, entry) -> None:
         kb = kernel_bound(name, n=entry["n"], k=entry["k"], branch=8 if entry["masked"] else None)
     elif name == "reg_stats":
         kb = kernel_bound(name, n=entry["n"], k=entry["k"], top_k=entry.get("top_k"))
+    elif name == "reg_step":
+        kb = kernel_bound(name, nb=entry["nb"])
     elif name == "knn":
         kb = kernel_bound(name, nq=entry["nq"], nt=entry["nt"])
     else:
@@ -994,10 +1053,10 @@ def slice_checks(torch, dev, errs):
     parents.append(fused_em.assign(tgt.pts4, Ws[1], parents[1], 8))
     n = N_POINTS
 
-    def record(name, k, kern, plain, headline=False):
+    def record(name, k, kern, plain, headline=False, **extra):
         timings[name].append({"k": k, "n": n, "masked": name in ("em_stats_masked", "assign") and k > 8,
                               "ms": cuda_ms(torch, kern),
-                              "plain_ms": cuda_ms(torch, plain, reps=5), "headline": headline})
+                              "plain_ms": cuda_ms(torch, plain, reps=5), "headline": headline, **extra})
 
     # Tree fit: level 0 unmasked at K=8, levels 1-2 masked at K=64 and 512.
     W0 = Ws[0]
@@ -1012,8 +1071,12 @@ def slice_checks(torch, dev, errs):
         k = W.shape[1]
         check_em(torch, "em_stats_masked", fused_em.em_stats_masked(tgt.pts4, W, par, 8),
                  em_ref.em_stats_masked(target, W, par, 8), n, errs)
-        record("em_stats_masked", k, lambda: fused_em.em_stats_masked(tgt.pts4, W, par, 8),
-               lambda: em_ref.em_stats_masked(target, W, par, 8), headline=lvl == 2)
+        groups = fused_em.group_by_parent(tgt.pts4, par, 8, k)
+        record("em_stats_masked", k, lambda: fused_em.em_stats_grouped(groups, W),
+               lambda: em_ref.em_stats_masked(target, W, par, 8), headline=lvl == 2,
+               wrapper_ms=cuda_ms(torch, lambda: fused_em.em_stats_masked(tgt.pts4, W, par, 8)),
+               group_ms=cuda_ms(torch, lambda: fused_em.group_by_parent(tgt.pts4, par, 8, k)),
+               chunks=groups.n_chunks, chunk_points=groups.chunk_points)
         check_assign(torch, fused_em.assign(tgt.pts4, W, par, 8), em_ref.assign(target, W, par, 8),
                      target, W, par, 8, errs)
         record("assign", k, lambda: fused_em.assign(tgt.pts4, W, par, 8),
@@ -1026,10 +1089,64 @@ def slice_checks(torch, dev, errs):
         k = W.shape[1]
         check_reg(torch, fused_em.reg_stats(src.pts4, W, mu, A6, b3, pose),
                   em_ref.reg_stats(source, W, mu, A6, b3, pose), n, errs)
-        record("reg_stats", k, lambda: fused_em.reg_stats(src.pts4, W, mu, A6, b3, pose),
-               lambda: em_ref.reg_stats(source, W, mu, A6, b3, pose), headline=lvl == 2)
+        # "ms": the launch a scan makes each step (tables built once);
+        # "wrapper_ms": the standalone call, tables and the reduction included.
+        tab = fused_em.reg_tables(src.pts4, W, mu, A6, b3)
+        pose12 = torch.cat([pose[0].reshape(9), pose[1]]).contiguous()
+        record("reg_stats", k, lambda: fused_em.reg_partials(tab, pose12),
+               lambda: em_ref.reg_stats(source, W, mu, A6, b3, pose), headline=lvl == 2,
+               wrapper_ms=cuda_ms(torch, lambda: fused_em.reg_stats(src.pts4, W, mu, A6, b3, pose)),
+               lanes=tab.plan.lanes, blocks=tab.plan.blocks)
+    # reg_step on the leaves' partials at the final pose, as the main path's
+    # last level launches it (a WLS step; tol 0 never sets done).
+    scan = fused_em.new_scan(pose[0], pose[1], 1)
+    twin = em_ref.RegScan(*(t.clone() for t in scan))
+    part = fused_em.reg_partials(tab, scan.state).clone()
+    timings["reg_step"].append({
+        "nb": part.shape[0], "k": k, "n": n, "headline": True,
+        "ms": cuda_ms(torch, lambda: fused_em.reg_step(part, scan, 0, 1, True, True, 0.0)),
+        "plain_ms": cuda_ms(torch, lambda: em_ref.reg_step(part, twin, 0, 1, True, True, 0.0), reps=5)})
     log({"phase": "slice_kernels", "timings": timings, "max_abs_err": errs})
     return timings
+
+
+def profiled(torch, fn, trace_dir) -> dict:
+    """fn() once to warm up; once with the host syncs counted (torch's sync
+    debug mode) and the wall clock; once under the profiler: the device's
+    kernels, copies and memsets, its busy time, the port's kernels' time."""
+    from hgmm_torch.utils.profiling import count_syncs, device_busy, device_launches, trace
+
+    fn()
+    torch.cuda.synchronize()
+    with count_syncs() as syncs:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with trace(trace_dir):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    busy_us, kernel_us = device_busy(trace_dir / "trace.json")
+    return {"wall_s": wall, "host_syncs": syncs["syncs"],
+            "host_sync_sites": sorted(syncs["sites"].items(), key=lambda kv: -kv[1])[:12],
+            **device_launches(trace_dir / "trace.json"),
+            "profiled_wall_s": profiled_wall, "device_busy_us": busy_us,
+            "port_kernels_us": sum(v for k, v in kernel_us.items() if "hgmm::" in k),
+            "device_idle_share": 1.0 - busy_us * 1e-6 / wall,
+            "top_device_us": [(k[:80], v) for k, v in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:8]]}
+
+
+def pair_accounting(torch, dev, work) -> dict:
+    """register_pair on the main path's pair, as main_path runs it: launches
+    and host syncs a pair beside its seconds."""
+    import hgmm_torch
+
+    source, target, _ = make_pair(torch, N_POINTS, dev)
+    return profiled(torch, lambda: hgmm_torch.register_pair(
+        source, target=target, generator=torch.Generator().manual_seed(0), **preset_kwargs()),
+        work / "pair_trace")
 
 
 def cpu_agreement(torch, dev):
@@ -1195,10 +1312,13 @@ def cli_register_config3(torch, dev, work, errs, timings):
     src = prepare(source)
     k = W.shape[1]
     for top_k in (p3.top_k, None):
+        tab = fused_em.reg_tables(src.pts4, W, mu, A6, b3, top_k, p3.outlier_logit)
+        pose12 = torch.cat([pose[0].reshape(9), pose[1]]).contiguous()
         timings["reg_stats"].append({
             "k": k, "n": N_POINTS, "top_k": top_k, "outlier_logit": p3.outlier_logit,
-            "ms": cuda_ms(torch, lambda: fused_em.reg_stats(src.pts4, W, mu, A6, b3, pose, top_k,
-                                                            p3.outlier_logit)),
+            "ms": cuda_ms(torch, lambda: fused_em.reg_partials(tab, pose12)),
+            "wrapper_ms": cuda_ms(torch, lambda: fused_em.reg_stats(src.pts4, W, mu, A6, b3, pose, top_k,
+                                                                    p3.outlier_logit)),
             "plain_ms": cuda_ms(torch, lambda: em_ref.reg_stats(source, W, mu, A6, b3, pose, None,
                                                                 top_k, p3.outlier_logit), reps=5),
             "headline": False})
@@ -1343,7 +1463,6 @@ def cli_odometry(torch, dev, work, errs, metric_errs, timings):
     from hgmm_torch.pipelines import loop_closure, mapping, odometry
     from hgmm_torch.pipelines.pose_graph import EdgeList
     from hgmm_torch.utils import checkpoint as ckpt
-    from hgmm_torch.utils.profiling import device_busy, trace
 
     seq = work / "seq"
     t0 = time.perf_counter()
@@ -1431,14 +1550,8 @@ def cli_odometry(torch, dev, work, errs, metric_errs, timings):
 
     model, fit_s = timed(lambda: odometry._fit_frame_model(frames[0], cfg, odometry.frame_generator(0, 0)))
     res, reg_s = timed(lambda: odometry._register_to_model(model, frames[1], cfg, ident))
-    with trace(work / "trace"):
-        t0 = time.perf_counter()
-        odometry._register_frames(frames[0], frames[1], cfg, odometry.frame_generator(0, 0), ident)
-        torch.cuda.synchronize()
-        pair_wall = time.perf_counter() - t0
-    device_us, kernel_us = device_busy(work / "trace" / "trace.json")
-    top = [(k[:80], v) for k, v in sorted(kernel_us.items(), key=lambda kv: -kv[1])[:8]]
-    ours_us = sum(v for k, v in kernel_us.items() if "hgmm::" in k)
+    pair = profiled(torch, lambda: odometry._register_frames(
+        frames[0], frames[1], cfg, odometry.frame_generator(0, 0), ident), work / "trace")
 
     # Refinement and the map build, timed on the run's chain and closures.
     start, rel, ab, lls = ckpt.load_odometry(ck, device=dev)
@@ -1462,12 +1575,7 @@ def cli_odometry(torch, dev, work, errs, metric_errs, timings):
          "cli_spans_s": spans,
          "localize_s": localize_s, "cli_wall_s": walls, "launches": counts,
          "pair": {"fit_s": fit_s, "register_s": reg_s, "live_iterations":
-                  int((res.deltas >= 1e-7).sum()), "profiled_wall_s": pair_wall,
-                  "device_busy_us": device_us, "port_kernels_us": ours_us,
-                  # busy time against the unprofiled pair, and the profiled window
-                  "device_idle_share": 1.0 - device_us * 1e-6 / (fit_s + reg_s),
-                  "device_idle_share_profiled": 1.0 - device_us * 1e-6 / pair_wall,
-                  "top_device_us": top}})
+                  int((res.deltas >= 1e-7).sum()), **pair}})
     odometry_shapes(torch, dev, frames, model, res.pose, errs, metric_errs, timings)
     return counts
 
@@ -1506,12 +1614,13 @@ def odometry_shapes(torch, dev, frames, tree, pose, errs, metric_errs, timings):
         parents = [None, fused_em.assign(tp.pts4, Ws[0])]
         parents.append(fused_em.assign(tp.pts4, Ws[1], parents[1], 8))
 
-        def record(name, k, kern, plain):
+        def record(name, k, kern, plain, **extra):
             if not tag:
                 timings[name].append({"k": k, "n": n, "odometry": True,
                                       "masked": name in ("em_stats_masked", "assign") and k > 8,
                                       "ms": cuda_ms(torch, kern),
-                                      "plain_ms": cuda_ms(torch, plain, reps=5), "headline": False})
+                                      "plain_ms": cuda_ms(torch, plain, reps=5), "headline": False,
+                                      **{key: f() for key, f in extra.items()}})
 
         def hold_em(name, key, got, ref, ref64):
             check_em(torch, name, got, ref, n, strict)
@@ -1533,20 +1642,31 @@ def odometry_shapes(torch, dev, frames, tree, pose, errs, metric_errs, timings):
                         fused_em.em_stats_masked(tp.pts4, W, par, 8),
                         em_ref.em_stats_masked(tgt, W, par, 8, tw),
                         em_ref.em_stats_direct(tgt, tree.levels[lvl], tw, None, par, 8))
-                record("em_stats_masked", W.shape[1],
-                       lambda: fused_em.em_stats_masked(tp.pts4, W, par, 8),
-                       lambda: em_ref.em_stats_masked(tgt, W, par, 8, tw))
+                groups = fused_em.group_by_parent(tp.pts4, par, 8, W.shape[1])
+                record("em_stats_masked", W.shape[1], lambda: fused_em.em_stats_grouped(groups, W),
+                       lambda: em_ref.em_stats_masked(tgt, W, par, 8, tw),
+                       wrapper_ms=lambda: cuda_ms(torch, lambda: fused_em.em_stats_masked(tp.pts4, W, par, 8)),
+                       chunks=lambda: groups.n_chunks, chunk_points=lambda: groups.chunk_points)
         for params in tree.levels:
             W, mu, A6, b3 = model_terms(params)
             k = W.shape[1]
             got = fused_em.reg_stats(sp.pts4, W, mu, A6, b3, p, None, -8.0)
             ref = em_ref.reg_stats(src, W, mu, A6, b3, p, sw, None, -8.0)
-            check_reg(torch, got, ref, n_live, strict)
-            gaps[f"reg_stats_K{k}{tag}"] = check_f64(
+            # The frames reach +-40 m: reg_stats is held to float64 there, as in
+            # lidar_checks, and to its twin at LIDAR_STRICT_EXTENT (ROADMAP Queue
+            # 3, "Float32 range"); its gap to the twin is recorded.
+            gaps[f"reg_stats_K{k}{tag}"] = g = check_f64(
                 torch, "reg_stats", got, ref, em_ref.reg_stats_direct(src, params, p, sw, -8.0),
                 n_live, metric_errs)
-            record("reg_stats", k, lambda: fused_em.reg_stats(sp.pts4, W, mu, A6, b3, p, None, -8.0),
-                   lambda: em_ref.reg_stats(src, W, mu, A6, b3, p, sw, None, -8.0))
+            strict["reg_stats_vs_twin"] = max(strict["reg_stats_vs_twin"],
+                                              *(v["kernel_vs_twin"] for v in g.values()))
+            tab = fused_em.reg_tables(sp.pts4, W, mu, A6, b3, None, -8.0)
+            pose12 = torch.cat([p[0].reshape(9), p[1]]).contiguous()
+            record("reg_stats", k, lambda: fused_em.reg_partials(tab, pose12),
+                   lambda: em_ref.reg_stats(src, W, mu, A6, b3, p, sw, None, -8.0),
+                   wrapper_ms=lambda: cuda_ms(torch, lambda: fused_em.reg_stats(sp.pts4, W, mu, A6, b3, p,
+                                                                                 None, -8.0)),
+                   lanes=lambda: tab.plan.lanes, blocks=lambda: tab.plan.blocks)
     log({"phase": "odometry_kernels", "strict_max_abs_err": strict, "gaps": gaps,
          "timings": {k: [t for t in v if t.get("odometry")] for k, v in timings.items()}})
 

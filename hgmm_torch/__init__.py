@@ -18,7 +18,7 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from hgmm_torch.models.gmm import Gmm  # noqa: E402,F401
+from hgmm_torch.models.gmm import Gmm, GmmParams, fit_gmm  # noqa: E402,F401
 from hgmm_torch.models.gmm_tree import GmmTree, fit_gmm_tree  # noqa: E402,F401
 from hgmm_torch.pipelines.odometry import (  # noqa: E402,F401
     OdometryConfig,

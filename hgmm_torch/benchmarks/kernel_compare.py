@@ -15,11 +15,20 @@ lies in. It needs ``hgmm_torch.bench`` in TREE (there since the bench path).
 - ``em_stats`` at K = 8, 12 (plain; weighted with zero-weight rows and an
   outlier logit), K = 64, 512 unmasked (weighted, outlier) and masked (random
   parents, branch 8) at N points (default 437,645),
+- ``assign`` at K = 8 and, masked, K = 64, 512,
+- ``reg_stats`` at K = 8, 64, 384, 512 (outlier -8) and K = 512 with
+  top_k = 8 (outlier 0),
 - ``nearest_neighbor`` of N moved points against the N points,
 
 saves every output to the file, and prints one JSON line with the times of the
-bench sweep (``em_stats``, N = 2^21, K = 512) and of the search. ``--diff``
-prints, for every output of the two files, ``bit-equal`` or the largest gap.
+bench sweep (``em_stats``, N = 2^21, K = 512) and of the search; of
+``reg_stats`` (each K, with and without top_k) and the masked ``em_stats`` (K =
+64, 512) as a caller makes them (the ops call, its tables included) at N and
+at the odometry bucket, 16,384 points at LiDAR scale; and of two pairs, each
+with its kernels, copies and memsets (profiler) and host syncs (torch's sync
+debug mode): ``register_pair`` (config2_tree_8x3) at N and one odometry pair
+(config 4's tree fit and registration on the bucket). ``--diff`` prints, for
+every output of the two files, ``bit-equal`` or the largest gap.
 """
 
 from __future__ import annotations
@@ -62,10 +71,18 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
         W = pack_loglik_weights(convert.mixture_from_numpy(*mix, device=dev))
         if k < 64:
             out[f"em_stats_K{k}"] = tuple(ops.em_stats(ops.prepare(pts), W))
-        out[f"em_stats_K{k}_weighted_outlier"] = tuple(ops.em_stats(ops.prepare(pts, w), W, -3.0))
+        out[f"em_stats_K{k}_weighted_outlier"] = tuple(ops.em_stats(ops.prepare(pts, w), W, outlier_logit=-3.0))
         if k >= 64:
             parent = torch.from_numpy(rng.integers(-1, k // BRANCH, n).astype(np.int32)).to(dev)
             out[f"em_stats_masked_K{k}"] = tuple(ops.em_stats_masked(ops.prepare(pts, w), W, parent, BRANCH))
+    for k in (8, 64, 512):
+        mix, _ = bench.bench_problem(1, k, seed=k)
+        W = pack_loglik_weights(convert.mixture_from_numpy(*mix, device=dev))
+        parent = None if k == 8 else torch.from_numpy(rng.integers(-1, k // BRANCH, n).astype(np.int32)).to(dev)
+        out[f"assign_K{k}"] = (ops.assign(ops.prepare(pts), W, parent, None if k == 8 else BRANCH),)
+    reg = reg_inputs(np, torch, convert, dev, pts)
+    for key, (args, kw) in reg.items():
+        out[f"reg_stats_{key}"] = tuple(ops.reg_stats(ops.prepare(pts, w), *args, **kw))
     moved = (pts + torch.tensor([0.02, -0.01, 0.03], device=dev)).contiguous()
     out["knn"] = tuple(knn.nearest_neighbor(moved, pts))
 
@@ -77,7 +94,132 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
     times = {"em_stats_ms": em_s * 1e3, "em_stats_shape": [bench_n, bench_k],
              "knn_ms": knn_s * 1e3, "knn_shape": [n, n], "device": str(dev),
              "card": bench.card_line() if dev.type == "cuda" else None}
+    times.update(shape_times(np, torch, dev, n))
+    times.update(pair_counts(np, torch, dev, n))
     return {name: tuple(t.cpu() for t in ts) for name, ts in out.items()}, times
+
+
+def reg_inputs(np, torch, convert, dev, pts, extent=None):
+    """reg_stats arguments by key: K = 8, 64, 384, 512 (outlier -8) and K =
+    512 with top_k = 8 (outlier 0), at a fixed pose."""
+    from hgmm_torch.models.se3 import so3_exp
+    from hgmm_torch.ops.gaussians import pack_loglik_weights, precision_terms, sym_pack
+    from hgmm_torch.data.synthetic import lidar_mixture_np
+
+    pose = (so3_exp(torch.tensor([0.02, -0.03, 0.05], device=dev)), torch.tensor([0.05, 0.0, -0.02], device=dev))
+    out = {}
+    for k, top_k, outlier in ((8, None, -8.0), (64, None, -8.0), (384, None, -8.0), (512, None, -8.0),
+                              (512, 8, 0.0)):
+        if extent is None:
+            params = convert.mixture_from_numpy(*_unit_mixture(np, k), device=dev)
+        else:
+            params = convert.mixture_from_numpy(*lidar_mixture_np(k, seed=k, extent=extent), device=dev)
+        A, b, _ = precision_terms(params)
+        key = f"K{k}" + ("" if top_k is None else f"_top{top_k}")
+        out[key] = ((pack_loglik_weights(params), params.mu, sym_pack(A), b, pose),
+                    dict(top_k=top_k, outlier_logit=outlier))
+    return out
+
+
+def _unit_mixture(np, k):
+    rng = np.random.default_rng(k + 100)
+    a = 0.3 * rng.standard_normal((k, 3, 3))
+    sigma = np.einsum("kij,klj->kil", a, a) + 0.05 * np.eye(3)
+    return (np.full(k, 1.0 / k, np.float32), rng.standard_normal((k, 3)).astype(np.float32),
+            sigma.astype(np.float32))
+
+
+def shape_times(np, torch, dev, n) -> dict:
+    """ms a call of reg_stats and of the masked em_stats, by K, at n points
+    (unit scale) and at the odometry bucket (16,384 points at LiDAR scale,
+    30 % zero-weight rows): the ops calls as callers make them."""
+    from hgmm_torch import convert, ops
+    from hgmm_torch.data.synthetic import lidar_mixture_np, lidar_points_np
+    from hgmm_torch.ops.gaussians import pack_loglik_weights
+    from hgmm_torch.utils.timing import time_fn
+
+    out = {}
+    rng = np.random.default_rng(7)
+    reps = dict(warmup=3, iters=20) if dev.type == "cuda" else dict(warmup=0, iters=1)
+    for tag, nn, extent in (("n437645", n, None), ("n16384", 16_384, 40.0)):
+        if extent is None:
+            pts = torch.from_numpy(rng.standard_normal((nn, 3), dtype=np.float32)).to(dev)
+            w = None
+        else:
+            pts_np, w_np = lidar_points_np(nn, lidar_mixture_np(512, seed=3, extent=extent), seed=4,
+                                           extent=extent)
+            pts, w = torch.from_numpy(pts_np).to(dev), torch.from_numpy(w_np).to(dev)
+        prep = ops.prepare(pts, w)
+        for key, (args, kw) in reg_inputs(np, torch, convert, dev, pts, extent).items():
+            _, sec, _ = time_fn(lambda: ops.reg_stats(prep, *args, **kw), device=dev, **reps)
+            out[f"reg_stats_{key}_{tag}_ms"] = sec * 1e3
+        for k in (64, 512):
+            mix = (_unit_mixture(np, k) if extent is None else lidar_mixture_np(k, seed=k, extent=extent))
+            W = pack_loglik_weights(convert.mixture_from_numpy(*mix, device=dev))
+            coarse = convert.mixture_from_numpy(*(a[::BRANCH] for a in mix), device=dev)
+            parent = ops.assign(prep, pack_loglik_weights(coarse))
+            _, sec, _ = time_fn(lambda: ops.em_stats_masked(prep, W, parent, BRANCH), device=dev, **reps)
+            out[f"em_stats_masked_K{k}_{tag}_ms"] = sec * 1e3
+    return out
+
+
+def pair_counts(np, torch, dev, n) -> dict:
+    """Seconds, kernels, copies, memsets and host syncs of one register_pair
+    (config2_tree_8x3 at n points) and one odometry pair (config 4 on a
+    16,384-point bucket at LiDAR scale), each once warm."""
+    import json as _json
+    import tempfile
+    import time
+    import warnings
+
+    import hgmm_torch
+    from hgmm_torch.configs.presets import PRESETS
+    from hgmm_torch.data.synthetic import lidar_mixture_np, lidar_points_np, make_cloud
+    from hgmm_torch.models.se3 import Pose, so3_exp
+    from hgmm_torch.pipelines import odometry
+    from hgmm_torch.utils.profiling import trace
+
+    if dev.type != "cuda":
+        return {}
+    p = PRESETS["config2_tree_8x3"]
+    kw = dict(model_kind=p.model_kind, branch=p.branch, levels=p.levels, fit_iters=p.fit_iters,
+              complexity_threshold=p.complexity_threshold, n_iters=p.reg_iters, method=p.method,
+              top_k=p.top_k, outlier_logit=p.outlier_logit)
+    cloud = make_cloud(n, "trefoil", seed=4, device=dev)
+    gt = Pose(so3_exp(torch.tensor([0.0, 0.0, 0.25], device=dev)), torch.tensor([0.05, -0.04, 0.06], device=dev))
+    source = gt.inverse().apply(cloud)
+    pts_np, w_np = lidar_points_np(16_384, lidar_mixture_np(512, seed=3, extent=40.0), seed=5, extent=40.0)
+    moved = Pose(so3_exp(torch.tensor([0.0, 0.0, 0.02])), torch.tensor([0.3, 0.05, 0.0]))
+    frames = [(pts_np, w_np), (moved.apply(torch.from_numpy(pts_np)).numpy(), w_np)]
+    cfg = odometry.OdometryConfig(voxel=0.3, device=dev)
+    ident = Pose.identity(device=dev)
+    runs = {"register_pair": lambda: hgmm_torch.register_pair(
+                source, target=cloud, generator=torch.Generator().manual_seed(0), **kw),
+            "odometry_pair": lambda: odometry._register_frames(
+                frames[0], frames[1], cfg, odometry.frame_generator(0, 0), ident)}
+    out = {}
+    for name, fn in runs.items():
+        fn()
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            torch.cuda.set_sync_debug_mode(mode)
+        with tempfile.TemporaryDirectory() as d:
+            with trace(d):
+                fn()
+                torch.cuda.synchronize()
+            events = _json.loads((Path(d) / "trace.json").read_text())["traceEvents"]
+        for cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            out[f"{name}_{cat}s"] = sum(1 for e in events if e.get("cat") == cat and "dur" in e)
+        out[f"{name}_host_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+        out[f"{name}_s"] = wall
+    return out
 
 
 def diff(a: dict, b: dict) -> dict:

@@ -9,11 +9,12 @@ against its own bound from ``hgmm_torch.eval.roofline``.
 - K=512 unmasked: the shape of ``hgmm_torch.bench`` (fit and registration at
   leaf resolution).
 - K=64 unmasked: a flat K=64 fit. K=8 unmasked: the tree's level-0 EM.
-- masked: the tree fit's child-masked E-step (``ops.em_stats_masked``,
+- masked: the tree fit's child-masked E-step (``ops.em_stats_grouped`` on
+  the points grouped by parent once, as the fit groups them once a level;
   branch 8, parents drawn uniformly over the K/8 parents): a point needs its
   parent's 8 children only, so its bound is the point stream's.
 
-A sweep is one ``ops.em_stats`` / ``ops.em_stats_masked`` call on the prepared
+A sweep is one ``ops.em_stats`` / ``ops.em_stats_grouped`` call on the prepared
 buffer; ``sweeps_for(k)`` sweeps are queued back to back, the chain is warmed
 once and timed five times (CUDA events; the host clock on the CPU, where the
 plain versions run and the rates are the host's).
@@ -52,7 +53,8 @@ def build_chain(k: int, masked: bool, n: int, device, sweeps: int, seed: int = 0
     if masked:
         par = np.random.default_rng(seed + 1).integers(0, k // BRANCH, n, dtype=np.int32)
         parent = torch.from_numpy(par).to(device)
-        sweep = lambda: ops.em_stats_masked(prep, W, parent, BRANCH)  # noqa: E731
+        groups = ops.group_by_parent(prep, parent, BRANCH, k)
+        sweep = lambda: ops.em_stats_grouped(groups, W)  # noqa: E731
     else:
         sweep = lambda: ops.em_stats(prep, W)  # noqa: E731
 

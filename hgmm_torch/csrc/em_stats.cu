@@ -12,8 +12,8 @@
 // T2/T0 - mu mu^T cancels in float32; a scheduling-dependent sum order would
 // show there).
 //
-// Two kernel bodies; hgmm_torch/ops/fused_em.py:plan_em_tiles picks by K and
-// the mask alone.
+// Three kernel bodies; hgmm_torch/ops/fused_em.py picks by K and the mask
+// alone (plan_em_tiles for the unmasked ones).
 //
 // em_stats_tiled_kernel: unmasked, K >= 64 (the bench sweep, K = 512).
 //   What bounds it on the card: float32 arithmetic. A point and component
@@ -55,31 +55,42 @@
 //     a point with every logit at the floor stays dead. Their statistics are
 //     not written.
 //
-// em_stats_kernel: masked calls and K < 64 (the tree's level 0, K = 8, where
-//   the call is bound by the 16 bytes a point and by the launch).
+// em_stats_kernel: unmasked calls with K < 64 (the tree's level 0, K = 8,
+//   where the call is bound by the 16 bytes a point and by the launch).
 //   One block of TILE threads walks tiles of TILE points (grid-stride).
 //   Phase 1, one thread per point: psi(y), then the exact two-pass softmax
-//     over the K components (or, masked, the parent's `branch` children);
-//     psi, the max and the softmax scale go to shared memory.
+//     over the K components; psi, the max and the softmax scale go to shared
+//     memory.
 //   Phase 2, threads per component: thread (g, j) recomputes l_ij for the
 //     points g, g + G, ... of the tile, gamma_ij = scale_i exp2(l_ij - m_i),
 //     and accumulates gamma_ij psi_i in registers; the tile's sum is added to
 //     the (g, j) slot of a block-private [G*K, 10] shared accumulator that no
-//     other thread touches. Masked, a thread skips the points of other parents.
+//     other thread touches.
+//
+// em_stats_grouped_kernel: masked calls (the tree's levels 1 and 2).
+//   What bounds it: a point needs only its parent's `branch` children, so
+//   the work is N branch pairs, not N K. The wrapper (ops/fused_em.py:
+//   group_by_parent) sorts the level's points by parent once (a stable sort
+//   and one gather; points without a parent and zero-weight rows, which add
+//   exactly nothing, are left out) and plans chunks of at most P points of one
+//   parent (plan_parent_chunks). One warp takes a chunk: the parent's children
+//   weights sit in shared memory, a lane takes points lane, lane + 32, ...
+//   and keeps the branch logits, one exp2 a pair and the branch x 10
+//   statistics in registers. The warp's lanes are summed in lane order
+//   through shared memory into the chunk's [branch*10 + 1] partial row, and
+//   em_grouped_reduce_kernel adds a parent's chunks, in chunk order and in
+//   float64, into its rows of S (and every chunk into the loglik).
 #include "hgmm_kernels.cuh"
 
 namespace hgmm {
 
-template <bool MASKED>
 __global__ void __launch_bounds__(TILE)
     em_stats_kernel(const float* __restrict__ pts4, int n, const float* __restrict__ wn, int k,
-                    const int* __restrict__ parent, int branch, int has_outlier, float outlier,
-                    int groups, float* __restrict__ partial) {
+                    int has_outlier, float outlier, int groups, float* __restrict__ partial) {
   extern __shared__ float4 smem4[];
   float4* w4 = smem4;                           // [k * 3]  packed weights
   float4* pt4 = w4 + 3 * k;                     // [TILE * 3] psi(9), m2, scale, (1)
-  int* par_s = reinterpret_cast<int*>(pt4 + 3 * TILE);  // [TILE]
-  float* ll_s = reinterpret_cast<float*>(par_s + TILE);  // [TILE]
+  float* ll_s = reinterpret_cast<float*>(pt4 + 3 * TILE);  // [TILE]
   float* acc_s = ll_s + TILE;                   // [slots * 10]
   const int t = threadIdx.x;
   const int slots = groups * k;
@@ -102,18 +113,14 @@ __global__ void __launch_bounds__(TILE)
     const int i = base + t;
     // ---- Phase 1: this thread's point.
     float4 q0 = make_float4(0.f, 0.f, 0.f, 0.f), q1 = q0, q2 = q0;
-    int par = -1;
     if (i < n) {
       const float x = pts4[i], y = pts4[(size_t)n + i], z = pts4[2 * (size_t)n + i];
       const float w = pts4[3 * (size_t)n + i];
       const Psi p = features(x, y, z);
-      int j0, j1;
-      visible_range(MASKED ? parent : nullptr, i, k, branch, &j0, &j1);
-      if (MASKED) par = parent[i];
-      const float m = max_logit(w4, p, j0, j1, has_outlier, outlier);
+      const float m = max_logit(w4, p, 0, k, has_outlier, outlier);
       const float m2 = fmaxf(m, NEG_INF) * LOG2E;
       float s = 0.0f;
-      for (int j = j0; j < j1; ++j) s += exp2f(fmaf(logit(w4 + 3 * j, p), LOG2E, -m2));
+      for (int j = 0; j < k; ++j) s += exp2f(fmaf(logit(w4 + 3 * j, p), LOG2E, -m2));
       const Soft r = finish_soft(m, m2, s, has_outlier, outlier, w);
       ll_acc += r.lse;
       q0 = make_float4(p.v[0], p.v[1], p.v[2], p.v[3]);
@@ -123,7 +130,6 @@ __global__ void __launch_bounds__(TILE)
     pt4[3 * t] = q0;
     pt4[3 * t + 1] = q1;
     pt4[3 * t + 2] = q2;
-    par_s[t] = par;
     __syncthreads();
 
     // ---- Phase 2: this thread's components over the tile's points.
@@ -131,14 +137,12 @@ __global__ void __launch_bounds__(TILE)
     if (has_role) {
       for (int j = j_first; j < k; j += TILE) {
         const float4* wj = w4 + 3 * j;
-        const int pj = MASKED ? j / branch : 0;
         float acc[10];
 #pragma unroll
         for (int f = 0; f < 10; ++f) acc[f] = 0.0f;
         for (int ip = g; ip < tile_n; ip += groups) {
           const float4 c = pt4[3 * ip + 2];
           if (c.z == 0.0f) continue;  // dead, zero-weight or outside the tile
-          if (MASKED && par_s[ip] != pj) continue;
           const float4 a = pt4[3 * ip], b = pt4[3 * ip + 1];
           Psi p;
           p.v[0] = a.x; p.v[1] = a.y; p.v[2] = a.z; p.v[3] = a.w;
@@ -498,21 +502,17 @@ cudaError_t launch_reduce_partials(const float* partial, int nb, int m, float* o
 }
 
 size_t em_stats_smem_bytes(int k, int groups) {
-  return sizeof(float4) * (3 * (size_t)k + 3 * TILE) + sizeof(int) * TILE +
-         sizeof(float) * (TILE + (size_t)groups * k * 10);
+  return sizeof(float4) * (3 * (size_t)k + 3 * TILE) + sizeof(float) * (TILE + (size_t)groups * k * 10);
 }
 
-template <bool MASKED>
-cudaError_t launch_em_stats(const float* pts4, int n, const float* wn, int k, const int* parent,
-                            int branch, int has_outlier, float outlier, float* partial, int nb,
-                            float* out, cudaStream_t stream) {
+cudaError_t launch_em_stats(const float* pts4, int n, const float* wn, int k, int has_outlier,
+                            float outlier, float* partial, int nb, float* out, cudaStream_t stream) {
   const int groups = k < TILE ? TILE / k : 1;
   const size_t smem = em_stats_smem_bytes(k, groups);
-  cudaError_t err = cudaFuncSetAttribute(em_stats_kernel<MASKED>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(em_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return err;
-  em_stats_kernel<MASKED><<<nb, TILE, smem, stream>>>(pts4, n, wn, k, parent, branch, has_outlier,
-                                                      outlier, groups, partial);
+  em_stats_kernel<<<nb, TILE, smem, stream>>>(pts4, n, wn, k, has_outlier, outlier, groups, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce_partials(partial, nb, k * 10 + 1, out, stream);
@@ -520,24 +520,124 @@ cudaError_t launch_em_stats(const float* pts4, int n, const float* wn, int k, co
 
 }  // namespace hgmm
 
+namespace hgmm {
+
+// ---------------------------------------------------------------------------
+// The masked E-step by parent chunks (ops/fused_em.py:group_by_parent).
+
+constexpr int EG_BMAX = 8;            // largest branch (ops/fused_em.py:EG_BMAX)
+constexpr int EG_WARPS = 4;           // chunks a block, one a warp
+constexpr int EG_ROW = EG_BMAX * 10 + 1;  // a lane's row in the transpose (odd: no bank conflict)
+
+// chunks [n_chunks, 3] int32: (parent, first point, point count) in the
+// sorted buffer pts4 [4, n]; a chunk's parent p has children j0 = p branch ..
+// min(j0 + branch, k) - 1. partial [n_chunks, branch*10 + 1].
+__global__ void __launch_bounds__(EG_WARPS * 32)
+    em_stats_grouped_kernel(const float* __restrict__ pts4, int n, const float* __restrict__ wn,
+                            int k, int branch, const int* __restrict__ chunks, int n_chunks,
+                            float* __restrict__ partial) {
+  __shared__ float4 w_s[EG_WARPS][3 * EG_BMAX];
+  __shared__ float tr_s[EG_WARPS][32 * EG_ROW];
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  const int chunk = blockIdx.x * EG_WARPS + wi;
+  if (chunk >= n_chunks) return;  // uniform across the warp; no block barrier below
+  const int par = chunks[3 * chunk], first = chunks[3 * chunk + 1], count = chunks[3 * chunk + 2];
+  const int j0 = par * branch;
+  const int nc = min(branch, k - j0);
+  float4* w4 = w_s[wi];
+  if (lane < 3 * nc) w4[lane] = reinterpret_cast<const float4*>(wn)[3 * j0 + lane];
+  __syncwarp();
+
+  float acc[EG_BMAX][10];
+#pragma unroll
+  for (int c = 0; c < EG_BMAX; ++c)
+#pragma unroll
+    for (int f = 0; f < 10; ++f) acc[c][f] = 0.0f;
+  float ll = 0.0f;
+  for (int i = first + lane; i < first + count; i += 32) {
+    const Psi p = features(pts4[i], pts4[(size_t)n + i], pts4[2 * (size_t)n + i]);
+    const float w = pts4[3 * (size_t)n + i];
+    float e[EG_BMAX];
+    float m = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < EG_BMAX; ++c) {
+      e[c] = c < nc ? logit(w4 + 3 * c, p) : -INFINITY;
+      m = fmaxf(m, e[c]);
+    }
+    const float m2 = fmaxf(m, NEG_INF) * LOG2E;
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < EG_BMAX; ++c) {
+      e[c] = c < nc ? exp2f(fmaf(e[c], LOG2E, -m2)) : 0.0f;
+      s += e[c];
+    }
+    const Soft r = finish_soft(m, m2, s, false, 0.0f, w);
+    ll += r.lse;
+    if (r.scale == 0.0f) continue;
+#pragma unroll
+    for (int c = 0; c < EG_BMAX; ++c) {
+      const float g = e[c] * r.scale;
+#pragma unroll
+      for (int f = 0; f < 10; ++f) acc[c][f] = fmaf(g, p.v[f], acc[c][f]);
+    }
+  }
+  // The warp's lanes summed in lane order: each lane posts its row, then
+  // lane l adds column l, l + 32, ... over the rows.
+  float* tr = tr_s[wi];
+#pragma unroll
+  for (int c = 0; c < EG_BMAX; ++c)
+#pragma unroll
+    for (int f = 0; f < 10; ++f) tr[lane * EG_ROW + c * 10 + f] = acc[c][f];
+  tr[lane * EG_ROW + EG_BMAX * 10] = ll;
+  __syncwarp();
+  const int row = branch * 10 + 1;
+  float* out = partial + (size_t)chunk * row;
+  for (int col = lane; col < row; col += 32) {
+    const int src = col == branch * 10 ? EG_BMAX * 10 : col;
+    float v = 0.0f;
+    if (col == branch * 10 || col < nc * 10)
+      for (int l = 0; l < 32; ++l) v += tr[l * EG_ROW + src];
+    out[col] = v;
+  }
+}
+
+// out[o], o < K*10: S[j, f] = sum over the chunks of j's parent p = j /
+// branch, in chunk order, of their column (j - p branch) * 10 + f (0 for a
+// parent without chunks); out[K*10]: the loglik, every chunk's. One warp an
+// output, float64, a lane's rows then a butterfly: a fixed order.
+__global__ void em_grouped_reduce_kernel(const float* __restrict__ partial, int n_chunks, int branch,
+                                         const int* __restrict__ parent_off, int k,
+                                         float* __restrict__ out) {
+  const int o = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (o > k * 10) return;  // o is uniform across the warp
+  const int row = branch * 10 + 1;
+  int r0 = 0, r1 = n_chunks, col = branch * 10;
+  if (o < k * 10) {
+    const int p = (o / 10) / branch;
+    r0 = parent_off[p];
+    r1 = parent_off[p + 1];
+    col = o - p * branch * 10;
+  }
+  double s = 0.0;
+  for (int r = r0 + lane; r < r1; r += 32) s += (double)partial[(size_t)r * row + col];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL_MASK, s, off);
+  if (lane == 0) out[o] = (float)s;
+}
+
+}  // namespace hgmm
+
 extern "C" {
 
-// S and loglik of em_ref.em_stats / em_stats_masked (parent == NULL: no mask)
-// into out[K*10 + 1] (S row-major, then loglik). partial is [nb, K*10 + 1]
-// scratch. Returns the CUDA error code of the launches (0 on success).
-int hgmm_em_stats(const void* pts4, int n, const void* wn, int k, const void* parent, int branch,
-                  int has_outlier, float outlier, void* partial, int nb, void* out,
-                  void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto p = static_cast<const float*>(pts4);
-  const auto w = static_cast<const float*>(wn);
-  auto part = static_cast<float*>(partial);
-  auto o = static_cast<float*>(out);
-  if (parent != nullptr)
-    return (int)hgmm::launch_em_stats<true>(p, n, w, k, static_cast<const int*>(parent), branch,
-                                            has_outlier, outlier, part, nb, o, s);
-  return (int)hgmm::launch_em_stats<false>(p, n, w, k, nullptr, 1, has_outlier, outlier, part,
-                                           nb, o, s);
+// S and loglik of em_ref.em_stats into out[K*10 + 1] (S row-major, then
+// loglik) by the first kernel body. partial is [nb, K*10 + 1] scratch.
+// Returns the CUDA error code of the launches (0 on success).
+int hgmm_em_stats(const void* pts4, int n, const void* wn, int k, int has_outlier, float outlier,
+                  void* partial, int nb, void* out, void* stream) {
+  return (int)hgmm::launch_em_stats(static_cast<const float*>(pts4), n, static_cast<const float*>(wn),
+                                    k, has_outlier, outlier, static_cast<float*>(partial), nb,
+                                    static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }
 
 // The same S and loglik for an unmasked call with K >= 64 through the
@@ -561,6 +661,30 @@ int hgmm_em_stats_tiled(const void* pts4, int n, const void* wn, int k, int k_pa
     case 2048: return (int)hgmm::launch_em_stats_tiled<256>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// S and loglik of em_ref.em_stats_masked into out[K*10 + 1], from the
+// parent-sorted buffer pts4 [4, n] and its chunk table (chunks [n_chunks, 3]:
+// parent, first point, count; parent_off [ceil(K / branch) + 1]: the first
+// chunk of each parent, then n_chunks). partial is [n_chunks, branch*10 + 1]
+// scratch. branch <= 8. Returns the CUDA error code of the launches.
+int hgmm_em_stats_grouped(const void* pts4, int n, const void* wn, int k, int branch,
+                          const void* chunks, int n_chunks, const void* parent_off, void* partial,
+                          void* out, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (branch < 1 || branch > hgmm::EG_BMAX) return (int)cudaErrorInvalidValue;
+  if (n_chunks > 0) {
+    const int blocks = (n_chunks + hgmm::EG_WARPS - 1) / hgmm::EG_WARPS;
+    hgmm::em_stats_grouped_kernel<<<blocks, hgmm::EG_WARPS * 32, 0, s>>>(
+        static_cast<const float*>(pts4), n, static_cast<const float*>(wn), k, branch,
+        static_cast<const int*>(chunks), n_chunks, static_cast<float*>(partial));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  hgmm::em_grouped_reduce_kernel<<<(k * 10 + 1 + 7) / 8, 256, 0, s>>>(
+      static_cast<const float*>(partial), n_chunks, branch, static_cast<const int*>(parent_off), k,
+      static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }
 
 const char* hgmm_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

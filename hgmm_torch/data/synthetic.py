@@ -1,7 +1,8 @@
 """Synthetic point clouds, made with numpy from a seed.
 
 Counterpart of ``hgmm/data/synthetic.py``: the same shapes (a tube around a
-trefoil knot, a swept helix ribbon) as stand-ins for the Stanford scans,
+trefoil knot, a swept helix ribbon, a sample of a random 12-component
+mixture) as stand-ins for the Stanford scans,
 which are not in the repository. The draws come from numpy, so they differ
 from the JAX package's ``jax.random`` draws for the same seed.
 """
@@ -12,6 +13,20 @@ import numpy as np
 import torch
 
 from hgmm_torch.models.se3 import Pose
+from hgmm_torch.ops.gaussians import MixtureParams
+
+
+def sample_gmm(params: MixtureParams, n: int, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Draw n points [n, 3] from a mixture: a component by pi, then
+    mu + chol(sigma) z. Draws from `generator` on the CPU (the reference draws
+    from a jax.random key: same distribution, other draws); the points land on
+    the parameters' device."""
+    pi, mu, sigma = (a.detach().to("cpu", torch.float64) for a in params)
+    comp = torch.multinomial(pi / pi.sum(), n, replacement=True, generator=generator)
+    z = torch.randn(n, 3, generator=generator, dtype=torch.float64)
+    chol = torch.linalg.cholesky(sigma)
+    pts = mu[comp] + torch.einsum("nij,nj->ni", chol[comp], z)
+    return pts.to(dtype=params.mu.dtype, device=params.mu.device)
 
 
 def make_cloud_np(n: int, kind: str = "trefoil", seed: int = 0) -> np.ndarray:
@@ -20,8 +35,19 @@ def make_cloud_np(n: int, kind: str = "trefoil", seed: int = 0) -> np.ndarray:
     trefoil: tube (sigma 0.06) around a trefoil knot scaled by 0.3 — curved,
              self-occluding, no rotational symmetry.
     helix:   tube (sigma 0.08) around a helix scaled by 0.5.
+    blob:    sample of a random 12-component mixture (means uniform in
+             [-1, 1]^3, covariances a a^T + 0.01 I with a ~ 0.15 N(0, 1),
+             equal weights).
     """
     rng = np.random.default_rng(seed)
+    if kind == "blob":
+        mu = rng.uniform(-1.0, 1.0, (12, 3))
+        a = 0.15 * rng.standard_normal((12, 3, 3))
+        sigma = np.einsum("kij,klj->kil", a, a) + 0.01 * np.eye(3)
+        comp = rng.integers(0, 12, n)
+        chol = np.linalg.cholesky(sigma)
+        z = rng.standard_normal((n, 3))
+        return (mu[comp] + np.einsum("nij,nj->ni", chol[comp], z)).astype(np.float32)
     t = rng.uniform(0.0, 2.0 * np.pi, n)
     if kind == "trefoil":
         center = 0.3 * np.stack(

@@ -26,9 +26,10 @@ masked point needs its parent's ``branch`` children, not all K. Executed work
 is more, and shows as a share of the bound below 100 %: the unmasked
 ``em_stats`` at K >= 64 (``em_stats_tiled_kernel``) evaluates each logit and
 each exp2 once, and adds the max, the sum, the scale and the shuffles between
-lanes to the 20 FMA a pair; the first ``em_stats`` body (K < 64 and every
-masked call) evaluates each logit three times and ``reg_stats`` twice (max
-pass, sum pass, statistics pass).
+lanes to the 20 FMA a pair; the first ``em_stats`` body (K < 64) evaluates
+each logit three times (max pass, sum pass, statistics pass); the masked body
+and ``reg_stats`` once (``reg_stats`` adds the rescaling of its online softmax
+and the lanes' merge).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import dataclasses
 
 # NVIDIA H100 SXM data sheet, 700 W (dense rates, no sparsity).
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores; an FMA counts 2
+H100_FP64_FLOPS = 34e12  # float64 outside the tensor cores
 H100_BF16_FLOPS = 989e12  # bf16 tensor cores, float32 accumulate
 H100_HBM_BYTES = 3.35e12  # device memory, bytes/s
 H100_SMS = 132
@@ -54,6 +56,12 @@ FLOP_STATS = 20.0  # 10 FMA: gamma * psi into S
 FLOP_REG = 25.0  # 12 FMA + 1 add: e * [mu | A6 | b3] and the mass
 FLOP_REG_POINT = 200.0  # pose, features, horn 4x4, sparse J^T M J and J^T r
 FLOP_KNN_PAIR = 8.0  # 3 sub, 1 mul, 2 FMA
+# csrc/reg_step.cu after the partials' sum, by a count of the source: Horn's
+# moments and a Jacobi SVD of 3 x 3 (~6 sweeps of 3 rotations, ~60 flop each),
+# or the damped 6 x 6 system by LU (~150) and exp and compose (~150); log and
+# the delta (~150). The larger of the two.
+FLOP_REG_STEP = 1500.0
+SCAN_BYTES = 2 * 32 * 4 + 2 * 4  # the scan state read and written, loglik and delta
 
 
 @dataclasses.dataclass
@@ -104,6 +112,9 @@ def kernel_bound(kernel: str, **s) -> KernelBound:
       all), then 25 flop and one exp2 for each kept component (k, or top_k
       when 1 <= top_k < k) and ~200 flop a point for the pose, horn, A and
       b; reads 16 B a point, W and the [K, 12] aux table, writes 59 floats.
+    - ``reg_step`` (nb): the float64 sum of nb [59] partial rows and one pose
+      solve (FLOP_REG_STEP) at the float64 peak; reads the rows and the scan
+      state, writes the state and one loglik and delta.
     - ``knn`` (nq, nt): 8 flop a pair; reads both clouds (12 B a point),
       writes 8 B a query.
     - ``probe_logits`` / ``probe_stats`` (k, t, steps, reps, dtype "bf16" or
@@ -133,6 +144,9 @@ def kernel_bound(kernel: str, **s) -> KernelBound:
         kept = k if top_k is None or top_k >= k else top_k
         flops = n * (k * FLOP_LOGIT + kept * FLOP_REG + FLOP_REG_POINT)
         return _bound(flops, n * 16.0 + (22 * k + 12 + 59) * f4, n * kept)
+    if kernel == "reg_step":
+        nb = s["nb"]
+        return _bound(nb * 59.0 + FLOP_REG_STEP, nb * 59 * f4 + SCAN_BYTES, flop_rate=H100_FP64_FLOPS)
     if kernel == "knn":
         nq, nt = s["nq"], s["nt"]
         return _bound(float(nq) * nt * FLOP_KNN_PAIR, 12.0 * (nq + nt) + 8.0 * nq)

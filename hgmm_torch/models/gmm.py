@@ -135,3 +135,12 @@ class Gmm:
 
     def log_likelihood(self, points: torch.Tensor) -> torch.Tensor:
         return log_likelihood(self.params, points)
+
+
+# The reference's names: hgmm.GmmParams is the mixture tuple, hgmm.fit_gmm a
+# flat fit.
+GmmParams = MixtureParams
+
+
+def fit_gmm(points, k=64, n_iters=30, generator=None, **kw) -> tuple[Gmm, torch.Tensor]:
+    return Gmm.fit(points, k=k, n_iters=n_iters, generator=generator, **kw)

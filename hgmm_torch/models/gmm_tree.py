@@ -4,13 +4,15 @@ Counterpart of ``hgmm/models/gmm_tree.py``. Level l holds branch^(l+1)
 Gaussians as flat arrays; the child block of node p is [p*J, (p+1)*J) at
 level l+1. Level 0 is a flat EM fit; each deeper level seeds J children per
 parent from the parent's covariance and runs EM sweeps in which every point
-sees only its parent's children (``ops.em_stats_masked``). Parents are hard
-(argmax) assignments (``ops.assign``), re-derived after each level.
+sees only its parent's children (``ops.em_stats_grouped`` on the points
+grouped by parent once a level). Parents are hard (argmax) assignments
+(``ops.assign``), re-derived after each level.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -74,12 +76,19 @@ def _child_directions(branch: int) -> np.ndarray:
     return g / np.linalg.norm(g, axis=1, keepdims=True)
 
 
+@functools.lru_cache(maxsize=None)
+def _directions_on(branch: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The child directions as a tensor on `device`, copied there once (a copy
+    to the card makes the host wait)."""
+    return torch.from_numpy(_child_directions(branch)).to(dtype=dtype, device=device)
+
+
 def seed_children(parents: MixtureParams, branch: int) -> MixtureParams:
     """Split every parent into `branch` children: means offset by 0.6 along
     the parent's Cholesky directions, covariance scaled by 0.35, weight split
     evenly. Deterministic."""
     kp = parents.pi.shape[0]
-    dirs = torch.from_numpy(_child_directions(branch)).to(parents.mu)  # [J, 3]
+    dirs = _directions_on(branch, parents.mu.dtype, parents.mu.device)  # [J, 3]
     eye = torch.eye(3, dtype=parents.sigma.dtype, device=parents.sigma.device)
     chol = torch.linalg.cholesky_ex(parents.sigma + 1e-9 * eye).L  # [Kp, 3, 3]
     offsets = torch.einsum("kij,bj->kbi", chol, dirs)  # [Kp, J, 3]
@@ -114,9 +123,11 @@ def _fit_tree(
     parent = ops.assign(prep, pack_loglik_weights(params0))
     for _ in range(1, levels):
         p = seed_children(level_params[-1], branch)
+        # One grouping of the points by parent for the level's sweeps.
+        groups = ops.group_by_parent(prep, parent, branch, p.pi.shape[0])
         ll = None
         for _ in range(em_iters):
-            stats = ops.em_stats_masked(prep, pack_loglik_weights(p), parent, branch)
+            stats = ops.em_stats_grouped(groups, pack_loglik_weights(p))
             T0, T1, T2 = ops.unpack_suffstats(stats.S)
             p = mstep_update(
                 T0, T1, T2, total, cov_reg=cov_reg, cov_type=cov_type, cov_floor=cov_floor

@@ -121,3 +121,16 @@ def se3_log(pose: Pose) -> torch.Tensor:
     K = hat(omega)
     V = torch.eye(3, dtype=omega.dtype, device=omega.device) + b * K + c * (K @ K)
     return torch.cat([omega, _solve3(V, pose.t)])  # V is never singular here
+
+
+def random_pose(generator: torch.Generator | None = None, max_angle: float = 0.5,
+                max_trans: float = 0.3, dtype=torch.float32, device=None) -> Pose:
+    """Random SE(3) for tests and synthetic benchmarks: a uniform axis, an
+    angle uniform in [-max_angle, max_angle], a translation uniform in
+    [-max_trans, max_trans]^3. Draws from `generator` (the reference draws
+    from a jax.random key: same distribution, other draws)."""
+    axis = torch.randn(3, generator=generator, dtype=torch.float64)
+    axis = axis / (torch.linalg.norm(axis) + 1e-12)
+    angle = (2.0 * torch.rand((), generator=generator, dtype=torch.float64) - 1.0) * max_angle
+    t = (2.0 * torch.rand(3, generator=generator, dtype=torch.float64) - 1.0) * max_trans
+    return Pose(so3_exp(axis * angle).to(dtype=dtype, device=device), t.to(dtype=dtype, device=device))

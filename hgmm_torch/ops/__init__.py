@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 
 from hgmm_torch.ops import em_ref, fused_em
-from hgmm_torch.ops.em_ref import EmStats, RegStats  # noqa: F401
+from hgmm_torch.ops.em_ref import EmStats, RegScan, RegStats  # noqa: F401
 from hgmm_torch.ops.gaussians import MixtureParams, unpack_suffstats  # noqa: F401
 
 
@@ -48,24 +48,59 @@ def prepare(points: torch.Tensor, point_weights: torch.Tensor | None = None) -> 
     return Prepared(torch.cat([pts.T, w[None, :]], dim=0).contiguous())
 
 
-def _prep(points) -> Prepared:
-    return points if isinstance(points, Prepared) else prepare(points)
+def _prep(points, point_weights=None) -> Prepared:
+    """A Prepared as it is (its weights were given to prepare(); passing
+    point_weights beside it raises, as in the reference), raw points prepared
+    with point_weights."""
+    if isinstance(points, Prepared):
+        if point_weights is not None:
+            raise ValueError("weights are baked into Prepared at prepare()")
+        return points
+    return prepare(points, point_weights)
 
 
-def em_stats(points, W, outlier_logit=None) -> EmStats:
+def em_stats(points, W, point_weights=None, outlier_logit=None) -> EmStats:
     """E-step + sufficient statistics (see em_ref.em_stats)."""
-    p = _prep(points)
+    p = _prep(points, point_weights)
     if p.pts4.is_cuda:
         return fused_em.em_stats(p.pts4, W, outlier_logit)
     return em_ref.em_stats(p.points, W, p.weights, outlier_logit)
 
 
-def em_stats_masked(points, W, parent, branch) -> EmStats:
+def em_stats_masked(points, W, parent, branch, point_weights=None) -> EmStats:
     """Tree-level E-step masked to each point's parent's child block."""
-    p = _prep(points)
+    p = _prep(points, point_weights)
     if p.pts4.is_cuda:
         return fused_em.em_stats_masked(p.pts4, W, parent, branch)
     return em_ref.em_stats_masked(p.points, W, parent, branch, p.weights)
+
+
+class Grouped(NamedTuple):
+    """A tree level's points and parents for the masked E-step on the CPU;
+    on the card group_by_parent() returns fused_em.ParentGroups, the points
+    sorted by parent and their chunk plan."""
+
+    prep: Prepared
+    parent: torch.Tensor
+    branch: int
+
+
+def group_by_parent(points, parent, branch: int, k: int):
+    """Group a level's points by parent once, for every sweep on that
+    assignment (em_stats_grouped). On the card this reads the per-parent
+    counts on the host once."""
+    p = _prep(points)
+    if p.pts4.is_cuda:
+        return fused_em.group_by_parent(p.pts4, parent, branch, k)
+    return Grouped(p, parent, branch)
+
+
+def em_stats_grouped(groups, W) -> EmStats:
+    """em_stats_masked on grouped points."""
+    if isinstance(groups, fused_em.ParentGroups):
+        return fused_em.em_stats_grouped(groups, W)
+    return em_ref.em_stats_masked(groups.prep.points, W, groups.parent, groups.branch,
+                                  groups.prep.weights)
 
 
 def assign(points, W, parent=None, branch=None) -> torch.Tensor:
@@ -76,9 +111,57 @@ def assign(points, W, parent=None, branch=None) -> torch.Tensor:
     return em_ref.assign(p.points, W, parent, branch)
 
 
-def reg_stats(x, W, mu, A6, b3, pose, top_k=None, outlier_logit=None) -> RegStats:
+def reg_stats(x, W, mu, A6, b3, pose, point_weights=None, top_k=None, outlier_logit=None) -> RegStats:
     """Registration statistics at pose (R, t), applied to the source x."""
-    p = _prep(x)
+    p = _prep(x, point_weights)
     if p.pts4.is_cuda:
         return fused_em.reg_stats(p.pts4, W, mu, A6, b3, pose, top_k, outlier_logit)
     return em_ref.reg_stats(p.points, W, mu, A6, b3, pose, p.weights, top_k, outlier_logit)
+
+
+class RegProblem(NamedTuple):
+    """The inputs of a registration scan on the CPU; on the card
+    reg_problem() returns fused_em.RegTables, the same built once."""
+
+    prep: Prepared
+    W: torch.Tensor
+    mu: torch.Tensor
+    A6: torch.Tensor
+    b3: torch.Tensor
+    top_k: int | None
+    outlier_logit: float | None
+
+
+def reg_problem(x, W, mu, A6, b3, point_weights=None, top_k=None, outlier_logit=None):
+    """What every iteration of one scan reuses, built once."""
+    p = _prep(x, point_weights)
+    if p.pts4.is_cuda:
+        return fused_em.reg_tables(p.pts4, W, mu, A6, b3, top_k, outlier_logit)
+    return RegProblem(p, W, mu, A6, b3, top_k, outlier_logit)
+
+
+def new_scan(R: torch.Tensor, t: torch.Tensor, n_iters: int) -> RegScan:
+    """A scan's state on the pose's device (float32 on the card)."""
+    if R.is_cuda:
+        return fused_em.new_scan(R, t, n_iters)
+    return em_ref.new_scan(R, t, n_iters)
+
+
+def reg_partials(problem, scan: RegScan) -> torch.Tensor:
+    """The [nb, 59] reg_stats rows at the scan's pose. The kernel reads the
+    pose and the done flag on the card (and does nothing once done); the CPU
+    path reads the flag on the host and skips its work the same way."""
+    if isinstance(problem, fused_em.RegTables):
+        return fused_em.reg_partials(problem, scan.state, scan.state[em_ref.SCAN_DONE:em_ref.SCAN_DONE + 1])
+    if bool(scan.done):
+        return torch.zeros((1, em_ref.REG_OUT), dtype=scan.state.dtype)
+    st = em_ref.reg_stats(problem.prep.points, problem.W, problem.mu, problem.A6, problem.b3, scan.pose,
+                          problem.prep.weights, problem.top_k, problem.outlier_logit)
+    return em_ref.pack_reg(st).to(scan.state.dtype)
+
+
+def reg_step(partial, scan: RegScan, it: int, solver: int, first: bool, last: bool, tol: float) -> None:
+    """One step of the registration iterate on the scan (in place)."""
+    if scan.state.is_cuda:
+        return fused_em.reg_step(partial, scan, it, solver, first, last, tol)
+    return em_ref.reg_step(partial, scan, it, solver, first, last, tol)

@@ -13,6 +13,10 @@ Contracts (shared with the kernels in ``hgmm_torch.ops.fused_em``):
   assign(points, W, parent, branch)                 -> [N] int32 argmax
   reg_stats(x, W, mu, A6, b3, pose, ...)            -> RegStats(horn [4,4],
                                                        A [6,6], b [6], loglik)
+  reg_step(partial, scan, it, solver, first, last, tol)
+                                                    -> one step of the
+                                                       registration iterate on
+                                                       the scan state (in place)
 
 The matmuls here run in full float32: ``hgmm_torch`` turns TF32 off for
 ``torch.backends.cuda.matmul`` and ``torch.backends.cudnn`` when imported.
@@ -28,6 +32,12 @@ import torch
 from hgmm_torch.ops.gaussians import MixtureParams, features, precision_terms, sym_pack, sym_unpack
 
 NEG_INF = -1e30
+# The registration scan's state vector (csrc/hgmm_kernels.cuh:SCAN_*): the
+# pose reg_stats reads (R row-major, t), the iteration's start pose, the loglik
+# of the iteration's first statistics, the last live loglik and delta, done.
+SCAN_POSE, SCAN_START, SCAN_LL, SCAN_LL_LAST, SCAN_D_LAST, SCAN_DONE = 0, 12, 24, 25, 26, 27
+SCAN_FLOATS = 32
+REG_OUT = 59  # a reg_stats row: horn 16, A 36, b 6, loglik 1
 
 
 class EmStats(NamedTuple):
@@ -219,3 +229,82 @@ def reg_stats_direct(x, params, pose, point_weights=None, outlier_logit=None) ->
     p64 = MixtureParams(*(a.double() for a in params))
     A, b, _ = precision_terms(p64)
     return reg_moments(x, y, gamma, lse, p64.mu, sym_pack(A), b)
+
+
+class RegScan(NamedTuple):
+    """A registration scan's state on one device: state [SCAN_FLOATS] and
+    the outputs logliks, deltas [n_iters], all in the pose's dtype (float32
+    on the card). The step kernel and its twin update them in place."""
+
+    state: torch.Tensor
+    logliks: torch.Tensor
+    deltas: torch.Tensor
+
+    @property
+    def pose(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(R, t) as they stand (copies)."""
+        return (self.state[SCAN_POSE:SCAN_POSE + 9].reshape(3, 3).clone(),
+                self.state[SCAN_POSE + 9:SCAN_POSE + 12].clone())
+
+    @property
+    def done(self) -> torch.Tensor:
+        return self.state[SCAN_DONE] != 0
+
+
+def new_scan(R: torch.Tensor, t: torch.Tensor, n_iters: int, dtype=None) -> RegScan:
+    """The state at the start of a scan: the pose (R, t), nothing done."""
+    dtype = dtype or R.dtype
+    state = torch.zeros(SCAN_FLOATS, dtype=dtype, device=R.device)
+    state[SCAN_POSE:SCAN_POSE + 9] = R.reshape(9).to(dtype)
+    state[SCAN_POSE + 9:SCAN_POSE + 12] = t.reshape(3).to(dtype)
+    z = torch.zeros(n_iters, dtype=dtype, device=R.device)
+    return RegScan(state, z, z.clone())
+
+
+def pack_reg(st: RegStats) -> torch.Tensor:
+    """RegStats -> one [1, 59] partial row (horn, A, b, loglik)."""
+    return torch.cat([st.horn.reshape(16), st.A.reshape(36), st.b.reshape(6),
+                      st.loglik.reshape(1)])[None, :]
+
+
+def reg_step(partial: torch.Tensor, scan: RegScan, it: int, solver: int, first: bool, last: bool,
+             tol: float) -> None:
+    """Plain twin of csrc/reg_step.cu: one step of the registration iterate
+    on `scan`, in place, with the torch code of models/pose.py and
+    models/se3.py in the state's dtype. partial [nb, 59]: the rows of
+    reg_stats, summed here (in float64). solver 0: Horn; 1: one Gauss-Newton
+    step. `first` records the iteration's start pose and loglik; `last`
+    writes logliks[it], deltas[it] and sets done when delta < tol. Once done,
+    nothing changes and `last` re-emits the last live (loglik, delta). Reads
+    the done flag on the host."""
+    from hgmm_torch.models.pose import apply_wls_increment, solve_horn, solve_wls_increment
+    from hgmm_torch.models.se3 import Pose, se3_log
+
+    st, lls, ds = scan
+    if bool(st[SCAN_DONE] != 0):
+        if last:
+            lls[it] = st[SCAN_LL_LAST]
+            ds[it] = st[SCAN_D_LAST]
+        return
+    sums = partial.double().sum(0).to(st.dtype)
+    if first:
+        st[SCAN_START:SCAN_START + 12] = st[SCAN_POSE:SCAN_POSE + 12].clone()
+        st[SCAN_LL] = sums[58]
+    R, t = scan.pose
+    if solver == 0:
+        new = solve_horn(sums[:16].reshape(4, 4))
+    else:
+        new = apply_wls_increment(Pose(R, t), solve_wls_increment(sums[16:52].reshape(6, 6), sums[52:58]))
+    st[SCAN_POSE:SCAN_POSE + 9] = new.R.reshape(9)
+    st[SCAN_POSE + 9:SCAN_POSE + 12] = new.t
+    if not last:
+        return
+    start = Pose(st[SCAN_START:SCAN_START + 9].reshape(3, 3).clone(),
+                 st[SCAN_START + 9:SCAN_START + 12].clone())
+    delta = torch.linalg.norm(se3_log(Pose(*scan.pose).compose(start.inverse())))
+    lls[it] = st[SCAN_LL]
+    ds[it] = delta
+    st[SCAN_LL_LAST] = st[SCAN_LL]
+    st[SCAN_D_LAST] = delta
+    if bool(delta < tol):
+        st[SCAN_DONE] = 1.0

@@ -51,8 +51,10 @@ def features(points: torch.Tensor) -> torch.Tensor:
 
 
 def sym_pack(m: torch.Tensor) -> torch.Tensor:
-    """[..., 3, 3] symmetric -> [..., 6] packed [m00, m11, m22, m01, m02, m12]."""
-    return m[..., _SYM_I, _SYM_J]
+    """[..., 3, 3] symmetric -> [..., 6] packed [m00, m11, m22, m01, m02, m12].
+    Basic indexing only: an index tensor from the host would be copied to the
+    card, a host sync on every call."""
+    return torch.stack([m[..., i, j] for i, j in zip(_SYM_I, _SYM_J)], dim=-1)
 
 
 def sym_unpack(p: torch.Tensor) -> torch.Tensor:

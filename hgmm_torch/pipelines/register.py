@@ -5,9 +5,14 @@ Counterpart of ``hgmm/pipelines/register.py``. Methods:
 - "wls": Mahalanobis Gauss-Newton on the se(3) twist (anisotropic-exact);
 - "horn+wls": Horn for the first half of the iterations, then WLS.
 
-The iterate is a Python loop. After each live iteration the host reads the
-pose increment to test convergence (one device-to-host sync per iteration);
-once converged, the remaining iterations do no work.
+The iterate runs a fixed number of iterations with `done` carried, as the
+reference's lax.scan does, and nothing crosses to the host inside a scan:
+the pose, the iteration's start, the outputs and the done flag live in one
+state buffer (``ops.new_scan``). Each step is two launches on the card, the
+statistics kernel (``ops.reg_partials``: ``csrc/reg_stats.cu``, which returns
+at once when the scan is done) and the step kernel (``ops.reg_step``: ``csrc/reg_step.cu``,
+the partials' sum and the pose solve); a sharded run puts its all_reduce of
+the 59 statistics between them. On the CPU both are the plain versions.
 """
 
 from __future__ import annotations
@@ -19,8 +24,7 @@ import torch
 from hgmm_torch import ops
 from hgmm_torch.models.gmm import Gmm
 from hgmm_torch.models.gmm_tree import GmmTree
-from hgmm_torch.models.pose import apply_wls_increment, solve_horn, solve_wls_increment
-from hgmm_torch.models.se3 import Pose, se3_log
+from hgmm_torch.models.se3 import Pose
 from hgmm_torch.ops.gaussians import MixtureParams, pack_loglik_weights, precision_terms, sym_pack
 
 
@@ -34,38 +38,29 @@ class RegistrationResult(typing.NamedTuple):
 def run_registration_scan(stats_fn, init_R, init_t, n_iters: int, method: str, tol, wls_inner: int):
     """The shared registration iterate: a Horn phase, then a WLS phase.
 
-    stats_fn(R, t) -> (horn [4,4], A [6,6], b [6], loglik []).
-    `done` carries from the Horn phase into the WLS phase, so a converged
-    Horn phase skips every WLS iteration. Iterations after convergence
-    re-emit the last live (loglik, delta), so logliks[-1] and deltas[-1]
-    always hold the converged state.
+    stats_fn(scan) -> [nb, 59] reg_stats rows at the scan's pose (horn 16,
+    A 36, b 6, loglik; summed by the step). Every iteration runs: once `done`
+    is set (delta < tol), the statistics and the step do no work, and the
+    outputs re-emit the last live (loglik, delta), so logliks[-1] and
+    deltas[-1] always hold the converged state. `done` carries from the Horn
+    phase into the WLS phase. A WLS iteration takes wls_inner Gauss-Newton
+    steps, refreshing the statistics each time; its loglik is its first
+    statistics'. Horn or WLS is known on the host from the iteration index.
 
-    Returns ((R, t, done), logliks [n_iters], deltas [n_iters]).
+    Returns ((R, t, done), logliks [n_iters], deltas [n_iters]), done a bool
+    tensor on the pose's device.
     """
     if method not in ("horn", "wls", "horn+wls"):
         raise ValueError(f"unknown registration method {method!r}")
     n_horn = n_iters // 2 if method == "horn+wls" else (n_iters if method == "horn" else 0)
-    R, t = init_R, init_t
-    done = False
-    ll_last = d_last = torch.zeros((), dtype=init_R.dtype, device=init_R.device)
-    lls, deltas = [], []
+    scan = ops.new_scan(init_R, init_t, n_iters)
     for it in range(n_iters):
-        if not done:
-            horn, A, b, ll = stats_fn(R, t)
-            if it < n_horn:
-                new = solve_horn(horn)
-            else:
-                new = apply_wls_increment(Pose(R, t), solve_wls_increment(A, b))
-                # Further Gauss-Newton steps, refreshing associations each time.
-                for _ in range(wls_inner - 1):
-                    _, A2, b2, _ = stats_fn(new.R, new.t)
-                    new = apply_wls_increment(new, solve_wls_increment(A2, b2))
-            delta = torch.linalg.norm(se3_log(new.compose(Pose(R, t).inverse())))
-            R, t, ll_last, d_last = new.R, new.t, ll, delta
-            done = bool(delta < tol)
-        lls.append(ll_last)
-        deltas.append(d_last)
-    return (R, t, done), torch.stack(lls), torch.stack(deltas)
+        solver = 0 if it < n_horn else 1
+        steps = 1 if solver == 0 else max(wls_inner, 1)
+        for s in range(steps):
+            ops.reg_step(stats_fn(scan), scan, it, solver, first=s == 0, last=s == steps - 1, tol=tol)
+    R, t = scan.pose
+    return (R, t, scan.done), scan.logliks, scan.deltas
 
 
 def model_terms(params: MixtureParams):
@@ -92,19 +87,13 @@ def register_points(
     if init_pose is None:
         init_pose = Pose.identity(source.dtype, source.device)
     W, mu, A6, b3 = model_terms(params)
-    prep = ops.prepare(source, point_weights)  # built once for the scan
-
-    def stats_fn(R, t):
-        st = ops.reg_stats(prep, W, mu, A6, b3, (R, t), top_k, outlier_logit)
-        return st.horn, st.A, st.b, st.loglik
-
+    # The source buffer, the packed tables and the partials, once for the scan.
+    problem = ops.reg_problem(source, W, mu, A6, b3, point_weights, top_k, outlier_logit)
     (R, t, done), logliks, deltas = run_registration_scan(
-        stats_fn, init_pose.R, init_pose.t, n_iters, method, tol, wls_inner
+        lambda scan: ops.reg_partials(problem, scan), init_pose.R, init_pose.t, n_iters, method,
+        tol, wls_inner
     )
-    return RegistrationResult(
-        pose=Pose(R, t), logliks=logliks, deltas=deltas,
-        converged=torch.tensor(done, device=source.device),
-    )
+    return RegistrationResult(pose=Pose(R, t), logliks=logliks, deltas=deltas, converged=done)
 
 
 def register_tree(

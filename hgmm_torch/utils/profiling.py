@@ -55,6 +55,45 @@ def device_busy(trace_json: str | Path) -> tuple[float, dict[str, float]]:
     return busy, by_name
 
 
+def device_launches(trace_json: str | Path) -> dict[str, int]:
+    """From a Chrome trace written by trace(): the number of kernels, copies
+    and memsets the device ran."""
+    events = json.loads(Path(trace_json).read_text())["traceEvents"]
+    out = {cat: 0 for cat in DEVICE_CATS}
+    for e in events:
+        if e.get("cat") in out and "dur" in e:
+            out[e["cat"]] += 1
+    return out
+
+
+@contextlib.contextmanager
+def count_syncs():
+    """Within the block, count the operations that make the host wait for the
+    card (a value read back, a blocking copy): torch's sync debug mode warns
+    on each, and the warnings are counted, not shown. Yields a dict whose
+    "syncs" holds the count at the block's end and "sites" the count by the
+    Python line that made the call. Explicit torch.cuda.synchronize() calls
+    are not counted."""
+    import collections
+    import warnings
+
+    out = {"syncs": 0, "sites": {}}
+    if not torch.cuda.is_available():
+        yield out
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield out
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    out["syncs"] = len(syncs)
+    out["sites"] = dict(collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs))
+
+
 class MetricsLog:
     """Append-only JSONL metrics sink: one record per line, with wall-clock
     time. Registration results are serialized from their tensors."""

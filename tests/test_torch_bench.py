@@ -204,7 +204,9 @@ def test_kernel_compare_cpu(tmp_path, capsys):
     assert len(lines) == 2 and lines[0]["em_stats_shape"] == [512, 64]
     rep = kernel_compare.main(["--diff", str(a), str(b)])
     assert set(rep.values()) == {"bit-equal"}
-    assert {"knn", "em_stats_K8", "em_stats_K512_weighted_outlier", "em_stats_masked_K512"} <= set(rep)
+    assert {"knn", "em_stats_K8", "em_stats_K512_weighted_outlier", "em_stats_masked_K512", "assign_K512",
+            "reg_stats_K384", "reg_stats_K512_top8"} <= set(rep)
+    assert times["reg_stats_K512_top8_n16384_ms"] > 0 and times["em_stats_masked_K64_n16384_ms"] > 0
     out = torch.load(a)
     S, ll = out["em_stats_K8"]
     out["em_stats_K8"] = (S + 0.5, ll)

@@ -134,7 +134,7 @@ def _check_reg_stats(cuda, params, n, seed, weighted, top_k, outlier):
     _close(got.loglik, ref.loglik, 1e-4, 0.0)
 
 
-@pytest.mark.parametrize("k", [8, 64, 384])
+@pytest.mark.parametrize("k", [8, 64, 384, 512])
 @pytest.mark.parametrize("weighted,outlier", [(False, None), (True, -2.0)])
 @pytest.mark.parametrize("top_k", [None, 1, 8, 32])
 def test_reg_stats(cuda, k, weighted, outlier, top_k):
@@ -491,3 +491,148 @@ def test_bench_on_the_card(cuda, capsys):
     _check_em(res["stats"], em_ref.em_stats(torch.from_numpy(pts).to(cuda), W), 1 << 16)
     assert 0 < res["vs_baseline"] <= 1.05
     assert len(capsys.readouterr().out.strip().splitlines()) == 1
+
+
+# --------------------------------------------------------------------------
+# the registration scan on the card: reg_stats lanes, reg_step, the grouped
+# masked E-step
+
+
+@pytest.mark.parametrize("k", [8, 12, 64, 512])
+@pytest.mark.parametrize("n", [1, 33, 16_384])
+def test_reg_stats_every_lane_count(cuda, k, n):
+    """The lanes body at every lane count the plan can give, K on and off
+    it, a ragged last warp."""
+    params = _mixture(k, k + 21, cuda, dead=(1,))
+    pts, w = _inputs(n, k + 22, cuda)
+    W = pack_loglik_weights(params)
+    A, b, _ = precision_terms(params)
+    pose = (so3_exp(torch.tensor([0.1, -0.2, 0.3], device=cuda)), torch.tensor([0.05, 0.0, -0.1], device=cuda))
+    ref = em_ref.reg_stats(pts, W, params.mu, sym_pack(A), b, pose, w, None, -2.0)
+    tab = fused_em.reg_tables(prepare(pts, w).pts4, W, params.mu, sym_pack(A), b, None, -2.0)
+    pose12 = torch.cat([pose[0].reshape(9), pose[1]]).contiguous()
+    s = max(n, 300) / 300
+    for lanes in (1, 2, 4, 8, 16, 32):
+        tab.plan = fused_em.RegPlan(lanes=lanes, blocks=tab.plan.blocks, kmax=0)
+        out = torch.empty(59, device=cuda)
+        fused_em.reg_partials(tab, pose12, out=out)
+        _close(out[:16].view(4, 4), ref.horn, 2e-3, 2e-3 * s)
+        _close(out[16:52].view(6, 6), ref.A, 2e-3, 2e-2 * s)
+        _close(out[52:58], ref.b, 2e-3, 2e-2 * s)
+        _close(out[58], ref.loglik, 1e-4, 1e-6)
+
+
+@pytest.mark.parametrize("top_k", [1, 8, 32])
+def test_reg_stats_top_k_list_overflows_on_many_ties(cuda, top_k):
+    """Every component nine times over: more logits tie at the threshold
+    than the kernel's list holds, and the point recomputes them all."""
+    base = _mixture(8, 23, cuda)
+    params = MixtureParams(base.pi.repeat(9) / 9, base.mu.repeat(9, 1), base.sigma.repeat(9, 1, 1))
+    _check_reg_stats(cuda, params, 5000, 24, True, top_k, 0.0)
+
+
+def _scan_inputs(cuda, k=64, n=5000, seed=25):
+    params = _mixture(k, seed, cuda)
+    pts, _ = _inputs(n, seed + 1, cuda)
+    W = pack_loglik_weights(params)
+    A, b, _ = precision_terms(params)
+    return pts, W, params.mu, sym_pack(A), b
+
+
+@pytest.mark.parametrize("solver", [0, 1])
+@pytest.mark.parametrize("first,last", [(True, True), (True, False), (False, True)])
+def test_reg_step_against_its_twin(cuda, solver, first, last):
+    from hgmm_torch import ops
+
+    pts, W, mu, A6, b3 = _scan_inputs(cuda)
+    prob = ops.reg_problem(pts, W, mu, A6, b3)
+    scan = ops.new_scan(so3_exp(torch.tensor([0.05, 0.1, -0.1], device=cuda)),
+                        torch.tensor([0.1, 0.0, 0.2], device=cuda), 4)
+    scan.state[em_ref.SCAN_START:em_ref.SCAN_START + 12] = scan.state[:12] + 0.01
+    scan.state[em_ref.SCAN_LL] = -7.0
+    twin = em_ref.RegScan(*(t.cpu().clone() for t in scan))
+    part = ops.reg_partials(prob, scan).clone()
+    before = fused_em.LAUNCHES["reg_step"]
+    ops.reg_step(part, scan, 2, solver, first, last, 1e-7)
+    assert fused_em.LAUNCHES["reg_step"] == before + 1
+    em_ref.reg_step(part.cpu(), twin, 2, solver, first, last, 1e-7)
+    # float64 in the kernel, float32 in the twin: the pose to float32 rounding
+    torch.testing.assert_close(scan.state.cpu()[:24], twin.state[:24], rtol=0, atol=2e-5)
+    torch.testing.assert_close(scan.logliks.cpu(), twin.logliks, rtol=1e-6, atol=0)
+    torch.testing.assert_close(scan.deltas.cpu(), twin.deltas, rtol=1e-3, atol=1e-6)
+
+
+def test_reg_step_done_changes_nothing(cuda):
+    from hgmm_torch import ops
+
+    pts, W, mu, A6, b3 = _scan_inputs(cuda)
+    prob = ops.reg_problem(pts, W, mu, A6, b3)
+    scan = ops.new_scan(torch.eye(3, device=cuda), torch.zeros(3, device=cuda), 3)
+    scan.state[em_ref.SCAN_DONE] = 1.0
+    scan.state[em_ref.SCAN_LL_LAST] = -5.0
+    scan.state[em_ref.SCAN_D_LAST] = 0.25
+    prob.partial.fill_(float("nan"))
+    before = scan.state.clone()
+    part = ops.reg_partials(prob, scan)  # returns at once: the partials stay NaN
+    assert bool(torch.isnan(part).all())
+    ops.reg_step(part, scan, 1, 1, True, True, 1e-7)
+    assert torch.equal(scan.state, before)
+    assert scan.logliks.tolist() == [0.0, -5.0, 0.0] and scan.deltas.tolist() == [0.0, 0.25, 0.0]
+
+
+@pytest.mark.parametrize("method", ["horn", "wls", "horn+wls"])
+def test_register_points_on_the_card_matches_the_cpu(cuda, method):
+    """The whole scan with no host read: the pose within the float32/float64
+    gap of the step, the same outputs' shapes; the iteration counts may
+    differ by the one near-tie of delta < tol."""
+    from hgmm_torch.data.synthetic import make_cloud
+    from hgmm_torch.eval.metrics import pose_delta_norm
+    from hgmm_torch.models.gmm import Gmm
+    from hgmm_torch.models.se3 import Pose
+    from hgmm_torch.pipelines.register import register_points
+
+    cloud = make_cloud(3000, "trefoil", seed=10)
+    gmm, _ = Gmm.fit(cloud, k=16, n_iters=15, generator=torch.Generator().manual_seed(11))
+    init = Pose(so3_exp(torch.tensor([0.0, 0.05, 0.2])), torch.tensor([0.02, -0.03, 0.01]))
+    cpu = register_points(cloud, gmm.params, init_pose=init, n_iters=30, method=method, tol=1e-6)
+    params = type(gmm.params)(*(a.to(cuda) for a in gmm.params))
+    before = dict(fused_em.LAUNCHES)
+    card = register_points(cloud.to(cuda), params, init_pose=Pose(init.R.to(cuda), init.t.to(cuda)),
+                           n_iters=30, method=method, tol=1e-6)
+    steps = 30 if method == "horn" else (15 + 30 if method == "horn+wls" else 60)
+    assert fused_em.LAUNCHES["reg_step"] - before["reg_step"] == steps
+    assert fused_em.LAUNCHES["reg_stats"] - before["reg_stats"] == steps
+    gap = float(pose_delta_norm(Pose(card.pose.R.cpu(), card.pose.t.cpu()), cpu.pose))
+    assert gap < 1e-4
+    assert bool(card.converged) == bool(cpu.converged)
+    torch.testing.assert_close(card.logliks.cpu()[-1], cpu.logliks[-1], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("k", [64, 68, 512])
+@pytest.mark.parametrize("n", [1, 300, 20_000])
+def test_em_stats_masked_by_parent_chunks(cuda, k, n):
+    """Parents -1 and past K, zero-weight rows, a dead child, K off the
+    branch; a grouping reused by two sweeps; two launches give equal bits."""
+    pts, w = _inputs(n, k + 30, cuda)
+    w[::7] = 0.0
+    n_par = -(-k // 8)
+    par = torch.randint(-1, n_par + 2, (n,), generator=torch.Generator().manual_seed(k)).to(cuda)
+    W = pack_loglik_weights(_mixture(k, k + 31, cuda, dead=(3,)))
+    prep = prepare(pts, w)
+    groups = fused_em.group_by_parent(prep.pts4, par, 8, k)
+    got = fused_em.em_stats_grouped(groups, W)
+    _check_em(got, em_ref.em_stats_masked(pts, W, par, 8, w), n)
+    assert float(got.S[3].abs().max()) == 0.0
+    again = fused_em.em_stats_grouped(groups, W)
+    assert torch.equal(got.S, again.S) and torch.equal(got.loglik, again.loglik)
+    W2 = pack_loglik_weights(_mixture(k, k + 32, cuda))
+    _check_em(fused_em.em_stats_grouped(groups, W2), em_ref.em_stats_masked(pts, W2, par, 8, w), n)
+    with pytest.raises(ValueError):
+        fused_em.group_by_parent(prep.pts4, par, 9, k)
+
+
+def test_em_stats_masked_with_no_live_point(cuda):
+    pts, _ = _inputs(100, 33, cuda)
+    W = pack_loglik_weights(_mixture(64, 34, cuda))
+    got = fused_em.em_stats_masked(prepare(pts).pts4, W, torch.full((100,), -1, device=cuda), 8)
+    assert float(got.S.abs().max()) == 0.0 and float(got.loglik) == 0.0

@@ -170,7 +170,8 @@ def test_em_stats(k, weighted, outlier):
     got = tref.em_stats(torch.from_numpy(pts), tg.pack_loglik_weights(_tp(m)), tw, outlier)
     _check_em(got, refs)
     # The dispatcher's CPU path over a Prepared buffer is the same function.
-    via = ops.em_stats(ops.prepare(torch.from_numpy(pts), tw), tg.pack_loglik_weights(_tp(m)), outlier)
+    via = ops.em_stats(ops.prepare(torch.from_numpy(pts), tw), tg.pack_loglik_weights(_tp(m)),
+                     outlier_logit=outlier)
     _close(via.S, got.S, 0, 0)
     _close(via.loglik, got.loglik, 0, 0)
 
@@ -261,7 +262,8 @@ def test_reg_stats(k, top_k, outlier, weighted):
     got = tref.reg_stats(torch.from_numpy(pts), *targs, tpose, tw, top_k, outlier)
     for ref, tol in refs:
         _check_reg(got, ref, tol)
-    via = ops.reg_stats(ops.prepare(torch.from_numpy(pts), tw), *targs, tpose, top_k, outlier)
+    via = ops.reg_stats(ops.prepare(torch.from_numpy(pts), tw), *targs, tpose, top_k=top_k,
+                        outlier_logit=outlier)
     _close(via.A, got.A, 0, 0)
     _close(via.horn, got.horn, 0, 0)
 

@@ -342,3 +342,391 @@ def test_em_emulation_dead_points_and_floor_rows(k, outlier):
     _check_em(got, ref, 300)
     if outlier is None:
         assert float(got.loglik) == 0.0
+
+
+# --------------------------------------------------------------------------
+# reg_step: the kernel's float64 solve, emulated in numpy
+
+
+def _series(theta2):
+    theta = math.sqrt(theta2 + 1e-32)
+    if theta2 < 1e-8:
+        return 1.0 - theta2 / 6.0, 0.5 - theta2 / 24.0, 1.0 / 6.0 - theta2 / 120.0
+    return (math.sin(theta) / theta, (1.0 - math.cos(theta)) / theta2,
+            (theta - math.sin(theta)) / (theta2 * theta + 1e-32))
+
+
+def _hat(w):
+    return np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+
+
+def emulate_horn(h):
+    """csrc/reg_step.cu:solve_horn: one-sided Jacobi on the columns of H,
+    columns by singular value, u3 = u1 x u2, R = V diag(1, 1, det V) U^T."""
+    h = np.asarray(h, np.float64)
+    Sw = max(h[3, 3], 1e-9)
+    Sx, Snu = h[:3, 3], h[3, :3]
+    W = h[:3, :3] - np.outer(Sx, Snu) / Sw
+    V = np.eye(3)
+    for _ in range(30):
+        rotated = False
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            al, be, ga = W[:, p] @ W[:, p], W[:, q] @ W[:, q], W[:, p] @ W[:, q]
+            if not abs(ga) > 1e-15 * math.sqrt(al * be):
+                continue
+            rotated = True
+            zeta = (be - al) / (2.0 * ga)
+            t = (1.0 if zeta >= 0 else -1.0) / (abs(zeta) + math.sqrt(1.0 + zeta * zeta))
+            c = 1.0 / math.sqrt(1.0 + t * t)
+            s = c * t
+            W[:, [p, q]] = np.stack([c * W[:, p] - s * W[:, q], s * W[:, p] + c * W[:, q]], 1)
+            V[:, [p, q]] = np.stack([c * V[:, p] - s * V[:, q], s * V[:, p] + c * V[:, q]], 1)
+        if not rotated:
+            break
+    sig = np.linalg.norm(W, axis=0)
+    order = sorted(range(3), key=lambda j: -sig[j])
+    u, v = W[:, order].T.copy(), V[:, order].T.copy()
+    if not sig[order[0]] > 0.0:  # H = 0: R = I
+        return np.eye(3), Snu / Sw - Sx / Sw
+    u[0] /= sig[order[0]]
+    u[1] -= (u[0] @ u[1]) * u[0]
+    if not np.linalg.norm(u[1]) > 1e-300:  # rank one: any unit vector orthogonal to u1
+        ax = 0 if abs(u[0][0]) < 0.5 else (1 if abs(u[0][1]) < 0.5 else 2)
+        u[1] = np.cross(u[0], np.eye(3)[ax])
+    u[1] /= np.linalg.norm(u[1])
+    u[2] = np.cross(u[0], u[1])
+    d = -1.0 if np.cross(v[0], v[1]) @ v[2] < 0 else 1.0
+    R = np.outer(v[0], u[0]) + np.outer(v[1], u[1]) + d * np.outer(v[2], u[2])
+    return R, Snu / Sw - R @ (Sx / Sw)
+
+
+def emulate_wls(A, b):
+    """csrc/reg_step.cu:solve_wls: the damped system by LU with partial
+    pivoting, the rotation capped at 0.3."""
+    A, b = np.asarray(A, np.float64), np.asarray(b, np.float64)
+    d = np.diag(A)
+    M = A + np.diag(1e-2 * np.maximum(d, 1e-12 * d.sum())) + 1e-6 * max(d.sum() / 6.0, 1.0) * np.eye(6)
+    M = np.concatenate([M, b[:, None]], 1)
+    for c in range(6):
+        piv = c + int(np.argmax(np.abs(M[c:, c])))
+        M[[c, piv]] = M[[piv, c]]
+        for r in range(c + 1, 6):
+            M[r, c:] -= M[r, c] / M[c, c] * M[c, c:]
+    xi = np.zeros(6)
+    for r in range(5, -1, -1):
+        xi[r] = (M[r, 6] - M[r, r + 1:6] @ xi[r + 1:]) / M[r, r]
+    return xi * min(0.3 / max(np.linalg.norm(xi[:3]), 1e-12), 1.0)
+
+
+def emulate_se3_exp(xi):
+    a, b, c = _series(xi[:3] @ xi[:3])
+    K = _hat(xi[:3])
+    return np.eye(3) + a * K + b * K @ K, (np.eye(3) + b * K + c * K @ K) @ xi[3:]
+
+
+def emulate_se3_log(R, t):
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    w2 = w @ w
+    cth = min(max((np.trace(R) - 1.0) * 0.5, -1.0), 1.0)
+    small = w2 < 1e-12
+    s = 0.5 * math.sqrt(1.0 if small else w2)
+    om = (0.5 + w2 / 48.0 if small else math.atan2(s, cth) / (2.0 * s)) * w
+    _, b, c = _series(om @ om)
+    K = _hat(om)
+    V = np.eye(3) + b * K + c * K @ K
+    x12, x20, x01 = np.cross(V[:, 1], V[:, 2]), np.cross(V[:, 2], V[:, 0]), np.cross(V[:, 0], V[:, 1])
+    return np.concatenate([om, np.array([t @ x12, t @ x20, t @ x01]) / (V[:, 0] @ x12)])
+
+
+def _horn_moments(rng, n, planar=0.0, flip=False):
+    """horn = P^T Q of n points x and their images under a random pose plus
+    noise; planar squeezes x onto a plane (a near-degenerate H), flip mirrors
+    the targets (det(V U^T) = -1 without the correction)."""
+    from hgmm_torch.models.se3 import so3_exp
+
+    x = rng.standard_normal((n, 3))
+    x[:, 2] *= planar if planar else 1.0
+    R = so3_exp(torch.from_numpy(rng.uniform(-1, 1, 3))).numpy()
+    y = x @ R.T + rng.uniform(-0.5, 0.5, 3) + 0.01 * rng.standard_normal((n, 3))
+    if flip:
+        y[:, 2] *= -1.0
+    w = rng.uniform(0.2, 1.0, n)
+    P = np.concatenate([x, np.ones((n, 1))], 1)
+    Q = np.concatenate([y * w[:, None], w[:, None]], 1)
+    return P.T @ Q
+
+
+@pytest.mark.parametrize("case", ["random", "planar", "line", "mirrored", "identity", "zero"])
+def test_reg_step_horn_emulation_matches_solve_horn(case):
+    from hgmm_torch.models.pose import solve_horn
+
+    rng = np.random.default_rng(hash(case) % 1000)
+    if case == "identity":
+        x = rng.standard_normal((50, 3))
+        P = np.concatenate([x, np.ones((50, 1))], 1)
+        h = P.T @ P
+    elif case == "zero":
+        h = np.zeros((4, 4))
+        h[3, 3] = 1.0
+    else:
+        h = _horn_moments(rng, 200, planar={"planar": 1e-4, "line": 0.0}.get(case, 0.0),
+                          flip=case == "mirrored")
+        if case == "line":
+            h = _horn_moments(rng, 200)
+            x = np.linspace(-1, 1, 200)[:, None] * np.array([[1.0, 2.0, -0.5]])
+            P = np.concatenate([x, np.ones((200, 1))], 1)
+            h = P.T @ np.concatenate([x @ np.diag([1.0, -1.0, -1.0]), np.ones((200, 1))], 1)
+    R, t = emulate_horn(h)
+    np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-10)
+    assert abs(np.linalg.det(R) - 1.0) < 1e-10
+    ref = solve_horn(torch.from_numpy(h))
+    if case == "line":  # rank one: the rotation about the line is free; both map the line alike
+        x = np.array([1.0, 2.0, -0.5])
+        np.testing.assert_allclose(R @ x + t, ref.R.numpy() @ x + ref.t.numpy(), atol=1e-8)
+        return
+    np.testing.assert_allclose(R, ref.R.numpy(), atol=1e-9)
+    np.testing.assert_allclose(t, ref.t.numpy(), atol=1e-9)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_reg_step_wls_emulation_matches_the_twin(seed):
+    """Damped Gauss-Newton on random, rank-deficient and ill-scaled A, with
+    the cap on and off; exp and log against models/se3.py."""
+    from hgmm_torch.models.pose import solve_wls_increment
+    from hgmm_torch.models.se3 import Pose, se3_exp, se3_log
+
+    rng = np.random.default_rng(seed)
+    J = rng.standard_normal((40 if seed % 3 else 4, 6)) * rng.uniform(0.01, 100.0, 6)
+    A = J.T @ J
+    b = rng.standard_normal(6) * (1.0 if seed < 3 else 1e3)
+    xi = emulate_wls(A, b)
+    ref = solve_wls_increment(torch.from_numpy(A), torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(xi, ref, rtol=1e-7, atol=1e-10)
+    for v in (xi, 1e-6 * xi, np.zeros(6), np.array([0.2, -0.1, 0.25, 1.0, 2.0, -1.0])):
+        R, t = emulate_se3_exp(v)
+        ref = se3_exp(torch.from_numpy(v))
+        np.testing.assert_allclose(R, ref.R.numpy(), atol=1e-12)
+        np.testing.assert_allclose(t, ref.t.numpy(), atol=1e-12)
+        back = emulate_se3_log(R, t)
+        np.testing.assert_allclose(back, se3_log(Pose(torch.from_numpy(R), torch.from_numpy(t))).numpy(),
+                                   atol=1e-9)
+        np.testing.assert_allclose(back, v, atol=1e-9)
+
+
+# --------------------------------------------------------------------------
+# reg_stats: the lanes plan and the online softmax of a point's lanes
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("k", [1, 8, 12, 64, 384, 512, 2048])
+@pytest.mark.parametrize("top_k", [None, 1, 8, 32])
+def test_plan_reg_stats_fills_the_card(n, k, top_k):
+    plan = fused_em.plan_reg_stats(n, k, top_k, SMS)
+    gated = top_k is not None and top_k < k
+    assert plan.kmax == ((9 if top_k <= 8 else 33) if gated else 0)
+    assert plan.kmax == 0 or plan.kmax > top_k  # the list holds every kept logit unless ties overflow it
+    assert plan.lanes in (1, 2, 4, 8, 16, 32) and (plan.lanes == 1 or not gated)
+    assert plan.lanes <= max(1, k) and fused_em.RS_THREADS % plan.lanes == 0
+    assert 1 <= plan.blocks <= fused_em.RS_BLOCKS_PER_SM * SMS
+    assert plan.blocks <= max(1, -(-n // plan.points_per_block()))
+    if plan.lanes > 1:  # more lanes only while the points alone leave the card short of warps
+        assert n * plan.lanes // 2 < fused_em.RS_MIN_WARPS_PER_SM * SMS * 32
+    if not gated and n == 16_384 and k >= 8:  # the odometry bucket: >= 8 warps an SM
+        assert n * plan.lanes >= fused_em.RS_MIN_WARPS_PER_SM * SMS * 32 and plan.lanes == 4
+    if n >= 437_645:  # the points alone fill the card
+        assert plan.lanes == 1
+    assert 96 * fused_em.MAX_K + 4 * 8 * 44 <= SMEM_LIMIT  # csrc/reg_stats.cu:reg_stats_smem_bytes
+
+
+def test_plan_reg_stats_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        fused_em.plan_reg_stats(100, 64, fused_em.MAX_TOP_K + 1, SMS)
+    with pytest.raises(ValueError):
+        fused_em.plan_reg_stats(0, 64, None, SMS)
+    with pytest.raises(ValueError):
+        fused_em.plan_reg_stats(100, fused_em.MAX_K + 1, None, SMS)
+
+
+def emulate_reg_lanes(x, W, mu, A6, b3, pose, weights, outlier, lanes):
+    """csrc/reg_stats.cu:reg_stats_lanes_kernel's softmax in float32: lane l
+    of a point walks components l, l + L, ... once, in chunks of 8 with a
+    running max (its sum and red[12] rescaled once a chunk), the lanes merge by xor
+    shuffles (offsets L/2 .. 1), then the outlier; the statistics from the
+    merged (m, s, red) as em_ref.reg_moments gives them from gamma."""
+    R, t = pose
+    y = x @ R.T + t
+    logits = em_ref._logits(y, W)  # [N, K], the kernel's logit() per pair
+    aux = torch.cat([mu, A6, b3], 1)  # [K, 12]
+    n, k = logits.shape
+    m = torch.full((n, lanes), float("-inf"))
+    s = torch.zeros(n, lanes)
+    red = torch.zeros(n, lanes, 12)
+
+    def rescale(a, mm):
+        return torch.where(a == mm, torch.ones_like(a), torch.exp2((a - mm) * LOG2E))
+
+    for li in range(lanes):  # a chunk of RS_CHUNK of the lane's components, one rescale a chunk
+        mine = list(range(li, k, lanes))
+        for c0 in range(0, len(mine), 8):
+            js = mine[c0:c0 + 8]
+            mm = torch.maximum(m[:, li], logits[:, js].amax(1))
+            f = rescale(m[:, li], mm)
+            s[:, li], red[:, li], m[:, li] = s[:, li] * f, red[:, li] * f[:, None], mm
+            for j in js:
+                e = torch.exp2((logits[:, j] - mm) * LOG2E)
+                s[:, li] = s[:, li] + e
+                red[:, li] = red[:, li] + e[:, None] * aux[j]
+    off = lanes // 2
+    while off:
+        idx = torch.arange(lanes) ^ off
+        mo, so, ro = m[:, idx], s[:, idx], red[:, idx]
+        mm = torch.maximum(m, mo)
+        fa, fb = rescale(m, mm), rescale(mo, mm)
+        s, red, m = s * fa + so * fb, red * fa[..., None] + ro * fb[..., None], mm
+        off //= 2
+    m, s, red = m[:, 0], s[:, 0], red[:, 0]
+    if outlier is not None:
+        mo = torch.maximum(m, torch.tensor(float(outlier)))
+        f = rescale(m, mo)
+        s, red, m = s * f, red * f[:, None], mo
+        s = s + torch.exp2(float(outlier) * LOG2E - torch.clamp(m, min=em_ref.NEG_INF) * LOG2E)
+    w = torch.ones(n) if weights is None else weights
+    live = m > em_ref.NEG_INF
+    ss = torch.clamp(s, min=1e-38)
+    scale = torch.where(live, w / ss, torch.zeros_like(ss))
+    lse = torch.where(live, w * (torch.clamp(m, min=em_ref.NEG_INF) + torch.log(ss)), torch.zeros_like(ss))
+    # gamma_ij = scale_i e_ij reproduces the merged contraction exactly:
+    # rebuild it as one column a point of weight scale * (red, s).
+    eff = torch.zeros(n, k)
+    st = em_ref.reg_moments(x, y, eff, lse, mu, A6, b3)
+    nu = red[:, :3] * scale[:, None]
+    M = em_ref.sym_unpack(red[:, 3:9] * scale[:, None])
+    u = red[:, 9:12] * scale[:, None]
+    weff = s * scale
+    if outlier is not None:  # the outlier's share is not Gaussian mass
+        weff = (s - torch.exp2(float(outlier) * LOG2E - torch.clamp(m, min=em_ref.NEG_INF) * LOG2E)) * scale
+    P = torch.cat([x, torch.ones_like(x[:, :1])], 1)
+    horn = P.T @ torch.cat([nu, weff[:, None]], 1)
+    r = torch.einsum("nij,nj->ni", M, y) - u
+    z = torch.zeros_like(y[:, 0])
+    J = torch.cat([torch.stack([torch.stack([z, y[:, 2], -y[:, 1]], -1), torch.stack([-y[:, 2], z, y[:, 0]], -1),
+                                torch.stack([y[:, 1], -y[:, 0], z], -1)], -2),
+                   torch.eye(3).expand(n, 3, 3)], -1)
+    A = torch.einsum("nij,nik->jk", J, torch.einsum("nij,njk->nik", M, J))
+    b = -torch.einsum("nij,ni->j", J, r)
+    return em_ref.RegStats(horn=horn, A=A, b=b, loglik=st.loglik)
+
+
+@pytest.mark.parametrize("k,lanes", [(8, 1), (8, 4), (12, 8), (64, 4), (100, 8), (384, 8), (64, 32)])
+@pytest.mark.parametrize("weighted,outlier", [(False, None), (True, -2.0)])
+def test_reg_lanes_emulation_matches_the_plain_version(k, lanes, weighted, outlier):
+    from hgmm_torch.models.se3 import so3_exp
+    from hgmm_torch.ops.gaussians import precision_terms, sym_pack
+
+    rng = np.random.default_rng(k + lanes)
+    n = 400
+    pts = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32))
+    w = None
+    if weighted:
+        w = torch.from_numpy(rng.uniform(size=n).astype(np.float32))
+        w[::4] = 0.0
+    params = _mixture(k, k, dead=(1,))
+    W = pack_loglik_weights(params)
+    A, b, _ = precision_terms(params)
+    pose = (so3_exp(torch.tensor([0.1, -0.2, 0.3])), torch.tensor([0.05, 0.0, -0.1]))
+    got = emulate_reg_lanes(pts, W, params.mu, sym_pack(A), b, pose, w, outlier, lanes)
+    ref = em_ref.reg_stats(pts, W, params.mu, sym_pack(A), b, pose, w, None, outlier)
+    s = n / 300
+    torch.testing.assert_close(got.horn, ref.horn, rtol=2e-3, atol=2e-3 * s)
+    torch.testing.assert_close(got.A, ref.A, rtol=2e-3, atol=2e-2 * s)
+    torch.testing.assert_close(got.b, ref.b, rtol=2e-3, atol=2e-2 * s)
+    torch.testing.assert_close(got.loglik, ref.loglik, rtol=1e-4, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# the masked em_stats by parent chunks
+
+
+@pytest.mark.parametrize("counts", [[0], [1], [31, 0, 33], [5000, 1, 0, 64], [16_384 // 64] * 64,
+                                    [437_645 // 8] * 8, [0] * 63 + [2]])
+def test_plan_parent_chunks_covers_every_point_once(counts):
+    size, chunks = fused_em.plan_parent_chunks(counts, SMS)
+    assert size % 32 == 0 and 32 <= size <= 32 * fused_em.EG_MAX_PPT
+    covered, first = [], 0
+    for p, c in enumerate(counts):
+        mine = [ch for ch in chunks if ch[0] == p]
+        assert len(mine) == -(-c // size)
+        assert all(0 < cnt <= size for _, _, cnt in mine)
+        for _, f, cnt in mine:
+            covered.extend(range(f, f + cnt))
+        assert sorted(covered[-c:] if c else []) == list(range(first, first + c))
+        first += c
+    assert covered == list(range(sum(counts)))  # in parent order, each point once
+    assert [ch[0] for ch in chunks] == sorted(ch[0] for ch in chunks)
+    if sum(counts) >= 32 * SMS * fused_em.EG_TARGET_WARPS:  # large levels: chunks enough to fill the card
+        assert len(chunks) >= SMS
+    with pytest.raises(ValueError):
+        fused_em.plan_parent_chunks(counts, 0)
+
+
+def emulate_grouped(points, W, parent, branch, weights, sms=SMS):
+    """csrc/em_stats.cu:em_stats_grouped_kernel's order in plain torch: the
+    live points (a parent in range, weight != 0) sorted by parent (stable),
+    chunks from plan_parent_chunks, a chunk's 32 lanes each over points lane,
+    lane + 32, ..., float32 statistics of the parent's children, the lanes
+    summed in lane order, the chunks of a parent in chunk order in float64."""
+    n, k = points.shape[0], W.shape[1]
+    n_par = -(-k // branch)
+    w = torch.ones(n) if weights is None else weights.float()
+    key = parent.long()
+    key = torch.where((key >= 0) & (key < n_par) & (w != 0), key, torch.full_like(key, n_par))
+    counts = torch.bincount(key, minlength=n_par + 1)[:n_par].tolist()
+    order = torch.sort(key, stable=True).indices[: sum(counts)]
+    pts, w = points[order], w[order]
+    size, chunks = fused_em.plan_parent_chunks(counts, sms)
+    wn = fused_em._pack_w(W, "cpu")[:, :10]
+    S = torch.zeros(k, 10, dtype=torch.float64)
+    ll = torch.zeros((), dtype=torch.float64)
+    for p, first, cnt in chunks:
+        j0, nc = p * branch, min(branch, k - p * branch)
+        psi = features(pts[first:first + cnt])
+        logits = psi @ wn[j0:j0 + nc].T  # [cnt, nc]
+        m = logits.amax(1)
+        m2 = torch.clamp(m, min=em_ref.NEG_INF) * LOG2E
+        e = torch.exp2(logits * LOG2E - m2[:, None])
+        s = e.sum(1)
+        live = m > em_ref.NEG_INF
+        ss = torch.clamp(s, min=1e-38)
+        scale = torch.where(live, w[first:first + cnt] / ss, torch.zeros_like(ss))
+        lse = torch.where(live, w[first:first + cnt] * (torch.clamp(m, min=em_ref.NEG_INF) + torch.log(ss)),
+                          torch.zeros_like(ss))
+        lane_S = torch.zeros(32, nc, 10)
+        lane_ll = torch.zeros(32)
+        for i in range(cnt):
+            lane_S[i % 32] += (e[i] * scale[i])[:, None] * psi[i][None, :]
+            lane_ll[i % 32] += lse[i]
+        S[j0:j0 + nc] += lane_S.sum(0).double()
+        ll += lane_ll.sum().double()
+    return em_ref.EmStats(S=S.float(), loglik=ll.float())
+
+
+@pytest.mark.parametrize("k", [64, 68, 512])
+@pytest.mark.parametrize("n,sms", [(1, 132), (300, 132), (3000, 1), (3000, 132)])
+def test_grouped_emulation_matches_the_plain_version(k, n, sms):
+    """Parents -1 and out of range, zero-weight rows and a dead child: each
+    adds exactly what em_ref gives it."""
+    rng = np.random.default_rng(k + n)
+    pts = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(size=n).astype(np.float32))
+    w[::7] = 0.0
+    parent = torch.from_numpy(rng.integers(-1, -(-k // 8) + 2, n).astype(np.int32))
+    W = pack_loglik_weights(_mixture(k, k, dead=(3,)))
+    got = emulate_grouped(pts, W, parent, 8, w, sms)
+    ref = em_ref.em_stats_masked(pts, W, parent, 8, w)
+    _check_em(got, ref, n)
+    assert float(got.S[3].abs().max()) == 0.0
+    # the dropped rows: em_ref gives them exactly nothing
+    drop = (parent < 0) | (parent >= -(-k // 8)) | (w == 0)
+    if bool(drop.any()):
+        alone = em_ref.em_stats_masked(pts[drop], W, parent[drop], 8, w[drop])
+        assert float(alone.S.abs().max()) == 0.0 and float(alone.loglik) == 0.0

@@ -135,20 +135,124 @@ def test_converged_scan_re_emits_last_live_values():
 
 def test_done_carries_from_horn_into_wls():
     """A Horn phase that converges skips every WLS iteration, as the JAX
-    scan's carry does (hgmm/pipelines/register.py:113-124)."""
-    calls = []
+    scan's carry does (hgmm/pipelines/register.py:113-124): the statistics
+    are asked for every step of the fixed-count scan, live only once, and
+    the WLS steps, whose statistics would move the pose, change nothing."""
+    from hgmm_torch.ops import em_ref
+
+    live = []
     x = torch.randn(50, 3, generator=torch.Generator().manual_seed(0))
     P = torch.cat([x, torch.ones(50, 1)], 1)
     horn = P.T @ P  # virtual targets == sources: Horn returns the identity
+    row = em_ref.pack_reg(em_ref.RegStats(horn, torch.eye(6), torch.ones(6), torch.tensor(-1.0)))
 
-    def stats_fn(R, t):
-        calls.append(1)
-        return horn, torch.eye(6), torch.zeros(6), torch.tensor(-1.0)
+    def stats_fn(scan):
+        live.append(not bool(scan.done))
+        return row
 
     (R, t, done), lls, deltas = treg.run_registration_scan(
         stats_fn, torch.eye(3), torch.zeros(3), 10, "horn+wls", 1e-5, 2)
-    assert done and len(calls) == 1
+    assert bool(done) and sum(live) == 1 and len(live) == 5 + 5 * 2
     assert lls.shape == (10,) and deltas.shape == (10,)
     np.testing.assert_array_equal(lls.numpy(), -1.0)
+    assert float(deltas[0]) < 1e-5
+    np.testing.assert_array_equal(deltas.numpy(), deltas[0].item())  # re-emitted
+    torch.testing.assert_close(R, torch.eye(3), rtol=0, atol=1e-6)
+    torch.testing.assert_close(t, torch.zeros(3), rtol=0, atol=1e-6)
     with pytest.raises(ValueError):
         treg.run_registration_scan(stats_fn, torch.eye(3), torch.zeros(3), 4, "icp", 1e-7, 2)
+
+
+# --------------------------------------------------------------------------
+# the fixed-count scan with `done` carried, and its step's plain twin
+
+
+@pytest.mark.parametrize("method,tol,n_iters", [("horn+wls", 1e-7, 30), ("horn", 1e-5, 40),
+                                                ("wls", 1e-6, 25)])
+def test_scan_matches_jax_register_points(pair, jax_slice, method, tol, n_iters):
+    """register_points on one level of the JAX tree, from one init, in both
+    packages: (pose, logliks, deltas, converged). A scan that converges early
+    re-emits its last live (loglik, delta) to the end in both."""
+    source, _, _, _ = pair
+    jtree_fit, _ = jax_slice
+    lvl = jtree_fit.levels[1]
+    params = convert.mixture_from_numpy(*(np.asarray(a) for a in lvl))
+    init = Pose(so3_exp(torch.tensor([0.0, 0.0, 0.2])), torch.tensor([0.03, -0.03, 0.05]))
+    res = treg.register_points(torch.from_numpy(source), params, init_pose=init, n_iters=n_iters,
+                               method=method, tol=tol)
+    jinit = type(jax_slice[1].pose)(jnp.asarray(init.R.numpy()), jnp.asarray(init.t.numpy()))
+    jres = jreg.register_points(jnp.asarray(source), lvl, init_pose=jinit, n_iters=n_iters,
+                                method=method, tol=tol)
+    assert float(pose_delta_norm(res.pose, _jpose_to_torch(jres.pose))) < AGREE_CARRIED
+    np.testing.assert_allclose(res.logliks.numpy(), np.asarray(jres.logliks), rtol=1e-5)
+    d, jd = res.deltas.numpy(), np.asarray(jres.deltas)
+    np.testing.assert_allclose(d, jd, rtol=1e-3, atol=1e-6)
+    assert bool(res.converged) == bool(jres.converged)
+    if bool(res.converged):
+        last = int(np.flatnonzero(d < tol)[0])
+        assert last < n_iters - 1  # early: the re-emit contract is exercised
+        np.testing.assert_array_equal(d[last:], d[last])
+        np.testing.assert_array_equal(res.logliks.numpy()[last:], res.logliks.numpy()[last])
+
+
+def _twin_step(h, A, b, R, t, solver, first, last, tol=1e-7, done=False, n_iters=2):
+    from hgmm_torch.ops import em_ref
+
+    scan = em_ref.new_scan(R, t, n_iters)
+    if done:
+        scan.state[em_ref.SCAN_DONE] = 1.0
+        scan.state[em_ref.SCAN_LL_LAST] = -5.0
+        scan.state[em_ref.SCAN_D_LAST] = 0.25
+    row = em_ref.pack_reg(em_ref.RegStats(h, A, b, torch.tensor(-3.0, dtype=R.dtype)))
+    em_ref.reg_step(torch.cat([row / 2, row / 2]), scan, 1, solver, first, last, tol)
+    return scan
+
+
+def _moments(rng, planar=1.0):
+    x = rng.standard_normal((200, 3))
+    x[:, 2] *= planar
+    y = x @ so3_exp(torch.from_numpy(rng.uniform(-1, 1, 3))).numpy().T + rng.uniform(-1, 1, 3)
+    P = np.concatenate([x, np.ones((200, 1))], 1)
+    return torch.from_numpy(P.T @ np.concatenate([y, np.ones((200, 1))], 1))
+
+
+@pytest.mark.parametrize("case", ["random", "planar", "tiny_angle"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_reg_step_twin_is_the_pose_code(case, dtype):
+    """The twin's Horn and Gauss-Newton steps, delta and outputs are
+    models/pose.py's and models/se3.py's on the summed rows; a done scan
+    changes nothing and re-emits."""
+    from hgmm_torch.models.pose import apply_wls_increment, solve_horn, solve_wls_increment
+    from hgmm_torch.models.se3 import se3_log
+    from hgmm_torch.ops import em_ref
+
+    rng = np.random.default_rng(len(case))
+    h = _moments(rng, 1e-4 if case == "planar" else 1.0).to(dtype)
+    J = torch.from_numpy(rng.standard_normal((30 if case != "planar" else 3, 6))).to(dtype)
+    A, b = J.T @ J, torch.from_numpy(rng.standard_normal(6) * (1e-6 if case == "tiny_angle" else 1.0)).to(dtype)
+    R0, t0 = so3_exp(torch.tensor([0.1, 0.2, -0.3], dtype=dtype)), torch.tensor([0.5, -0.2, 0.1], dtype=dtype)
+    # Horn: one step is the iteration
+    scan = _twin_step(h, A, b, R0, t0, 0, True, True)
+    want = solve_horn(h)
+    torch.testing.assert_close(scan.pose[0], want.R, rtol=0, atol=0)
+    torch.testing.assert_close(scan.pose[1], want.t, rtol=0, atol=0)
+    delta = torch.linalg.norm(se3_log(want.compose(Pose(R0, t0).inverse())))
+    assert float(scan.deltas[1]) == float(delta) and float(scan.logliks[1]) == -3.0
+    # Gauss-Newton: a first step records the start; a last step the delta
+    scan = _twin_step(h, A, b, R0, t0, 1, True, False)
+    want = apply_wls_increment(Pose(R0, t0), solve_wls_increment(A, b))
+    torch.testing.assert_close(scan.pose[0], want.R, rtol=0, atol=0)
+    assert float(scan.deltas[1]) == 0.0 and float(scan.state[em_ref.SCAN_LL]) == -3.0
+    torch.testing.assert_close(scan.state[em_ref.SCAN_START:em_ref.SCAN_START + 9].reshape(3, 3), R0)
+    em_ref.reg_step(em_ref.pack_reg(em_ref.RegStats(h, A, b, torch.tensor(-9.0, dtype=dtype))), scan,
+                    1, 1, False, True, 1e-7)
+    want = apply_wls_increment(want, solve_wls_increment(A, b))
+    torch.testing.assert_close(scan.pose[0], want.R, rtol=0, atol=0)
+    assert float(scan.logliks[1]) == -3.0  # the iteration's first statistics
+    delta = torch.linalg.norm(se3_log(want.compose(Pose(R0, t0).inverse())))
+    assert float(scan.deltas[1]) == float(delta)
+    assert bool(scan.done) == bool(delta < 1e-7)
+    # done: nothing moves, the last live values come again
+    scan = _twin_step(h, A, b, R0, t0, 1, True, True, done=True)
+    torch.testing.assert_close(scan.pose[0], R0, rtol=0, atol=0)
+    assert float(scan.logliks[1]) == -5.0 and float(scan.deltas[1]) == 0.25

@@ -150,3 +150,136 @@ def test_bench_entry_points_default_to_the_card(monkeypatch, entry):
         call = importlib.import_module(f"hgmm_torch.benchmarks.{entry}").run
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
+
+
+# --------------------------------------------------------------------------
+# names of the reference's API that the port lacked (ROADMAP Queue 3, closed)
+
+
+def test_reference_names_are_exported_and_fit_gmm_fits():
+    """hgmm exports Gmm, GmmParams, fit_gmm; so does the port. fit_gmm is
+    Gmm.fit, and in both packages it runs n_iters sweeps of an EM whose
+    log-likelihood does not fall, from each package's own random init."""
+    import hgmm
+    import hgmm_torch
+    from hgmm_torch.ops.gaussians import MixtureParams
+
+    assert hgmm_torch.GmmParams is MixtureParams
+    assert {"Gmm", "GmmParams", "fit_gmm"} <= set(dir(hgmm_torch)) & set(dir(hgmm))
+    pts = make_cloud_np(2000, "trefoil", seed=3)
+    gmm, lls = hgmm_torch.fit_gmm(torch.from_numpy(pts), k=16, n_iters=20,
+                                  generator=torch.Generator().manual_seed(1))
+    same, _ = hgmm_torch.Gmm.fit(torch.from_numpy(pts), k=16, n_iters=20,
+                                 generator=torch.Generator().manual_seed(1))
+    assert all(torch.equal(a, b) for a, b in zip(gmm.params, same.params))
+    jgmm, jlls = hgmm.fit_gmm(jnp.asarray(pts), k=16, n_iters=20)
+    for ll, p in ((lls.numpy(), gmm.params), (np.asarray(jlls), jgmm.params)):
+        assert ll.shape == (20,) and np.isfinite(ll).all()
+        assert np.all(np.diff(ll) > -1e-3 * np.abs(ll[1:]))
+        assert abs(float(np.sum(np.asarray(p.pi))) - 1.0) < 1e-5
+    # Two fits of one cloud from two inits: per point within a tenth of a nat.
+    assert abs(lls[-1].item() - float(jlls[-1])) / pts.shape[0] < 0.1
+
+
+def test_random_pose_has_the_reference_distribution():
+    import jax
+
+    from hgmm.models import se3 as jse3
+    from hgmm_torch.models.se3 import random_pose, so3_log
+
+    g = torch.Generator().manual_seed(0)
+    mine = [random_pose(g, max_angle=0.5, max_trans=0.3) for _ in range(400)]
+    theirs = jax.vmap(lambda k: jse3.random_pose(k, 0.5, 0.3))(jax.random.split(jax.random.PRNGKey(0), 400))
+    ang = np.array([float(torch.linalg.norm(so3_log(p.R))) for p in mine])
+    jang = np.linalg.norm(np.stack([np.asarray(jse3.so3_log(r)) for r in theirs.R]), axis=1)
+    t, jt = np.stack([p.t.numpy() for p in mine]), np.asarray(theirs.t)
+    for a, tt in ((ang, t), (jang, jt)):
+        assert a.max() <= 0.5 + 1e-5 and np.abs(tt).max() <= 0.3 + 1e-6
+        assert abs(a.mean() - 0.25) < 0.03  # |angle| uniform on [0, 0.5]
+        assert np.all(np.abs(tt.mean(0)) < 0.04) and np.all(np.abs(tt.std(0) - 0.3 / np.sqrt(3)) < 0.02)
+    for p in mine[:20]:
+        np.testing.assert_allclose((p.R @ p.R.T).numpy(), np.eye(3), atol=1e-6)
+        assert abs(float(torch.linalg.det(p.R)) - 1.0) < 1e-6
+
+
+def test_sample_gmm_has_the_reference_moments():
+    from hgmm.data import synthetic as jsyn
+    from hgmm_torch.data.synthetic import sample_gmm
+    from hgmm_torch.ops.gaussians import MixtureParams
+
+    pi = np.array([0.2, 0.5, 0.3], np.float32)
+    mu = np.array([[0.0, 0.0, 0.0], [2.0, -1.0, 0.5], [-1.0, 1.5, 2.0]], np.float32)
+    a = np.random.default_rng(4).standard_normal((3, 3, 3)).astype(np.float32) * 0.3
+    sigma = (np.einsum("kij,klj->kil", a, a) + 0.05 * np.eye(3)).astype(np.float32)
+    n = 40_000
+    mine = sample_gmm(MixtureParams(*map(torch.from_numpy, (pi, mu, sigma))), n,
+                      torch.Generator().manual_seed(5)).numpy()
+    import jax
+
+    theirs = np.asarray(jsyn.sample_gmm(jax.random.PRNGKey(5), jg.MixtureParams(*map(jnp.asarray, (pi, mu, sigma))), n))
+    mean = (pi[:, None] * mu).sum(0)
+    cov = sum(p * (s + np.outer(m - mean, m - mean)) for p, m, s in zip(pi, mu, sigma))
+    for x in (mine, theirs):
+        assert x.shape == (n, 3) and x.dtype == np.float32
+        np.testing.assert_allclose(x.mean(0), mean, atol=0.03)
+        np.testing.assert_allclose(np.cov(x.T), cov, atol=0.06)
+
+
+def test_make_cloud_blob():
+    """A sample of a random 12-component mixture in both packages: the same
+    family (means in [-1, 1]^3, spread ~0.15), other draws."""
+    import jax
+
+    from hgmm.data import synthetic as jsyn
+    from hgmm_torch.data.synthetic import make_cloud
+
+    mine = make_cloud(5000, "blob", seed=2).numpy()
+    theirs = np.asarray(jsyn.make_cloud(jax.random.PRNGKey(2), 5000, kind="blob"))
+    for x in (mine, theirs):
+        assert x.shape == (5000, 3) and x.dtype == np.float32 and np.isfinite(x).all()
+        assert np.abs(x).max() < 3.0 and np.all((x.std(0) > 0.35) & (x.std(0) < 0.95))
+    np.testing.assert_allclose(mine.std(0), theirs.std(0), atol=0.3)
+    with pytest.raises(ValueError):
+        make_cloud(10, "cube")
+
+
+def test_dispatch_takes_point_weights_in_the_reference_position():
+    """ops.em_stats(points, W, point_weights), em_stats_masked(..., branch,
+    point_weights) and reg_stats(..., pose, point_weights) as in hgmm.ops;
+    weights beside a Prepared raise, as there."""
+    from hgmm import ops as jops
+    from hgmm_torch import ops as tops
+    from hgmm_torch.ops import gaussians as tg
+
+    rng = np.random.default_rng(6)
+    pts = rng.standard_normal((300, 3)).astype(np.float32)
+    w = rng.uniform(size=300).astype(np.float32)
+    k = 16
+    mu = rng.standard_normal((k, 3)).astype(np.float32)
+    sigma = np.broadcast_to(0.5 * np.eye(3, dtype=np.float32), (k, 3, 3)).copy()
+    pi = np.full(k, 1.0 / k, np.float32)
+    jp, tp = jg.MixtureParams(*map(jnp.asarray, (pi, mu, sigma))), tg.MixtureParams(*map(torch.from_numpy, (pi, mu, sigma)))
+    jW, tW = jg.pack_loglik_weights(jp), tg.pack_loglik_weights(tp)
+    tpts, tw = torch.from_numpy(pts), torch.from_numpy(w)
+    parent = rng.integers(-1, k // 8, 300).astype(np.int32)
+
+    def same(a, b, rtol=1e-4, atol=1e-4):
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(np.asarray(x, np.float64), np.asarray(y, np.float64), rtol=rtol, atol=atol)
+
+    same(tops.em_stats(tpts, tW, tw), jops.em_stats(jnp.asarray(pts), jW, jnp.asarray(w)))
+    same(tops.em_stats_masked(tpts, tW, torch.from_numpy(parent), 8, tw),
+         jops.em_stats_masked(jnp.asarray(pts), jW, jnp.asarray(parent), 8, jnp.asarray(w)))
+    tA, tb, _ = tg.precision_terms(tp)
+    jA, jb, _ = jg.precision_terms(jp)
+    tpose = (so3_exp(torch.tensor([0.1, 0.0, -0.2])), torch.tensor([0.1, 0.2, 0.0]))
+    jpose = (jnp.asarray(tpose[0].numpy()), jnp.asarray(tpose[1].numpy()))
+    got = tops.reg_stats(tpts, tW, tp.mu, tg.sym_pack(tA), tb, tpose, tw)
+    ref = jops.reg_stats(jnp.asarray(pts), jW, jp.mu, jg.sym_pack(jA), jb, jpose, jnp.asarray(w))
+    same(got, ref, atol=2e-3)
+    assert not torch.allclose(got.loglik, tops.reg_stats(tpts, tW, tp.mu, tg.sym_pack(tA), tb, tpose).loglik)
+    prep = tops.prepare(tpts, tw)
+    for call in (lambda: tops.em_stats(prep, tW, tw), lambda: tops.em_stats_masked(prep, tW, torch.from_numpy(parent), 8, tw),
+                 lambda: tops.reg_stats(prep, tW, tp.mu, tg.sym_pack(tA), tb, tpose, tw)):
+        with pytest.raises(ValueError, match="Prepared"):
+            call()
