@@ -7,8 +7,8 @@
 Run from the root of a checkout. It
 1. prints the card's name and power limit (nvidia-smi) and fails without CUDA;
 2. builds the CUDA kernels of hgmm_torch/csrc with nvcc (timed) and prints the
-   registers and spill bytes of the register-tiled em_stats and of knn from
-   the -Xptxas -v log; a spill fails the run;
+   registers and spill bytes of every redesigned kernel (REPORTED_KERNELS)
+   from the -Xptxas -v log; a spill fails the run;
 3. checks each kernel against its plain PyTorch version on the card at small
    shapes (weights, outlier, dead components, parent -1, top_k gating with
    exact ties, nearest neighbours with exact ties; for the two redesigned
@@ -16,7 +16,12 @@ Run from the root of a checkout. It
    mixture, fewer targets than a chunk, one query, target splits, equal
    targets across chunk, tile and split boundaries, a NaN target row, and
    equal bits on two launches; reg_step against its twin for both solvers
-   and every first/last step, and a done scan left as it is);
+   and every first/last step, and a done scan left as it is; the first
+   em_stats body and assign at their edges: K in {1, 3, 8, 16, 63}, N = 1,
+   ragged tiles, all-dead rows, zero weights; assign on exact inputs with
+   ties and parents -1 and past K bit-equal to the plain version, and a NaN
+   logit that never wins; em_step against a float64 run of its twin for
+   every covariance type, K in {1, 8, 64, 512}, empty components);
 4. drives the main path once: hgmm_torch.register_pair with the
    config2_tree_8x3 preset on a 437,645-point pair (the vertex count of the
    Stanford dragon; synthetic trefoil stand-in, ground truth z-rotation
@@ -25,11 +30,18 @@ Run from the root of a checkout. It
    within the bounds of tests/test_register.py, every output is finite and
    every kernel of the path was launched;
 5. times the tree fit and the registration, and checks and times each kernel
-   against its plain version at the shapes the slice gives it (reg_stats and
+   (its device time a call from a profiler trace, beside CUDA events around
+   the calls) against its plain version at the shapes the slice gives it (reg_stats and
    the masked em_stats per K, the launch a scan step or a sweep makes beside
-   the standalone call; reg_step on the main path's partials); then counts
+   the standalone call; reg_step on the main path's partials; em_step after
+   each level's E-step); then counts
    one register_pair's kernels, copies and memsets (profiler) and host syncs
-   (torch's sync debug mode) beside its seconds;
+   (torch's sync debug mode) beside its seconds; then a fit's sweeps
+   (sweep_accounting): the flat K = 8 level and a grouped K = 64 level of
+   the pair's target under torch's sync debug mode set to "error", one
+   em_stats and one em_step launch a sweep by the counters and three kernels
+   a sweep by the profiler; and the tree fit on the card against the same
+   fit through the plain versions, by each level's per-point loglik;
 6. checks that register_pair on the card agrees with the plain CPU path on a
    4,000-point pair;
 7. drives the CLI (hgmm_torch.cli.main) in process, each command with the
@@ -78,7 +90,8 @@ Run from the root of a checkout. It
 Before the CLI phases, em_stats, em_stats_masked, assign and reg_stats (outlier
 -8) are checked against their plain versions at LiDAR scale (coordinates in
 +-40 m, a 0.02 m minor axis, 30 % zero-weight rows), and both against float64
-statistics of the direct quadratic form; the gaps are printed.
+statistics of the direct quadratic form; em_step on those statistics against
+a float64 run of its twin; the gaps are printed.
 Each phase prints one JSON line; the line before the last is the kernel
 table (every kernel with its launches on its main path, its time, its plain
 version's time, its bound from hgmm_torch.eval.roofline and, for the matrix
@@ -118,18 +131,19 @@ ICP_RMSE = 0.02
 # to 0.061 in 25 iterations and snaps to the exact matches after ~190.
 ICP_ITERS = 250
 # The kernels each path must launch (each path runs with the counters at 0).
-TREE_PATH = ("em_stats", "em_stats_masked", "assign", "reg_stats", "reg_step")
+TREE_PATH = ("em_stats", "em_stats_masked", "em_step", "assign", "reg_stats", "reg_step")
 PROBES = ("probe_logits", "probe_addonly", "probe_stats", "probe_norm", "probe_vpu")
 PATH_KERNELS = {"register_pair": TREE_PATH, "cli_icp": ("knn",), "cli_register_config3": TREE_PATH,
                 "cli_odometry": TREE_PATH, "cli_odometry_closures": TREE_PATH,
                 "cli_localize": ("reg_stats", "reg_step"), "cli_bench": ("em_stats",), "probes": PROBES}
-SOURCES = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu", "assign": "assign.cu",
+SOURCES = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu", "em_step": "em_step.cu",
+           "assign": "assign.cu",
            "reg_stats": "reg_stats.cu", "reg_step": "reg_step.cu", "knn": "knn.cu",
            **{name: "probes.cu" for name in PROBES}}
 REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops/fused_em.py:559",
             "assign": "hgmm/ops/fused_em.py:859", "reg_stats": "hgmm/ops/fused_em.py:920",
-            # no TPU kernel: the XLA ops of the reference's scan step
-            "reg_step": "hgmm/pipelines/register.py:80",
+            # no TPU kernel: the XLA ops of the reference's scan steps
+            "reg_step": "hgmm/pipelines/register.py:80", "em_step": "hgmm/models/gmm.py:121",
             "knn": "hgmm/ops/knn.py:60", "probe_logits": "benchmarks/mxu_microbench.py:54",
             "probe_addonly": "benchmarks/mxu_microbench.py:73",
             "probe_stats": "benchmarks/mxu_microbench.py:86",
@@ -154,17 +168,44 @@ MXU_SHAPES = ((512, 2048), (64, 8192))  # the reference's defaults; K=64 needs T
 MXU_LOOP = dict(steps=1024, r1=2, r2=6)
 VPU_LOOP = dict(k=512, t=512, steps=2048, r1=4, r2=8)
 MAX_SHARE = 1.05  # of a bound or a peak
-# The times of knn and of the unmasked K = 512 em_stats before their redesign,
-# at the same shapes (PERF.md section 6). Constants, not readings of this run:
-# they are printed on a line of their own and never in the `kernels` line.
-MS_BEFORE_REDESIGN = {"knn_437645x437645": 69.6, "em_stats_k512_n2097152": 4.04}
-# One odometry pair before the registration scan stayed on the card (PERF.md
-# section 5): kernels in the profiled window and host syncs. Constants, as above.
-PAIR_BEFORE = {"odometry_pair_kernels": 29_493, "odometry_pair_host_syncs": 179}
+# The times of the redesigned kernels before their redesign, at the same
+# shapes (PERF.md section 6; em_stats K = 8 and assign from the profiler's
+# trace). Constants, not readings of this run: they are printed on a line of
+# their own and never in the `kernels` line.
+MS_BEFORE_REDESIGN = {"knn_437645x437645": 69.6, "em_stats_k512_n2097152": 4.04,
+                      "em_stats_k8_n437645": 0.022, "em_stats_k8_n16384": 0.0046,
+                      "assign_k8_n437645": 0.005, "assign_k64_masked_n437645": 0.022,
+                      "assign_k512_masked_n437645": 0.041, "assign_n16384": 0.003}
+# Kernels and host syncs a pair (PERF.md section 5): an odometry pair before
+# the registration scan stayed on the card, and both pairs before the fit's
+# sweeps did. Constants, as above.
+PAIR_BEFORE = {"odometry_pair_kernels_before_scan_on_card": 29_493,
+               "odometry_pair_host_syncs_before_scan_on_card": 179,
+               "odometry_pair_kernels_before_sweeps_on_card": 6_781,
+               "odometry_pair_host_syncs_before_sweeps_on_card": 8,
+               "register_pair_kernels_before_sweeps_on_card": 8_047,
+               "register_pair_host_syncs_before_sweeps_on_card": 10}
 BEFORE_NOTE = "constants recorded on an NVIDIA H100 80GB HBM3, 700.00 W; not measured in this run"
 # Kernels whose -Xptxas -v report the build line prints; a spill fails the run.
 REPORTED_KERNELS = ("em_stats_tiled_kernel", "knn_kernel", "reg_stats_lanes_kernel",
-                    "reg_stats_top_k_kernel", "reg_step_kernel", "em_stats_grouped_kernel")
+                    "reg_stats_top_k_kernel", "reg_step_kernel", "em_stats_grouped_kernel",
+                    "em_stats_kernel", "assign_all_kernel", "assign_masked_kernel", "em_step_kernel")
+# em_step against its plain twin (float32, the order of ops/gaussians.py):
+# T2 / T0 - mu mu^T cancels in float32, so the kernel (float64 inside, float32
+# out) is held to a float64 run of the twin on the same statistics, within
+# EM_STEP_RTOL of each value plus EM_STEP_ATOL of the largest (a few float32
+# roundings of the cast; the table's entries near 0 are sums of terms of the
+# row's size, so a row's largest entry sets its atol); the float32 twin's own
+# gap to that run is printed beside it.
+EM_STEP_RTOL = 1e-6
+EM_STEP_ATOL = 1e-6
+# The tree fit on the card against the same fit through the plain versions
+# (float32 M-step, another sum order, argmax near-ties that move a point to
+# another parent): each level's per-point loglik within this relative gap, the
+# tolerance tests/test_torch_models.py holds the two packages' trees to.
+FIT_LL_RTOL = 1e-3
+# A fit's sweep on the card: em_stats' kernel and its reduce, then em_step.
+SWEEP_KERNELS = 3
 
 
 # The odometry phase (config 4 through the CLI) and the LiDAR-scale checks.
@@ -366,6 +407,7 @@ def main() -> int:
     work = repo / "chiprun_out" / "smoke"
     work.mkdir(parents=True, exist_ok=True)
     log({"phase": "pair_accounting", **pair_accounting(torch, dev, work)})
+    log({"phase": "sweep_accounting", **sweep_accounting(torch, dev, work)})
     agreement = cpu_agreement(torch, dev)
     log({"phase": "cpu_agreement", **agreement})
 
@@ -429,6 +471,24 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Mean device time of the port's kernels (names with hgmm::) a call of
+    fn(), from a profiler trace over `reps` calls: at these sizes back-to-back
+    calls are bound by the wrappers' host time, which CUDA events would time."""
+    from hgmm_torch.utils.profiling import device_busy, trace
+
+    fn()
+    torch.cuda.synchronize()
+    d = Path(__file__).resolve().parent / "chiprun_out" / "smoke" / "kernel_trace"
+    with trace(d):
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    _, by_name = device_busy(d / "trace.json")
+    shutil.rmtree(d, ignore_errors=True)
+    return sum(v for name, v in by_name.items() if "hgmm::" in name) / reps / 1e3
 
 
 def close(torch, name: str, got, ref, rtol: float, atol: float) -> float:
@@ -605,7 +665,79 @@ def small_checks(torch, dev, errs) -> None:
                 raise CheckFailed("knn: an exact tie went to the higher index")
     new_kernel_edges(torch, dev, gen, errs)
     reg_step_checks(torch, dev, gen, errs)
+    for k in (1, 8, 64, 512):
+        params = random_mixture(torch, k, gen, dev, dead=(0,))
+        pts = torch.randn(20_000, 3, generator=gen).to(dev)
+        w = torch.rand(20_000, generator=gen).to(dev)
+        w[::4] = 0.0
+        stats = em_ref.em_stats(pts, pack_loglik_weights(params), w)
+        em_step_check(torch, f"K{k}", params, stats, w.sum(), torch.tensor(1e-4, device=dev), errs)
     torch.cuda.synchronize()
+
+
+def em_step_check(torch, label, params, stats, total, cov_floor, errs) -> dict:
+    """em_step (one launch) against its float32 twin and a float64 run of
+    the twin from the same statistics, every covariance type: each output
+    within EM_STEP_RTOL of the float64 value plus EM_STEP_ATOL of the
+    output's (for the table: the row's) largest float64 magnitude (the
+    float32 twin's own gap to float64 is recorded beside it); an empty
+    component: pi 0, Sigma I, its bias below -1e29; floor rows past K;
+    logliks[it]. Records the largest gap to the float32 twin in
+    errs["em_step"]; returns the gaps."""
+    from hgmm_torch import ops
+    from hgmm_torch.ops import em_ref, fused_em
+    from hgmm_torch.ops.gaussians import MixtureParams
+
+    k = params.pi.shape[0]
+    out = {}
+    for cov_type in em_ref.COV_TYPES:
+        fit = ops.new_fit(params, 2, total, cov_floor)
+        rows = fit.table.wn.shape[0]
+        twin = em_ref.new_fit(MixtureParams(*(a.cpu() for a in params)), 2, total.cpu(), cov_floor.cpu(),
+                              rows)
+        f64 = em_ref.new_fit(MixtureParams(*(a.cpu().double() for a in params)), 2,
+                             total.cpu().double(), cov_floor.cpu().double(), rows)
+        before = fused_em.LAUNCHES["em_step"]
+        fused_em.em_step(stats, fit, 1, 1e-6, cov_type)
+        if fused_em.LAUNCHES["em_step"] != before + 1:
+            raise CheckFailed("em_step: not one launch")
+        em_ref.em_step(em_ref.EmStats(stats.S.cpu(), stats.loglik.cpu()), twin, 1, 1e-6, cov_type)
+        em_ref.em_step(em_ref.EmStats(stats.S.cpu().double(), stats.loglik.cpu().double()), f64, 1, 1e-6,
+                       cov_type)
+        live = f64.pi > 0
+        gaps = {}
+        for name in ("pi", "mu", "sigma", "table"):
+            g, t, e = ((x.table.wn[:k] if name == "table" else getattr(x, name)).double().cpu()
+                       for x in (fit, twin, f64))
+            if name == "table":  # live rows; each against its row's largest entry
+                g, t, e = g[live], t[live], e[live]
+                top = e.abs().amax(1, keepdim=True) if e.numel() else e
+            else:
+                top = e.abs().max() if e.numel() else torch.zeros(())
+            if not bool(torch.isfinite(g).all()):
+                raise CheckFailed(f"em_step {label} {cov_type}: non-finite {name}")
+            kern, tw = (g - e).abs(), (t - e).abs()
+            limit = EM_STEP_RTOL * e.abs() + EM_STEP_ATOL * top
+            if not bool((kern <= limit).all()):
+                raise CheckFailed(f"em_step {label} {cov_type}: {name} off the float64 run by "
+                                  f"{float(kern.max())} (twin {float(tw.max())})")
+            gaps[name] = {"kernel_vs_f64": float(kern.max()) if kern.numel() else 0.0,
+                          "twin_vs_f64": float(tw.max()) if tw.numel() else 0.0,
+                          "kernel_vs_twin": float((g - t).abs().max()) if g.numel() else 0.0}
+            errs["em_step"] = max(errs.get("em_step", 0.0), gaps[name]["kernel_vs_twin"])
+        wn = fit.table.wn.cpu()
+        if bool((~live).any()):
+            j = int(torch.nonzero(~live)[0])
+            if not (float(fit.pi[j]) == 0.0 and torch.equal(fit.sigma[j].cpu(), torch.eye(3))
+                    and float(wn[j, 9]) < -1e29):
+                raise CheckFailed(f"em_step {label} {cov_type}: an empty component is not inert")
+        if not (bool((wn[:, 10:] == 0).all()) and bool((wn[k:, :9] == 0).all())
+                and bool((wn[k:, 9] == em_ref.NEG_INF).all())):
+            raise CheckFailed(f"em_step {label} {cov_type}: the table's padding is wrong")
+        if fit.logliks.cpu().tolist() != [0.0, float(stats.loglik)]:
+            raise CheckFailed(f"em_step {label} {cov_type}: logliks {fit.logliks.tolist()}")
+        out[cov_type] = gaps
+    return out
 
 
 def reg_step_checks(torch, dev, gen, errs) -> None:
@@ -709,6 +841,60 @@ def new_kernel_edges(torch, dev, gen, errs) -> None:
     check_knn(torch, q, far, idx, d2, *knn.nearest_neighbor_ref(q, far), errs, min_agree=0.98)
     if bool((idx == 2500).any()):
         raise CheckFailed("knn: a NaN target row won")
+    small_k_edges(torch, dev, gen, errs)
+
+
+def small_k_edges(torch, dev, gen, errs) -> None:
+    """The first em_stats body (K < 64, a point on 1 to 8 lanes) and assign
+    at their edges: N = 1, ragged last warps, zero-weight rows, an outlier,
+    an all-dead mixture, the packed table beside W, two launches for equal
+    bits; assign on exact inputs (every logit exact in float32) with ties,
+    parents -1 and past K bit-equal to the plain version, and a NaN logit
+    that never wins."""
+    from hgmm_torch.ops import em_ref, fused_em, prepare
+    from hgmm_torch.ops.gaussians import MixtureParams, pack_loglik_weights
+
+    for k in (1, 3, 8, 16, 63):
+        params = random_mixture(torch, k, gen, dev, dead=(0,) if k > 1 else ())
+        W = pack_loglik_weights(params)
+        for n in (1, 31, 300, 4097):
+            pts = torch.randn(n, 3, generator=gen).to(dev)
+            w = torch.rand(n, generator=gen).to(dev)
+            w[::5] = 0.0
+            for weights, outlier in ((None, None), (w, -3.0)):
+                p4 = prepare(pts, weights).pts4
+                got = fused_em.em_stats(p4, W, outlier)
+                check_em(torch, "em_stats", got, em_ref.em_stats(pts, W, weights, outlier),
+                         max(n, 300), errs)
+                again = fused_em.em_stats(p4, em_ref.pack_table(W), outlier)
+                if not (torch.equal(got.S, again.S) and torch.equal(got.loglik, again.loglik)):
+                    raise CheckFailed(f"em_stats K={k} N={n}: two launches differ")
+                if k > 1 and float(got.S[0].abs().max()) != 0.0:
+                    raise CheckFailed(f"em_stats K={k} N={n}: a dead component got mass")
+    dead = random_mixture(torch, 8, gen, dev)
+    W = pack_loglik_weights(MixtureParams(torch.zeros_like(dead.pi), dead.mu, dead.sigma))
+    got = fused_em.em_stats(prepare(torch.randn(1000, 3, generator=gen).to(dev)).pts4, W)
+    if float(got.S.abs().max()) != 0.0 or float(got.loglik) != 0.0:
+        raise CheckFailed("em_stats K=8: an all-dead mixture gave nonzero statistics")
+
+    for k, branch in ((1, None), (5, None), (8, None), (64, 8), (64, 3), (100, 8), (512, 8)):
+        for n in (1, 33, 50_000):
+            pts = (torch.randint(-8, 9, (n, 3), generator=gen).float() / 4).to(dev)
+            W = (torch.randint(-8, 9, (10, k), generator=gen).float() / 16).to(dev)
+            W[:, k // 2:] = W[:, : k - k // 2].clone()  # exact ties
+            parent = None
+            if branch is not None:
+                parent = torch.randint(-1, -(-k // branch) + 2, (n,), generator=gen,
+                                       dtype=torch.int32).to(dev)
+            got = fused_em.assign(prepare(pts).pts4, W, parent, branch)
+            if not torch.equal(got, em_ref.assign(pts, W, parent, branch)):
+                raise CheckFailed(f"assign K={k} branch={branch} N={n}: differs from the plain "
+                                  f"version on exact inputs")
+            if k > 1:
+                Wn = W.clone()
+                Wn[0, 1] = float("nan")  # component 1's logit is NaN for every point
+                if bool((fused_em.assign(prepare(pts).pts4, Wn, parent, branch) == 1).any()):
+                    raise CheckFailed(f"assign K={k} branch={branch} N={n}: a NaN logit won")
 
 
 def make_pair(torch, n, dev):
@@ -788,6 +974,8 @@ def add_bound(name, entry) -> None:
         kb = kernel_bound(name, n=entry["n"], k=entry["k"], top_k=entry.get("top_k"))
     elif name == "reg_step":
         kb = kernel_bound(name, nb=entry["nb"])
+    elif name == "em_step":
+        kb = kernel_bound(name, k=entry["k"], rows=entry["rows"])
     elif name == "knn":
         kb = kernel_bound(name, nq=entry["nq"], nt=entry["nt"])
     else:
@@ -1055,7 +1243,7 @@ def slice_checks(torch, dev, errs):
 
     def record(name, k, kern, plain, headline=False, **extra):
         timings[name].append({"k": k, "n": n, "masked": name in ("em_stats_masked", "assign") and k > 8,
-                              "ms": cuda_ms(torch, kern),
+                              "ms": device_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
                               "plain_ms": cuda_ms(torch, plain, reps=5), "headline": headline, **extra})
 
     # Tree fit: level 0 unmasked at K=8, levels 1-2 masked at K=64 and 512.
@@ -1081,6 +1269,22 @@ def slice_checks(torch, dev, errs):
                      target, W, par, 8, errs)
         record("assign", k, lambda: fused_em.assign(tgt.pts4, W, par, 8),
                lambda: em_ref.assign(target, W, par, 8), headline=lvl == 2)
+    # em_step after each level's E-step, on that level's table, as the sweeps
+    # launch it; the twin on the same statistics on the card beside it.
+    from hgmm_torch import ops
+    from hgmm_torch.models.gmm import scene_variance
+
+    total, cf = torch.tensor(float(n), device=dev), 1e-4 * scene_variance(target)
+    for lvl, params in enumerate(tree.levels):
+        st = (fused_em.em_stats(tgt.pts4, Ws[0]) if lvl == 0
+              else fused_em.em_stats_masked(tgt.pts4, Ws[lvl], parents[lvl], 8))
+        fit = ops.new_fit(params, 1, total, cf, masked=lvl > 0)
+        twin = em_ref.new_fit(params, 1, total, cf, fit.table.wn.shape[0])
+        timings["em_step"].append({
+            "k": params.pi.shape[0], "rows": fit.table.wn.shape[0], "n": n, "headline": lvl == 2,
+            "ms": device_ms(torch, lambda: fused_em.em_step(st, fit, 0)),
+            "call_ms": cuda_ms(torch, lambda: fused_em.em_step(st, fit, 0)),
+            "plain_ms": cuda_ms(torch, lambda: em_ref.em_step(st, twin, 0), reps=5)})
     # Registration: levels 0 and 1, then the adaptive cut, at the final pose.
     pose = (res.pose.R, res.pose.t)
     for lvl, params in enumerate((tree.levels[0], tree.levels[1],
@@ -1104,7 +1308,7 @@ def slice_checks(torch, dev, errs):
     part = fused_em.reg_partials(tab, scan.state).clone()
     timings["reg_step"].append({
         "nb": part.shape[0], "k": k, "n": n, "headline": True,
-        "ms": cuda_ms(torch, lambda: fused_em.reg_step(part, scan, 0, 1, True, True, 0.0)),
+        "ms": device_ms(torch, lambda: fused_em.reg_step(part, scan, 0, 1, True, True, 0.0)),
         "plain_ms": cuda_ms(torch, lambda: em_ref.reg_step(part, twin, 0, 1, True, True, 0.0), reps=5)})
     log({"phase": "slice_kernels", "timings": timings, "max_abs_err": errs})
     return timings
@@ -1147,6 +1351,93 @@ def pair_accounting(torch, dev, work) -> dict:
     return profiled(torch, lambda: hgmm_torch.register_pair(
         source, target=target, generator=torch.Generator().manual_seed(0), **preset_kwargs()),
         work / "pair_trace")
+
+
+def sweep_accounting(torch, dev, work) -> dict:
+    """A fit's sweeps on the card as the tree fit runs them on the main
+    path's target (config2_tree_8x3: 10 sweeps a level): the flat K = 8 level
+    (the first em_stats body) and the grouped K = 64 level (the masked body),
+    each through models.gmm.em_sweeps with torch's sync debug mode set to
+    "error" (a host sync raises); one E-step and one em_step launch a sweep
+    by the counters, and SWEEP_KERNELS kernels a sweep, all the port's, by
+    the profiler (the kernels of 2s sweeps less those of s, over s). Then the
+    tree fit on the card against the same fit through the plain versions on
+    the CPU, on 40,000 of the target's points from one init: each level's
+    per-point loglik within FIT_LL_RTOL."""
+    import json as _json
+
+    from hgmm_torch import ops
+    from hgmm_torch.models.gmm import em_sweeps, init_params, scene_variance, total_weight
+    from hgmm_torch.models.gmm_tree import GmmTree, seed_children
+    from hgmm_torch.ops import fused_em
+    from hgmm_torch.utils.profiling import trace
+
+    kw = preset_kwargs()
+    sweeps, branch = kw["fit_iters"], kw["branch"]
+    _, target, _ = make_pair(torch, N_POINTS, dev)
+    prep = ops.prepare(target)
+    total, cf = total_weight(target, None), 1e-4 * scene_variance(target)
+    init = init_params(target, branch, torch.Generator().manual_seed(0))
+    level0 = em_sweeps(prep, init, sweeps, total, cf)
+    groups = ops.group_by_parent(prep, ops.assign(prep, level0.table), branch, branch * branch)
+    out = {"sweeps": sweeps, "n": N_POINTS}
+    for name, data, start, estep in (("flat_K8", prep, init, "em_stats"),
+                                     ("grouped_K64", groups, seed_children(level0.params, branch),
+                                      "em_stats_masked")):
+        em_sweeps(data, start, sweeps, total, cf)
+        torch.cuda.synchronize()
+        fused_em.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            fit = em_sweeps(data, start, sweeps, total, cf)
+            enqueue_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {key: v for key, v in fused_em.LAUNCHES.items() if v}
+        if counts != {estep: sweeps, "em_step": sweeps}:
+            raise CheckFailed(f"sweeps {name}: launches {counts}, expected {sweeps} of {estep} and em_step")
+        if not bool(torch.isfinite(fit.logliks).all()):
+            raise CheckFailed(f"sweeps {name}: non-finite logliks")
+        kernels = {}
+        for s_ in (sweeps, 2 * sweeps):
+            d = work / f"sweep_trace_{name}_{s_}"
+            with trace(d):
+                em_sweeps(data, start, s_, total, cf)
+                torch.cuda.synchronize()
+            events = [e for e in _json.loads((d / "trace.json").read_text())["traceEvents"]
+                      if e.get("cat") == "kernel" and "dur" in e]
+            kernels[s_] = (len(events), sum("hgmm::" in e.get("name", "") for e in events))
+            shutil.rmtree(d, ignore_errors=True)
+        per_sweep = (kernels[2 * sweeps][0] - kernels[sweeps][0]) / sweeps
+        port_per_sweep = (kernels[2 * sweeps][1] - kernels[sweeps][1]) / sweeps
+        if per_sweep != SWEEP_KERNELS or port_per_sweep != SWEEP_KERNELS:
+            raise CheckFailed(f"sweeps {name}: {per_sweep} kernels a sweep ({port_per_sweep} of the "
+                              f"port's), expected {SWEEP_KERNELS}")
+        out[name] = {"launches": counts, "kernels_per_sweep": per_sweep,
+                     "port_kernels_per_sweep": port_per_sweep,
+                     "kernels_outside_the_sweeps": kernels[sweeps][0] - sweeps * per_sweep,
+                     "host_syncs_in_sweeps": 0, "enqueue_s": enqueue_s, "wall_s": wall_s,
+                     "ms_per_sweep": 1e3 * wall_s / sweeps}
+
+    # The tree fit on the card and through the plain versions, from one init.
+    idx = torch.randperm(N_POINTS, generator=torch.Generator().manual_seed(1))[:40_000]
+    sub = target.cpu()[idx]
+    init_sub = init_params(sub, branch, torch.Generator().manual_seed(2))
+    per_point = {}
+    for d in (dev, torch.device("cpu")):
+        _, lls = GmmTree.fit(sub.to(d), branch=branch, levels=kw["levels"], em_iters=sweeps,
+                             init0=type(init_sub)(*(a.to(d) for a in init_sub)))
+        per_point[d.type] = (lls.double().cpu() / sub.shape[0]).tolist()
+    gaps = [abs(a - b) / abs(b) for a, b in zip(per_point["cuda"], per_point["cpu"])]
+    if not all(g <= FIT_LL_RTOL for g in gaps):
+        raise CheckFailed(f"tree fit on the card vs the plain versions: per-point logliks "
+                          f"{per_point}, relative gaps {gaps} above {FIT_LL_RTOL}")
+    out["tree_fit_vs_plain"] = {"n": sub.shape[0], "per_point_loglik": per_point,
+                                "relative_gaps": gaps, "rtol": FIT_LL_RTOL}
+    return out
 
 
 def cpu_agreement(torch, dev):
@@ -1354,13 +1645,15 @@ def check_f64(torch, name, got, ref, ref64, n, metric_errs) -> dict:
 
 
 def lidar_checks(torch, dev, errs, metric_errs):
-    """em_stats (flat, weighted; outlier none and -8), em_stats_masked, assign
-    and reg_stats (wls terms, outlier -8) on LiDAR-like inputs: covariances
+    """em_stats (flat, weighted; outlier none and -8), em_step on its
+    statistics, em_stats_masked, assign and reg_stats (wls terms, outlier -8)
+    on LiDAR-like inputs: covariances
     with a 0.02 m minor axis, 30 % zero-weight rows at the origin, N = the
     odometry bucket. At LIDAR_EXTENT (+-40 m) the kernel is held against the
     float64 direct form relative to its twin (check_f64); at
     LIDAR_STRICT_EXTENT, against its twin within the strict tolerances."""
     from hgmm_torch.data.synthetic import lidar_mixture_np, lidar_points_np
+    from hgmm_torch.models.gmm import scene_variance
     from hgmm_torch.models.se3 import so3_exp
     from hgmm_torch.ops import em_ref, fused_em, prepare
     from hgmm_torch.ops.gaussians import MixtureParams, pack_loglik_weights, precision_terms, sym_pack
@@ -1390,6 +1683,10 @@ def lidar_checks(torch, dev, errs, metric_errs):
                 hold("em_stats", f"em_stats_outlier_{outlier}", fused_em.em_stats(prep.pts4, W, outlier),
                      em_ref.em_stats(pts, W, w, outlier),
                      em_ref.em_stats_direct(pts, params, w, outlier), n)
+            # The M-step of a sweep on these statistics (the kernel's S).
+            rec["em_step"] = em_step_check(torch, f"{extent:g}m K{k}", params,
+                                           fused_em.em_stats(prep.pts4, W), w.sum(),
+                                           1e-4 * scene_variance(pts, w), metric_errs)
             if k > 8:
                 coarse = MixtureParams(torch.full((k // 8,), 8.0 / k, device=dev),
                                        params.mu[::8].contiguous(), 4.0 * params.sigma[::8].contiguous())
@@ -1618,7 +1915,7 @@ def odometry_shapes(torch, dev, frames, tree, pose, errs, metric_errs, timings):
             if not tag:
                 timings[name].append({"k": k, "n": n, "odometry": True,
                                       "masked": name in ("em_stats_masked", "assign") and k > 8,
-                                      "ms": cuda_ms(torch, kern),
+                                      "ms": device_ms(torch, kern), "call_ms": cuda_ms(torch, kern),
                                       "plain_ms": cuda_ms(torch, plain, reps=5), "headline": False,
                                       **{key: f() for key, f in extra.items()}})
 

@@ -19,12 +19,18 @@ lies in. It needs ``hgmm_torch.bench`` in TREE (there since the bench path).
 - ``reg_stats`` at K = 8, 64, 384, 512 (outlier -8) and K = 512 with
   top_k = 8 (outlier 0),
 - ``nearest_neighbor`` of N moved points against the N points,
+- a flat fit (K = 8, 10 sweeps) and a tree fit (8 x 3, 10 sweeps a level)
+  from one init on the odometry bucket (16,384 points at LiDAR scale): the
+  parameters and the logliks after the sweeps,
 
 saves every output to the file, and prints one JSON line with the times of the
 bench sweep (``em_stats``, N = 2^21, K = 512) and of the search; of
 ``reg_stats`` (each K, with and without top_k) and the masked ``em_stats`` (K =
 64, 512) as a caller makes them (the ops call, its tables included) at N and
-at the odometry bucket, 16,384 points at LiDAR scale; and of two pairs, each
+at the odometry bucket, 16,384 points at LiDAR scale; the device time a call
+of ``em_stats`` at K = 8 and of ``assign`` at K = 8 and, masked, K = 64, 512
+(profiler trace, by kernel name) at both sizes, and of ``em_stats`` at K = 16,
+32, 63 and 64 at N; and of two pairs, each
 with its kernels, copies and memsets (profiler) and host syncs (torch's sync
 debug mode): ``register_pair`` (config2_tree_8x3) at N and one odometry pair
 (config 4's tree fit and registration on the bucket). ``--diff`` prints, for
@@ -85,6 +91,7 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
         out[f"reg_stats_{key}"] = tuple(ops.reg_stats(ops.prepare(pts, w), *args, **kw))
     moved = (pts + torch.tensor([0.02, -0.01, 0.03], device=dev)).contiguous()
     out["knn"] = tuple(knn.nearest_neighbor(moved, pts))
+    out.update(fit_outputs(np, torch, dev))
 
     mix, bench_pts = bench.bench_problem(bench_n, bench_k)
     W = pack_loglik_weights(convert.mixture_from_numpy(*mix, device=dev))
@@ -95,6 +102,7 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
              "knn_ms": knn_s * 1e3, "knn_shape": [n, n], "device": str(dev),
              "card": bench.card_line() if dev.type == "cuda" else None}
     times.update(shape_times(np, torch, dev, n))
+    times.update(device_times(np, torch, dev, n))
     times.update(pair_counts(np, torch, dev, n))
     return {name: tuple(t.cpu() for t in ts) for name, ts in out.items()}, times
 
@@ -160,6 +168,88 @@ def shape_times(np, torch, dev, n) -> dict:
             parent = ops.assign(prep, pack_loglik_weights(coarse))
             _, sec, _ = time_fn(lambda: ops.em_stats_masked(prep, W, parent, BRANCH), device=dev, **reps)
             out[f"em_stats_masked_K{k}_{tag}_ms"] = sec * 1e3
+    return out
+
+
+def fit_outputs(np, torch, dev) -> dict:
+    """A flat fit (K = 8, 10 sweeps) and a tree fit (8 x 3, 10 sweeps a level)
+    from one numpy init on 16,384 points at LiDAR scale (30 % zero-weight
+    rows): parameters and logliks."""
+    from hgmm_torch import convert
+    from hgmm_torch.data.synthetic import lidar_mixture_np, lidar_points_np
+    from hgmm_torch.models.gmm import em_fit
+    from hgmm_torch.models.gmm_tree import GmmTree
+
+    pts_np, w_np = lidar_points_np(16_384, lidar_mixture_np(512, seed=3, extent=40.0), seed=4,
+                                   extent=40.0)
+    pts, w = torch.from_numpy(pts_np).to(dev), torch.from_numpy(w_np).to(dev)
+    live = np.flatnonzero(w_np > 0)
+    idx = np.random.default_rng(9).choice(live, 8, replace=False)
+    init = convert.mixture_from_numpy(np.full(8, 0.125, np.float32), pts_np[idx],
+                                      np.broadcast_to(25.0 * np.eye(3, dtype=np.float32), (8, 3, 3)).copy(),
+                                      device=dev)
+    params, lls = em_fit(pts, init, n_iters=10, point_weights=w)
+    tree, tlls = GmmTree.fit(pts, branch=BRANCH, levels=3, em_iters=10, point_weights=w, init0=init)
+    out = {"em_fit_K8_n16384": (*params, lls), "tree_fit_n16384_logliks": (tlls,)}
+    for lvl, p in enumerate(tree.levels):
+        out[f"tree_fit_n16384_level{lvl}"] = tuple(p)
+    return out
+
+
+def device_times(np, torch, dev, n) -> dict:
+    """Device µs a call (profiler trace, the port's kernels by name, over 20
+    calls) of em_stats at K = 8 (its kernel and its reduce) and of assign at K
+    = 8 and, masked, K = 64 and 512, at n points (unit scale) and at 16,384;
+    with the ops call's ms by CUDA events beside them."""
+    import tempfile
+
+    from hgmm_torch import convert, ops
+    from hgmm_torch.ops.gaussians import pack_loglik_weights
+    from hgmm_torch.utils.profiling import device_busy, trace
+
+    if dev.type != "cuda":
+        return {}
+    reps = 20
+    out = {}
+
+    def timed(key, fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            with trace(d):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            _, by_name = device_busy(Path(d) / "trace.json")
+        out[f"{key}_device_us"] = sum(v for name, v in by_name.items() if "hgmm::" in name) / reps
+        out[f"{key}_device_us_by_kernel"] = {name[:60]: v / reps for name, v in by_name.items()
+                                             if "hgmm::" in name}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[f"{key}_call_ms"] = start.elapsed_time(end) / reps
+
+    rng = np.random.default_rng(11)
+    for tag, nn in (("n%d" % n, n), ("n16384", 16_384)):
+        prep = ops.prepare(torch.from_numpy(rng.standard_normal((nn, 3), dtype=np.float32)).to(dev))
+        for k in (8, 64, 512):
+            W = pack_loglik_weights(convert.mixture_from_numpy(*_unit_mixture(np, k), device=dev))
+            if k == 8:
+                timed(f"em_stats_K8_{tag}", lambda: ops.em_stats(prep, W))
+                timed(f"assign_K8_{tag}", lambda: ops.assign(prep, W))
+            else:
+                parent = torch.from_numpy(rng.integers(0, k // BRANCH, nn).astype(np.int32)).to(dev)
+                timed(f"assign_K{k}_masked_{tag}", lambda: ops.assign(prep, W, parent, BRANCH))
+        if nn == n:
+            # 8 < K < 64 on the first body's lanes, beside the tiled body at
+            # K = 64 (the cost of padding those K to its 64 rows).
+            for k in (16, 32, 63, 64):
+                W = pack_loglik_weights(convert.mixture_from_numpy(*_unit_mixture(np, k), device=dev))
+                timed(f"em_stats_K{k}_{tag}", lambda: ops.em_stats(prep, W))
     return out
 
 

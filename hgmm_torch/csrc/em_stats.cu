@@ -55,17 +55,23 @@
 //     a point with every logit at the floor stays dead. Their statistics are
 //     not written.
 //
-// em_stats_kernel: unmasked calls with K < 64 (the tree's level 0, K = 8,
-//   where the call is bound by the 16 bytes a point and by the launch).
-//   One block of TILE threads walks tiles of TILE points (grid-stride).
-//   Phase 1, one thread per point: psi(y), then the exact two-pass softmax
-//     over the K components; psi, the max and the softmax scale go to shared
-//     memory.
-//   Phase 2, threads per component: thread (g, j) recomputes l_ij for the
-//     points g, g + G, ... of the tile, gamma_ij = scale_i exp2(l_ij - m_i),
-//     and accumulates gamma_ij psi_i in registers; the tile's sum is added to
-//     the (g, j) slot of a block-private [G*K, 10] shared accumulator that no
-//     other thread touches.
+// em_stats_kernel: unmasked calls with K < 64 (the tree's level 0 and the
+//   flat fit at K = branch = 8). What bounds it: the 16 bytes a point (2.1 us
+//   at 437,645 points) and, at the odometry bucket, the launch. So each point
+//   is read once and each logit evaluated once, and nothing waits on a
+//   block-wide barrier until the end:
+//   - L = 1, 2, 4 or 8 lanes take a point (L = ceil(K / 8) to a power of two,
+//     a template argument); lane s of the L owns components 8 s .. 8 s + 7
+//     and keeps their logits, one exp2 a pair and their 8 x 10 statistics in
+//     registers. The max and the sum over the L lanes go by butterflies, so
+//     the L lanes hold equal bits. A warp takes 32 / L points at once,
+//     grid-stride, the next point's 16 bytes loaded while this one computes.
+//   - The weight table sits in shared memory with one float4 of padding after
+//     every 8 rows, so the L lanes of a point (rows 8 s + c) read L banks.
+//   - The grid is persistent (ops/fused_em.py:plan_em_lanes, at most
+//     ES_BLOCKS_PER_SM blocks an SM); at the end a warp's lanes are summed in
+//     lane order through a shared-memory transpose, the warps in warp order,
+//     into the block's partial row, and reduce_partials adds the rows.
 //
 // em_stats_grouped_kernel: masked calls (the tree's levels 1 and 2).
 //   What bounds it: a point needs only its parent's `branch` children, so
@@ -84,97 +90,144 @@
 
 namespace hgmm {
 
-__global__ void __launch_bounds__(TILE)
+constexpr int ES_THREADS = 128;         // ops/fused_em.py:ES_THREADS
+constexpr int ES_WARPS = ES_THREADS / 32;
+constexpr int ES_CT = 8;                // components a lane
+constexpr int ES_KMAX = 64;             // the first body takes K < ES_KMAX
+constexpr int ES_ROW = ES_CT * 10 + 1;  // a lane's row in the transpose (odd: no bank conflict)
+constexpr int ES_COLS = (10 * (ES_KMAX - 1) + 1 + 31) / 32;  // columns of a partial row a lane sums
+
+// float4 index of table row j in shared memory: one float4 of padding after
+// every 8 rows, so rows 8 s + c of s = 0..7 fall in 8 different banks.
+__device__ __forceinline__ int es_row(int j) { return 3 * j + (j >> 3); }
+
+template <int L>
+__global__ void __launch_bounds__(ES_THREADS, 4)
     em_stats_kernel(const float* __restrict__ pts4, int n, const float* __restrict__ wn, int k,
-                    int has_outlier, float outlier, int groups, float* __restrict__ partial) {
-  extern __shared__ float4 smem4[];
-  float4* w4 = smem4;                           // [k * 3]  packed weights
-  float4* pt4 = w4 + 3 * k;                     // [TILE * 3] psi(9), m2, scale, (1)
-  float* ll_s = reinterpret_cast<float*>(pt4 + 3 * TILE);  // [TILE]
-  float* acc_s = ll_s + TILE;                   // [slots * 10]
-  const int t = threadIdx.x;
-  const int slots = groups * k;
-
-  for (int idx = t; idx < 3 * k; idx += TILE) w4[idx] = reinterpret_cast<const float4*>(wn)[idx];
-  for (int idx = t; idx < slots * 10; idx += TILE) acc_s[idx] = 0.0f;
-
-  // Phase-2 role of this thread: group g, first component j_first; with one
-  // group a thread takes components j_first, j_first + TILE, ...
-  const int g = groups > 1 ? t / k : 0;
-  const int j_first = groups > 1 ? t % k : t;
-  const bool has_role = groups > 1 ? t < slots : t < k;
-
-  float ll_acc = 0.0f;
-  const int ntiles = (n + TILE - 1) / TILE;
+                    int has_outlier, float outlier, float* __restrict__ partial) {
+  constexpr int PPW = 32 / L;  // points a warp takes at once
+  __shared__ float4 w_s[3 * ES_KMAX + ES_KMAX / 8];
+  __shared__ float tr_s[ES_WARPS][32 * ES_ROW];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int s = lane & (L - 1);              // this lane's components: 8 s .. 8 s + 7
+  const int nc = min(ES_CT, k - ES_CT * s);  // of them below K (<= 0: none)
+  for (int idx = t; idx < 3 * k; idx += ES_THREADS)
+    w_s[es_row(idx / 3) + idx % 3] = reinterpret_cast<const float4*>(wn)[idx];
   __syncthreads();
+  const float4* w4 = w_s + es_row(ES_CT * s);
 
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int base = tile * TILE;
-    const int i = base + t;
-    // ---- Phase 1: this thread's point.
-    float4 q0 = make_float4(0.f, 0.f, 0.f, 0.f), q1 = q0, q2 = q0;
+  float acc[ES_CT][10];
+#pragma unroll
+  for (int c = 0; c < ES_CT; ++c)
+#pragma unroll
+    for (int f = 0; f < 10; ++f) acc[c][f] = 0.0f;
+  float ll = 0.0f;
+
+  // Point slots: the warp's first point is `base` (uniform across the warp, so
+  // every lane takes part in the shuffles); a lane past N computes a point of
+  // weight 0 at the origin, which adds exactly nothing.
+  const int stride = gridDim.x * (ES_THREADS / L);
+  int base = blockIdx.x * (ES_THREADS / L) + warp * PPW;
+  const int g = lane / L;
+  auto load = [&](int i, float& x, float& y, float& z, float& w) {
     if (i < n) {
-      const float x = pts4[i], y = pts4[(size_t)n + i], z = pts4[2 * (size_t)n + i];
-      const float w = pts4[3 * (size_t)n + i];
-      const Psi p = features(x, y, z);
-      const float m = max_logit(w4, p, 0, k, has_outlier, outlier);
-      const float m2 = fmaxf(m, NEG_INF) * LOG2E;
-      float s = 0.0f;
-      for (int j = 0; j < k; ++j) s += exp2f(fmaf(logit(w4 + 3 * j, p), LOG2E, -m2));
-      const Soft r = finish_soft(m, m2, s, has_outlier, outlier, w);
-      ll_acc += r.lse;
-      q0 = make_float4(p.v[0], p.v[1], p.v[2], p.v[3]);
-      q1 = make_float4(p.v[4], p.v[5], p.v[6], p.v[7]);
-      q2 = make_float4(p.v[8], m2, r.scale, 0.f);
+      x = pts4[i];
+      y = pts4[(size_t)n + i];
+      z = pts4[2 * (size_t)n + i];
+      w = pts4[3 * (size_t)n + i];
+    } else {
+      x = y = z = w = 0.0f;
     }
-    pt4[3 * t] = q0;
-    pt4[3 * t + 1] = q1;
-    pt4[3 * t + 2] = q2;
-    __syncthreads();
-
-    // ---- Phase 2: this thread's components over the tile's points.
-    const int tile_n = min(TILE, n - base);
-    if (has_role) {
-      for (int j = j_first; j < k; j += TILE) {
-        const float4* wj = w4 + 3 * j;
-        float acc[10];
+  };
+  float nx, ny, nz, nw;
+  load(base + g, nx, ny, nz, nw);
+  for (; base < n; base += stride) {
+    const Psi p = features(nx, ny, nz);
+    const float w = nw;
+    load(base + stride + g, nx, ny, nz, nw);  // the next point, in flight meanwhile
+    // The weights are read from shared memory for every point: an offset the
+    // compiler cannot see through keeps it from hoisting the 80 loop-invariant
+    // loads into registers beside the 80 statistics (which spilled at L = 1).
+    int opaque;
+    asm volatile("mov.u32 %0, 0;" : "=r"(opaque));
+    const float4* wr = w4 + opaque;
+    float e[ES_CT];
+    float m = -INFINITY;
 #pragma unroll
-        for (int f = 0; f < 10; ++f) acc[f] = 0.0f;
-        for (int ip = g; ip < tile_n; ip += groups) {
-          const float4 c = pt4[3 * ip + 2];
-          if (c.z == 0.0f) continue;  // dead, zero-weight or outside the tile
-          const float4 a = pt4[3 * ip], b = pt4[3 * ip + 1];
-          Psi p;
-          p.v[0] = a.x; p.v[1] = a.y; p.v[2] = a.z; p.v[3] = a.w;
-          p.v[4] = b.x; p.v[5] = b.y; p.v[6] = b.z; p.v[7] = b.w;
-          p.v[8] = c.x; p.v[9] = 1.0f;
-          const float gam = c.z * exp2f(fmaf(logit(wj, p), LOG2E, -c.y));
+    for (int c = 0; c < ES_CT; ++c) {
+      e[c] = c < nc ? logit(wr + 3 * c, p) : -INFINITY;
+      m = fmaxf(m, e[c]);
+    }
 #pragma unroll
-          for (int f = 0; f < 10; ++f) acc[f] = fmaf(gam, p.v[f], acc[f]);
-        }
-        float* slot = acc_s + (size_t)(g * k + j) * 10;
+    for (int off = 1; off < L; off <<= 1) m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, off));
+    if (has_outlier) m = fmaxf(m, outlier);
+    const float m2 = fmaxf(m, NEG_INF) * LOG2E;
+    float sum = 0.0f;
 #pragma unroll
-        for (int f = 0; f < 10; ++f) slot[f] += acc[f];
+    for (int c = 0; c < ES_CT; ++c) {
+      e[c] = c < nc ? exp2f(fmaf(e[c], LOG2E, -m2)) : 0.0f;
+      sum += e[c];
+    }
+#pragma unroll
+    for (int off = 1; off < L; off <<= 1) sum += __shfl_xor_sync(FULL_MASK, sum, off);
+    const Soft r = finish_soft(m, m2, sum, has_outlier, outlier, w);
+    if (s == 0) ll += r.lse;  // one lane a point
+    if (r.scale != 0.0f) {    // equal on the L lanes of a point; 0 when dead or of weight 0
+#pragma unroll
+      for (int c = 0; c < ES_CT; ++c) {
+        const float gam = e[c] * r.scale;
+#pragma unroll
+        for (int f = 0; f < 10; ++f) acc[c][f] = fmaf(gam, p.v[f], acc[c][f]);
       }
     }
-    __syncthreads();
   }
 
-  // ---- Block partial: groups summed in order, then the loglik tree.
+  // The warp's lanes summed in lane order: each lane posts its row; column
+  // o = 10 j + f of S sums the PPW lanes that own j, the loglik column every
+  // lane. Then the warps in warp order into the block's partial row.
+  float* tr = tr_s[warp];
+#pragma unroll
+  for (int c = 0; c < ES_CT; ++c)
+#pragma unroll
+    for (int f = 0; f < 10; ++f) tr[lane * ES_ROW + c * 10 + f] = acc[c][f];
+  tr[lane * ES_ROW + ES_CT * 10] = ll;
+  __syncwarp();
   const int m_out = k * 10 + 1;
-  float* out = partial + (size_t)blockIdx.x * m_out;
-  for (int idx = t; idx < k * 10; idx += TILE) {
-    float s = 0.0f;
-    for (int gg = 0; gg < groups; ++gg) s += acc_s[(size_t)gg * k * 10 + idx];
-    out[idx] = s;
+  float v[ES_COLS];
+#pragma unroll
+  for (int q = 0; q < ES_COLS; ++q) {
+    const int o = lane + 32 * q;
+    float a = 0.0f;
+    if (o < k * 10) {
+      const int j = o / 10, sj = j / ES_CT;
+      const float* col = tr + sj * ES_ROW + (j - ES_CT * sj) * 10 + (o - 10 * j);
+      for (int gg = 0; gg < PPW; ++gg) a += col[gg * L * ES_ROW];
+    } else if (o == k * 10) {
+      for (int l = 0; l < 32; ++l) a += tr[l * ES_ROW + ES_CT * 10];
+    }
+    v[q] = a;
   }
-  ll_s[t] = ll_acc;
+  __syncwarp();  // the warp's transpose is read: its first m_out floats take the warp's row
+#pragma unroll
+  for (int q = 0; q < ES_COLS; ++q)
+    if (lane + 32 * q < m_out) tr[lane + 32 * q] = v[q];
   __syncthreads();
-  for (int stride = TILE / 2; stride > 0; stride >>= 1) {
-    if (t < stride) ll_s[t] += ll_s[t + stride];
-    __syncthreads();
+  float* out = partial + (size_t)blockIdx.x * m_out;
+  for (int o = t; o < m_out; o += ES_THREADS) {
+    float a = 0.0f;
+#pragma unroll
+    for (int ww = 0; ww < ES_WARPS; ++ww) a += tr_s[ww][o];
+    out[o] = a;
   }
-  if (t == 0) out[k * 10] = ll_s[0];
+}
+
+template <int L>
+cudaError_t launch_em_stats(const float* pts4, int n, const float* wn, int k, int has_outlier,
+                            float outlier, float* partial, int nb, float* out, cudaStream_t stream) {
+  em_stats_kernel<L><<<nb, ES_THREADS, 0, stream>>>(pts4, n, wn, k, has_outlier, outlier, partial);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce_partials(partial, nb, k * 10 + 1, out, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -501,23 +554,6 @@ cudaError_t launch_reduce_partials(const float* partial, int nb, int m, float* o
   return cudaGetLastError();
 }
 
-size_t em_stats_smem_bytes(int k, int groups) {
-  return sizeof(float4) * (3 * (size_t)k + 3 * TILE) + sizeof(float) * (TILE + (size_t)groups * k * 10);
-}
-
-cudaError_t launch_em_stats(const float* pts4, int n, const float* wn, int k, int has_outlier,
-                            float outlier, float* partial, int nb, float* out, cudaStream_t stream) {
-  const int groups = k < TILE ? TILE / k : 1;
-  const size_t smem = em_stats_smem_bytes(k, groups);
-  cudaError_t err = cudaFuncSetAttribute(em_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  em_stats_kernel<<<nb, TILE, smem, stream>>>(pts4, n, wn, k, has_outlier, outlier, groups, partial);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_reduce_partials(partial, nb, k * 10 + 1, out, stream);
-}
-
 }  // namespace hgmm
 
 namespace hgmm {
@@ -631,13 +667,24 @@ __global__ void em_grouped_reduce_kernel(const float* __restrict__ partial, int 
 extern "C" {
 
 // S and loglik of em_ref.em_stats into out[K*10 + 1] (S row-major, then
-// loglik) by the first kernel body. partial is [nb, K*10 + 1] scratch.
-// Returns the CUDA error code of the launches (0 on success).
-int hgmm_em_stats(const void* pts4, int n, const void* wn, int k, int has_outlier, float outlier,
-                  void* partial, int nb, void* out, void* stream) {
-  return (int)hgmm::launch_em_stats(static_cast<const float*>(pts4), n, static_cast<const float*>(wn),
-                                    k, has_outlier, outlier, static_cast<float*>(partial), nb,
-                                    static_cast<float*>(out), static_cast<cudaStream_t>(stream));
+// loglik) by the first kernel body, K < 64, `lanes` lanes a point (1, 2, 4
+// or 8, at least K / 8). wn is [>= K, 12]; partial is [nb, K*10 + 1]
+// scratch. Returns the CUDA error code of the launches (0 on success).
+int hgmm_em_stats(const void* pts4, int n, const void* wn, int k, int lanes, int has_outlier,
+                  float outlier, void* partial, int nb, void* out, void* stream) {
+  if (k < 1 || k >= hgmm::ES_KMAX || k > hgmm::ES_CT * lanes || nb < 1) return (int)cudaErrorInvalidValue;
+  const auto p = static_cast<const float*>(pts4);
+  const auto w = static_cast<const float*>(wn);
+  auto part = static_cast<float*>(partial);
+  auto o = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 1: return (int)hgmm::launch_em_stats<1>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    case 2: return (int)hgmm::launch_em_stats<2>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    case 4: return (int)hgmm::launch_em_stats<4>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    case 8: return (int)hgmm::launch_em_stats<8>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The same S and loglik for an unmasked call with K >= 64 through the

@@ -2,9 +2,11 @@
 //
 // Layouts, fixed by the Python wrappers in hgmm_torch/ops/fused_em.py:
 //   pts4   [4, N] f32, rows x, y, z, w (point weight, 0 for padding)
-//   wn     [K, 12] f32, row j = -1/2 * W[:, j] (the natural-log logit
-//          weights of gaussians.pack_loglik_weights) plus two zero columns,
-//          so the logit of component j is  l_j = wn_j . psi(y)
+//   wn     [rows, 12] f32, row j < K = -1/2 * W[:, j] (the natural-log
+//          logit weights of gaussians.pack_loglik_weights) plus two zero
+//          columns, so the logit of component j is  l_j = wn_j . psi(y);
+//          rows K.. (the tiled em_stats' padding) are floor rows: zero
+//          weights, bias NEG_INF (em_ref.pack_table; em_step.cu writes it)
 //   parent [N] int32 (masked kernels), -1 or out of range = no component
 //
 // Every kernel computes the softmax of em_ref._soft with an exact per-point
@@ -22,7 +24,6 @@ namespace hgmm {
 
 constexpr float NEG_INF = -1e30f;  // em_ref.NEG_INF, the mask floor
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int TILE = 256;  // points per block tile == threads per block
 constexpr unsigned FULL_MASK = 0xffffffffu;  // every lane of a warp
 
 // The registration scan's state, float32 [SCAN_FLOATS] on the card
@@ -56,10 +57,9 @@ __device__ __forceinline__ Psi features(float x, float y, float z) {
   return p;
 }
 
-// l_j = wn_j . psi with wn_j read as three float4 (one 16-byte shared-memory
-// load each; every thread of a warp reads the same row, a broadcast).
-__device__ __forceinline__ float logit(const float4* __restrict__ w, const Psi& p) {
-  const float4 a = w[0], b = w[1], c = w[2];
+// l_j = wn_j . psi from row j of wn as three float4 (a, b, c). Every kernel
+// evaluates a logit in this order, so equal inputs give equal bits.
+__device__ __forceinline__ float logit3(const float4 a, const float4 b, const float4 c, const Psi& p) {
   float l = a.x * p.v[0];
   l = fmaf(a.y, p.v[1], l);
   l = fmaf(a.z, p.v[2], l);
@@ -71,6 +71,12 @@ __device__ __forceinline__ float logit(const float4* __restrict__ w, const Psi& 
   l = fmaf(c.x, p.v[8], l);
   l = c.y + l;  // psi[9] == 1
   return l;
+}
+
+// The same with the row in shared memory (every thread of a warp reading the
+// same row is a broadcast).
+__device__ __forceinline__ float logit(const float4* __restrict__ w, const Psi& p) {
+  return logit3(w[0], w[1], w[2], p);
 }
 
 // The component range a point sees: all K, or its parent's child block.
@@ -88,16 +94,6 @@ __device__ __forceinline__ void visible_range(const int* __restrict__ parent, in
   }
   *j0 = p * branch;
   *j1 = min(*j0 + branch, k);
-}
-
-// Pass 1 of the softmax: the exact max over the visible logits and the
-// outlier logit. Returns m (may be -inf for an empty range).
-__device__ __forceinline__ float max_logit(const float4* __restrict__ w4, const Psi& p, int j0,
-                                           int j1, bool has_outlier, float outlier) {
-  float m = -INFINITY;
-  for (int j = j0; j < j1; ++j) m = fmaxf(m, logit(w4 + 3 * j, p));
-  if (has_outlier) m = fmaxf(m, outlier);
-  return m;
 }
 
 // Scale and log-evidence of a point from its max m and its Gaussian sum s

@@ -26,10 +26,9 @@ masked point needs its parent's ``branch`` children, not all K. Executed work
 is more, and shows as a share of the bound below 100 %: the unmasked
 ``em_stats`` at K >= 64 (``em_stats_tiled_kernel``) evaluates each logit and
 each exp2 once, and adds the max, the sum, the scale and the shuffles between
-lanes to the 20 FMA a pair; the first ``em_stats`` body (K < 64) evaluates
-each logit three times (max pass, sum pass, statistics pass); the masked body
-and ``reg_stats`` once (``reg_stats`` adds the rescaling of its online softmax
-and the lanes' merge).
+lanes to the 20 FMA a pair; the first ``em_stats`` body (K < 64), the masked
+body and ``reg_stats`` evaluate each logit once too (``reg_stats`` adds the
+rescaling of its online softmax and the lanes' merge).
 """
 
 from __future__ import annotations
@@ -62,6 +61,11 @@ FLOP_KNN_PAIR = 8.0  # 3 sub, 1 mul, 2 FMA
 # the delta (~150). The larger of the two.
 FLOP_REG_STEP = 1500.0
 SCAN_BYTES = 2 * 32 * 4 + 2 * 4  # the scan state read and written, loglik and delta
+# csrc/em_step.cu a component, by a count of the source: the M-step (~40),
+# sym3_eigvalsh and the floor (~50 and an arccosine and a cosine, ~40 each),
+# the Cholesky inverse (~45 and three square roots), logdet, b, c and the row
+# (~40 and four logarithms, ~25 each), in float64.
+FLOP_EM_STEP = 400.0
 
 
 @dataclasses.dataclass
@@ -115,6 +119,9 @@ def kernel_bound(kernel: str, **s) -> KernelBound:
     - ``reg_step`` (nb): the float64 sum of nb [59] partial rows and one pose
       solve (FLOP_REG_STEP) at the float64 peak; reads the rows and the scan
       state, writes the state and one loglik and delta.
+    - ``em_step`` (k, rows=k): FLOP_EM_STEP a component at the float64 peak;
+      reads S [K, 10], the loglik, total and cov_floor, writes pi, mu, sigma
+      (13 floats a component), the [rows, 12] table and one loglik.
     - ``knn`` (nq, nt): 8 flop a pair; reads both clouds (12 B a point),
       writes 8 B a query.
     - ``probe_logits`` / ``probe_stats`` (k, t, steps, reps, dtype "bf16" or
@@ -147,6 +154,10 @@ def kernel_bound(kernel: str, **s) -> KernelBound:
     if kernel == "reg_step":
         nb = s["nb"]
         return _bound(nb * 59.0 + FLOP_REG_STEP, nb * 59 * f4 + SCAN_BYTES, flop_rate=H100_FP64_FLOPS)
+    if kernel == "em_step":
+        k = s["k"]
+        nbytes = (10 * k + 3) * f4 + 13 * k * f4 + 12 * s.get("rows", k) * f4 + f4
+        return _bound(k * FLOP_EM_STEP, nbytes, flop_rate=H100_FP64_FLOPS)
     if kernel == "knn":
         nq, nt = s["nq"], s["nt"]
         return _bound(float(nq) * nt * FLOP_KNN_PAIR, 12.0 * (nq + nt) + 8.0 * nq)

@@ -1,9 +1,11 @@
 """Flat K-component GMM fit via EM.
 
 Counterpart of ``hgmm/models/gmm.py``. The EM loop is a Python loop over
-sweeps; each sweep is one E-step contraction (``hgmm_torch.ops.em_stats``,
-the CUDA kernel for CUDA tensors) and the closed-form M-step, with no value
-read back to the host.
+sweeps (``em_sweeps``); each sweep is one E-step contraction
+(``hgmm_torch.ops.em_stats``) on the fit's packed weight table and the
+closed-form M-step (``hgmm_torch.ops.em_step``), which writes the next
+parameters, table and loglik in place: on the card the E-step kernel, its
+reduce and the M-step kernel, with no value read back to the host.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import dataclasses
 import torch
 
 from hgmm_torch import ops
-from hgmm_torch.ops.gaussians import MixtureParams, mstep_update, pack_loglik_weights
+from hgmm_torch.ops.gaussians import MixtureParams, pack_loglik_weights
 
 
 def init_params(
@@ -71,6 +73,21 @@ def total_weight(points: torch.Tensor, point_weights: torch.Tensor | None) -> to
     return torch.sum(point_weights)
 
 
+def em_sweeps(data, init: MixtureParams, n_iters: int, total, cov_floor, cov_reg: float = 1e-6,
+              cov_type: str = "full") -> ops.EmFit:
+    """`n_iters` EM sweeps from `init` on `data`: an ops.Prepared buffer
+    (ops.em_stats), or a tree level's points grouped by parent
+    (ops.em_stats_grouped). Each sweep is the E-step on the fit's packed
+    table and ops.em_step; total and cov_floor are 0-d tensors on the
+    data's device. Returns the fit state: params, table, logliks [n_iters]."""
+    grouped = not isinstance(data, ops.Prepared)
+    fit = ops.new_fit(init, n_iters, total, cov_floor, masked=grouped)
+    for it in range(n_iters):
+        stats = ops.em_stats_grouped(data, fit.table) if grouped else ops.em_stats(data, fit.table)
+        ops.em_step(stats, fit, it, cov_reg, cov_type)
+    return fit
+
+
 def em_fit(
     points: torch.Tensor,
     init: MixtureParams,
@@ -87,17 +104,9 @@ def em_fit(
     collapsing at a physically small scale."""
     total = total_weight(points, point_weights)
     cov_floor = cov_floor_rel * scene_variance(points, point_weights)
-    prep = ops.prepare(points, point_weights)  # built once for every sweep
-    params = init
-    logliks = []
-    for _ in range(n_iters):
-        stats = ops.em_stats(prep, pack_loglik_weights(params))
-        T0, T1, T2 = ops.unpack_suffstats(stats.S)
-        params = mstep_update(
-            T0, T1, T2, total, cov_reg=cov_reg, cov_type=cov_type, cov_floor=cov_floor
-        )
-        logliks.append(stats.loglik)
-    return params, torch.stack(logliks)
+    fit = em_sweeps(ops.prepare(points, point_weights), init, n_iters, total, cov_floor, cov_reg,
+                    cov_type)
+    return fit.params, fit.logliks
 
 
 def log_likelihood(params: MixtureParams, points: torch.Tensor) -> torch.Tensor:

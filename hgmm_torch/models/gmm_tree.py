@@ -18,13 +18,8 @@ import numpy as np
 import torch
 
 from hgmm_torch import ops
-from hgmm_torch.models.gmm import em_fit, init_params, scene_variance, total_weight
-from hgmm_torch.ops.gaussians import (
-    MixtureParams,
-    mstep_update,
-    pack_loglik_weights,
-    sym3_eigvalsh,
-)
+from hgmm_torch.models.gmm import em_sweeps, init_params, scene_variance, total_weight
+from hgmm_torch.ops.gaussians import MixtureParams, sym3_eigvalsh
 
 # Child seeding directions for J=8: cube corners (unit norm).
 _CUBE = np.array(
@@ -113,29 +108,19 @@ def _fit_tree(
     of each level [levels])."""
     total = total_weight(points, point_weights)
     cov_floor = cov_floor_rel * scene_variance(points, point_weights)
-    params0, ll0 = em_fit(
-        points, init0, n_iters=em_iters, cov_reg=cov_reg, cov_type=cov_type,
-        point_weights=point_weights, cov_floor_rel=cov_floor_rel,
-    )
-    level_params = [params0]
-    level_logliks = [ll0[-1]]
     prep = ops.prepare(points, point_weights)  # one buffer for every level
-    parent = ops.assign(prep, pack_loglik_weights(params0))
+    fit = em_sweeps(prep, init0, em_iters, total, cov_floor, cov_reg, cov_type)
+    level_params = [fit.params]
+    level_logliks = [fit.logliks[-1]]
+    parent = None
     for _ in range(1, levels):
+        parent = ops.assign(prep, fit.table, parent, None if parent is None else branch)
         p = seed_children(level_params[-1], branch)
         # One grouping of the points by parent for the level's sweeps.
         groups = ops.group_by_parent(prep, parent, branch, p.pi.shape[0])
-        ll = None
-        for _ in range(em_iters):
-            stats = ops.em_stats_grouped(groups, pack_loglik_weights(p))
-            T0, T1, T2 = ops.unpack_suffstats(stats.S)
-            p = mstep_update(
-                T0, T1, T2, total, cov_reg=cov_reg, cov_type=cov_type, cov_floor=cov_floor
-            )
-            ll = stats.loglik
-        level_params.append(p)
-        level_logliks.append(ll)
-        parent = ops.assign(prep, pack_loglik_weights(p), parent, branch)
+        fit = em_sweeps(groups, p, em_iters, total, cov_floor, cov_reg, cov_type)
+        level_params.append(fit.params)
+        level_logliks.append(fit.logliks[-1])
     return tuple(level_params), torch.stack(level_logliks)
 
 

@@ -6,6 +6,9 @@ plain version in ``em_ref``; a CUDA tensor goes to the CUDA kernel in
 
 Loops call ``prepare(points)`` once and pass the ``Prepared`` buffer to every
 sweep or iteration; raw [N, 3] points are accepted too and prepared per call.
+The E-step functions take W [10, K] or the packed table of a fit
+(``Packed``); a fit's sweep is ``em_stats`` (or ``em_stats_grouped``) on
+``fit.table``, then ``em_step`` on the fit state ``new_fit`` made.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from hgmm_torch.ops import em_ref, fused_em
-from hgmm_torch.ops.em_ref import EmStats, RegScan, RegStats  # noqa: F401
+from hgmm_torch.ops.em_ref import EmFit, EmStats, Packed, RegScan, RegStats  # noqa: F401
 from hgmm_torch.ops.gaussians import MixtureParams, unpack_suffstats  # noqa: F401
 
 
@@ -101,6 +104,21 @@ def em_stats_grouped(groups, W) -> EmStats:
         return fused_em.em_stats_grouped(groups, W)
     return em_ref.em_stats_masked(groups.prep.points, W, groups.parent, groups.branch,
                                   groups.prep.weights)
+
+
+def new_fit(init: MixtureParams, n_iters: int, total, cov_floor, masked: bool = False) -> EmFit:
+    """The state of a fit of `n_iters` sweeps from `init` on init's device
+    (em_ref.EmFit): its table has the rows that an unmasked (or, masked=True,
+    a grouped) em_stats call of K = init's reads."""
+    return em_ref.new_fit(init, n_iters, total, cov_floor, fused_em.table_rows(init.k, masked))
+
+
+def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full",
+            min_weight: float = 1e-6) -> None:
+    """The M-step of sweep `it` on the fit state, in place (em_ref.em_step)."""
+    if fit.mu.is_cuda:
+        return fused_em.em_step(stats, fit, it, cov_reg, cov_type, min_weight)
+    return em_ref.em_step(stats, fit, it, cov_reg, cov_type, min_weight)
 
 
 def assign(points, W, parent=None, branch=None) -> torch.Tensor:

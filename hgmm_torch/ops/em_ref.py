@@ -17,6 +17,16 @@ Contracts (shared with the kernels in ``hgmm_torch.ops.fused_em``):
                                                     -> one step of the
                                                        registration iterate on
                                                        the scan state (in place)
+  em_step(stats, fit, it, cov_reg, cov_type, min_weight)
+                                                    -> the M-step of an EM
+                                                       sweep on the fit state:
+                                                       parameters, the next
+                                                       packed table, loglik
+                                                       (in place)
+
+W is the [10, K] weight matrix of gaussians.pack_loglik_weights, or the
+kernels' packed table of it (``Packed``, ``pack_table``), which the E-step
+functions here read back exactly.
 
 The matmuls here run in full float32: ``hgmm_torch`` turns TF32 off for
 ``torch.backends.cuda.matmul`` and ``torch.backends.cudnn`` when imported.
@@ -29,7 +39,16 @@ from typing import NamedTuple
 
 import torch
 
-from hgmm_torch.ops.gaussians import MixtureParams, features, precision_terms, sym_pack, sym_unpack
+from hgmm_torch.ops.gaussians import (
+    MixtureParams,
+    features,
+    mstep_update,
+    pack_loglik_weights,
+    precision_terms,
+    sym_pack,
+    sym_unpack,
+    unpack_suffstats,
+)
 
 NEG_INF = -1e30
 # The registration scan's state vector (csrc/hgmm_kernels.cuh:SCAN_*): the
@@ -56,9 +75,36 @@ class RegStats(NamedTuple):
     loglik: torch.Tensor
 
 
-def _logits(points: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+class Packed(NamedTuple):
+    """The kernels' weight table (csrc/hgmm_kernels.cuh, ``wn``): wn [rows, 12],
+    row j < k = -1/2 W[:, j] and two zero columns, rows k.. floor rows (zero
+    weights, the bias at NEG_INF, so their logit is the floor for every
+    point); and k."""
+
+    wn: torch.Tensor
+    k: int
+
+
+def pack_table(W: torch.Tensor, rows: int | None = None) -> Packed:
+    """W [>=10, K] -> Packed with `rows` rows (K when None), in W's dtype."""
+    k = W.shape[1]
+    wn = torch.zeros((rows or k, 12), dtype=W.dtype, device=W.device)
+    wn[:k, :10] = -0.5 * W[:10].T
+    wn[k:, 9] = NEG_INF
+    return Packed(wn, k)
+
+
+def weights(W) -> torch.Tensor:
+    """W [10, K] of W or of a Packed table: -2 wn[:k, :10]^T, the same bits
+    (scaling by a power of two is exact)."""
+    if isinstance(W, Packed):
+        return -2.0 * W.wn[:W.k, :10].T
+    return W
+
+
+def _logits(points: torch.Tensor, W) -> torch.Tensor:
     """[N, K] log[pi_j N(y_i)] = -1/2 psi(y) @ W."""
-    return -0.5 * (features(points) @ W[:10])
+    return -0.5 * (features(points) @ weights(W)[:10])
 
 
 def _soft(logits: torch.Tensor, outlier_logit=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -308,3 +354,56 @@ def reg_step(partial: torch.Tensor, scan: RegScan, it: int, solver: int, first: 
     st[SCAN_D_LAST] = delta
     if bool(delta < tol):
         st[SCAN_DONE] = 1.0
+
+
+# --------------------------------------------------------------------------
+# the M-step of an EM sweep (csrc/em_step.cu)
+
+COV_TYPES = ("full", "iso", "diag")  # csrc/em_step.cu's cov_type 0, 1, 2
+
+
+class EmFit(NamedTuple):
+    """A fit's state on one device, which em_step updates in place: the
+    parameters (pi [K], mu [K, 3], sigma [K, 3, 3]), the packed table of
+    them that the next sweep's E-step reads, every sweep's loglik [n_iters],
+    and the data's total weight and covariance floor, 0-d tensors on the
+    device (never read on the host)."""
+
+    pi: torch.Tensor
+    mu: torch.Tensor
+    sigma: torch.Tensor
+    table: Packed
+    logliks: torch.Tensor
+    total: torch.Tensor
+    cov_floor: torch.Tensor
+
+    @property
+    def params(self) -> MixtureParams:
+        return MixtureParams(self.pi, self.mu, self.sigma)
+
+
+def new_fit(init: MixtureParams, n_iters: int, total, cov_floor, rows: int | None = None) -> EmFit:
+    """The state before the first sweep from `init` (copied), in init's dtype
+    and on its device; the table has `rows` rows (K when None)."""
+    pi, mu, sigma = (a.clone().contiguous() for a in init)
+    like = dict(dtype=mu.dtype, device=mu.device)
+    return EmFit(pi, mu, sigma, pack_table(pack_loglik_weights(init).to(**like), rows),
+                 torch.zeros(n_iters, **like), torch.as_tensor(total, **like).reshape(()).clone(),
+                 torch.as_tensor(cov_floor, **like).reshape(()).clone())
+
+
+def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full",
+            min_weight: float = 1e-6) -> None:
+    """Plain twin of csrc/em_step.cu: the M-step from the sweep's statistics
+    (gaussians.mstep_update), the next sweep's packed table of the new
+    parameters (pack_loglik_weights, pack_table) and logliks[it] =
+    stats.loglik, all in place on `fit`, in the fit's dtype."""
+    if cov_type not in COV_TYPES:
+        raise ValueError(f"em_step: cov_type {cov_type!r} not in {COV_TYPES}")
+    T0, T1, T2 = unpack_suffstats(stats.S.to(fit.mu.dtype))
+    new = mstep_update(T0, T1, T2, fit.total, cov_reg=cov_reg, cov_type=cov_type,
+                       min_weight=min_weight, cov_floor=fit.cov_floor)
+    for buf, val in zip(fit.params, new):
+        buf.copy_(val)
+    fit.table.wn.copy_(pack_table(pack_loglik_weights(new), fit.table.wn.shape[0]).wn)
+    fit.logliks[it] = stats.loglik

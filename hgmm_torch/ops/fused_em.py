@@ -13,9 +13,13 @@ sums are reduced in a fixed order and are reproducible run to run.
 
 ``em_stats`` has three kernel bodies (``csrc/em_stats.cu``): unmasked calls with
 K >= 64 run the register-tiled one on a persistent grid, with the launch
-geometry of ``plan_em_tiles``; unmasked calls with K < 64 the first one;
-masked calls run by parent chunks over the points sorted by parent
-(``group_by_parent``, ``plan_parent_chunks``). K and the mask alone decide.
+geometry of ``plan_em_tiles``; unmasked calls with K < 64 the first one, a
+point on 1 to 8 lanes (``plan_em_lanes``); masked calls run by parent chunks
+over the points sorted by parent (``group_by_parent``, ``plan_parent_chunks``).
+K and the mask alone decide. Each takes W [10, K] or the packed table
+(``em_ref.Packed``) that ``em_step`` (``csrc/em_step.cu``) writes: a fit's
+sweep is ``em_stats`` and its reduce, then ``em_step``, three launches and no
+host read (``new_fit`` holds the state on the card).
 
 A registration scan builds its tables once (``reg_tables``), and its state
 lives on the card (``new_scan``): ``reg_partials`` (``csrc/reg_stats.cu``,
@@ -30,11 +34,19 @@ import dataclasses
 import torch
 
 from hgmm_torch.ops import _build
-from hgmm_torch.ops.em_ref import NEG_INF, REG_OUT, SCAN_FLOATS, EmStats, RegScan, RegStats
+from hgmm_torch.ops.em_ref import (
+    COV_TYPES,
+    REG_OUT,
+    SCAN_FLOATS,
+    EmFit,
+    EmStats,
+    Packed,
+    RegScan,
+    RegStats,
+    pack_table,
+)
 from hgmm_torch.ops.em_ref import new_scan as em_ref_new_scan
 
-TILE = 256  # points per block tile; csrc/hgmm_kernels.cuh:TILE
-MAX_BLOCKS = 1024  # cap of the grid (and of the partial-sum rows)
 MAX_K = 2048  # largest K whose tables fit in shared memory
 MAX_TOP_K = 32  # largest top_k < K that reg_stats gates (csrc/reg_stats.cu)
 # The masked em_stats by parent chunks (csrc/em_stats.cu:em_stats_grouped_kernel).
@@ -46,6 +58,15 @@ EMT_THREADS = 256
 EMT_PT = 8  # points a thread
 EMT_CT = 8  # components a thread
 EMT_MIN_K = 64  # below it the call is bound by bytes and the launch: the first kernel body
+# The first em_stats body, K < 64 (csrc/em_stats.cu:em_stats_kernel).
+ES_THREADS = 128
+ES_CT = 8  # components a lane
+ES_BLOCKS_PER_SM = 4  # cap of the grid, so of the partial rows
+# assign (csrc/assign.cu).
+AS_THREADS = 256
+AS_BLOCKS_PER_SM = 4
+AS_MASKED_LANES = 8  # lanes a point under a parent mask, one a child
+AS_PT = 2  # points a lane holds at once
 SMEM_LIMIT = 232_448  # bytes of shared memory a block can use on the H100 (227 KB)
 # reg_stats (csrc/reg_stats.cu) and its plan.
 RS_THREADS = 256
@@ -54,9 +75,9 @@ RS_BLOCKS_PER_SM = 4  # cap of the grid, so of the partial rows
 
 # Kernel launches by wrapper, for showing that a run went through the kernels
 # (ops/knn.py and ops/probes.py count their kernels here too).
-LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "assign": 0, "reg_stats": 0, "reg_step": 0, "knn": 0,
-            "probe_logits": 0, "probe_addonly": 0, "probe_stats": 0, "probe_norm": 0,
-            "probe_vpu": 0}
+LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "em_step": 0, "assign": 0, "reg_stats": 0,
+            "reg_step": 0, "knn": 0, "probe_logits": 0, "probe_addonly": 0, "probe_stats": 0,
+            "probe_norm": 0, "probe_vpu": 0}
 
 
 def reset_launches() -> None:
@@ -82,21 +103,68 @@ def _check_points(pts4: torch.Tensor) -> int:
     return pts4.shape[1]
 
 
-def _pack_w(W: torch.Tensor, device, rows: int | None = None) -> torch.Tensor:
-    """W [>=10, K] -> [rows, 12] f32 (rows = K unless given): row j < K is
-    -1/2 W[:, j] with two zero columns; a row past K has zero weights and its
-    bias at the mask floor, so its logit is the floor for every point."""
+def _table(W, device, rows: int | None = None) -> Packed:
+    """The packed table of a call: a Packed as given (float32 on the card,
+    `rows` rows when given, at least K), or W [>=10, K] packed with `rows`
+    rows (K when None)."""
+    if isinstance(W, Packed):
+        k, wn = W.k, W.wn
+        if not 1 <= k <= MAX_K or wn.dim() != 2 or not (rows or k) <= wn.shape[0] or (rows and wn.shape[0] != rows):
+            raise ValueError(f"table of shape {tuple(wn.shape)} for K={k}, {rows or k} rows")
+        _check("table", wn, torch.float32, (wn.shape[0], 12))
+        if wn.device != torch.device(device):
+            raise ValueError(f"table: on {wn.device}, the points on {device}")
+        return W
     k = W.shape[1]
     if not 1 <= k <= MAX_K:
         raise ValueError(f"K={k} outside [1, {MAX_K}]")
-    wn = torch.zeros((rows or k, 12), dtype=torch.float32, device=device)
-    wn[:k, :10] = -0.5 * W[:10].T.to(device=device, dtype=torch.float32)
-    wn[k:, 9] = NEG_INF
-    return wn
+    return pack_table(W[:10].to(device=device, dtype=torch.float32), rows)
 
 
-def _n_blocks(n: int) -> int:
-    return max(1, min(MAX_BLOCKS, -(-n // TILE)))
+def _pack_w(W: torch.Tensor, device, rows: int | None = None) -> torch.Tensor:
+    """W [>=10, K] -> the [rows, 12] f32 table (em_ref.pack_table; rows = K
+    unless given)."""
+    return _table(W, device, rows).wn
+
+
+def table_rows(k: int, masked: bool = False) -> int:
+    """Rows of the packed table an em_stats call reads: the tiled body's
+    k_pad (padded with floor rows), else K."""
+    plan = plan_em_tiles(k, masked)
+    return k if plan is None else plan.k_pad
+
+
+@dataclasses.dataclass(frozen=True)
+class LanePlan:
+    """Launch geometry of a kernel that gives a point `lanes` lanes of a warp
+    on a persistent grid of `blocks` blocks (the first em_stats body:
+    csrc/em_stats.cu:em_stats_kernel, one partial row a block; assign)."""
+
+    lanes: int
+    blocks: int
+
+
+def plan_em_lanes(n: int, k: int, sms: int) -> LanePlan:
+    """The first em_stats body (K < EMT_MIN_K): lanes = K / ES_CT rounded up
+    to a power of two (1 at K <= 8), so a lane holds at most ES_CT
+    components; blocks of ES_THREADS threads, one a ES_THREADS / lanes points,
+    at most ES_BLOCKS_PER_SM an SM."""
+    if sms < 1 or not 1 <= k < EMT_MIN_K:
+        raise ValueError(f"plan_em_lanes: K={k}, {sms} SMs")
+    lanes = 1 << (-(-k // ES_CT) - 1).bit_length()
+    per_block = ES_THREADS // lanes
+    return LanePlan(lanes, max(1, min(ES_BLOCKS_PER_SM * sms, -(-n // per_block))))
+
+
+def plan_assign(n: int, masked: bool, sms: int) -> LanePlan:
+    """assign: one lane a point unmasked (every lane reads the same rows),
+    AS_MASKED_LANES under a parent mask (a lane a child of the parent's
+    block); a lane holds AS_PT points at once; blocks of AS_THREADS threads,
+    at most AS_BLOCKS_PER_SM an SM."""
+    if sms < 1:
+        raise ValueError(f"plan_assign: {sms} SMs")
+    lanes = AS_MASKED_LANES if masked else 1
+    return LanePlan(lanes, max(1, min(AS_BLOCKS_PER_SM * sms, -(-n * lanes // (AS_THREADS * AS_PT)))))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,8 +211,8 @@ class EmTilePlan:
 
 def plan_em_tiles(k: int, masked: bool = False) -> EmTilePlan | None:
     """The tile plan of an em_stats call, or None where another body runs:
-    K < EMT_MIN_K (the first body, one thread a point, then threads per
-    component) and every masked call (em_stats_grouped). The choice depends
+    K < EMT_MIN_K (the first body, a point on 1 to 8 lanes: plan_em_lanes)
+    and every masked call (em_stats_grouped). The choice depends
     on K and the mask alone."""
     if masked or k < EMT_MIN_K:
         return None
@@ -178,20 +246,23 @@ def _outlier(outlier_logit) -> tuple[int, float]:
     return (0, 0.0) if outlier_logit is None else (1, float(outlier_logit))
 
 
-def em_stats(pts4: torch.Tensor, W: torch.Tensor, outlier_logit=None) -> EmStats:
-    """Kernel twin of em_ref.em_stats on a prepared [4, N] buffer."""
+def em_stats(pts4: torch.Tensor, W, outlier_logit=None) -> EmStats:
+    """Kernel twin of em_ref.em_stats on a prepared [4, N] buffer; W is
+    [10, K] or a Packed table (table_rows(K) rows)."""
     n = _check_points(pts4)
-    k = W.shape[1]
+    k = W.k if isinstance(W, Packed) else W.shape[1]
     plan = plan_em_tiles(k)
-    wn = _pack_w(W, pts4.device, None if plan is None else plan.k_pad)
-    nb = _n_blocks(n) if plan is None else plan.blocks(n, _sms(pts4.device))
+    wn = _table(W, pts4.device, table_rows(k)).wn
+    sms = _sms(pts4.device)
+    lane_plan = plan_em_lanes(n, k, sms) if plan is None else None
+    nb = lane_plan.blocks if plan is None else plan.blocks(n, sms)
     partial = torch.empty((nb, k * 10 + 1), dtype=torch.float32, device=pts4.device)
     out = torch.empty((k * 10 + 1,), dtype=torch.float32, device=pts4.device)
     has_out, out_l = _outlier(outlier_logit)
     with torch.cuda.device(pts4.device):
         if plan is None:
             err = _build.load().hgmm_em_stats(
-                pts4.data_ptr(), n, wn.data_ptr(), k, has_out, out_l, partial.data_ptr(), nb,
+                pts4.data_ptr(), n, wn.data_ptr(), k, lane_plan.lanes, has_out, out_l, partial.data_ptr(), nb,
                 out.data_ptr(), _stream(pts4),
             )
         else:
@@ -202,6 +273,36 @@ def em_stats(pts4: torch.Tensor, W: torch.Tensor, outlier_logit=None) -> EmStats
     _raise_on(err, "em_stats")
     LAUNCHES["em_stats"] += 1
     return EmStats(S=out[: k * 10].view(k, 10), loglik=out[k * 10])
+
+
+def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full",
+            min_weight: float = 1e-6) -> None:
+    """Kernel twin of em_ref.em_step (csrc/em_step.cu): one launch after an
+    em_stats call's reduce; the fit's parameters, table and logliks[it]
+    written on the card from the statistics, total and cov_floor there,
+    nothing read back."""
+    k, wn = fit.table.k, fit.table.wn
+    rows = wn.shape[0]
+    dev = wn.device
+    for name, t, shape in (("S", stats.S, (k, 10)), ("loglik", stats.loglik, ()), ("pi", fit.pi, (k,)),
+                           ("mu", fit.mu, (k, 3)), ("sigma", fit.sigma, (k, 3, 3)),
+                           ("table", wn, (rows, 12)), ("logliks", fit.logliks, tuple(fit.logliks.shape)),
+                           ("total", fit.total, ()), ("cov_floor", fit.cov_floor, ())):
+        _check(name, t, torch.float32, shape)
+        if t.device != dev:
+            raise ValueError(f"em_step: {name} on {t.device}, the table on {dev}")
+    if not 0 <= it < fit.logliks.shape[0] or cov_type not in COV_TYPES or rows < k:
+        raise ValueError(f"em_step: sweep {it} of {fit.logliks.shape[0]}, cov_type {cov_type!r}, "
+                         f"{rows} rows for K={k}")
+    with torch.cuda.device(dev):
+        err = _build.load().hgmm_em_step(
+            stats.S.data_ptr(), stats.loglik.data_ptr(), fit.total.data_ptr(), fit.cov_floor.data_ptr(), k,
+            rows, float(cov_reg), float(min_weight), COV_TYPES.index(cov_type), fit.pi.data_ptr(),
+            fit.mu.data_ptr(), fit.sigma.data_ptr(), wn.data_ptr(), fit.logliks.data_ptr(), it,
+            _stream(wn),
+        )
+    _raise_on(err, "em_step")
+    LAUNCHES["em_step"] += 1
 
 
 def plan_parent_chunks(counts: list[int], sms: int) -> tuple[int, list[tuple[int, int, int]]]:
@@ -276,12 +377,13 @@ def group_by_parent(pts4: torch.Tensor, parent: torch.Tensor, branch: int, k: in
     )
 
 
-def em_stats_grouped(groups: ParentGroups, W: torch.Tensor) -> EmStats:
-    """Kernel twin of em_ref.em_stats_masked on a level's grouped points."""
-    k = W.shape[1]
+def em_stats_grouped(groups: ParentGroups, W) -> EmStats:
+    """Kernel twin of em_ref.em_stats_masked on a level's grouped points; W
+    is [10, K] or a Packed table."""
+    k = W.k if isinstance(W, Packed) else W.shape[1]
     if k != groups.k:
         raise ValueError(f"em_stats_masked: W has K={k}, the groups were made for K={groups.k}")
-    wn = _pack_w(W, groups.pts4.device)
+    wn = _table(W, groups.pts4.device).wn
     out = torch.empty((k * 10 + 1,), dtype=torch.float32, device=groups.pts4.device)
     with torch.cuda.device(groups.pts4.device):
         err = _build.load().hgmm_em_stats_grouped(
@@ -301,17 +403,19 @@ def em_stats_masked(pts4: torch.Tensor, W: torch.Tensor, parent: torch.Tensor, b
     return em_stats_grouped(group_by_parent(pts4, parent, branch, W.shape[1]), W)
 
 
-def assign(pts4: torch.Tensor, W: torch.Tensor, parent=None, branch=None) -> torch.Tensor:
-    """Kernel twin of em_ref.assign: [N] int32 argmax component."""
+def assign(pts4: torch.Tensor, W, parent=None, branch=None) -> torch.Tensor:
+    """Kernel twin of em_ref.assign: [N] int32 argmax component; W is
+    [10, K] or a Packed table."""
     n = _check_points(pts4)
-    wn = _pack_w(W, pts4.device)
+    table = _table(W, pts4.device)
     if parent is not None:
         parent = _parent(parent, n, branch)
+    plan = plan_assign(n, parent is not None, _sms(pts4.device))
     out = torch.empty((n,), dtype=torch.int32, device=pts4.device)
     with torch.cuda.device(pts4.device):
         err = _build.load().hgmm_assign(
-            pts4.data_ptr(), n, wn.data_ptr(), wn.shape[0],
-            None if parent is None else parent.data_ptr(), branch or 1, _n_blocks(n),
+            pts4.data_ptr(), n, table.wn.data_ptr(), table.k,
+            None if parent is None else parent.data_ptr(), branch or 1, plan.blocks,
             out.data_ptr(), _stream(pts4),
         )
     _raise_on(err, "assign")

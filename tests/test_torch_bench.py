@@ -259,6 +259,10 @@ HAND = {
                        2048 * 8 * 2 * 512 * 512 / 33.5e12, "operations", "fp32"),
     "probe_logits_one_product": (dict(k=64, t=256, steps=0, reps=1, dtype="bf16"),
                                  ((64 * 80 + 80 * 256) * 2 + 64 * 256 * 4) / 3.35e12, "bytes", "hbm"),
+    # S [K, 10], loglik, total, cov_floor in; pi, mu, sigma (13 a component),
+    # the [rows, 12] table and one loglik out
+    "em_step": (dict(k=512, rows=512), ((10 * 512 + 3) + 13 * 512 + 12 * 512 + 1) * 4 / 3.35e12,
+                "bytes", "hbm"),
 }
 
 
@@ -286,7 +290,7 @@ def test_kernel_bound_estimates_of_the_table():
     assert roofline.kernel_bound("reg_stats", n=N, k=512, top_k=512).seconds == \
         roofline.kernel_bound("reg_stats", n=N, k=512).seconds  # top_k >= K gates nothing
     with pytest.raises(ValueError, match="unknown kernel"):
-        roofline.kernel_bound("em_step", n=1, k=1)
+        roofline.kernel_bound("em_sweep", n=1, k=1)
 
 
 def test_estep_attainable_hand_arithmetic_and_fields():

@@ -18,7 +18,13 @@ import torch
 import hgmm_torch  # noqa: F401  (sets the float32 matmul flags)
 from hgmm_torch.models.se3 import so3_exp
 from hgmm_torch.ops import em_ref, fused_em, prepare
-from hgmm_torch.ops.gaussians import MixtureParams, pack_loglik_weights, precision_terms, sym_pack
+from hgmm_torch.ops.gaussians import (
+    MixtureParams,
+    features,
+    pack_loglik_weights,
+    precision_terms,
+    sym_pack,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -636,3 +642,181 @@ def test_em_stats_masked_with_no_live_point(cuda):
     W = pack_loglik_weights(_mixture(64, 34, cuda))
     got = fused_em.em_stats_masked(prepare(pts).pts4, W, torch.full((100,), -1, device=cuda), 8)
     assert float(got.S.abs().max()) == 0.0 and float(got.loglik) == 0.0
+
+
+# --------------------------------------------------------------------------
+# the fit's sweeps on the card: the first em_stats body (K < 64), assign,
+# em_step
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 9, 16, 17, 33, 63])
+@pytest.mark.parametrize("n", [1, 31, 4097, 100_000])
+def test_em_stats_first_body_every_lane_count(cuda, k, n):
+    """K < 64 on 1, 2, 4 and 8 lanes a point (K on and off a lane's eight
+    components), zero-weight rows, an outlier logit, a dead component, a
+    ragged last warp; the packed table gives the bits of W; two launches
+    give equal bits."""
+    pts, w = _inputs(n, k + 40, cuda)
+    w[::5] = 0.0
+    W = pack_loglik_weights(_mixture(k, k + 41, cuda, dead=(0,) if k > 1 else ()))
+    p4 = prepare(pts, w).pts4
+    for outlier in (None, -3.0):
+        got = fused_em.em_stats(p4, W, outlier)
+        _check_em(got, em_ref.em_stats(pts, W, w, outlier), n)
+        again = fused_em.em_stats(p4, em_ref.pack_table(W), outlier)
+        assert torch.equal(got.S, again.S) and torch.equal(got.loglik, again.loglik)
+        if k > 1:
+            assert float(got.S[0].abs().max()) == 0.0
+
+
+def _sequential_assign(points, W, parent, branch):
+    """The assign kernel before its redesign, in torch: per point, a scan of
+    the visible components in index order with a strict '>' (a NaN or -inf
+    logit never wins), then the fallback to the lowest masked-out index when
+    the best visible logit does not exceed the mask floor. The logits in
+    float64 from the packed table: exact for the inputs of _exact_inputs."""
+    k = W.shape[1]
+    wn = em_ref.pack_table(W).wn[:, :10].double().cpu()
+    logits = features(points.double().cpu()) @ wn.T
+    n = logits.shape[0]
+    j = torch.arange(k)
+    if parent is None:
+        j0, j1 = torch.zeros(n, dtype=torch.long), torch.full((n,), k)
+    else:
+        p = parent.long().cpu()
+        off = (p < 0) | (p * branch >= k)
+        j0 = torch.where(off, 0, p * branch)
+        j1 = torch.where(off, 0, torch.clamp(p * branch + branch, max=k))
+    vis = (j[None] >= j0[:, None]) & (j[None] < j1[:, None])
+    lv = torch.where(vis & ~torch.isnan(logits), logits, torch.tensor(-float("inf"), dtype=torch.float64))
+    best = lv.max(1).values
+    idx = torch.where(best > -float("inf"), torch.argmax(lv, 1), -1)
+    masked_idx = torch.where(j0 > 0, 0, torch.where(j1 < k, j1, -1))
+    fall = (masked_idx >= 0) & ~(best > em_ref.NEG_INF)
+    keep_low = (best == em_ref.NEG_INF) & (idx >= 0)
+    idx = torch.where(fall, torch.where(keep_low, torch.minimum(idx, masked_idx), masked_idx), idx)
+    return torch.clamp(idx, min=0).to(torch.int32)
+
+
+def _exact_inputs(n, k, seed, dev, ties=False, nan=False):
+    """Quarter-integer points and 1/16-integer weights: every product and sum
+    of a logit is exact in float32, so any order of evaluation gives the same
+    bits. ties: the second half of the components repeats the first; nan:
+    component 1's logit is NaN for every point."""
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.randint(-8, 9, (n, 3), generator=g).float() / 4
+    W = torch.randint(-8, 9, (10, k), generator=g).float() / 16
+    if ties:
+        W[:, k // 2:] = W[:, : k - k // 2].clone()
+    if nan and k > 1:
+        W[0, 1] = float("nan")
+    return pts.to(dev), W.to(dev)
+
+
+@pytest.mark.parametrize("k,branch", [(1, None), (5, None), (8, None), (64, 8), (64, 3), (100, 8),
+                                      (512, 8)])
+@pytest.mark.parametrize("ties,nan", [(False, False), (True, False), (True, True)])
+@pytest.mark.parametrize("n", [1, 33, 50_000])
+def test_assign_bit_equal_to_the_sequential_scan(cuda, k, branch, ties, nan, n):
+    """On exact inputs (random, tied, with a NaN logit) the lanes' merge gives
+    the index of the previous body's one-thread scan, parents -1 and past K
+    included; without a NaN, that of the plain version too."""
+    pts, W = _exact_inputs(n, k, k + n, cuda, ties, nan)
+    parent = None
+    if branch is not None:
+        g = torch.Generator().manual_seed(k)
+        parent = torch.randint(-1, -(-k // branch) + 2, (n,), generator=g, dtype=torch.int32).to(cuda)
+    got = fused_em.assign(prepare(pts).pts4, W, parent, branch)
+    assert torch.equal(got.cpu(), _sequential_assign(pts, W, parent, branch))
+    assert torch.equal(fused_em.assign(prepare(pts).pts4, em_ref.pack_table(W), parent, branch), got)
+    if not nan:
+        assert torch.equal(got, em_ref.assign(pts, W, parent, branch))
+
+
+@pytest.mark.parametrize("k", [1, 8, 64, 512])
+@pytest.mark.parametrize("cov_type", ["full", "iso", "diag"])
+def test_em_step_against_its_twin(cuda, k, cov_type):
+    """One launch; the parameters and the next table against a float64 run
+    of the twin (the kernel is float64 inside): within a few float32
+    roundings of each value, the table's near-zero entries against the
+    row's largest; an empty component: pi 0, Sigma I, its bias at the floor;
+    floor rows past K; loglik[it]."""
+    from hgmm_torch import ops
+
+    n = 20_000
+    pts, w = _inputs(n, k + 50, cuda)
+    w[::4] = 0.0
+    p = _mixture(k, k + 51, cuda, dead=(0,))
+    st = em_ref.em_stats(pts, pack_loglik_weights(p), w)
+    total, cf = w.sum(), torch.tensor(1e-4, device=cuda)
+    fit = ops.new_fit(p, 3, total, cf)
+    rows = fit.table.wn.shape[0]
+    assert rows == fused_em.table_rows(k)
+    f64 = em_ref.new_fit(MixtureParams(*(a.cpu().double() for a in p)), 3, total.cpu().double(),
+                         cf.cpu().double(), rows)
+    before = fused_em.LAUNCHES["em_step"]
+    ops.em_step(st, fit, 1, 1e-6, cov_type)
+    assert fused_em.LAUNCHES["em_step"] == before + 1
+    em_ref.em_step(em_ref.EmStats(st.S.cpu().double(), st.loglik.cpu().double()), f64, 1, 1e-6, cov_type)
+    for name in ("pi", "mu", "sigma"):
+        got, ref = getattr(fit, name).cpu().double(), getattr(f64, name)
+        _close(got, ref, 1e-6, 1e-6 * float(ref.abs().max()))
+    live = f64.pi > 0
+    got, ref = fit.table.wn.cpu().double(), f64.table.wn
+    assert float(fit.pi[0]) == 0.0 and torch.equal(fit.sigma[0].cpu(), torch.eye(3))
+    row_top = ref[:k].abs().amax(1, keepdim=True)
+    err = (got[:k] - ref[:k]).abs()[live]
+    assert bool((err <= 1e-6 * ref[:k][live].abs() + 1e-6 * row_top[live]).all())
+    assert bool((got[:k, 9][~live] < -1e29).all())
+    assert bool((got[:, 10:] == 0).all())
+    assert bool((got[k:, :9] == 0).all()) and bool((got[k:, 9] == em_ref.NEG_INF).all())
+    assert fit.logliks.cpu().tolist() == [0.0, float(st.loglik), 0.0]
+
+
+@pytest.mark.parametrize("case", ["flat8", "flat64", "grouped64"])
+def test_fit_sweeps_on_the_card_make_no_host_sync(cuda, case):
+    """A level's sweeps on the card: the E-step (the first body at K = 8, the
+    tiled one at K = 64 on its padded table, the grouped one masked) and
+    em_step, one launch of each a sweep, no host sync inside the loop (torch's
+    sync debug mode set to raise); the per-point loglik after the sweeps
+    against the same loop on the CPU through the plain versions."""
+    from hgmm_torch import ops
+    from hgmm_torch.data.synthetic import make_cloud
+    from hgmm_torch.models.gmm import em_sweeps, init_params, scene_variance, total_weight
+    from hgmm_torch.models.gmm_tree import seed_children
+
+    pts = make_cloud(20_000, "trefoil", seed=12)
+    w = torch.rand(20_000, generator=torch.Generator().manual_seed(13))
+    w[::6] = 0.0
+    k0 = 64 if case == "flat64" else 8
+    init = init_params(pts, k0, torch.Generator().manual_seed(14), point_weights=w)
+    sweeps = 8
+    fits = {}
+    for dev in (cuda, torch.device("cpu")):
+        p, ww = pts.to(dev), w.to(dev)
+        prep = ops.prepare(p, ww)
+        total, cf = total_weight(p, ww), 1e-3 * scene_variance(p, ww)
+        start = MixtureParams(*(a.to(dev) for a in init))
+        data = prep
+        if case == "grouped64":
+            level0 = em_sweeps(prep, start, 4, total, cf)
+            parent = ops.assign(prep, level0.table)
+            data = ops.group_by_parent(prep, parent, 8, 64)
+            start = seed_children(level0.params, 8)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            before = dict(fused_em.LAUNCHES)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fit = em_sweeps(data, start, sweeps, total, cf)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            estep = "em_stats_masked" if case == "grouped64" else "em_stats"
+            assert fused_em.LAUNCHES[estep] - before[estep] == sweeps
+            assert fused_em.LAUNCHES["em_step"] - before["em_step"] == sweeps
+        else:
+            fit = em_sweeps(data, start, sweeps, total, cf)
+        fits[dev.type] = (fit.logliks.cpu() / total.cpu(), fit)
+    card, cpu = fits["cuda"][0], fits["cpu"][0]
+    assert bool(torch.isfinite(card).all())
+    torch.testing.assert_close(card[-1], cpu[-1], rtol=1e-3, atol=0)

@@ -131,6 +131,46 @@ def test_em_fit_from_same_init():
            jgmm.log_likelihood(jp, jnp.asarray(pts)), 1e-4, 1e-5)
 
 
+@pytest.mark.parametrize("cov_type,weighted", [("full", True), ("iso", False), ("diag", True)])
+def test_em_fit_sweep_loop_from_same_init(cov_type, weighted):
+    """em_fit as its sweep loop runs it (em_sweeps: the E-step on the fit's
+    packed table, then em_ref.em_step) against hgmm's scan from one init,
+    with zero-weight rows and every covariance type."""
+    pts = _cloud(1500, seed=5)
+    w = None
+    if weighted:
+        w = np.random.default_rng(6).uniform(0.2, 1.0, 1500).astype(np.float32)
+        w[::5] = 0.0
+    init = _init(pts, 8, 2)
+    tp, tll = tgmm.em_fit(torch.from_numpy(pts), convert.mixture_from_numpy(*init), n_iters=8,
+                          cov_type=cov_type, point_weights=None if w is None else torch.from_numpy(w))
+    jp, jll = jgmm.em_fit(jnp.asarray(pts), jg.MixtureParams(*map(jnp.asarray, init)), n_iters=8,
+                          cov_type=cov_type, point_weights=None if w is None else jnp.asarray(w))
+    assert tll.shape == (8,)
+    _close(tll, jll, 1e-4, 1e-2)
+    _close(tp.pi, jp.pi, 1e-3, 1e-5)
+    _close(tp.mu, jp.mu, 1e-3, 1e-4)
+    _close(tp.sigma, jp.sigma, 1e-2, 1e-5)
+
+
+def test_tree_fit_sweep_loop_weighted_diag():
+    """The tree's levels on the sweep loop (level 0 unmasked, level 1 on the
+    points grouped by parent), weighted, diagonal covariances, against hgmm
+    from one init0: the logliks of both levels and level 0's parameters."""
+    pts = _cloud(2000, seed=7)
+    w = np.random.default_rng(8).uniform(0.5, 1.0, 2000).astype(np.float32)
+    w[::6] = 0.0
+    init0 = _init(pts, 8, 3)
+    tt, tll = ttree.GmmTree.fit(torch.from_numpy(pts), branch=8, levels=2, em_iters=6, cov_type="diag",
+                                point_weights=torch.from_numpy(w), init0=convert.mixture_from_numpy(*init0))
+    jt, jll = jtree.GmmTree.fit(jnp.asarray(pts), branch=8, levels=2, em_iters=6, cov_type="diag",
+                                point_weights=jnp.asarray(w), init0=jg.MixtureParams(*map(jnp.asarray, init0)))
+    _close(tll, jll, 1e-3, 1e-2)
+    for a, b in zip(tt.levels[0], jt.levels[0]):
+        _close(a, b, 1e-3, 1e-4)
+    assert [lvl.pi.shape[0] for lvl in tt.levels] == [8, 64]
+
+
 def test_init_params_and_scene_variance():
     pts = torch.from_numpy(_cloud(500))
     a = tgmm.init_params(pts, 8, torch.Generator().manual_seed(3))

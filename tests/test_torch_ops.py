@@ -273,3 +273,54 @@ def test_top_k_mask_keeps_ties():
     got = tref.top_k_mask_logits(torch.from_numpy(logits), 2)
     ref = jref.top_k_mask_logits(jnp.asarray(logits), 2)
     _close(got, ref, 0, 0)
+
+
+# ------------------------------------------------------------- the M-step
+
+
+def _sweep_stats(k, weighted, seed):
+    """S [K, 10] and the loglik of one E-step (numpy, float32) of a mixture
+    with components 0 and k - 1 empty (no point near them: pi = 0 after the
+    step), on 400 points, weighted with zero-weight rows or not."""
+    rng = np.random.default_rng(seed)
+    n = 400
+    pts = _points(seed + 1, n)
+    w = rng.uniform(size=n).astype(np.float32) if weighted else np.ones(n, np.float32)
+    if weighted:
+        w[::4] = 0.0
+    gam = rng.dirichlet(np.ones(k), n).astype(np.float32)
+    gam[:, [0, k - 1]] = 0.0
+    gam *= w[:, None]
+    S = (gam.T @ np.asarray(jg.features(jnp.asarray(pts)))).astype(np.float32)
+    return S, np.float32(-3.5 * n), float(w.sum())
+
+
+@pytest.mark.parametrize("cov_type", ["full", "iso", "diag"])
+@pytest.mark.parametrize("k,weighted", [(1, False), (8, True), (64, False), (512, True)])
+def test_em_step_twin_is_hgmms_mstep_and_packing(k, weighted, cov_type):
+    """em_ref.em_step (the plain twin of csrc/em_step.cu) against hgmm's
+    mstep_update + pack_loglik_weights on the same numpy S: parameters and
+    the packed table of the new parameters (floor rows past K), loglik[it]."""
+    S, ll, total = _sweep_stats(k, weighted, 30 + k)
+    init = _mixture(40 + k, k)
+    rows = 2 * k if k >= 64 else k  # padded as the tiled body's table is
+    fit = tref.new_fit(_tp(init), 3, total, 1e-3, rows)
+    tref.em_step(tref.EmStats(torch.from_numpy(S), torch.tensor(ll)), fit, 1, cov_reg=1e-6,
+                 cov_type=cov_type)
+    T0, T1, T2 = jg.unpack_suffstats(jnp.asarray(S))
+    ref = jg.mstep_update(T0, T1, T2, total, cov_reg=1e-6, cov_type=cov_type, cov_floor=1e-3)
+    for a, b in zip(fit.params, ref):
+        _close(a, b, 1e-5, 1e-6)
+    if k > 1:
+        assert float(fit.pi[0]) == 0.0 and float(fit.pi[k - 1]) == 0.0
+        _close(fit.sigma[0], np.eye(3), 0, 0)
+    W = np.asarray(jg.pack_loglik_weights(ref))
+    live = np.asarray(ref.pi) > 0
+    _close(fit.table.wn[:k, :10][live], -0.5 * W.T[live], 1e-5, 1e-4)
+    # an empty component's bias carries the -1e30 log-weight floor
+    assert bool((fit.table.wn[:k, 9][~live] < -1e29).all())
+    assert bool((fit.table.wn[:, 10:] == 0).all())
+    assert bool((fit.table.wn[k:, :9] == 0).all()) and bool((fit.table.wn[k:, 9] == tref.NEG_INF).all())
+    assert fit.logliks.tolist() == [0.0, float(ll), 0.0]
+    # The table reads back as W bit for bit.
+    assert torch.equal(tref.weights(fit.table), tg.pack_loglik_weights(fit.params))

@@ -730,3 +730,223 @@ def test_grouped_emulation_matches_the_plain_version(k, n, sms):
     if bool(drop.any()):
         alone = em_ref.em_stats_masked(pts[drop], W, parent[drop], 8, w[drop])
         assert float(alone.S.abs().max()) == 0.0 and float(alone.loglik) == 0.0
+
+
+# --------------------------------------------------------------------------
+# the first em_stats body (K < 64): a point on L lanes, a persistent grid
+
+SMALL_KS = (1, 3, 8, 9, 12, 16, 17, 33, 63)
+
+
+def _lane_slots(n, plan, threads):
+    """(block, warp, lane group, grid step) of every point, as the kernels'
+    loops deal them: the warp's first point base = block * (T / L) + warp *
+    (32 / L), lane group g takes base + g, then + blocks * (T / L) a step
+    (assign holds AS_PT consecutive steps at once)."""
+    per_block = threads // plan.lanes
+    ppw = 32 // plan.lanes
+    stride = plan.blocks * per_block
+    i = torch.arange(n)
+    step, slot = i // stride, i % stride
+    return slot // per_block, (slot % per_block) // ppw, slot % ppw, step
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("k", SMALL_KS)
+def test_plan_em_lanes_covers_every_point_and_component(n, k):
+    plan = fused_em.plan_em_lanes(n, k, SMS)
+    lanes = plan.lanes
+    assert lanes in (1, 2, 4, 8) and lanes * fused_em.ES_CT >= k
+    assert lanes == 1 or (lanes // 2) * fused_em.ES_CT < k  # the fewest lanes that hold K
+    comps = [fused_em.ES_CT * s + c for s in range(lanes) for c in range(fused_em.ES_CT)]
+    assert sorted(j for j in comps if j < k) == list(range(k))
+    assert 1 <= plan.blocks <= fused_em.ES_BLOCKS_PER_SM * SMS  # so the partial rows
+    per_block = fused_em.ES_THREADS // lanes
+    assert plan.blocks <= max(1, -(-n // per_block))  # no block without a point
+    b, w, g, step = _lane_slots(n, plan, fused_em.ES_THREADS)
+    assert bool((b < plan.blocks).all()) and bool((w < fused_em.ES_THREADS // 32).all())
+    key = ((step * plan.blocks + b) * (fused_em.ES_THREADS // 32) + w) * (32 // lanes) + g
+    assert torch.equal(torch.sort(key).values, torch.arange(n))  # every point once
+    assert fused_em.table_rows(k) == k
+
+
+def test_plan_em_lanes_refuses_what_the_body_does_not_take():
+    for k in (0, 64, 512):
+        with pytest.raises(ValueError):
+            fused_em.plan_em_lanes(100, k, SMS)
+    with pytest.raises(ValueError):
+        fused_em.plan_em_lanes(100, 8, 0)
+
+
+def emulate_em_lanes(points, W, weights, outlier, sms=3):
+    """csrc/em_stats.cu:em_stats_kernel's order in plain torch: points dealt
+    to (block, warp, lane group) by the plan, float32 statistics a lane (lane
+    s of a point's L holds components 8 s .. 8 s + 7) in point order, the
+    warp's lane groups summed in order, then its warps, then the blocks in
+    float64; the loglik on lane s = 0."""
+    n, k = points.shape[0], W.shape[1]
+    plan = fused_em.plan_em_lanes(n, k, sms)
+    warps, ppw, ct = fused_em.ES_THREADS // 32, 32 // plan.lanes, fused_em.ES_CT
+    wn = fused_em._pack_w(W, "cpu")[:, :10]
+    psi = features(points)
+    w = torch.ones(n) if weights is None else weights.float()
+    logits = psi @ wn.T
+    m = logits.amax(1)
+    if outlier is not None:
+        m = torch.maximum(m, torch.tensor(float(outlier)))
+    m2 = torch.clamp(m, min=em_ref.NEG_INF) * LOG2E
+    e = torch.exp2(logits * LOG2E - m2[:, None])
+    s = e.sum(1)
+    if outlier is not None:
+        s = s + torch.exp2(float(outlier) * LOG2E - m2)
+    live = m > em_ref.NEG_INF
+    ss = torch.clamp(s, min=1e-38)
+    scale = torch.where(live, w / ss, torch.zeros_like(ss))
+    lse = torch.where(live, w * (torch.clamp(m, min=em_ref.NEG_INF) + torch.log(ss)), torch.zeros_like(ss))
+    gamma = torch.zeros(n, plan.lanes * ct)
+    gamma[:, :k] = e * scale[:, None]
+    b, wi, g, step = _lane_slots(n, plan, fused_em.ES_THREADS)
+    acc = torch.zeros(plan.blocks, warps, ppw, plan.lanes * ct, 10)
+    ll = torch.zeros(plan.blocks, warps, ppw)
+    for r in range(int(step.max()) + 1 if n else 0):  # a lane adds its points in step order
+        at = step == r
+        acc[b[at], wi[at], g[at]] += gamma[at][:, :, None] * psi[at][:, None, :]
+        ll[b[at], wi[at], g[at]] += lse[at]
+    by_warp = torch.zeros(plan.blocks, warps, plan.lanes * ct, 10)
+    ll_warp = torch.zeros(plan.blocks, warps)
+    for gg in range(ppw):  # lane order within the warp
+        by_warp += acc[:, :, gg]
+        ll_warp += ll[:, :, gg]
+    by_block = torch.zeros(plan.blocks, plan.lanes * ct, 10)
+    ll_block = torch.zeros(plan.blocks)
+    for ww in range(warps):
+        by_block += by_warp[:, ww]
+        ll_block += ll_warp[:, ww]
+    return em_ref.EmStats(S=by_block.double().sum(0)[:k].float(), loglik=ll_block.double().sum().float())
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 12, 33, 63])
+@pytest.mark.parametrize("n", [1, 31, 700])
+@pytest.mark.parametrize("weighted,outlier", [(False, None), (True, -3.0)])
+def test_em_lanes_emulation_matches_the_plain_version(k, n, weighted, outlier):
+    rng = np.random.default_rng(k + 3 * n)
+    pts = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32))
+    w = None
+    if weighted:
+        w = torch.from_numpy(rng.uniform(size=n).astype(np.float32))
+        w[::3] = 0.0
+    W = pack_loglik_weights(_mixture(k, k, dead=(0,) if k > 1 else ()))
+    got = emulate_em_lanes(pts, W, w, outlier)
+    _check_em(got, em_ref.em_stats(pts, W, w, outlier), n)
+    if k > 1:
+        assert float(got.S[0].abs().max()) == 0.0
+
+
+# --------------------------------------------------------------------------
+# assign: a lane a point unmasked, a lane a child masked, the lanes merged
+
+
+def previous_assign(points, W, parent, branch):
+    """The assign kernel before its redesign, transcribed: one thread a
+    point scans the visible components in index order with a strict '>',
+    then the masked-row fallback. Logits from the table (equal inputs give
+    equal bits: the tests feed values whose every product and sum is exact)."""
+    n, k = points.shape[0], W.shape[1]
+    logits = (features(points) @ fused_em._pack_w(W, "cpu")[:, :10].T).tolist()
+    out = []
+    for i in range(n):
+        j0, j1 = 0, k
+        if parent is not None:
+            p = int(parent[i])
+            j0, j1 = (0, 0) if p < 0 or p * branch >= k else (p * branch, min(p * branch + branch, k))
+        best, idx = -math.inf, -1
+        for j in range(j0, j1):
+            if logits[i][j] > best:
+                best, idx = logits[i][j], j
+        masked_idx = 0 if j0 > 0 else (j1 if j1 < k else -1)
+        if masked_idx >= 0 and not best > em_ref.NEG_INF:
+            idx = min(idx, masked_idx) if (best == em_ref.NEG_INF and idx >= 0) else masked_idx
+        out.append(max(idx, 0))
+    return torch.tensor(out, dtype=torch.int32)
+
+
+def emulate_assign(points, W, parent, branch, sms=SMS):
+    """csrc/assign.cu's design: lane c of a point's L scans components j0 + c,
+    j0 + c + L, ... with a strict '>', then the butterfly over the L lanes
+    (offsets 1, 2, 4) keeps the larger logit and, on equal ones, the lower
+    index; lane 0 applies the fallback."""
+    n, k = points.shape[0], W.shape[1]
+    lanes = fused_em.plan_assign(n, parent is not None, sms).lanes
+    logits = (features(points) @ fused_em._pack_w(W, "cpu")[:, :10].T).tolist()
+    out = []
+    for i in range(n):
+        j0, j1 = 0, k
+        if parent is not None:
+            p = int(parent[i])
+            j0, j1 = (0, 0) if p < 0 or p * branch >= k else (p * branch, min(p * branch + branch, k))
+        lane = []
+        for c in range(lanes):
+            best, idx = -math.inf, -1
+            for j in range(j0 + c, j1, lanes):
+                if logits[i][j] > best:
+                    best, idx = logits[i][j], j
+            lane.append((best, idx))
+        off = 1
+        while off < lanes:
+            merged = []
+            for c in range(lanes):
+                (b, x), (ob, oi) = lane[c], lane[c ^ off]
+                merged.append((ob, oi) if ob > b or (ob == b and oi < x) else (b, x))
+            lane, off = merged, 2 * off
+        best, idx = lane[0]
+        masked_idx = 0 if j0 > 0 else (j1 if j1 < k else -1)
+        if masked_idx >= 0 and not best > em_ref.NEG_INF:
+            idx = min(idx, masked_idx) if (best == em_ref.NEG_INF and idx >= 0) else masked_idx
+        out.append(max(idx, 0))
+    return torch.tensor(out, dtype=torch.int32)
+
+
+def _exact_inputs(n, k, seed, ties=False, nan=False):
+    """Quarter-integer points and 1/16-integer weights: every product and sum
+    of a logit is exact in float32, so any order gives the same bits. ties:
+    the second half of the components repeats the first; nan: a NaN weight
+    makes component 1's logit NaN for every point."""
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy((rng.integers(-8, 9, (n, 3)) / 4).astype(np.float32))
+    W = torch.from_numpy((rng.integers(-8, 9, (10, k)) / 16).astype(np.float32))
+    if ties:
+        W[:, k // 2:] = W[:, : k - k // 2]
+    if nan and k > 1:
+        W[0, 1] = float("nan")
+    return pts, W
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_plan_assign_covers_every_point(n, masked):
+    plan = fused_em.plan_assign(n, masked, SMS)
+    assert plan.lanes == (fused_em.AS_MASKED_LANES if masked else 1)
+    assert 1 <= plan.blocks <= fused_em.AS_BLOCKS_PER_SM * SMS
+    assert plan.blocks <= max(1, -(-n * plan.lanes // (fused_em.AS_THREADS * fused_em.AS_PT)))
+    b, w, g, step = _lane_slots(n, plan, fused_em.AS_THREADS)
+    key = ((step * plan.blocks + b) * (fused_em.AS_THREADS // 32) + w) * (32 // plan.lanes) + g
+    assert torch.equal(torch.sort(key).values, torch.arange(n))
+    with pytest.raises(ValueError):
+        fused_em.plan_assign(n, masked, 0)
+
+
+@pytest.mark.parametrize("k,branch", [(1, None), (5, None), (8, None), (64, 8), (64, 3), (100, 8), (512, 8)])
+@pytest.mark.parametrize("ties,nan", [(False, False), (True, False), (True, True)])
+def test_assign_design_is_bit_equal_to_the_previous_body(k, branch, ties, nan):
+    """The lane merge gives the sequential scan's index on random, tied and
+    NaN logits, with parents -1 and past K; without a NaN both equal the
+    plain version (exact inputs: no near-tie to flip)."""
+    n = 600
+    pts, W = _exact_inputs(n, k, k + 7, ties, nan)
+    parent = None
+    if branch is not None:
+        parent = torch.from_numpy(np.random.default_rng(k).integers(-1, -(-k // branch) + 2, n).astype(np.int32))
+    got = emulate_assign(pts, W, parent, branch)
+    assert torch.equal(got, previous_assign(pts, W, parent, branch))
+    if not nan:
+        assert torch.equal(got, em_ref.assign(pts, W, parent, branch))
