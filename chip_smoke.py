@@ -17,11 +17,12 @@ Run from the root of a checkout. It
    targets across chunk, tile and split boundaries, a NaN target row, and
    equal bits on two launches; reg_step against its twin for both solvers
    and every first/last step, and a done scan left as it is; the first
-   em_stats body and assign at their edges: K in {1, 3, 8, 16, 63}, N = 1,
-   ragged tiles, all-dead rows, zero weights; assign on exact inputs with
-   ties and parents -1 and past K bit-equal to the plain version, and a NaN
-   logit that never wins; em_step against a float64 run of its twin for
-   every covariance type, K in {1, 8, 64, 512}, empty components);
+   em_stats body and assign at their edges: K in {1, 3, 8, 16, 32, 63}, N = 1,
+   ragged tiles, both lane layouts at K = 8, all-dead rows, zero weights;
+   assign on exact inputs with ties and parents -1 and past K bit-equal to
+   the plain version, and a NaN logit that never wins; em_step against a
+   float64 run of its twin for every covariance type, K in {1, 8, 40, 64,
+   100, 512} (40 and 100 write floor rows), empty components);
 4. drives the main path once: hgmm_torch.register_pair with the
    config2_tree_8x3 preset on a 437,645-point pair (the vertex count of the
    Stanford dragon; synthetic trefoil stand-in, ground truth z-rotation
@@ -474,21 +475,12 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
-    """Mean device time of the port's kernels (names with hgmm::) a call of
-    fn(), from a profiler trace over `reps` calls: at these sizes back-to-back
-    calls are bound by the wrappers' host time, which CUDA events would time."""
-    from hgmm_torch.utils.profiling import device_busy, trace
+    """kernel_compare.device_us in ms, its trace under chiprun_out/smoke."""
+    from hgmm_torch.benchmarks.kernel_compare import device_us
 
-    fn()
-    torch.cuda.synchronize()
-    d = Path(__file__).resolve().parent / "chiprun_out" / "smoke" / "kernel_trace"
-    with trace(d):
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    _, by_name = device_busy(d / "trace.json")
-    shutil.rmtree(d, ignore_errors=True)
-    return sum(v for name, v in by_name.items() if "hgmm::" in name) / reps / 1e3
+    d = Path(__file__).resolve().parent / "chiprun_out" / "smoke"
+    d.mkdir(parents=True, exist_ok=True)
+    return device_us(fn, reps, where=d)[0] / 1e3
 
 
 def close(torch, name: str, got, ref, rtol: float, atol: float) -> float:
@@ -665,7 +657,7 @@ def small_checks(torch, dev, errs) -> None:
                 raise CheckFailed("knn: an exact tie went to the higher index")
     new_kernel_edges(torch, dev, gen, errs)
     reg_step_checks(torch, dev, gen, errs)
-    for k in (1, 8, 64, 512):
+    for k in (1, 8, 40, 64, 100, 512):  # 40 and 100: the table's floor rows (64 and 128 rows)
         params = random_mixture(torch, k, gen, dev, dead=(0,))
         pts = torch.randn(20_000, 3, generator=gen).to(dev)
         w = torch.rand(20_000, generator=gen).to(dev)
@@ -782,7 +774,7 @@ def reg_step_checks(torch, dev, gen, errs) -> None:
 
 
 def new_kernel_edges(torch, dev, gen, errs) -> None:
-    """The edges of the register-tiled em_stats (K >= 64 unmasked) and of the
+    """The edges of the register-tiled em_stats (K >= 33 unmasked) and of the
     chunked, split knn, at small sizes; each result twice for equal bits."""
     from hgmm_torch.ops import em_ref, fused_em, knn, prepare
     from hgmm_torch.ops.gaussians import MixtureParams, pack_loglik_weights
@@ -845,8 +837,10 @@ def new_kernel_edges(torch, dev, gen, errs) -> None:
 
 
 def small_k_edges(torch, dev, gen, errs) -> None:
-    """The first em_stats body (K < 64, a point on 1 to 8 lanes) and assign
-    at their edges: N = 1, ragged last warps, zero-weight rows, an outlier,
+    """The first em_stats body (K <= 32, a point on 1 to 4 lanes; K = 63 on
+    the tiled body's 64 padded rows) and assign at their edges: N = 1, ragged
+    last warps, both lane layouts at K = 8 (4 lanes of 2 up to 16,896 points,
+    one lane of 8 above), zero-weight rows, an outlier,
     an all-dead mixture, the packed table beside W, two launches for equal
     bits; assign on exact inputs (every logit exact in float32) with ties,
     parents -1 and past K bit-equal to the plain version, and a NaN logit
@@ -854,10 +848,10 @@ def small_k_edges(torch, dev, gen, errs) -> None:
     from hgmm_torch.ops import em_ref, fused_em, prepare
     from hgmm_torch.ops.gaussians import MixtureParams, pack_loglik_weights
 
-    for k in (1, 3, 8, 16, 63):
+    for k in (1, 3, 8, 16, 32, 63):
         params = random_mixture(torch, k, gen, dev, dead=(0,) if k > 1 else ())
         W = pack_loglik_weights(params)
-        for n in (1, 31, 300, 4097):
+        for n in (1, 31, 300, 4097, 20_000):
             pts = torch.randn(n, 3, generator=gen).to(dev)
             w = torch.rand(n, generator=gen).to(dev)
             w[::5] = 0.0
@@ -866,7 +860,7 @@ def small_k_edges(torch, dev, gen, errs) -> None:
                 got = fused_em.em_stats(p4, W, outlier)
                 check_em(torch, "em_stats", got, em_ref.em_stats(pts, W, weights, outlier),
                          max(n, 300), errs)
-                again = fused_em.em_stats(p4, em_ref.pack_table(W), outlier)
+                again = fused_em.em_stats(p4, em_ref.pack_table(W, fused_em.table_rows(k)), outlier)
                 if not (torch.equal(got.S, again.S) and torch.equal(got.loglik, again.loglik)):
                     raise CheckFailed(f"em_stats K={k} N={n}: two launches differ")
                 if k > 1 and float(got.S[0].abs().max()) != 0.0:

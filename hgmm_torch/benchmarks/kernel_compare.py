@@ -30,7 +30,9 @@ bench sweep (``em_stats``, N = 2^21, K = 512) and of the search; of
 at the odometry bucket, 16,384 points at LiDAR scale; the device time a call
 of ``em_stats`` at K = 8 and of ``assign`` at K = 8 and, masked, K = 64, 512
 (profiler trace, by kernel name) at both sizes, and of ``em_stats`` at K = 16,
-32, 63 and 64 at N; and of two pairs, each
+32, 33, 63 and 64 at N; of ``em_stats`` at K = 8 on each lane layout of the
+first body (one lane of 8 components a point, 4 lanes of 2) at N, 131,072,
+65,536, 32,768 and 16,384 points, where the tree has both; and of two pairs, each
 with its kernels, copies and memsets (profiler) and host syncs (torch's sync
 debug mode): ``register_pair`` (config2_tree_8x3) at N and one odometry pair
 (config 4's tree fit and registration on the bucket). ``--diff`` prints, for
@@ -103,6 +105,7 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
              "card": bench.card_line() if dev.type == "cuda" else None}
     times.update(shape_times(np, torch, dev, n))
     times.update(device_times(np, torch, dev, n))
+    times.update(lane_layouts(np, torch, dev, n))
     times.update(pair_counts(np, torch, dev, n))
     return {name: tuple(t.cpu() for t in ts) for name, ts in out.items()}, times
 
@@ -196,16 +199,38 @@ def fit_outputs(np, torch, dev) -> dict:
     return out
 
 
-def device_times(np, torch, dev, n) -> dict:
-    """Device µs a call (profiler trace, the port's kernels by name, over 20
-    calls) of em_stats at K = 8 (its kernel and its reduce) and of assign at K
-    = 8 and, masked, K = 64 and 512, at n points (unit scale) and at 16,384;
-    with the ops call's ms by CUDA events beside them."""
+def device_us(fn, reps: int = 20, where=None) -> tuple[float, dict]:
+    """Mean device µs a call of fn() of the port's kernels (names with
+    hgmm::), in all and by kernel, from a profiler trace over `reps` calls
+    after three warm ones (in a temporary directory under `where`): at small
+    sizes back-to-back calls are bound by the wrappers' host time, which CUDA
+    events would time. Needs only what every tree's hgmm_torch has."""
     import tempfile
 
+    import torch
+
+    from hgmm_torch.utils.profiling import device_busy, trace
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=where) as d:
+        with trace(d):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        _, by_name = device_busy(Path(d) / "trace.json")
+    mine = {name: v / reps for name, v in by_name.items() if "hgmm::" in name}
+    return sum(mine.values()), mine
+
+
+def device_times(np, torch, dev, n) -> dict:
+    """Device µs a call (device_us) of em_stats at K = 8 (its kernel and its
+    reduce) and of assign at K = 8 and, masked, K = 64 and 512, at n points
+    (unit scale) and at 16,384; with the ops call's ms by CUDA events beside
+    them."""
     from hgmm_torch import convert, ops
     from hgmm_torch.ops.gaussians import pack_loglik_weights
-    from hgmm_torch.utils.profiling import device_busy, trace
 
     if dev.type != "cuda":
         return {}
@@ -213,18 +238,9 @@ def device_times(np, torch, dev, n) -> dict:
     out = {}
 
     def timed(key, fn):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as d:
-            with trace(d):
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-            _, by_name = device_busy(Path(d) / "trace.json")
-        out[f"{key}_device_us"] = sum(v for name, v in by_name.items() if "hgmm::" in name) / reps
-        out[f"{key}_device_us_by_kernel"] = {name[:60]: v / reps for name, v in by_name.items()
-                                             if "hgmm::" in name}
+        us, by_kernel = device_us(fn, reps)
+        out[f"{key}_device_us"] = us
+        out[f"{key}_device_us_by_kernel"] = {name[:60]: v for name, v in by_kernel.items()}
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
@@ -245,11 +261,54 @@ def device_times(np, torch, dev, n) -> dict:
                 parent = torch.from_numpy(rng.integers(0, k // BRANCH, nn).astype(np.int32)).to(dev)
                 timed(f"assign_K{k}_masked_{tag}", lambda: ops.assign(prep, W, parent, BRANCH))
         if nn == n:
-            # 8 < K < 64 on the first body's lanes, beside the tiled body at
-            # K = 64 (the cost of padding those K to its 64 rows).
-            for k in (16, 32, 63, 64):
+            # 8 < K < 64 on the first body's lanes or the tiled body's 64
+            # padded rows, beside the tiled body at K = 64.
+            for k in (16, 32, 33, 63, 64):
                 W = pack_loglik_weights(convert.mixture_from_numpy(*_unit_mixture(np, k), device=dev))
                 timed(f"em_stats_K{k}_{tag}", lambda: ops.em_stats(prep, W))
+    return out
+
+
+def lane_layouts(np, torch, dev, n) -> dict:
+    """Device µs (device_us) of em_stats at K = 8 on each lane layout of the
+    first body, launched through its C entry on the grid the plan would give
+    that layout, with its largest gap to the wrapper's result (relative to
+    the largest |S|) and the layout plan_em_lanes picks, at n, 131,072,
+    65,536, 32,768 and 16,384 points: the readings behind the plan's choice.
+    Empty for a tree whose first body has one layout at K = 8."""
+    from hgmm_torch import convert, ops
+    from hgmm_torch.ops import _build, em_ref, fused_em
+    from hgmm_torch.ops.gaussians import pack_loglik_weights
+
+    if dev.type != "cuda" or not hasattr(fused_em, "ES_SPLIT"):
+        return {}
+    lib, k = _build.load(), 8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    W = pack_loglik_weights(convert.mixture_from_numpy(*_unit_mixture(np, k), device=dev))
+    wn = em_ref.pack_table(W).wn
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(13)
+    out = {}
+    for nn in (n, 131_072, 65_536, 32_768, 16_384):
+        p4 = ops.prepare(torch.from_numpy(rng.standard_normal((nn, 3), dtype=np.float32)).to(dev)).pts4
+        ref = fused_em.em_stats(p4, W)
+        plan = fused_em.plan_em_lanes(nn, k, sms)
+        out[f"em_stats_K8_n{nn}_plan"] = [plan.lanes, plan.ct]
+        for lanes, ct in ((1, fused_em.ES_CT), fused_em.ES_SPLIT):
+            nb = max(1, min(fused_em.ES_BLOCKS_PER_SM * sms, -(-nn // (fused_em.ES_THREADS // lanes))))
+            partial = torch.empty((nb, k * 10 + 1), device=dev)
+            res = torch.empty((k * 10 + 1,), device=dev)
+
+            def launch():
+                err = lib.hgmm_em_stats(p4.data_ptr(), nn, wn.data_ptr(), k, lanes, ct, 0, 0.0,
+                                        partial.data_ptr(), nb, res.data_ptr(), stream)
+                if err:
+                    raise RuntimeError(f"em_stats L={lanes} CT={ct}: CUDA error {err}")
+
+            key = f"em_stats_K8_L{lanes}_CT{ct}_n{nn}"
+            out[f"{key}_device_us"] = device_us(launch)[0]
+            out[f"{key}_rel_gap"] = float((res[: k * 10] - ref.S.reshape(-1)).abs().max()
+                                          / ref.S.abs().max())
     return out
 
 

@@ -7,7 +7,7 @@ Counterpart of ``benchmarks/trace_accounting.py``. Reads DIR/trace.json, the
 Chrome trace that ``hgmm_torch.utils.profiling.trace`` wrote, and splits the
 device time of the traced sweeps into
 
-  kernel      the E+M kernel (``hgmm::em_stats_tiled_kernel`` at K >= 64,
+  kernel      the E+M kernel (``hgmm::em_stats_tiled_kernel`` at K >= 33,
               ``hgmm::em_stats_kernel`` below), per sweep
   reduction   the cross-block sum of the partials (``reduce_partials_kernel``)
   torch       every other device event: the small kernels and copies of the
@@ -36,7 +36,7 @@ from hgmm_torch.eval.roofline import (
 )
 from hgmm_torch.utils.profiling import DEVICE_CATS
 
-KERNELS = ("em_stats_tiled_kernel", "em_stats_kernel")  # csrc/em_stats.cu: K >= 64, K < 64
+KERNELS = ("em_stats_tiled_kernel", "em_stats_kernel")  # csrc/em_stats.cu: K >= 33, K <= 32
 REDUCTION = "reduce_partials_kernel"
 
 

@@ -15,7 +15,7 @@
 // Three kernel bodies; hgmm_torch/ops/fused_em.py picks by K and the mask
 // alone (plan_em_tiles for the unmasked ones).
 //
-// em_stats_tiled_kernel: unmasked, K >= 64 (the bench sweep, K = 512).
+// em_stats_tiled_kernel: unmasked, K >= 33 (the bench sweep, K = 512).
 //   What bounds it on the card: float32 arithmetic. A point and component
 //   need 10 FMA for the logit, one exp2 and 10 FMA for the statistics; at
 //   K = 512 that is 641 us for 2^21 points at the 67 TFLOP/s peak, against
@@ -55,23 +55,27 @@
 //     a point with every logit at the floor stays dead. Their statistics are
 //     not written.
 //
-// em_stats_kernel: unmasked calls with K < 64 (the tree's level 0 and the
+// em_stats_kernel: unmasked calls with K <= 32 (the tree's level 0 and the
 //   flat fit at K = branch = 8). What bounds it: the 16 bytes a point (2.1 us
 //   at 437,645 points) and, at the odometry bucket, the launch. So each point
 //   is read once and each logit evaluated once, and nothing waits on a
 //   block-wide barrier until the end:
-//   - L = 1, 2, 4 or 8 lanes take a point (L = ceil(K / 8) to a power of two,
-//     a template argument); lane s of the L owns components 8 s .. 8 s + 7
-//     and keeps their logits, one exp2 a pair and their 8 x 10 statistics in
+//   - L lanes take a point, CT components each (template arguments chosen by
+//     ops/fused_em.py:plan_em_lanes: L = ceil(K / 8) to a power of two with
+//     CT = 8, or 4 lanes of 2 at K <= 8 while the points are too few to fill
+//     the grid); lane s of the L owns components CT s .. CT s + CT - 1 and
+//     keeps their logits, one exp2 a pair and their CT x 10 statistics in
 //     registers. The max and the sum over the L lanes go by butterflies, so
 //     the L lanes hold equal bits. A warp takes 32 / L points at once,
 //     grid-stride, the next point's 16 bytes loaded while this one computes.
 //   - The weight table sits in shared memory with one float4 of padding after
-//     every 8 rows, so the L lanes of a point (rows 8 s + c) read L banks.
+//     every 8 rows, so the L lanes of a point (rows CT s + c) read L banks.
 //   - The grid is persistent (ops/fused_em.py:plan_em_lanes, at most
 //     ES_BLOCKS_PER_SM blocks an SM); at the end a warp's lanes are summed in
 //     lane order through a shared-memory transpose, the warps in warp order,
 //     into the block's partial row, and reduce_partials adds the rows.
+//   33 <= K < 64 runs the tiled body on 64 padded rows, which was the faster
+//   of the two there (PERF.md).
 //
 // em_stats_grouped_kernel: masked calls (the tree's levels 1 and 2).
 //   What bounds it: a point needs only its parent's `branch` children, so
@@ -92,33 +96,34 @@ namespace hgmm {
 
 constexpr int ES_THREADS = 128;         // ops/fused_em.py:ES_THREADS
 constexpr int ES_WARPS = ES_THREADS / 32;
-constexpr int ES_CT = 8;                // components a lane
-constexpr int ES_KMAX = 64;             // the first body takes K < ES_KMAX
-constexpr int ES_ROW = ES_CT * 10 + 1;  // a lane's row in the transpose (odd: no bank conflict)
+constexpr int ES_KMAX = 33;             // the first body takes K < ES_KMAX
 constexpr int ES_COLS = (10 * (ES_KMAX - 1) + 1 + 31) / 32;  // columns of a partial row a lane sums
 
 // float4 index of table row j in shared memory: one float4 of padding after
-// every 8 rows, so rows 8 s + c of s = 0..7 fall in 8 different banks.
+// every 8 rows, so rows 8 s + c of s = 0..3 (and 2 s + c) fall in different
+// banks. CT divides 8, so a lane's CT rows are consecutive float4 triples.
 __device__ __forceinline__ int es_row(int j) { return 3 * j + (j >> 3); }
 
-template <int L>
+template <int L, int CT>
 __global__ void __launch_bounds__(ES_THREADS, 4)
     em_stats_kernel(const float* __restrict__ pts4, int n, const float* __restrict__ wn, int k,
                     int has_outlier, float outlier, float* __restrict__ partial) {
-  constexpr int PPW = 32 / L;  // points a warp takes at once
+  constexpr int PPW = 32 / L;         // points a warp takes at once
+  constexpr int ROW = CT * 10 + 1;    // a lane's row in the transpose (odd: no bank conflict)
+  static_assert(8 % CT == 0, "a lane's rows must not straddle a padding float4");
   __shared__ float4 w_s[3 * ES_KMAX + ES_KMAX / 8];
-  __shared__ float tr_s[ES_WARPS][32 * ES_ROW];
+  __shared__ float tr_s[ES_WARPS][32 * ROW];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int s = lane & (L - 1);              // this lane's components: 8 s .. 8 s + 7
-  const int nc = min(ES_CT, k - ES_CT * s);  // of them below K (<= 0: none)
+  const int s = lane & (L - 1);        // this lane's components: CT s .. CT s + CT - 1
+  const int nc = min(CT, k - CT * s);  // of them below K (<= 0: none)
   for (int idx = t; idx < 3 * k; idx += ES_THREADS)
     w_s[es_row(idx / 3) + idx % 3] = reinterpret_cast<const float4*>(wn)[idx];
   __syncthreads();
-  const float4* w4 = w_s + es_row(ES_CT * s);
+  const float4* w4 = w_s + es_row(CT * s);
 
-  float acc[ES_CT][10];
+  float acc[CT][10];
 #pragma unroll
-  for (int c = 0; c < ES_CT; ++c)
+  for (int c = 0; c < CT; ++c)
 #pragma unroll
     for (int f = 0; f < 10; ++f) acc[c][f] = 0.0f;
   float ll = 0.0f;
@@ -147,14 +152,14 @@ __global__ void __launch_bounds__(ES_THREADS, 4)
     load(base + stride + g, nx, ny, nz, nw);  // the next point, in flight meanwhile
     // The weights are read from shared memory for every point: an offset the
     // compiler cannot see through keeps it from hoisting the 80 loop-invariant
-    // loads into registers beside the 80 statistics (which spilled at L = 1).
+    // loads into registers beside the 80 statistics (which spilled at L = 1, CT = 8).
     int opaque;
     asm volatile("mov.u32 %0, 0;" : "=r"(opaque));
     const float4* wr = w4 + opaque;
-    float e[ES_CT];
+    float e[CT];
     float m = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < ES_CT; ++c) {
+    for (int c = 0; c < CT; ++c) {
       e[c] = c < nc ? logit(wr + 3 * c, p) : -INFINITY;
       m = fmaxf(m, e[c]);
     }
@@ -164,7 +169,7 @@ __global__ void __launch_bounds__(ES_THREADS, 4)
     const float m2 = fmaxf(m, NEG_INF) * LOG2E;
     float sum = 0.0f;
 #pragma unroll
-    for (int c = 0; c < ES_CT; ++c) {
+    for (int c = 0; c < CT; ++c) {
       e[c] = c < nc ? exp2f(fmaf(e[c], LOG2E, -m2)) : 0.0f;
       sum += e[c];
     }
@@ -174,7 +179,7 @@ __global__ void __launch_bounds__(ES_THREADS, 4)
     if (s == 0) ll += r.lse;  // one lane a point
     if (r.scale != 0.0f) {    // equal on the L lanes of a point; 0 when dead or of weight 0
 #pragma unroll
-      for (int c = 0; c < ES_CT; ++c) {
+      for (int c = 0; c < CT; ++c) {
         const float gam = e[c] * r.scale;
 #pragma unroll
         for (int f = 0; f < 10; ++f) acc[c][f] = fmaf(gam, p.v[f], acc[c][f]);
@@ -187,10 +192,10 @@ __global__ void __launch_bounds__(ES_THREADS, 4)
   // lane. Then the warps in warp order into the block's partial row.
   float* tr = tr_s[warp];
 #pragma unroll
-  for (int c = 0; c < ES_CT; ++c)
+  for (int c = 0; c < CT; ++c)
 #pragma unroll
-    for (int f = 0; f < 10; ++f) tr[lane * ES_ROW + c * 10 + f] = acc[c][f];
-  tr[lane * ES_ROW + ES_CT * 10] = ll;
+    for (int f = 0; f < 10; ++f) tr[lane * ROW + c * 10 + f] = acc[c][f];
+  tr[lane * ROW + CT * 10] = ll;
   __syncwarp();
   const int m_out = k * 10 + 1;
   float v[ES_COLS];
@@ -199,11 +204,11 @@ __global__ void __launch_bounds__(ES_THREADS, 4)
     const int o = lane + 32 * q;
     float a = 0.0f;
     if (o < k * 10) {
-      const int j = o / 10, sj = j / ES_CT;
-      const float* col = tr + sj * ES_ROW + (j - ES_CT * sj) * 10 + (o - 10 * j);
-      for (int gg = 0; gg < PPW; ++gg) a += col[gg * L * ES_ROW];
+      const int j = o / 10, sj = j / CT;
+      const float* col = tr + sj * ROW + (j - CT * sj) * 10 + (o - 10 * j);
+      for (int gg = 0; gg < PPW; ++gg) a += col[gg * L * ROW];
     } else if (o == k * 10) {
-      for (int l = 0; l < 32; ++l) a += tr[l * ES_ROW + ES_CT * 10];
+      for (int l = 0; l < 32; ++l) a += tr[l * ROW + CT * 10];
     }
     v[q] = a;
   }
@@ -221,17 +226,17 @@ __global__ void __launch_bounds__(ES_THREADS, 4)
   }
 }
 
-template <int L>
+template <int L, int CT>
 cudaError_t launch_em_stats(const float* pts4, int n, const float* wn, int k, int has_outlier,
                             float outlier, float* partial, int nb, float* out, cudaStream_t stream) {
-  em_stats_kernel<L><<<nb, ES_THREADS, 0, stream>>>(pts4, n, wn, k, has_outlier, outlier, partial);
+  em_stats_kernel<L, CT><<<nb, ES_THREADS, 0, stream>>>(pts4, n, wn, k, has_outlier, outlier, partial);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce_partials(partial, nb, k * 10 + 1, out, stream);
 }
 
 // ---------------------------------------------------------------------------
-// The register-tiled kernel (unmasked, K >= 64).
+// The register-tiled kernel (unmasked, K >= 33).
 
 constexpr int EMT_THREADS = 256;
 constexpr int EMT_PT = 8;  // points a thread (ops/fused_em.py:EMT_PT)
@@ -667,27 +672,26 @@ __global__ void em_grouped_reduce_kernel(const float* __restrict__ partial, int 
 extern "C" {
 
 // S and loglik of em_ref.em_stats into out[K*10 + 1] (S row-major, then
-// loglik) by the first kernel body, K < 64, `lanes` lanes a point (1, 2, 4
-// or 8, at least K / 8). wn is [>= K, 12]; partial is [nb, K*10 + 1]
-// scratch. Returns the CUDA error code of the launches (0 on success).
-int hgmm_em_stats(const void* pts4, int n, const void* wn, int k, int lanes, int has_outlier,
+// loglik) by the first kernel body, K <= 32, `lanes` lanes a point of `ct`
+// components each ((lanes, ct) one of (1, 8), (2, 8), (4, 8), (4, 2), with
+// lanes * ct >= K). wn is [>= K, 12]; partial is [nb, K*10 + 1] scratch.
+// Returns the CUDA error code of the launches (0 on success).
+int hgmm_em_stats(const void* pts4, int n, const void* wn, int k, int lanes, int ct, int has_outlier,
                   float outlier, void* partial, int nb, void* out, void* stream) {
-  if (k < 1 || k >= hgmm::ES_KMAX || k > hgmm::ES_CT * lanes || nb < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k >= hgmm::ES_KMAX || k > ct * lanes || nb < 1) return (int)cudaErrorInvalidValue;
   const auto p = static_cast<const float*>(pts4);
   const auto w = static_cast<const float*>(wn);
   auto part = static_cast<float*>(partial);
   auto o = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (lanes) {
-    case 1: return (int)hgmm::launch_em_stats<1>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
-    case 2: return (int)hgmm::launch_em_stats<2>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
-    case 4: return (int)hgmm::launch_em_stats<4>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
-    case 8: return (int)hgmm::launch_em_stats<8>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (lanes == 1 && ct == 8) return (int)hgmm::launch_em_stats<1, 8>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+  if (lanes == 2 && ct == 8) return (int)hgmm::launch_em_stats<2, 8>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+  if (lanes == 4 && ct == 8) return (int)hgmm::launch_em_stats<4, 8>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+  if (lanes == 4 && ct == 2) return (int)hgmm::launch_em_stats<4, 2>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// The same S and loglik for an unmasked call with K >= 64 through the
+// The same S and loglik for an unmasked call with K >= 33 through the
 // register-tiled kernel: wn is [k_pad, 12] with rows k..k_pad-1 at the mask
 // floor, k_pad one of 64, 128, ..., 2048; partial is [nb, K*10 + 1] scratch
 // with nb <= the SM count. Returns the CUDA error code (cudaErrorInvalidValue

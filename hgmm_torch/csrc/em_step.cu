@@ -10,7 +10,7 @@
 // One launch after the reduce of any em_stats body. One thread a component,
 // in float64 from the float32 statistics S [K, 10] (T2 | T1 | T0):
 //   - the M-step of gaussians.mstep_update: empty when T0 <= max(1e-6 total,
-//     min_weight) (pi = 0, mu = 0, Sigma = I); pi = T0 / total, mu = T1 / T0,
+//     MIN_WEIGHT) (pi = 0, mu = 0, Sigma = I); pi = T0 / total, mu = T1 / T0,
 //     Sigma = T2 / T0 - mu mu^T (its diagonal for "diag", its mean eigenvalue
 //     for "iso") + cov_reg I; then psd_floor at max(cov_floor, cov_reg, 1e-9)
 //     through the trigonometric sym3_eigvalsh, less its 2e-4 norm_bound
@@ -38,6 +38,7 @@ namespace hgmm {
 
 constexpr int EMS_THREADS = 128;
 constexpr double LOG_2PI_D = 1.8378770664093453;
+constexpr double MIN_WEIGHT = 1e-6;  // gaussians.mstep_update's default, which every fit uses
 
 // Ascending smallest eigenvalue of the symmetric [[a, b, c], [b, d, e],
 // [c, e, f]] by gaussians.sym3_eigvalsh's trigonometric method.
@@ -57,7 +58,7 @@ __device__ double sym3_lmin(double a0, double d0, double f0, double b, double c,
 __global__ void __launch_bounds__(EMS_THREADS)
     em_step_kernel(const float* __restrict__ S, const float* __restrict__ loglik,
                    const float* __restrict__ total_p, const float* __restrict__ cov_floor_p, int k,
-                   int rows, double cov_reg, double min_weight, int cov_type, float* __restrict__ pi_out,
+                   int rows, double cov_reg, int cov_type, float* __restrict__ pi_out,
                    float* __restrict__ mu_out, float* __restrict__ sigma_out, float* __restrict__ wn,
                    float* __restrict__ logliks, int it) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -70,7 +71,7 @@ __global__ void __launch_bounds__(EMS_THREADS)
   }
   const float* sj = S + (size_t)j * 10;
   const double total = *total_p;
-  const double floor = fmax(1e-6 * total, min_weight);
+  const double floor = fmax(1e-6 * total, MIN_WEIGHT);
   const double T0 = sj[9];
   const bool empty = T0 <= floor;
   const double safe = fmax(T0, floor);
@@ -150,13 +151,13 @@ extern "C" {
 // cov_floor are float32 scalars on the card; cov_type 0 full, 1 iso, 2 diag.
 // Returns the CUDA error code of the launch.
 int hgmm_em_step(const void* S, const void* loglik, const void* total, const void* cov_floor, int k,
-                 int rows, double cov_reg, double min_weight, int cov_type, void* pi, void* mu,
+                 int rows, double cov_reg, int cov_type, void* pi, void* mu,
                  void* sigma, void* wn, void* logliks, int it, void* stream) {
   if (k < 1 || rows < k || cov_type < 0 || cov_type > 2 || it < 0) return (int)cudaErrorInvalidValue;
   const int blocks = (rows + hgmm::EMS_THREADS - 1) / hgmm::EMS_THREADS;
   hgmm::em_step_kernel<<<blocks, hgmm::EMS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(S), static_cast<const float*>(loglik), static_cast<const float*>(total),
-      static_cast<const float*>(cov_floor), k, rows, cov_reg, min_weight, cov_type,
+      static_cast<const float*>(cov_floor), k, rows, cov_reg, cov_type,
       static_cast<float*>(pi), static_cast<float*>(mu), static_cast<float*>(sigma),
       static_cast<float*>(wn), static_cast<float*>(logliks), it);
   return (int)cudaGetLastError();

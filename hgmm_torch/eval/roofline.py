@@ -24,9 +24,9 @@ unit, and the kernel's contraction (10 FMA for the sufficient statistics,
 ``csrc/em_stats.cu`` phase 2; 12 FMA + 1 add for ``csrc/reg_stats.cu``). A
 masked point needs its parent's ``branch`` children, not all K. Executed work
 is more, and shows as a share of the bound below 100 %: the unmasked
-``em_stats`` at K >= 64 (``em_stats_tiled_kernel``) evaluates each logit and
+``em_stats`` at K >= 33 (``em_stats_tiled_kernel``) evaluates each logit and
 each exp2 once, and adds the max, the sum, the scale and the shuffles between
-lanes to the 20 FMA a pair; the first ``em_stats`` body (K < 64), the masked
+lanes to the 20 FMA a pair; the first ``em_stats`` body (K <= 32), the masked
 body and ``reg_stats`` evaluate each logit once too (``reg_stats`` adds the
 rescaling of its online softmax and the lanes' merge).
 """

@@ -113,12 +113,11 @@ def new_fit(init: MixtureParams, n_iters: int, total, cov_floor, masked: bool = 
     return em_ref.new_fit(init, n_iters, total, cov_floor, fused_em.table_rows(init.k, masked))
 
 
-def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full",
-            min_weight: float = 1e-6) -> None:
+def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
     """The M-step of sweep `it` on the fit state, in place (em_ref.em_step)."""
     if fit.mu.is_cuda:
-        return fused_em.em_step(stats, fit, it, cov_reg, cov_type, min_weight)
-    return em_ref.em_step(stats, fit, it, cov_reg, cov_type, min_weight)
+        return fused_em.em_step(stats, fit, it, cov_reg, cov_type)
+    return em_ref.em_step(stats, fit, it, cov_reg, cov_type)
 
 
 def assign(points, W, parent=None, branch=None) -> torch.Tensor:

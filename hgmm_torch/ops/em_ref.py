@@ -17,7 +17,7 @@ Contracts (shared with the kernels in ``hgmm_torch.ops.fused_em``):
                                                     -> one step of the
                                                        registration iterate on
                                                        the scan state (in place)
-  em_step(stats, fit, it, cov_reg, cov_type, min_weight)
+  em_step(stats, fit, it, cov_reg, cov_type)
                                                     -> the M-step of an EM
                                                        sweep on the fit state:
                                                        parameters, the next
@@ -392,8 +392,7 @@ def new_fit(init: MixtureParams, n_iters: int, total, cov_floor, rows: int | Non
                  torch.as_tensor(cov_floor, **like).reshape(()).clone())
 
 
-def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full",
-            min_weight: float = 1e-6) -> None:
+def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
     """Plain twin of csrc/em_step.cu: the M-step from the sweep's statistics
     (gaussians.mstep_update), the next sweep's packed table of the new
     parameters (pack_loglik_weights, pack_table) and logliks[it] =
@@ -401,8 +400,7 @@ def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type
     if cov_type not in COV_TYPES:
         raise ValueError(f"em_step: cov_type {cov_type!r} not in {COV_TYPES}")
     T0, T1, T2 = unpack_suffstats(stats.S.to(fit.mu.dtype))
-    new = mstep_update(T0, T1, T2, fit.total, cov_reg=cov_reg, cov_type=cov_type,
-                       min_weight=min_weight, cov_floor=fit.cov_floor)
+    new = mstep_update(T0, T1, T2, fit.total, cov_reg=cov_reg, cov_type=cov_type, cov_floor=fit.cov_floor)
     for buf, val in zip(fit.params, new):
         buf.copy_(val)
     fit.table.wn.copy_(pack_table(pack_loglik_weights(new), fit.table.wn.shape[0]).wn)

@@ -12,9 +12,9 @@ exact per-point max in the softmax, so they take no softmax shift; their
 sums are reduced in a fixed order and are reproducible run to run.
 
 ``em_stats`` has three kernel bodies (``csrc/em_stats.cu``): unmasked calls with
-K >= 64 run the register-tiled one on a persistent grid, with the launch
-geometry of ``plan_em_tiles``; unmasked calls with K < 64 the first one, a
-point on 1 to 8 lanes (``plan_em_lanes``); masked calls run by parent chunks
+K >= 33 run the register-tiled one on a persistent grid, with the launch
+geometry of ``plan_em_tiles``; unmasked calls with K <= 32 the first one, a
+point on 1 to 4 lanes (``plan_em_lanes``); masked calls run by parent chunks
 over the points sorted by parent (``group_by_parent``, ``plan_parent_chunks``).
 K and the mask alone decide. Each takes W [10, K] or the packed table
 (``em_ref.Packed``) that ``em_step`` (``csrc/em_step.cu``) writes: a fit's
@@ -57,11 +57,13 @@ EG_TARGET_WARPS = 4  # chunks (warps) an SM the plan aims for
 EMT_THREADS = 256
 EMT_PT = 8  # points a thread
 EMT_CT = 8  # components a thread
-EMT_MIN_K = 64  # below it the call is bound by bytes and the launch: the first kernel body
-# The first em_stats body, K < 64 (csrc/em_stats.cu:em_stats_kernel).
+# The first em_stats body, K <= ES_MAX_K (csrc/em_stats.cu:em_stats_kernel).
 ES_THREADS = 128
+ES_MAX_K = 32  # above it the tiled body on 64 padded rows was faster (PERF.md)
 ES_CT = 8  # components a lane
+ES_SPLIT = (4, 2)  # lanes and components a lane of a K <= ES_CT point while the points are few
 ES_BLOCKS_PER_SM = 4  # cap of the grid, so of the partial rows
+EMT_MIN_K = ES_MAX_K + 1  # the register-tiled body from here on
 # assign (csrc/assign.cu).
 AS_THREADS = 256
 AS_BLOCKS_PER_SM = 4
@@ -121,12 +123,6 @@ def _table(W, device, rows: int | None = None) -> Packed:
     return pack_table(W[:10].to(device=device, dtype=torch.float32), rows)
 
 
-def _pack_w(W: torch.Tensor, device, rows: int | None = None) -> torch.Tensor:
-    """W [>=10, K] -> the [rows, 12] f32 table (em_ref.pack_table; rows = K
-    unless given)."""
-    return _table(W, device, rows).wn
-
-
 def table_rows(k: int, masked: bool = False) -> int:
     """Rows of the packed table an em_stats call reads: the tiled body's
     k_pad (padded with floor rows), else K."""
@@ -138,22 +134,28 @@ def table_rows(k: int, masked: bool = False) -> int:
 class LanePlan:
     """Launch geometry of a kernel that gives a point `lanes` lanes of a warp
     on a persistent grid of `blocks` blocks (the first em_stats body:
-    csrc/em_stats.cu:em_stats_kernel, one partial row a block; assign)."""
+    csrc/em_stats.cu:em_stats_kernel, one partial row a block, `ct`
+    components a lane; assign, ct 0)."""
 
     lanes: int
     blocks: int
+    ct: int = 0
 
 
 def plan_em_lanes(n: int, k: int, sms: int) -> LanePlan:
-    """The first em_stats body (K < EMT_MIN_K): lanes = K / ES_CT rounded up
-    to a power of two (1 at K <= 8), so a lane holds at most ES_CT
-    components; blocks of ES_THREADS threads, one a ES_THREADS / lanes points,
-    at most ES_BLOCKS_PER_SM an SM."""
-    if sms < 1 or not 1 <= k < EMT_MIN_K:
+    """The first em_stats body (K <= ES_MAX_K): lanes = K / ES_CT rounded up
+    to a power of two, ES_CT components a lane; at K <= ES_CT, ES_SPLIT (4
+    lanes of 2) while 4 n lanes fit the capped grid in one pass, where one
+    lane a point would leave the card short of warps (the odometry bucket;
+    a larger N keeps a lane a point: PERF.md). Blocks of ES_THREADS threads,
+    one a ES_THREADS / lanes points, at most ES_BLOCKS_PER_SM an SM."""
+    if sms < 1 or not 1 <= k <= ES_MAX_K:
         raise ValueError(f"plan_em_lanes: K={k}, {sms} SMs")
-    lanes = 1 << (-(-k // ES_CT) - 1).bit_length()
-    per_block = ES_THREADS // lanes
-    return LanePlan(lanes, max(1, min(ES_BLOCKS_PER_SM * sms, -(-n // per_block))))
+    cap = ES_BLOCKS_PER_SM * sms
+    lanes, ct = 1 << (-(-k // ES_CT) - 1).bit_length(), ES_CT
+    if k <= ES_CT and n * ES_SPLIT[0] <= cap * ES_THREADS:
+        lanes, ct = ES_SPLIT
+    return LanePlan(lanes, max(1, min(cap, -(-n // (ES_THREADS // lanes)))), ct)
 
 
 def plan_assign(n: int, masked: bool, sms: int) -> LanePlan:
@@ -211,7 +213,7 @@ class EmTilePlan:
 
 def plan_em_tiles(k: int, masked: bool = False) -> EmTilePlan | None:
     """The tile plan of an em_stats call, or None where another body runs:
-    K < EMT_MIN_K (the first body, a point on 1 to 8 lanes: plan_em_lanes)
+    K < EMT_MIN_K (the first body, a point on 1 to 4 lanes: plan_em_lanes)
     and every masked call (em_stats_grouped). The choice depends
     on K and the mask alone."""
     if masked or k < EMT_MIN_K:
@@ -262,7 +264,8 @@ def em_stats(pts4: torch.Tensor, W, outlier_logit=None) -> EmStats:
     with torch.cuda.device(pts4.device):
         if plan is None:
             err = _build.load().hgmm_em_stats(
-                pts4.data_ptr(), n, wn.data_ptr(), k, lane_plan.lanes, has_out, out_l, partial.data_ptr(), nb,
+                pts4.data_ptr(), n, wn.data_ptr(), k, lane_plan.lanes, lane_plan.ct, has_out, out_l,
+                partial.data_ptr(), nb,
                 out.data_ptr(), _stream(pts4),
             )
         else:
@@ -275,8 +278,7 @@ def em_stats(pts4: torch.Tensor, W, outlier_logit=None) -> EmStats:
     return EmStats(S=out[: k * 10].view(k, 10), loglik=out[k * 10])
 
 
-def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full",
-            min_weight: float = 1e-6) -> None:
+def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
     """Kernel twin of em_ref.em_step (csrc/em_step.cu): one launch after an
     em_stats call's reduce; the fit's parameters, table and logliks[it]
     written on the card from the statistics, total and cov_floor there,
@@ -297,7 +299,7 @@ def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type
     with torch.cuda.device(dev):
         err = _build.load().hgmm_em_step(
             stats.S.data_ptr(), stats.loglik.data_ptr(), fit.total.data_ptr(), fit.cov_floor.data_ptr(), k,
-            rows, float(cov_reg), float(min_weight), COV_TYPES.index(cov_type), fit.pi.data_ptr(),
+            rows, float(cov_reg), COV_TYPES.index(cov_type), fit.pi.data_ptr(),
             fit.mu.data_ptr(), fit.sigma.data_ptr(), wn.data_ptr(), fit.logliks.data_ptr(), it,
             _stream(wn),
         )
@@ -491,7 +493,7 @@ def _sms(dev) -> int:
 def reg_tables(pts4, W, mu, A6, b3, top_k=None, outlier_logit=None) -> RegTables:
     n = _check_points(pts4)
     dev = pts4.device
-    wn = _pack_w(W, dev)
+    wn = _table(W, dev).wn
     k = wn.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
     aux = torch.cat([mu.to(**f32), A6.to(**f32), b3.to(**f32)], dim=1).contiguous()

@@ -7,7 +7,7 @@ what surrounds them is Python and is tested here:
 - ``ops.knn.plan_knn`` and ``ops.fused_em.plan_em_tiles`` over a grid of
   sizes: every query, target and component is covered exactly once, padding
   is floor rows only, shared memory and register state stay inside the card's
-  limits by the plans' own arithmetic, and K < 64 and masked calls keep the
+  limits by the plans' own arithmetic, and K <= 32 and masked calls keep the
   first kernel body;
 - the kernels' reduction orders, emulated in plain torch from the same plans
   and held against the plain versions: chunk minimum, rescan for the first
@@ -34,7 +34,7 @@ from hgmm_torch.ops.knn import KNN_QPB, KNN_TILE, MAX_SPLITS, plan_knn
 torch.set_num_threads(2)
 
 SIZES = (1, 31, 500, 16_384, 437_645)
-KS = (64, 65, 100, 384, 512, 513, 1024, 2048)
+KS = (33, 63, 64, 65, 100, 384, 512, 513, 1024, 2048)
 SMS = 132
 KNN_CHUNK = 32  # csrc/knn.cu:KNN_CHUNK
 
@@ -102,16 +102,16 @@ def test_padding_rows_are_floor_rows(k):
     rng = np.random.default_rng(k)
     W = torch.from_numpy(rng.standard_normal((10, k)).astype(np.float32))
     plan = plan_em_tiles(k)
-    wn = fused_em._pack_w(W, "cpu", plan.k_pad)
+    wn = em_ref.pack_table(W, plan.k_pad).wn
     assert wn.shape == (plan.k_pad, 12)
     torch.testing.assert_close(wn[:k, :10], -0.5 * W.T)
     assert bool((wn[:, 10:] == 0).all())
     pad = wn[k:]
     assert bool((pad[:, :9] == 0).all()) and bool((pad[:, 9] == em_ref.NEG_INF).all())
-    assert torch.equal(fused_em._pack_w(W, "cpu"), wn[:k])  # unpadded: the table as before
+    assert torch.equal(em_ref.pack_table(W).wn, wn[:k])  # unpadded: the table as before
 
 
-@pytest.mark.parametrize("k,masked", [(1, False), (8, False), (12, False), (63, False),
+@pytest.mark.parametrize("k,masked", [(1, False), (8, False), (12, False), (32, False),
                                       (8, True), (64, True), (512, True), (2048, True)])
 def test_small_k_and_masked_calls_keep_the_first_body(k, masked):
     assert plan_em_tiles(k, masked=masked) is None
@@ -257,7 +257,7 @@ def emulate_em_stats(points, W, weights, outlier, sms=3):
     component), the point groups summed in order, the blocks in float64."""
     n, k = points.shape[0], W.shape[1]
     plan = plan_em_tiles(k)
-    wn = fused_em._pack_w(W, "cpu", plan.k_pad)[:, :10]
+    wn = em_ref.pack_table(W, plan.k_pad).wn[:, :10]
     comps = torch.tensor([plan.components(cg) for cg in range(plan.comp_groups)])  # [NCG, 8]
     psi = features(points)  # [N, 10], psi[:, 9] == 1
     w = torch.ones(n) if weights is None else weights.float()
@@ -310,7 +310,7 @@ def _check_em(got, ref, n):
     torch.testing.assert_close(got.loglik.double(), ref.loglik.double(), rtol=1e-4, atol=1e-6)
 
 
-@pytest.mark.parametrize("k", [64, 65, 100, 513])
+@pytest.mark.parametrize("k", [33, 63, 64, 65, 100, 513])
 @pytest.mark.parametrize("n", [1, 31, 300, 1000])
 @pytest.mark.parametrize("weighted,outlier", [(False, None), (True, -3.0)])
 def test_em_emulation_matches_the_plain_version(k, n, weighted, outlier):
@@ -684,7 +684,7 @@ def emulate_grouped(points, W, parent, branch, weights, sms=SMS):
     order = torch.sort(key, stable=True).indices[: sum(counts)]
     pts, w = points[order], w[order]
     size, chunks = fused_em.plan_parent_chunks(counts, sms)
-    wn = fused_em._pack_w(W, "cpu")[:, :10]
+    wn = em_ref.pack_table(W).wn[:, :10]
     S = torch.zeros(k, 10, dtype=torch.float64)
     ll = torch.zeros((), dtype=torch.float64)
     for p, first, cnt in chunks:
@@ -733,9 +733,9 @@ def test_grouped_emulation_matches_the_plain_version(k, n, sms):
 
 
 # --------------------------------------------------------------------------
-# the first em_stats body (K < 64): a point on L lanes, a persistent grid
+# the first em_stats body (K <= 32): a point on L lanes, a persistent grid
 
-SMALL_KS = (1, 3, 8, 9, 12, 16, 17, 33, 63)
+SMALL_KS = (1, 3, 8, 9, 12, 16, 17, 24, 32)
 
 
 def _lane_slots(n, plan, threads):
@@ -755,10 +755,12 @@ def _lane_slots(n, plan, threads):
 @pytest.mark.parametrize("k", SMALL_KS)
 def test_plan_em_lanes_covers_every_point_and_component(n, k):
     plan = fused_em.plan_em_lanes(n, k, SMS)
-    lanes = plan.lanes
-    assert lanes in (1, 2, 4, 8) and lanes * fused_em.ES_CT >= k
-    assert lanes == 1 or (lanes // 2) * fused_em.ES_CT < k  # the fewest lanes that hold K
-    comps = [fused_em.ES_CT * s + c for s in range(lanes) for c in range(fused_em.ES_CT)]
+    lanes, ct = plan.lanes, plan.ct
+    assert (lanes, ct) in ((1, 8), (2, 8), (4, 8), fused_em.ES_SPLIT) and lanes * ct >= k
+    split = k <= fused_em.ES_CT and 4 * n <= fused_em.ES_BLOCKS_PER_SM * SMS * fused_em.ES_THREADS
+    assert ((lanes, ct) == fused_em.ES_SPLIT) == split  # the bucket (16,384) splits, 437,645 does not
+    assert split or lanes == 1 or (lanes // 2) * ct < k  # else the fewest lanes that hold K
+    comps = [ct * s + c for s in range(lanes) for c in range(ct)]
     assert sorted(j for j in comps if j < k) == list(range(k))
     assert 1 <= plan.blocks <= fused_em.ES_BLOCKS_PER_SM * SMS  # so the partial rows
     per_block = fused_em.ES_THREADS // lanes
@@ -771,7 +773,7 @@ def test_plan_em_lanes_covers_every_point_and_component(n, k):
 
 
 def test_plan_em_lanes_refuses_what_the_body_does_not_take():
-    for k in (0, 64, 512):
+    for k in (0, 33, 64, 512):
         with pytest.raises(ValueError):
             fused_em.plan_em_lanes(100, k, SMS)
     with pytest.raises(ValueError):
@@ -781,13 +783,13 @@ def test_plan_em_lanes_refuses_what_the_body_does_not_take():
 def emulate_em_lanes(points, W, weights, outlier, sms=3):
     """csrc/em_stats.cu:em_stats_kernel's order in plain torch: points dealt
     to (block, warp, lane group) by the plan, float32 statistics a lane (lane
-    s of a point's L holds components 8 s .. 8 s + 7) in point order, the
-    warp's lane groups summed in order, then its warps, then the blocks in
-    float64; the loglik on lane s = 0."""
+    s of a point's L holds components ct s .. ct s + ct - 1, ct = plan.ct)
+    in point order, the warp's lane groups summed in order, then its warps,
+    then the blocks in float64; the loglik on lane s = 0."""
     n, k = points.shape[0], W.shape[1]
     plan = fused_em.plan_em_lanes(n, k, sms)
-    warps, ppw, ct = fused_em.ES_THREADS // 32, 32 // plan.lanes, fused_em.ES_CT
-    wn = fused_em._pack_w(W, "cpu")[:, :10]
+    warps, ppw, ct = fused_em.ES_THREADS // 32, 32 // plan.lanes, plan.ct
+    wn = em_ref.pack_table(W).wn[:, :10]
     psi = features(points)
     w = torch.ones(n) if weights is None else weights.float()
     logits = psi @ wn.T
@@ -825,7 +827,7 @@ def emulate_em_lanes(points, W, weights, outlier, sms=3):
     return em_ref.EmStats(S=by_block.double().sum(0)[:k].float(), loglik=ll_block.double().sum().float())
 
 
-@pytest.mark.parametrize("k", [1, 3, 8, 12, 33, 63])
+@pytest.mark.parametrize("k", [1, 3, 8, 12, 24, 32])
 @pytest.mark.parametrize("n", [1, 31, 700])
 @pytest.mark.parametrize("weighted,outlier", [(False, None), (True, -3.0)])
 def test_em_lanes_emulation_matches_the_plain_version(k, n, weighted, outlier):
@@ -852,7 +854,7 @@ def previous_assign(points, W, parent, branch):
     then the masked-row fallback. Logits from the table (equal inputs give
     equal bits: the tests feed values whose every product and sum is exact)."""
     n, k = points.shape[0], W.shape[1]
-    logits = (features(points) @ fused_em._pack_w(W, "cpu")[:, :10].T).tolist()
+    logits = (features(points) @ em_ref.pack_table(W).wn[:, :10].T).tolist()
     out = []
     for i in range(n):
         j0, j1 = 0, k
@@ -877,7 +879,7 @@ def emulate_assign(points, W, parent, branch, sms=SMS):
     index; lane 0 applies the fallback."""
     n, k = points.shape[0], W.shape[1]
     lanes = fused_em.plan_assign(n, parent is not None, sms).lanes
-    logits = (features(points) @ fused_em._pack_w(W, "cpu")[:, :10].T).tolist()
+    logits = (features(points) @ em_ref.pack_table(W).wn[:, :10].T).tolist()
     out = []
     for i in range(n):
         j0, j1 = 0, k
