@@ -60,16 +60,17 @@
 //   at 437,645 points) and, at the odometry bucket, the launch. So each point
 //   is read once and each logit evaluated once, and nothing waits on a
 //   block-wide barrier until the end:
-//   - L lanes take a point, CT components each (template arguments chosen by
-//     ops/fused_em.py:plan_em_lanes: L = ceil(K / 8) to a power of two with
-//     CT = 8, or 4 lanes of 2 at K <= 8 while the points are too few to fill
-//     the grid); lane s of the L owns components CT s .. CT s + CT - 1 and
-//     keeps their logits, one exp2 a pair and their CT x 10 statistics in
-//     registers. The max and the sum over the L lanes go by butterflies, so
-//     the L lanes hold equal bits. A warp takes 32 / L points at once,
-//     grid-stride, the next point's 16 bytes loaded while this one computes.
+//   - L = 1, 2 or 4 lanes take a point (L = ceil(K / 8) to a power of two,
+//     a template argument; ops/fused_em.py:plan_em_lanes); lane s of the L
+//     owns components 8 s .. 8 s + 7 and keeps their logits, one exp2 a pair
+//     and their 8 x 10 statistics in registers. The max and the sum over the
+//     L lanes go by butterflies, so the L lanes hold equal bits. A warp takes
+//     32 / L points at once, grid-stride, the next point's 16 bytes loaded
+//     while this one computes. (Four lanes of 2 components at K = 8 ran the
+//     kernel faster at the odometry bucket but wrote four times the partial
+//     rows, and lost at every size measured: PERF.md.)
 //   - The weight table sits in shared memory with one float4 of padding after
-//     every 8 rows, so the L lanes of a point (rows CT s + c) read L banks.
+//     every 8 rows, so the L lanes of a point (rows 8 s + c) read L banks.
 //   - The grid is persistent (ops/fused_em.py:plan_em_lanes, at most
 //     ES_BLOCKS_PER_SM blocks an SM); at the end a warp's lanes are summed in
 //     lane order through a shared-memory transpose, the warps in warp order,
@@ -96,34 +97,33 @@ namespace hgmm {
 
 constexpr int ES_THREADS = 128;         // ops/fused_em.py:ES_THREADS
 constexpr int ES_WARPS = ES_THREADS / 32;
+constexpr int ES_CT = 8;                // components a lane
 constexpr int ES_KMAX = 33;             // the first body takes K < ES_KMAX
+constexpr int ES_ROW = ES_CT * 10 + 1;  // a lane's row in the transpose (odd: no bank conflict)
 constexpr int ES_COLS = (10 * (ES_KMAX - 1) + 1 + 31) / 32;  // columns of a partial row a lane sums
 
 // float4 index of table row j in shared memory: one float4 of padding after
-// every 8 rows, so rows 8 s + c of s = 0..3 (and 2 s + c) fall in different
-// banks. CT divides 8, so a lane's CT rows are consecutive float4 triples.
+// every 8 rows, so rows 8 s + c of s = 0..3 fall in 4 different banks.
 __device__ __forceinline__ int es_row(int j) { return 3 * j + (j >> 3); }
 
-template <int L, int CT>
+template <int L>
 __global__ void __launch_bounds__(ES_THREADS, 4)
     em_stats_kernel(const float* __restrict__ pts4, int n, const float* __restrict__ wn, int k,
                     int has_outlier, float outlier, float* __restrict__ partial) {
-  constexpr int PPW = 32 / L;         // points a warp takes at once
-  constexpr int ROW = CT * 10 + 1;    // a lane's row in the transpose (odd: no bank conflict)
-  static_assert(8 % CT == 0, "a lane's rows must not straddle a padding float4");
+  constexpr int PPW = 32 / L;  // points a warp takes at once
   __shared__ float4 w_s[3 * ES_KMAX + ES_KMAX / 8];
-  __shared__ float tr_s[ES_WARPS][32 * ROW];
+  __shared__ float tr_s[ES_WARPS][32 * ES_ROW];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int s = lane & (L - 1);        // this lane's components: CT s .. CT s + CT - 1
-  const int nc = min(CT, k - CT * s);  // of them below K (<= 0: none)
+  const int s = lane & (L - 1);              // this lane's components: 8 s .. 8 s + 7
+  const int nc = min(ES_CT, k - ES_CT * s);  // of them below K (<= 0: none)
   for (int idx = t; idx < 3 * k; idx += ES_THREADS)
     w_s[es_row(idx / 3) + idx % 3] = reinterpret_cast<const float4*>(wn)[idx];
   __syncthreads();
-  const float4* w4 = w_s + es_row(CT * s);
+  const float4* w4 = w_s + es_row(ES_CT * s);
 
-  float acc[CT][10];
+  float acc[ES_CT][10];
 #pragma unroll
-  for (int c = 0; c < CT; ++c)
+  for (int c = 0; c < ES_CT; ++c)
 #pragma unroll
     for (int f = 0; f < 10; ++f) acc[c][f] = 0.0f;
   float ll = 0.0f;
@@ -152,14 +152,14 @@ __global__ void __launch_bounds__(ES_THREADS, 4)
     load(base + stride + g, nx, ny, nz, nw);  // the next point, in flight meanwhile
     // The weights are read from shared memory for every point: an offset the
     // compiler cannot see through keeps it from hoisting the 80 loop-invariant
-    // loads into registers beside the 80 statistics (which spilled at L = 1, CT = 8).
+    // loads into registers beside the 80 statistics (which spilled at L = 1).
     int opaque;
     asm volatile("mov.u32 %0, 0;" : "=r"(opaque));
     const float4* wr = w4 + opaque;
-    float e[CT];
+    float e[ES_CT];
     float m = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < CT; ++c) {
+    for (int c = 0; c < ES_CT; ++c) {
       e[c] = c < nc ? logit(wr + 3 * c, p) : -INFINITY;
       m = fmaxf(m, e[c]);
     }
@@ -169,7 +169,7 @@ __global__ void __launch_bounds__(ES_THREADS, 4)
     const float m2 = fmaxf(m, NEG_INF) * LOG2E;
     float sum = 0.0f;
 #pragma unroll
-    for (int c = 0; c < CT; ++c) {
+    for (int c = 0; c < ES_CT; ++c) {
       e[c] = c < nc ? exp2f(fmaf(e[c], LOG2E, -m2)) : 0.0f;
       sum += e[c];
     }
@@ -179,7 +179,7 @@ __global__ void __launch_bounds__(ES_THREADS, 4)
     if (s == 0) ll += r.lse;  // one lane a point
     if (r.scale != 0.0f) {    // equal on the L lanes of a point; 0 when dead or of weight 0
 #pragma unroll
-      for (int c = 0; c < CT; ++c) {
+      for (int c = 0; c < ES_CT; ++c) {
         const float gam = e[c] * r.scale;
 #pragma unroll
         for (int f = 0; f < 10; ++f) acc[c][f] = fmaf(gam, p.v[f], acc[c][f]);
@@ -192,10 +192,10 @@ __global__ void __launch_bounds__(ES_THREADS, 4)
   // lane. Then the warps in warp order into the block's partial row.
   float* tr = tr_s[warp];
 #pragma unroll
-  for (int c = 0; c < CT; ++c)
+  for (int c = 0; c < ES_CT; ++c)
 #pragma unroll
-    for (int f = 0; f < 10; ++f) tr[lane * ROW + c * 10 + f] = acc[c][f];
-  tr[lane * ROW + CT * 10] = ll;
+    for (int f = 0; f < 10; ++f) tr[lane * ES_ROW + c * 10 + f] = acc[c][f];
+  tr[lane * ES_ROW + ES_CT * 10] = ll;
   __syncwarp();
   const int m_out = k * 10 + 1;
   float v[ES_COLS];
@@ -204,11 +204,11 @@ __global__ void __launch_bounds__(ES_THREADS, 4)
     const int o = lane + 32 * q;
     float a = 0.0f;
     if (o < k * 10) {
-      const int j = o / 10, sj = j / CT;
-      const float* col = tr + sj * ROW + (j - CT * sj) * 10 + (o - 10 * j);
-      for (int gg = 0; gg < PPW; ++gg) a += col[gg * L * ROW];
+      const int j = o / 10, sj = j / ES_CT;
+      const float* col = tr + sj * ES_ROW + (j - ES_CT * sj) * 10 + (o - 10 * j);
+      for (int gg = 0; gg < PPW; ++gg) a += col[gg * L * ES_ROW];
     } else if (o == k * 10) {
-      for (int l = 0; l < 32; ++l) a += tr[l * ROW + CT * 10];
+      for (int l = 0; l < 32; ++l) a += tr[l * ES_ROW + ES_CT * 10];
     }
     v[q] = a;
   }
@@ -226,10 +226,10 @@ __global__ void __launch_bounds__(ES_THREADS, 4)
   }
 }
 
-template <int L, int CT>
+template <int L>
 cudaError_t launch_em_stats(const float* pts4, int n, const float* wn, int k, int has_outlier,
                             float outlier, float* partial, int nb, float* out, cudaStream_t stream) {
-  em_stats_kernel<L, CT><<<nb, ES_THREADS, 0, stream>>>(pts4, n, wn, k, has_outlier, outlier, partial);
+  em_stats_kernel<L><<<nb, ES_THREADS, 0, stream>>>(pts4, n, wn, k, has_outlier, outlier, partial);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce_partials(partial, nb, k * 10 + 1, out, stream);
@@ -672,23 +672,23 @@ __global__ void em_grouped_reduce_kernel(const float* __restrict__ partial, int 
 extern "C" {
 
 // S and loglik of em_ref.em_stats into out[K*10 + 1] (S row-major, then
-// loglik) by the first kernel body, K <= 32, `lanes` lanes a point of `ct`
-// components each ((lanes, ct) one of (1, 8), (2, 8), (4, 8), (4, 2), with
-// lanes * ct >= K). wn is [>= K, 12]; partial is [nb, K*10 + 1] scratch.
+// loglik) by the first kernel body, K <= 32, `lanes` lanes a point (1, 2 or
+// 4, at least K / 8). wn is [>= K, 12]; partial is [nb, K*10 + 1] scratch.
 // Returns the CUDA error code of the launches (0 on success).
-int hgmm_em_stats(const void* pts4, int n, const void* wn, int k, int lanes, int ct, int has_outlier,
+int hgmm_em_stats(const void* pts4, int n, const void* wn, int k, int lanes, int has_outlier,
                   float outlier, void* partial, int nb, void* out, void* stream) {
-  if (k < 1 || k >= hgmm::ES_KMAX || k > ct * lanes || nb < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k >= hgmm::ES_KMAX || k > hgmm::ES_CT * lanes || nb < 1) return (int)cudaErrorInvalidValue;
   const auto p = static_cast<const float*>(pts4);
   const auto w = static_cast<const float*>(wn);
   auto part = static_cast<float*>(partial);
   auto o = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (lanes == 1 && ct == 8) return (int)hgmm::launch_em_stats<1, 8>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
-  if (lanes == 2 && ct == 8) return (int)hgmm::launch_em_stats<2, 8>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
-  if (lanes == 4 && ct == 8) return (int)hgmm::launch_em_stats<4, 8>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
-  if (lanes == 4 && ct == 2) return (int)hgmm::launch_em_stats<4, 2>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
-  return (int)cudaErrorInvalidValue;
+  switch (lanes) {
+    case 1: return (int)hgmm::launch_em_stats<1>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    case 2: return (int)hgmm::launch_em_stats<2>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    case 4: return (int)hgmm::launch_em_stats<4>(p, n, w, k, has_outlier, outlier, part, nb, o, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The same S and loglik for an unmasked call with K >= 33 through the

@@ -35,7 +35,7 @@ _F = ctypes.c_float
 _D = ctypes.c_double
 _SIGNATURES = {
     # name: argtypes (every pointer and the stream as c_void_p)
-    "hgmm_em_stats": (_P, _I, _P, _I, _I, _I, _I, _F, _P, _I, _P, _P),
+    "hgmm_em_stats": (_P, _I, _P, _I, _I, _I, _F, _P, _I, _P, _P),
     "hgmm_em_step": (_P, _P, _P, _P, _I, _I, _D, _I, _P, _P, _P, _P, _P, _I, _P),
     "hgmm_em_stats_tiled": (_P, _I, _P, _I, _I, _I, _F, _P, _I, _P, _P),
     "hgmm_reg_stats": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _P, _P),

@@ -61,7 +61,6 @@ EMT_CT = 8  # components a thread
 ES_THREADS = 128
 ES_MAX_K = 32  # above it the tiled body on 64 padded rows was faster (PERF.md)
 ES_CT = 8  # components a lane
-ES_SPLIT = (4, 2)  # lanes and components a lane of a K <= ES_CT point while the points are few
 ES_BLOCKS_PER_SM = 4  # cap of the grid, so of the partial rows
 EMT_MIN_K = ES_MAX_K + 1  # the register-tiled body from here on
 # assign (csrc/assign.cu).
@@ -134,28 +133,23 @@ def table_rows(k: int, masked: bool = False) -> int:
 class LanePlan:
     """Launch geometry of a kernel that gives a point `lanes` lanes of a warp
     on a persistent grid of `blocks` blocks (the first em_stats body:
-    csrc/em_stats.cu:em_stats_kernel, one partial row a block, `ct`
-    components a lane; assign, ct 0)."""
+    csrc/em_stats.cu:em_stats_kernel, one partial row a block; assign)."""
 
     lanes: int
     blocks: int
-    ct: int = 0
 
 
 def plan_em_lanes(n: int, k: int, sms: int) -> LanePlan:
     """The first em_stats body (K <= ES_MAX_K): lanes = K / ES_CT rounded up
-    to a power of two, ES_CT components a lane; at K <= ES_CT, ES_SPLIT (4
-    lanes of 2) while 4 n lanes fit the capped grid in one pass, where one
-    lane a point would leave the card short of warps (the odometry bucket;
-    a larger N keeps a lane a point: PERF.md). Blocks of ES_THREADS threads,
-    one a ES_THREADS / lanes points, at most ES_BLOCKS_PER_SM an SM."""
+    to a power of two (1 at K <= 8), so a lane holds at most ES_CT
+    components, whatever N (more lanes of fewer components at K = 8 lost at
+    every N measured: PERF.md); blocks of ES_THREADS threads, one a
+    ES_THREADS / lanes points, at most ES_BLOCKS_PER_SM an SM."""
     if sms < 1 or not 1 <= k <= ES_MAX_K:
         raise ValueError(f"plan_em_lanes: K={k}, {sms} SMs")
-    cap = ES_BLOCKS_PER_SM * sms
-    lanes, ct = 1 << (-(-k // ES_CT) - 1).bit_length(), ES_CT
-    if k <= ES_CT and n * ES_SPLIT[0] <= cap * ES_THREADS:
-        lanes, ct = ES_SPLIT
-    return LanePlan(lanes, max(1, min(cap, -(-n // (ES_THREADS // lanes)))), ct)
+    lanes = 1 << (-(-k // ES_CT) - 1).bit_length()
+    per_block = ES_THREADS // lanes
+    return LanePlan(lanes, max(1, min(ES_BLOCKS_PER_SM * sms, -(-n // per_block))))
 
 
 def plan_assign(n: int, masked: bool, sms: int) -> LanePlan:
@@ -264,8 +258,7 @@ def em_stats(pts4: torch.Tensor, W, outlier_logit=None) -> EmStats:
     with torch.cuda.device(pts4.device):
         if plan is None:
             err = _build.load().hgmm_em_stats(
-                pts4.data_ptr(), n, wn.data_ptr(), k, lane_plan.lanes, lane_plan.ct, has_out, out_l,
-                partial.data_ptr(), nb,
+                pts4.data_ptr(), n, wn.data_ptr(), k, lane_plan.lanes, has_out, out_l, partial.data_ptr(), nb,
                 out.data_ptr(), _stream(pts4),
             )
         else:
