@@ -20,9 +20,11 @@ Run from the root of a checkout. It
    em_stats body and assign at their edges: K in {1, 3, 8, 16, 32, 63}, N = 1,
    ragged tiles, all-dead rows, zero weights;
    assign on exact inputs with ties and parents -1 and past K bit-equal to
-   the plain version, and a NaN logit that never wins; em_step against a
-   float64 run of its twin for every covariance type, K in {1, 8, 40, 64,
-   100, 512} (40 and 100 write floor rows), empty components);
+   the plain version, and a NaN logit that never wins; em_step on the partial
+   rows of the three em_stats bodies (the first K <= 32, the tiled K >= 33,
+   the grouped one) against a float64 run of its twin for every covariance
+   type, K in {1, 8, 40, 64, 100, 512} (40 and 100 write floor rows), empty
+   components, equal bits on two launches; reg_step on 1, 33 and 528 rows);
 4. drives the main path once: hgmm_torch.register_pair with the
    config2_tree_8x3 preset on a 437,645-point pair (the vertex count of the
    Stanford dragon; synthetic trefoil stand-in, ground truth z-rotation
@@ -34,14 +36,14 @@ Run from the root of a checkout. It
    (its device time a call from a profiler trace, beside CUDA events around
    the calls) against its plain version at the shapes the slice gives it (reg_stats and
    the masked em_stats per K, the launch a scan step or a sweep makes beside
-   the standalone call; reg_step on the main path's partials; em_step after
-   each level's E-step); then counts
+   the standalone call; reg_step on the main path's partials; em_step on
+   each level's E-step body's partial rows); then counts
    one register_pair's kernels, copies and memsets (profiler) and host syncs
    (torch's sync debug mode) beside its seconds; then a fit's sweeps
    (sweep_accounting): the flat K = 8 level and a grouped K = 64 level of
    the pair's target under torch's sync debug mode set to "error", one
-   em_stats and one em_step launch a sweep by the counters and three kernels
-   a sweep by the profiler; and the tree fit on the card against the same
+   em_stats body and one em_step launch a sweep by the counters and two
+   kernels a sweep by the profiler; and the tree fit on the card against the same
    fit through the plain versions, by each level's per-point loglik;
 6. checks that register_pair on the card agrees with the plain CPU path on a
    4,000-point pair;
@@ -205,8 +207,9 @@ EM_STEP_ATOL = 1e-6
 # another parent): each level's per-point loglik within this relative gap, the
 # tolerance tests/test_torch_models.py holds the two packages' trees to.
 FIT_LL_RTOL = 1e-3
-# A fit's sweep on the card: em_stats' kernel and its reduce, then em_step.
-SWEEP_KERNELS = 3
+# A fit's sweep on the card: em_stats' body, then em_step, which sums the
+# body's partial rows (em_stats' reduce kernel is not on the fit path).
+SWEEP_KERNELS = 2
 
 
 # The odometry phase (config 4 through the CLI) and the LiDAR-scale checks.
@@ -657,45 +660,64 @@ def small_checks(torch, dev, errs) -> None:
                 raise CheckFailed("knn: an exact tie went to the higher index")
     new_kernel_edges(torch, dev, gen, errs)
     reg_step_checks(torch, dev, gen, errs)
-    for k in (1, 8, 40, 64, 100, 512):  # 40 and 100: the table's floor rows (64 and 128 rows)
+    # em_step on the partial rows of the three bodies: the first (K <= 32) or
+    # the tiled one (K >= 33) unmasked, and the grouped one under a parent
+    # mask; K = 40 and 100 write the table's floor rows (64 and 128 rows).
+    for k in (1, 8, 40, 64, 100, 512):
         params = random_mixture(torch, k, gen, dev, dead=(0,))
         pts = torch.randn(20_000, 3, generator=gen).to(dev)
         w = torch.rand(20_000, generator=gen).to(dev)
         w[::4] = 0.0
-        stats = em_ref.em_stats(pts, pack_loglik_weights(params), w)
-        em_step_check(torch, f"K{k}", params, stats, w.sum(), torch.tensor(1e-4, device=dev), errs)
+        p4 = prepare(pts, w).pts4
+        W = pack_loglik_weights(params)
+        total, cf = w.sum(), torch.tensor(1e-4, device=dev)
+        em_step_check(torch, f"K{k}", params, fused_em.em_partials(p4, W), total, cf, errs)
+        parent = torch.randint(-1, -(-k // 8), (20_000,), generator=gen).to(dev)
+        groups = fused_em.group_by_parent(p4, parent, 8, k)
+        em_step_check(torch, f"K{k} grouped", params, fused_em.em_partials_grouped(groups, W), total, cf,
+                      errs)
     torch.cuda.synchronize()
 
 
-def em_step_check(torch, label, params, stats, total, cov_floor, errs) -> dict:
-    """em_step (one launch) against its float32 twin and a float64 run of
-    the twin from the same statistics, every covariance type: each output
-    within EM_STEP_RTOL of the float64 value plus EM_STEP_ATOL of the
-    output's (for the table: the row's) largest float64 magnitude (the
-    float32 twin's own gap to float64 is recorded beside it); an empty
-    component: pi 0, Sigma I, its bias below -1e29; floor rows past K;
-    logliks[it]. Records the largest gap to the float32 twin in
-    errs["em_step"]; returns the gaps."""
+def em_step_check(torch, label, params, parts, total, cov_floor, errs) -> dict:
+    """em_step (one launch) on an em_stats body's partial rows `parts`
+    against its float32 twin (em_ref.em_step on the same rows) and a float64
+    run of the twin from the same float32 statistics (em_ref.sum_partials),
+    every covariance type: each output within EM_STEP_RTOL of the float64
+    value plus EM_STEP_ATOL of the output's (for the table: the row's)
+    largest float64 magnitude (the float32 twin's own gap to float64 is
+    recorded beside it); an empty component: pi 0, Sigma I, its bias below
+    -1e29; floor rows past K; logliks[it] within a float32 rounding of the
+    rows' sum; a second launch bit-equal. Records the largest gap to the
+    float32 twin in errs["em_step"]; returns the gaps."""
     from hgmm_torch import ops
     from hgmm_torch.ops import em_ref, fused_em
     from hgmm_torch.ops.gaussians import MixtureParams
 
     k = params.pi.shape[0]
+    host = parts._replace(partial=parts.partial.cpu(),
+                          parent_off=None if parts.parent_off is None else parts.parent_off.cpu())
+    stats = em_ref.sum_partials(host)
+    stats64 = em_ref.EmStats(stats.S.double(), stats.loglik.double())
     out = {}
     for cov_type in em_ref.COV_TYPES:
-        fit = ops.new_fit(params, 2, total, cov_floor)
+        fits = [ops.new_fit(params, 2, total, cov_floor, masked=parts.branch > 0) for _ in range(2)]
+        fit = fits[0]
         rows = fit.table.wn.shape[0]
         twin = em_ref.new_fit(MixtureParams(*(a.cpu() for a in params)), 2, total.cpu(), cov_floor.cpu(),
                               rows)
         f64 = em_ref.new_fit(MixtureParams(*(a.cpu().double() for a in params)), 2,
                              total.cpu().double(), cov_floor.cpu().double(), rows)
         before = fused_em.LAUNCHES["em_step"]
-        fused_em.em_step(stats, fit, 1, 1e-6, cov_type)
-        if fused_em.LAUNCHES["em_step"] != before + 1:
-            raise CheckFailed("em_step: not one launch")
-        em_ref.em_step(em_ref.EmStats(stats.S.cpu(), stats.loglik.cpu()), twin, 1, 1e-6, cov_type)
-        em_ref.em_step(em_ref.EmStats(stats.S.cpu().double(), stats.loglik.cpu().double()), f64, 1, 1e-6,
-                       cov_type)
+        for f in fits:
+            fused_em.em_step(parts, f, 1, 1e-6, cov_type)
+        if fused_em.LAUNCHES["em_step"] != before + 2:
+            raise CheckFailed("em_step: not one launch a call")
+        if not all(torch.equal(a, b) for a, b in zip((*fits[0].params, fits[0].table.wn, fits[0].logliks),
+                                                      (*fits[1].params, fits[1].table.wn, fits[1].logliks))):
+            raise CheckFailed(f"em_step {label} {cov_type}: two launches differ")
+        em_ref.em_step(host, twin, 1, 1e-6, cov_type)
+        em_ref.em_step(stats64, f64, 1, 1e-6, cov_type)
         live = f64.pi > 0
         gaps = {}
         for name in ("pi", "mu", "sigma", "table"):
@@ -726,17 +748,29 @@ def em_step_check(torch, label, params, stats, total, cov_floor, errs) -> dict:
         if not (bool((wn[:, 10:] == 0).all()) and bool((wn[k:, :9] == 0).all())
                 and bool((wn[k:, 9] == em_ref.NEG_INF).all())):
             raise CheckFailed(f"em_step {label} {cov_type}: the table's padding is wrong")
-        if fit.logliks.cpu().tolist() != [0.0, float(stats.loglik)]:
-            raise CheckFailed(f"em_step {label} {cov_type}: logliks {fit.logliks.tolist()}")
+        lls = fit.logliks.cpu()
+        if not (float(lls[0]) == 0.0 and abs(float(lls[1]) - float(stats.loglik))
+                <= 2.0 ** -23 * abs(float(stats.loglik))):
+            raise CheckFailed(f"em_step {label} {cov_type}: logliks {lls.tolist()}, rows' sum "
+                              f"{float(stats.loglik)}")
         out[cov_type] = gaps
     return out
 
 
+def split_rows(torch, part, nb, gen):
+    """The float64 sum of part's rows split into nb float32 rows by random
+    positive shares: other partial rows of about the same statistics."""
+    share = torch.rand(nb, generator=gen, dtype=torch.float64).to(part.device) + 0.5
+    return (part.double().sum(0)[None] * (share / share.sum())[:, None]).float().contiguous()
+
+
 def reg_step_checks(torch, dev, gen, errs) -> None:
     """reg_step against its twin (em_ref.reg_step, float32 on the same
-    partials) from one state, for both solvers and every (first, last): the
-    pose within float32 rounding of the float64 solve, the outputs, the
-    done flag; then a done scan changes nothing."""
+    partials) from one state, for both solvers and every (first, last), on
+    reg_stats' rows and on 1, 33 and 528 rows (the odometry pair's 528: a
+    full pass of the coalesced read and a ragged one): the pose within
+    float32 rounding of the float64 solve, the outputs, the done flag; then
+    a done scan changes nothing."""
     from hgmm_torch import ops
     from hgmm_torch.models.se3 import so3_exp
     from hgmm_torch.ops import em_ref, fused_em
@@ -746,7 +780,7 @@ def reg_step_checks(torch, dev, gen, errs) -> None:
     params = random_mixture(torch, 64, gen, dev)
     A, b, _ = precision_terms(params)
     prob = ops.reg_problem(pts, pack_loglik_weights(params), params.mu, sym_pack(A), b)
-    for solver in (0, 1):
+    for solver, nb in ((s_, nb_) for s_ in (0, 1) for nb_ in (None, 1, 33, 528)):
         for first, last in ((True, True), (True, False), (False, True)):
             scan = ops.new_scan(so3_exp(torch.tensor([0.05, 0.1, -0.1], device=dev)),
                                 torch.tensor([0.1, 0.0, 0.2], device=dev), 3)
@@ -754,13 +788,15 @@ def reg_step_checks(torch, dev, gen, errs) -> None:
             scan.state[em_ref.SCAN_LL] = -7.0
             twin = em_ref.RegScan(*(t.cpu().clone() for t in scan))
             part = ops.reg_partials(prob, scan).clone()
+            if nb is not None:
+                part = split_rows(torch, part, nb, gen)
             ops.reg_step(part, scan, 1, solver, first, last, 1e-7)
             em_ref.reg_step(part.cpu(), twin, 1, solver, first, last, 1e-7)
             torch.cuda.synchronize()
             err = float((scan.state.cpu()[:24] - twin.state[:24]).abs().max())
             if not err < 2e-5:
-                raise CheckFailed(f"reg_step solver {solver} first {first} last {last}: state off the "
-                                  f"twin's by {err}")
+                raise CheckFailed(f"reg_step solver {solver} nb {part.shape[0]} first {first} last {last}: "
+                                  f"state off the twin's by {err}")
             close(torch, "reg_step.logliks", scan.logliks, twin.logliks, 1e-6, 0.0)
             close(torch, "reg_step.deltas", scan.deltas, twin.deltas, 1e-3, 1e-6)
             errs["reg_step"] = max(errs["reg_step"], err)
@@ -968,7 +1004,7 @@ def add_bound(name, entry) -> None:
     elif name == "reg_step":
         kb = kernel_bound(name, nb=entry["nb"])
     elif name == "em_step":
-        kb = kernel_bound(name, k=entry["k"], rows=entry["rows"])
+        kb = kernel_bound(name, k=entry["k"], rows=entry["rows"], nb=entry["nb"], branch=entry["branch"])
     elif name == "knn":
         kb = kernel_bound(name, nq=entry["nq"], nt=entry["nt"])
     else:
@@ -1242,8 +1278,10 @@ def slice_checks(torch, dev, errs):
     # Tree fit: level 0 unmasked at K=8, levels 1-2 masked at K=64 and 512.
     W0 = Ws[0]
     check_em(torch, "em_stats", fused_em.em_stats(tgt.pts4, W0), em_ref.em_stats(target, W0), n, errs)
+    # "ms": the public call, body and reduce; "body_ms": the body alone, as a
+    # fit's sweep launches it (em_step sums its rows).
     record("em_stats", 8, lambda: fused_em.em_stats(tgt.pts4, W0), lambda: em_ref.em_stats(target, W0),
-           headline=True)
+           headline=True, body_ms=device_ms(torch, lambda: fused_em.em_partials(tgt.pts4, W0)))
     check_assign(torch, fused_em.assign(tgt.pts4, W0), em_ref.assign(target, W0), target, W0,
                  None, None, errs)
     record("assign", 8, lambda: fused_em.assign(tgt.pts4, W0), lambda: em_ref.assign(target, W0))
@@ -1256,28 +1294,31 @@ def slice_checks(torch, dev, errs):
         record("em_stats_masked", k, lambda: fused_em.em_stats_grouped(groups, W),
                lambda: em_ref.em_stats_masked(target, W, par, 8), headline=lvl == 2,
                wrapper_ms=cuda_ms(torch, lambda: fused_em.em_stats_masked(tgt.pts4, W, par, 8)),
+               body_ms=device_ms(torch, lambda: fused_em.em_partials_grouped(groups, W)),
                group_ms=cuda_ms(torch, lambda: fused_em.group_by_parent(tgt.pts4, par, 8, k)),
                chunks=groups.n_chunks, chunk_points=groups.chunk_points)
         check_assign(torch, fused_em.assign(tgt.pts4, W, par, 8), em_ref.assign(target, W, par, 8),
                      target, W, par, 8, errs)
         record("assign", k, lambda: fused_em.assign(tgt.pts4, W, par, 8),
                lambda: em_ref.assign(target, W, par, 8), headline=lvl == 2)
-    # em_step after each level's E-step, on that level's table, as the sweeps
-    # launch it; the twin on the same statistics on the card beside it.
+    # em_step on each level's E-step body's partial rows, on that level's
+    # table, as the sweeps launch it; the twin on the same rows on the card
+    # beside it.
     from hgmm_torch import ops
     from hgmm_torch.models.gmm import scene_variance
 
     total, cf = torch.tensor(float(n), device=dev), 1e-4 * scene_variance(target)
     for lvl, params in enumerate(tree.levels):
-        st = (fused_em.em_stats(tgt.pts4, Ws[0]) if lvl == 0
-              else fused_em.em_stats_masked(tgt.pts4, Ws[lvl], parents[lvl], 8))
+        parts = (fused_em.em_partials(tgt.pts4, Ws[0]) if lvl == 0 else fused_em.em_partials_grouped(
+            fused_em.group_by_parent(tgt.pts4, parents[lvl], 8, Ws[lvl].shape[1]), Ws[lvl]))
         fit = ops.new_fit(params, 1, total, cf, masked=lvl > 0)
         twin = em_ref.new_fit(params, 1, total, cf, fit.table.wn.shape[0])
         timings["em_step"].append({
             "k": params.pi.shape[0], "rows": fit.table.wn.shape[0], "n": n, "headline": lvl == 2,
-            "ms": device_ms(torch, lambda: fused_em.em_step(st, fit, 0)),
-            "call_ms": cuda_ms(torch, lambda: fused_em.em_step(st, fit, 0)),
-            "plain_ms": cuda_ms(torch, lambda: em_ref.em_step(st, twin, 0), reps=5)})
+            "nb": parts.n_rows, "branch": parts.branch or None,
+            "ms": device_ms(torch, lambda: fused_em.em_step(parts, fit, 0)),
+            "call_ms": cuda_ms(torch, lambda: fused_em.em_step(parts, fit, 0)),
+            "plain_ms": cuda_ms(torch, lambda: em_ref.em_step(parts, twin, 0), reps=5)})
     # Registration: levels 0 and 1, then the adaptive cut, at the final pose.
     pose = (res.pose.R, res.pose.t)
     for lvl, params in enumerate((tree.levels[0], tree.levels[1],
@@ -1676,9 +1717,9 @@ def lidar_checks(torch, dev, errs, metric_errs):
                 hold("em_stats", f"em_stats_outlier_{outlier}", fused_em.em_stats(prep.pts4, W, outlier),
                      em_ref.em_stats(pts, W, w, outlier),
                      em_ref.em_stats_direct(pts, params, w, outlier), n)
-            # The M-step of a sweep on these statistics (the kernel's S).
+            # The M-step of a sweep on these points (the body's partial rows).
             rec["em_step"] = em_step_check(torch, f"{extent:g}m K{k}", params,
-                                           fused_em.em_stats(prep.pts4, W), w.sum(),
+                                           fused_em.em_partials(prep.pts4, W), w.sum(),
                                            1e-4 * scene_variance(pts, w), metric_errs)
             if k > 8:
                 coarse = MixtureParams(torch.full((k // 8,), 8.0 / k, device=dev),

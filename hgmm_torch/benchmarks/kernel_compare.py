@@ -30,7 +30,10 @@ bench sweep (``em_stats``, N = 2^21, K = 512) and of the search; of
 at the odometry bucket, 16,384 points at LiDAR scale; the device time a call
 of ``em_stats`` at K = 8 and of ``assign`` at K = 8 and, masked, K = 64, 512
 (profiler trace, by kernel name) at both sizes, and of ``em_stats`` at K = 16,
-32, 33, 63 and 64 at N; and of two pairs, each
+32, 33, 63 and 64 at N; the two step kernels by their parts (``step_times``:
+``reg_step`` on 528 rows and on one, Horn and WLS, an iteration's middle and
+last step, a done scan, each also back to back in a CUDA graph; a fit's sweep
+by kernel); and of two pairs, each
 with its kernels, copies and memsets (profiler) and host syncs (torch's sync
 debug mode): ``register_pair`` (config2_tree_8x3) at N and one odometry pair
 (config 4's tree fit and registration on the bucket). ``--diff`` prints, for
@@ -103,6 +106,7 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
              "card": bench.card_line() if dev.type == "cuda" else None}
     times.update(shape_times(np, torch, dev, n))
     times.update(device_times(np, torch, dev, n))
+    times.update(step_times(np, torch, dev, n))
     times.update(pair_counts(np, torch, dev, n))
     return {name: tuple(t.cpu() for t in ts) for name, ts in out.items()}, times
 
@@ -269,6 +273,108 @@ def device_times(np, torch, dev, n) -> dict:
             for k in (16, 32, 33, 63, 64):
                 W = pack_loglik_weights(convert.mixture_from_numpy(*_unit_mixture(np, k), device=dev))
                 timed(f"em_stats_K{k}_{tag}", lambda: ops.em_stats(prep, W))
+    return out
+
+
+def graph_us(torch, fn, calls: int = 1, replays: int = 10) -> float:
+    """Device µs a call of fn() when `calls` calls run back to back from one
+    CUDA graph, with no host work between the launches: CUDA events around
+    `replays` replays of the graph, over replays x calls. Beside a kernel's
+    own time (device_us) it gives what a launch adds on the card."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / (replays * calls)
+
+
+def step_times(np, torch, dev, n) -> dict:
+    """The two step kernels by their parts. reg_step, device µs a launch
+    (device_us) and a launch's µs back to back in a CUDA graph (graph_us):
+    the [nb, 59] partials of reg_stats at K = 8 on n points (528 rows on the
+    H100) against the same sum in one row (nb = 1), and at the odometry
+    bucket (16,384 points, lanes); Horn against WLS; an iteration's middle
+    step against its last (se3_log, the outputs); and a step on a done scan
+    (the launch, one read, nothing else). A fit's sweep, device µs by kernel
+    a sweep: the flat K = 8 sweep at n and at 16,384 points and the grouped
+    K = 64 one at n, through models.gmm.em_sweeps as a fit runs them; a sweep
+    from a graph of a fit's launches (2s sweeps less s, over s); and, in a
+    tree whose em_step reads partial rows, em_step on the flat sweep's rows
+    against the same sums as one row."""
+    from hgmm_torch import convert, ops
+    from hgmm_torch.data.synthetic import make_cloud
+    from hgmm_torch.models.gmm import em_sweeps, init_params, scene_variance, total_weight
+    from hgmm_torch.models.gmm_tree import seed_children
+    from hgmm_torch.ops import em_ref
+
+    if dev.type != "cuda":
+        return {}
+    out = {}
+    rng = np.random.default_rng(17)
+    for tag, nn in (("n%d" % n, n), ("n16384", 16_384)):
+        pts = torch.from_numpy(rng.standard_normal((nn, 3), dtype=np.float32)).to(dev)
+        (W, mu, A6, b3, pose), _ = reg_inputs(np, torch, convert, dev, pts)["K8"]
+        prob = ops.reg_problem(ops.prepare(pts), W, mu, A6, b3)
+        part = ops.reg_partials(prob, ops.new_scan(pose[0], pose[1], 1)).clone()
+        parts = {f"nb{part.shape[0]}": part}
+        if nn == n:
+            parts["nb1"] = part.double().sum(0, keepdim=True).float()
+        for nb, p in parts.items():
+            for solver, sname in ((0, "horn"), (1, "wls")):
+                for last in (False, True):
+                    if nn != n and not last:
+                        continue
+                    scan = ops.new_scan(pose[0], pose[1], 2)
+                    fn = lambda: ops.reg_step(p, scan, 1, solver, False, last, 0.0)  # noqa: E731
+                    key = f"reg_step_{sname}_{nb}_{'last' if last else 'mid'}_{tag}"
+                    out[f"{key}_device_us"] = device_us(fn)[0]
+                    out[f"{key}_graph_us"] = graph_us(torch, fn, calls=20)
+        if nn == n:
+            scan = ops.new_scan(pose[0], pose[1], 2)
+            scan.state[em_ref.SCAN_DONE] = 1.0  # the kernel reads the flag and returns
+            fn = lambda: ops.reg_step(part, scan, 1, 1, False, True, 0.0)  # noqa: E731
+            out[f"reg_step_done_{tag}_device_us"] = device_us(fn)[0]
+            out[f"reg_step_done_{tag}_graph_us"] = graph_us(torch, fn, calls=20)
+
+    sweeps = 10
+    for tag, nn in (("n%d" % n, n), ("n16384", 16_384)):
+        pts = make_cloud(nn, "trefoil", seed=4, device=dev)
+        prep = ops.prepare(pts)
+        total, cf = total_weight(pts, None), 1e-4 * scene_variance(pts)
+        init = init_params(pts, 8, torch.Generator().manual_seed(0))
+        cases = {"flat_K8": (prep, init)}
+        if nn == n:
+            level0 = em_sweeps(prep, init, sweeps, total, cf)
+            cases["grouped_K64"] = (ops.group_by_parent(prep, ops.assign(prep, level0.table), 8, 64),
+                                    seed_children(level0.params, 8))
+        for name, (data, start) in cases.items():
+            key = f"sweep_{name}_{tag}"
+            us, by_kernel = device_us(lambda: em_sweeps(data, start, sweeps, total, cf))
+            out[f"{key}_device_us"] = us / sweeps
+            out[f"{key}_device_us_by_kernel"] = {k[:60]: v / sweeps for k, v in by_kernel.items()}
+            one, two = (graph_us(torch, lambda s=s: em_sweeps(data, start, s, total, cf))
+                        for s in (sweeps, 2 * sweeps))
+            out[f"{key}_graph_us"] = (two - one) / sweeps
+            if name == "flat_K8" and hasattr(ops, "em_partials"):
+                fit = ops.new_fit(start, 1, total, cf)
+                rows = ops.em_partials(data, fit.table)
+                one_row = em_ref.partials_of(em_ref.sum_partials(rows))
+                for label, parts in ((f"nb{rows.n_rows}", rows), ("nb1", one_row)):
+                    fn = lambda parts=parts: ops.em_step(parts, fit, 0)  # noqa: E731
+                    out[f"em_step_{label}_{tag}_device_us"] = device_us(fn)[0]
     return out
 
 

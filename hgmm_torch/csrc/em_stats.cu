@@ -10,7 +10,8 @@
 // [K*10 + 1] partial and reduce_partials sums the blocks in a fixed order in
 // float64, so the result is reproducible run to run (the M-step's
 // T2/T0 - mu mu^T cancels in float32; a scheduling-dependent sum order would
-// show there).
+// show there). A fit's sweep launches the body alone (out NULL) and em_step
+// (csrc/em_step.cu) sums the rows in its place, in a fixed order too.
 //
 // Three kernel bodies; hgmm_torch/ops/fused_em.py picks by K and the mask
 // alone (plan_em_tiles for the unmasked ones).
@@ -231,7 +232,7 @@ cudaError_t launch_em_stats(const float* pts4, int n, const float* wn, int k, in
                             float outlier, float* partial, int nb, float* out, cudaStream_t stream) {
   em_stats_kernel<L><<<nb, ES_THREADS, 0, stream>>>(pts4, n, wn, k, has_outlier, outlier, partial);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || out == nullptr) return err;
   return launch_reduce_partials(partial, nb, k * 10 + 1, out, stream);
 }
 
@@ -535,7 +536,7 @@ cudaError_t launch_em_stats_tiled(const float* pts4, int n, const float* wn, int
   em_stats_tiled_kernel<NCG><<<nb, EMT_THREADS, smem, stream>>>(pts4, n, wn, k, has_outlier,
                                                                 outlier, partial);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || out == nullptr) return err;
   return launch_reduce_partials(partial, nb, k * 10 + 1, out, stream);
 }
 
@@ -673,8 +674,9 @@ extern "C" {
 
 // S and loglik of em_ref.em_stats into out[K*10 + 1] (S row-major, then
 // loglik) by the first kernel body, K <= 32, `lanes` lanes a point (1, 2 or
-// 4, at least K / 8). wn is [>= K, 12]; partial is [nb, K*10 + 1] scratch.
-// Returns the CUDA error code of the launches (0 on success).
+// 4, at least K / 8). wn is [>= K, 12]; partial is [nb, K*10 + 1], the
+// body's rows; out NULL: the body alone (a fit's sweep, whose em_step sums the
+// rows). Returns the CUDA error code of the launches (0 on success).
 int hgmm_em_stats(const void* pts4, int n, const void* wn, int k, int lanes, int has_outlier,
                   float outlier, void* partial, int nb, void* out, void* stream) {
   if (k < 1 || k >= hgmm::ES_KMAX || k > hgmm::ES_CT * lanes || nb < 1) return (int)cudaErrorInvalidValue;
@@ -694,8 +696,8 @@ int hgmm_em_stats(const void* pts4, int n, const void* wn, int k, int lanes, int
 // The same S and loglik for an unmasked call with K >= 33 through the
 // register-tiled kernel: wn is [k_pad, 12] with rows k..k_pad-1 at the mask
 // floor, k_pad one of 64, 128, ..., 2048; partial is [nb, K*10 + 1] scratch
-// with nb <= the SM count. Returns the CUDA error code (cudaErrorInvalidValue
-// for a k_pad outside the list).
+// with nb <= the SM count; out NULL: the body alone. Returns the CUDA error
+// code (cudaErrorInvalidValue for a k_pad outside the list).
 int hgmm_em_stats_tiled(const void* pts4, int n, const void* wn, int k, int k_pad, int has_outlier,
                         float outlier, void* partial, int nb, void* out, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
@@ -717,8 +719,9 @@ int hgmm_em_stats_tiled(const void* pts4, int n, const void* wn, int k, int k_pa
 // S and loglik of em_ref.em_stats_masked into out[K*10 + 1], from the
 // parent-sorted buffer pts4 [4, n] and its chunk table (chunks [n_chunks, 3]:
 // parent, first point, count; parent_off [ceil(K / branch) + 1]: the first
-// chunk of each parent, then n_chunks). partial is [n_chunks, branch*10 + 1]
-// scratch. branch <= 8. Returns the CUDA error code of the launches.
+// chunk of each parent, then n_chunks). partial is [n_chunks, branch*10 + 1],
+// the body's rows; out NULL: the body alone. branch <= 8. Returns the CUDA
+// error code of the launches.
 int hgmm_em_stats_grouped(const void* pts4, int n, const void* wn, int k, int branch,
                           const void* chunks, int n_chunks, const void* parent_off, void* partial,
                           void* out, void* stream) {
@@ -732,6 +735,7 @@ int hgmm_em_stats_grouped(const void* pts4, int n, const void* wn, int k, int br
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  if (out == nullptr) return (int)cudaSuccess;
   hgmm::em_grouped_reduce_kernel<<<(k * 10 + 1 + 7) / 8, 256, 0, s>>>(
       static_cast<const float*>(partial), n_chunks, branch, static_cast<const int*>(parent_off), k,
       static_cast<float*>(out));

@@ -119,9 +119,12 @@ def kernel_bound(kernel: str, **s) -> KernelBound:
     - ``reg_step`` (nb): the float64 sum of nb [59] partial rows and one pose
       solve (FLOP_REG_STEP) at the float64 peak; reads the rows and the scan
       state, writes the state and one loglik and delta.
-    - ``em_step`` (k, rows=k): FLOP_EM_STEP a component at the float64 peak;
-      reads S [K, 10], the loglik, total and cov_floor, writes pi, mu, sigma
-      (13 floats a component), the [rows, 12] table and one loglik.
+    - ``em_step`` (k, rows=k, nb=1, branch=None): the float64 sum of nb
+      partial rows of an em_stats body, 10 K + 1 floats each (10 branch + 1
+      for the grouped body's rows: pass branch), an add a float, then
+      FLOP_EM_STEP a component, at the float64 peak; reads the rows, total
+      and cov_floor, writes pi, mu, sigma (13 floats a component), the
+      [rows, 12] table and one loglik. nb = 1 is S and the loglik summed.
     - ``knn`` (nq, nt): 8 flop a pair; reads both clouds (12 B a point),
       writes 8 B a query.
     - ``probe_logits`` / ``probe_stats`` (k, t, steps, reps, dtype "bf16" or
@@ -155,9 +158,10 @@ def kernel_bound(kernel: str, **s) -> KernelBound:
         nb = s["nb"]
         return _bound(nb * 59.0 + FLOP_REG_STEP, nb * 59 * f4 + SCAN_BYTES, flop_rate=H100_FP64_FLOPS)
     if kernel == "em_step":
-        k = s["k"]
-        nbytes = (10 * k + 3) * f4 + 13 * k * f4 + 12 * s.get("rows", k) * f4 + f4
-        return _bound(k * FLOP_EM_STEP, nbytes, flop_rate=H100_FP64_FLOPS)
+        k, nb = s["k"], s.get("nb", 1)
+        width = 10 * (s.get("branch") or k) + 1
+        nbytes = (nb * width + 2) * f4 + 13 * k * f4 + 12 * s.get("rows", k) * f4 + f4
+        return _bound(nb * width + k * FLOP_EM_STEP, nbytes, flop_rate=H100_FP64_FLOPS)
     if kernel == "knn":
         nq, nt = s["nq"], s["nt"]
         return _bound(float(nq) * nt * FLOP_KNN_PAIR, 12.0 * (nq + nt) + 8.0 * nq)

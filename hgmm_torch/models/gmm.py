@@ -2,10 +2,11 @@
 
 Counterpart of ``hgmm/models/gmm.py``. The EM loop is a Python loop over
 sweeps (``em_sweeps``); each sweep is one E-step contraction
-(``hgmm_torch.ops.em_stats``) on the fit's packed weight table and the
+(``hgmm_torch.ops.em_partials``) on the fit's packed weight table and the
 closed-form M-step (``hgmm_torch.ops.em_step``), which writes the next
-parameters, table and loglik in place: on the card the E-step kernel, its
-reduce and the M-step kernel, with no value read back to the host.
+parameters, table and loglik in place: on the card the E-step kernel's body
+and the M-step kernel, which sums the body's partial rows, with no value read
+back to the host.
 """
 
 from __future__ import annotations
@@ -75,16 +76,14 @@ def total_weight(points: torch.Tensor, point_weights: torch.Tensor | None) -> to
 
 def em_sweeps(data, init: MixtureParams, n_iters: int, total, cov_floor, cov_reg: float = 1e-6,
               cov_type: str = "full") -> ops.EmFit:
-    """`n_iters` EM sweeps from `init` on `data`: an ops.Prepared buffer
-    (ops.em_stats), or a tree level's points grouped by parent
-    (ops.em_stats_grouped). Each sweep is the E-step on the fit's packed
-    table and ops.em_step; total and cov_floor are 0-d tensors on the
-    data's device. Returns the fit state: params, table, logliks [n_iters]."""
-    grouped = not isinstance(data, ops.Prepared)
-    fit = ops.new_fit(init, n_iters, total, cov_floor, masked=grouped)
+    """`n_iters` EM sweeps from `init` on `data`: an ops.Prepared buffer, or
+    a tree level's points grouped by parent (ops.group_by_parent). Each sweep
+    is the E-step on the fit's packed table (ops.em_partials) and
+    ops.em_step; total and cov_floor are 0-d tensors on the data's device.
+    Returns the fit state: params, table, logliks [n_iters]."""
+    fit = ops.new_fit(init, n_iters, total, cov_floor, masked=not isinstance(data, ops.Prepared))
     for it in range(n_iters):
-        stats = ops.em_stats_grouped(data, fit.table) if grouped else ops.em_stats(data, fit.table)
-        ops.em_step(stats, fit, it, cov_reg, cov_type)
+        ops.em_step(ops.em_partials(data, fit.table), fit, it, cov_reg, cov_type)
     return fit
 
 

@@ -7,8 +7,9 @@ plain version in ``em_ref``; a CUDA tensor goes to the CUDA kernel in
 Loops call ``prepare(points)`` once and pass the ``Prepared`` buffer to every
 sweep or iteration; raw [N, 3] points are accepted too and prepared per call.
 The E-step functions take W [10, K] or the packed table of a fit
-(``Packed``); a fit's sweep is ``em_stats`` (or ``em_stats_grouped``) on
-``fit.table``, then ``em_step`` on the fit state ``new_fit`` made.
+(``Packed``); a fit's sweep is ``em_partials`` on ``fit.table`` (on the card
+the E-step body alone, its partial rows not summed), then ``em_step`` on the
+fit state ``new_fit`` made, which sums the rows and runs the M-step.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from hgmm_torch.ops import em_ref, fused_em
-from hgmm_torch.ops.em_ref import EmFit, EmStats, Packed, RegScan, RegStats  # noqa: F401
+from hgmm_torch.ops.em_ref import EmFit, EmPartials, EmStats, Packed, RegScan, RegStats  # noqa: F401
 from hgmm_torch.ops.gaussians import MixtureParams, unpack_suffstats  # noqa: F401
 
 
@@ -113,8 +114,21 @@ def new_fit(init: MixtureParams, n_iters: int, total, cov_floor, masked: bool = 
     return em_ref.new_fit(init, n_iters, total, cov_floor, fused_em.table_rows(init.k, masked))
 
 
-def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
-    """The M-step of sweep `it` on the fit state, in place (em_ref.em_step)."""
+def em_partials(data, W) -> EmPartials:
+    """The E-step of a fit's sweep on `data`, a Prepared buffer or a level's
+    points grouped by parent (group_by_parent): on the card the body's
+    partial rows, one launch, summed by em_step; on the CPU the plain
+    statistics as one row (em_ref.partials_of)."""
+    if isinstance(data, fused_em.ParentGroups):
+        return fused_em.em_partials_grouped(data, W)
+    if isinstance(data, Prepared) and data.pts4.is_cuda:
+        return fused_em.em_partials(data.pts4, W)
+    return em_ref.partials_of(em_stats(data, W) if isinstance(data, Prepared) else em_stats_grouped(data, W))
+
+
+def em_step(stats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
+    """The M-step of sweep `it` on the fit state, in place (em_ref.em_step),
+    from the sweep's EmPartials (em_partials) or its EmStats."""
     if fit.mu.is_cuda:
         return fused_em.em_step(stats, fit, it, cov_reg, cov_type)
     return em_ref.em_step(stats, fit, it, cov_reg, cov_type)

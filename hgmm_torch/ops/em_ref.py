@@ -22,7 +22,10 @@ Contracts (shared with the kernels in ``hgmm_torch.ops.fused_em``):
                                                        sweep on the fit state:
                                                        parameters, the next
                                                        packed table, loglik
-                                                       (in place)
+                                                       (in place); stats may
+                                                       be an E-step body's
+                                                       unsummed partial rows
+                                                       (EmPartials)
 
 W is the [10, K] weight matrix of gaussians.pack_loglik_weights, or the
 kernels' packed table of it (``Packed``, ``pack_table``), which the E-step
@@ -392,13 +395,61 @@ def new_fit(init: MixtureParams, n_iters: int, total, cov_floor, rows: int | Non
                  torch.as_tensor(cov_floor, **like).reshape(()).clone())
 
 
-def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
+class EmPartials(NamedTuple):
+    """An E-step body's partial rows, not yet summed: what a fit's sweep
+    hands em_step (csrc/em_step.cu sums them, sum_partials here).
+    branch 0, the plain rows: partial [>= n_rows, K*10 + 1], every row adds
+    S row-major and the loglik (em_stats_kernel, em_stats_tiled_kernel; on
+    the CPU one row, the sums: partials_of). branch > 0, the grouped rows:
+    partial [>= n_rows, branch*10 + 1], rows parent_off[p] .. parent_off[p +
+    1] - 1 ([ceil(K / branch) + 1] int32) add to the children p branch ..
+    p branch + branch - 1 of parent p, and every row to the loglik in its
+    last column (em_stats_grouped_kernel). span: the most rows one component
+    sums (em_step's launch plan)."""
+
+    partial: torch.Tensor
+    k: int
+    n_rows: int
+    span: int
+    branch: int = 0
+    parent_off: torch.Tensor | None = None
+
+
+def partials_of(stats: EmStats) -> EmPartials:
+    """EmStats as one plain partial row: S row-major, then the loglik."""
+    k = stats.S.shape[0]
+    row = torch.cat([stats.S.reshape(-1), stats.loglik.reshape(1).to(stats.S.dtype)])
+    return EmPartials(row[None, :], k, 1, 1)
+
+
+def sum_partials(parts: EmPartials) -> EmStats:
+    """The float64 sum of the partial rows, in the partials' dtype: S [K, 10]
+    and the loglik (the plain twin of csrc/em_step.cu's sum, and of the
+    reduce kernels of csrc/em_stats.cu)."""
+    p = parts.partial[: parts.n_rows].double()
+    k = parts.k
+    if parts.branch == 0:
+        S = p[:, : 10 * k].sum(0).reshape(k, 10)
+    else:
+        off = parts.parent_off.long()
+        n_par = off.shape[0] - 1
+        par = torch.searchsorted(off, torch.arange(parts.n_rows, device=p.device), right=True) - 1
+        S = torch.zeros((n_par, parts.branch * 10), dtype=p.dtype, device=p.device)
+        S = S.index_add_(0, par, p[:, : parts.branch * 10]).reshape(n_par * parts.branch, 10)[:k]
+    dtype = parts.partial.dtype
+    return EmStats(S.to(dtype), p[:, -1].sum().to(dtype))
+
+
+def em_step(stats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
     """Plain twin of csrc/em_step.cu: the M-step from the sweep's statistics
     (gaussians.mstep_update), the next sweep's packed table of the new
     parameters (pack_loglik_weights, pack_table) and logliks[it] =
-    stats.loglik, all in place on `fit`, in the fit's dtype."""
+    stats.loglik, all in place on `fit`, in the fit's dtype. stats: EmStats,
+    or the body's EmPartials, summed first (sum_partials)."""
     if cov_type not in COV_TYPES:
         raise ValueError(f"em_step: cov_type {cov_type!r} not in {COV_TYPES}")
+    if isinstance(stats, EmPartials):
+        stats = sum_partials(stats)
     T0, T1, T2 = unpack_suffstats(stats.S.to(fit.mu.dtype))
     new = mstep_update(T0, T1, T2, fit.total, cov_reg=cov_reg, cov_type=cov_type, cov_floor=fit.cov_floor)
     for buf, val in zip(fit.params, new):

@@ -17,9 +17,12 @@ geometry of ``plan_em_tiles``; unmasked calls with K <= 32 the first one, a
 point on 1 to 4 lanes (``plan_em_lanes``); masked calls run by parent chunks
 over the points sorted by parent (``group_by_parent``, ``plan_parent_chunks``).
 K and the mask alone decide. Each takes W [10, K] or the packed table
-(``em_ref.Packed``) that ``em_step`` (``csrc/em_step.cu``) writes: a fit's
-sweep is ``em_stats`` and its reduce, then ``em_step``, three launches and no
-host read (``new_fit`` holds the state on the card).
+(``em_ref.Packed``) that ``em_step`` (``csrc/em_step.cu``) writes. A fit's
+sweep launches the body alone (``em_partials``, ``em_partials_grouped``: the
+partial rows, not summed) and then ``em_step``, which sums the rows and runs
+the M-step (launch geometry from ``plan_em_step``): two launches and no host
+read (``new_fit`` holds the state on the card). ``em_stats`` and
+``em_stats_grouped`` add the reduce kernel for their other callers.
 
 A registration scan builds its tables once (``reg_tables``), and its state
 lives on the card (``new_scan``): ``reg_partials`` (``csrc/reg_stats.cu``,
@@ -39,11 +42,13 @@ from hgmm_torch.ops.em_ref import (
     REG_OUT,
     SCAN_FLOATS,
     EmFit,
+    EmPartials,
     EmStats,
     Packed,
     RegScan,
     RegStats,
     pack_table,
+    partials_of,
 )
 from hgmm_torch.ops.em_ref import new_scan as em_ref_new_scan
 
@@ -73,6 +78,14 @@ SMEM_LIMIT = 232_448  # bytes of shared memory a block can use on the H100 (227 
 RS_THREADS = 256
 RS_MIN_WARPS_PER_SM = 8  # below it the plan gives a point more lanes
 RS_BLOCKS_PER_SM = 4  # cap of the grid, so of the partial rows
+# reg_step (csrc/reg_step.cu) and its plan.
+STEP_PASS_ROWS = 16  # partial rows a pass of the block reads (944 floats)
+STEP_UNROLL = 16  # passes a block has in flight at once
+STEP_CLUSTER = 8  # blocks of one thread block cluster past one batch of passes
+# em_step (csrc/em_step.cu) and its plan.
+EMS_MAX_WARPS = 16  # a component's warps, at most
+EMS_ROWS_A_LANE = 12  # partial rows a lane sums (its loads in flight at once) before the plan adds a warp
+EMS_WARPS_PER_SM = 64  # resident warps an SM on the H100
 
 # Kernel launches by wrapper, for showing that a run went through the kernels
 # (ops/knn.py and ops/probes.py count their kernels here too).
@@ -242,8 +255,10 @@ def _outlier(outlier_logit) -> tuple[int, float]:
     return (0, 0.0) if outlier_logit is None else (1, float(outlier_logit))
 
 
-def em_stats(pts4: torch.Tensor, W, outlier_logit=None) -> EmStats:
-    """Kernel twin of em_ref.em_stats on a prepared [4, N] buffer; W is
+def em_partials(pts4: torch.Tensor, W, outlier_logit=None, out: torch.Tensor | None = None) -> EmPartials:
+    """The unmasked em_stats body on a prepared [4, N] buffer, one launch:
+    its partial rows [nb, K*10 + 1], which em_step sums (a fit's sweep); with
+    `out` [K*10 + 1] the reduce kernel also writes their sum there. W is
     [10, K] or a Packed table (table_rows(K) rows)."""
     n = _check_points(pts4)
     k = W.k if isinstance(W, Packed) else W.shape[1]
@@ -253,48 +268,92 @@ def em_stats(pts4: torch.Tensor, W, outlier_logit=None) -> EmStats:
     lane_plan = plan_em_lanes(n, k, sms) if plan is None else None
     nb = lane_plan.blocks if plan is None else plan.blocks(n, sms)
     partial = torch.empty((nb, k * 10 + 1), dtype=torch.float32, device=pts4.device)
-    out = torch.empty((k * 10 + 1,), dtype=torch.float32, device=pts4.device)
+    out_p = None if out is None else out.data_ptr()
     has_out, out_l = _outlier(outlier_logit)
     with torch.cuda.device(pts4.device):
         if plan is None:
             err = _build.load().hgmm_em_stats(
                 pts4.data_ptr(), n, wn.data_ptr(), k, lane_plan.lanes, has_out, out_l, partial.data_ptr(), nb,
-                out.data_ptr(), _stream(pts4),
+                out_p, _stream(pts4),
             )
         else:
             err = _build.load().hgmm_em_stats_tiled(
                 pts4.data_ptr(), n, wn.data_ptr(), k, plan.k_pad, has_out, out_l,
-                partial.data_ptr(), nb, out.data_ptr(), _stream(pts4),
+                partial.data_ptr(), nb, out_p, _stream(pts4),
             )
     _raise_on(err, "em_stats")
     LAUNCHES["em_stats"] += 1
+    return EmPartials(partial, k, nb, nb)
+
+
+def em_stats(pts4: torch.Tensor, W, outlier_logit=None) -> EmStats:
+    """Kernel twin of em_ref.em_stats on a prepared [4, N] buffer: the body
+    and the reduce; W is [10, K] or a Packed table (table_rows(K) rows)."""
+    k = W.k if isinstance(W, Packed) else W.shape[1]
+    out = torch.empty((k * 10 + 1,), dtype=torch.float32, device=pts4.device)
+    em_partials(pts4, W, outlier_logit, out)
     return EmStats(S=out[: k * 10].view(k, 10), loglik=out[k * 10])
 
 
-def em_step(stats: EmStats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """Launch geometry of em_step (csrc/em_step.cu): a block of `warps` warps
+    a component, then one for the loglik and the floor rows (`blocks` = K +
+    1)."""
+
+    warps: int
+    blocks: int
+
+
+def plan_em_step(k: int, span: int, sms: int) -> StepPlan:
+    """A component's warps: enough that a lane sums at most EMS_ROWS_A_LANE
+    of the `span` partial rows it reads (a warp reads three rows at once), at
+    most EMS_MAX_WARPS, and no more than the card holds resident for K + 1
+    blocks at once (EMS_WARPS_PER_SM an SM); at least one."""
+    if sms < 1 or not 1 <= k <= MAX_K or span < 0:
+        raise ValueError(f"plan_em_step: K={k}, {span} rows, {sms} SMs")
+    want = -(-max(span, 1) // (3 * EMS_ROWS_A_LANE))
+    room = EMS_WARPS_PER_SM * sms // (k + 1)
+    return StepPlan(max(1, min(EMS_MAX_WARPS, want, room)), k + 1)
+
+
+def em_step(parts, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
     """Kernel twin of em_ref.em_step (csrc/em_step.cu): one launch after an
-    em_stats call's reduce; the fit's parameters, table and logliks[it]
-    written on the card from the statistics, total and cov_floor there,
+    em_stats body that sums its partial rows (EmPartials, either layout; an
+    EmStats is taken as one row) and writes the fit's parameters, table and
+    logliks[it] on the card from them and the total and cov_floor there,
     nothing read back."""
+    if isinstance(parts, EmStats):
+        parts = partials_of(parts)
     k, wn = fit.table.k, fit.table.wn
     rows = wn.shape[0]
     dev = wn.device
-    for name, t, shape in (("S", stats.S, (k, 10)), ("loglik", stats.loglik, ()), ("pi", fit.pi, (k,)),
-                           ("mu", fit.mu, (k, 3)), ("sigma", fit.sigma, (k, 3, 3)),
-                           ("table", wn, (rows, 12)), ("logliks", fit.logliks, tuple(fit.logliks.shape)),
-                           ("total", fit.total, ()), ("cov_floor", fit.cov_floor, ())):
-        _check(name, t, torch.float32, shape)
+    width = (parts.branch or k) * 10 + 1
+    n_par = -(-k // parts.branch) if parts.branch else 0
+    checks = [("partial", parts.partial, torch.float32, (parts.partial.shape[0], width)),
+              ("pi", fit.pi, torch.float32, (k,)), ("mu", fit.mu, torch.float32, (k, 3)),
+              ("sigma", fit.sigma, torch.float32, (k, 3, 3)), ("table", wn, torch.float32, (rows, 12)),
+              ("logliks", fit.logliks, torch.float32, tuple(fit.logliks.shape)),
+              ("total", fit.total, torch.float32, ()), ("cov_floor", fit.cov_floor, torch.float32, ())]
+    if parts.branch:
+        checks.append(("parent_off", parts.parent_off, torch.int32, (n_par + 1,)))
+    for name, t, dtype, shape in checks:
+        _check(name, t, dtype, shape)
         if t.device != dev:
             raise ValueError(f"em_step: {name} on {t.device}, the table on {dev}")
-    if not 0 <= it < fit.logliks.shape[0] or cov_type not in COV_TYPES or rows < k:
+    if (not 0 <= it < fit.logliks.shape[0] or cov_type not in COV_TYPES or rows < k or parts.k != k
+            or not 0 <= parts.n_rows <= parts.partial.shape[0] or parts.branch > EG_BMAX):
         raise ValueError(f"em_step: sweep {it} of {fit.logliks.shape[0]}, cov_type {cov_type!r}, "
-                         f"{rows} rows for K={k}")
+                         f"{rows} rows for K={k}, partials of K={parts.k} with {parts.n_rows} rows "
+                         f"of {tuple(parts.partial.shape)}, branch {parts.branch}")
+    plan = plan_em_step(k, parts.span, _sms(dev))
     with torch.cuda.device(dev):
         err = _build.load().hgmm_em_step(
-            stats.S.data_ptr(), stats.loglik.data_ptr(), fit.total.data_ptr(), fit.cov_floor.data_ptr(), k,
-            rows, float(cov_reg), COV_TYPES.index(cov_type), fit.pi.data_ptr(),
-            fit.mu.data_ptr(), fit.sigma.data_ptr(), wn.data_ptr(), fit.logliks.data_ptr(), it,
-            _stream(wn),
+            parts.partial.data_ptr(), parts.n_rows,
+            parts.parent_off.data_ptr() if parts.branch else None, parts.branch,
+            fit.total.data_ptr(), fit.cov_floor.data_ptr(), k, rows, float(cov_reg),
+            COV_TYPES.index(cov_type), fit.pi.data_ptr(), fit.mu.data_ptr(), fit.sigma.data_ptr(),
+            wn.data_ptr(), fit.logliks.data_ptr(), it, plan.warps, _stream(wn),
         )
     _raise_on(err, "em_step")
     LAUNCHES["em_step"] += 1
@@ -329,6 +388,7 @@ class ParentGroups:
     branch: int
     k: int
     chunk_points: int
+    parent_rows: int  # the most chunks of one parent
     chunks: torch.Tensor  # [n_chunks, 3] int32: parent, first point, count
     parent_off: torch.Tensor  # [n_parents + 1] int32
     partial: torch.Tensor  # [max(n_chunks, 1), branch*10 + 1]
@@ -366,28 +426,40 @@ def group_by_parent(pts4: torch.Tensor, parent: torch.Tensor, branch: int, k: in
     dev_tab = host.to(pts4.device, non_blocking=True)
     return ParentGroups(
         pts4=pts4[:, order].contiguous(), branch=branch, k=k, chunk_points=size,
+        parent_rows=max((b - a for a, b in zip(off, off[1:])), default=0),
         chunks=dev_tab[: 3 * len(chunks)].view(-1, 3), parent_off=dev_tab[3 * len(chunks):],
         partial=torch.empty((max(len(chunks), 1), branch * 10 + 1), dtype=torch.float32,
                             device=pts4.device),
     )
 
 
-def em_stats_grouped(groups: ParentGroups, W) -> EmStats:
-    """Kernel twin of em_ref.em_stats_masked on a level's grouped points; W
-    is [10, K] or a Packed table."""
+def em_partials_grouped(groups: ParentGroups, W, out: torch.Tensor | None = None) -> EmPartials:
+    """The masked em_stats body on a level's grouped points, one launch: its
+    partial rows [n_chunks, branch*10 + 1] (a chunk's), which em_step sums
+    by parent (a fit's sweep); with `out` [K*10 + 1] the reduce kernel also
+    writes their sum there. W is [10, K] or a Packed table."""
     k = W.k if isinstance(W, Packed) else W.shape[1]
     if k != groups.k:
         raise ValueError(f"em_stats_masked: W has K={k}, the groups were made for K={groups.k}")
     wn = _table(W, groups.pts4.device).wn
-    out = torch.empty((k * 10 + 1,), dtype=torch.float32, device=groups.pts4.device)
     with torch.cuda.device(groups.pts4.device):
         err = _build.load().hgmm_em_stats_grouped(
             groups.pts4.data_ptr(), groups.pts4.shape[1], wn.data_ptr(), k, groups.branch,
             groups.chunks.data_ptr(), groups.n_chunks, groups.parent_off.data_ptr(),
-            groups.partial.data_ptr(), out.data_ptr(), _stream(groups.pts4),
+            groups.partial.data_ptr(), None if out is None else out.data_ptr(), _stream(groups.pts4),
         )
     _raise_on(err, "em_stats_masked")
     LAUNCHES["em_stats_masked"] += 1
+    return EmPartials(groups.partial, k, groups.n_chunks, groups.parent_rows, groups.branch,
+                      groups.parent_off)
+
+
+def em_stats_grouped(groups: ParentGroups, W) -> EmStats:
+    """Kernel twin of em_ref.em_stats_masked on a level's grouped points: the
+    body and the reduce; W is [10, K] or a Packed table."""
+    k = W.k if isinstance(W, Packed) else W.shape[1]
+    out = torch.empty((k * 10 + 1,), dtype=torch.float32, device=groups.pts4.device)
+    em_partials_grouped(groups, W, out)
     return EmStats(S=out[: k * 10].view(k, 10), loglik=out[k * 10])
 
 
@@ -543,6 +615,17 @@ def new_scan(R: torch.Tensor, t: torch.Tensor, n_iters: int) -> RegScan:
     return em_ref_new_scan(R, t, n_iters, dtype=torch.float32)
 
 
+def plan_reg_step(nb: int) -> int:
+    """reg_step's blocks, one thread block cluster: one block while the nb
+    partial rows are one batch of its loads (STEP_PASS_ROWS x STEP_UNROLL
+    rows), STEP_CLUSTER past it, which read the rows side by side and add
+    their sums through distributed shared memory. On an H100 a block takes
+    ~0.8 us a batch of 256 rows, and the cluster's barriers ~1 us (PERF.md)."""
+    if nb < 1:
+        raise ValueError(f"plan_reg_step: {nb} partial rows")
+    return 1 if nb <= STEP_PASS_ROWS * STEP_UNROLL else STEP_CLUSTER
+
+
 def reg_step(partial: torch.Tensor, scan: RegScan, it: int, solver: int, first: bool, last: bool,
              tol: float) -> None:
     """Kernel twin of em_ref.reg_step (csrc/reg_step.cu): one launch, the
@@ -555,10 +638,13 @@ def reg_step(partial: torch.Tensor, scan: RegScan, it: int, solver: int, first: 
         _check(name, t, torch.float32, tuple(t.shape))
     if not 0 <= it < scan.logliks.shape[0] or solver not in (0, 1):
         raise ValueError(f"reg_step: iteration {it} of {scan.logliks.shape[0]}, solver {solver}")
+    if partial.data_ptr() % 16:
+        raise ValueError("reg_step: the partial rows must start on a 16-byte boundary (the kernel reads float4)")
     with torch.cuda.device(partial.device):
         err = _build.load().hgmm_reg_step(
             partial.data_ptr(), partial.shape[0], scan.state.data_ptr(), scan.logliks.data_ptr(),
-            scan.deltas.data_ptr(), it, solver, int(first), int(last), float(tol), _stream(partial),
+            scan.deltas.data_ptr(), it, solver, int(first), int(last), float(tol),
+            plan_reg_step(partial.shape[0]), _stream(partial),
         )
     _raise_on(err, "reg_step")
     LAUNCHES["reg_step"] += 1

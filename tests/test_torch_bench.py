@@ -293,6 +293,21 @@ def test_kernel_bound_estimates_of_the_table():
         roofline.kernel_bound("em_sweep", n=1, k=1)
 
 
+@pytest.mark.parametrize("nb,branch", [(528, None), (132, None), (900, 8)])
+def test_em_step_bound_counts_the_partial_rows(nb, branch):
+    """em_step reads the body's partial rows, nb x (10 K + 1) floats (10
+    branch + 1 for the grouped body's), not S, and adds each once in float64;
+    nb = 1 is the S-and-loglik row."""
+    k = 8 if branch is None else 64
+    width = 10 * (branch or k) + 1
+    b = roofline.kernel_bound("em_step", k=k, rows=k, nb=nb, branch=branch)
+    assert b.bytes == (nb * width + 2 + 13 * k + 12 * k + 1) * 4
+    assert b.flops == nb * width + k * roofline.FLOP_EM_STEP
+    assert b.seconds == pytest.approx(max(b.bytes / 3.35e12, b.flops / roofline.H100_FP64_FLOPS), rel=1e-12)
+    one = roofline.kernel_bound("em_step", k=k, rows=k, nb=1, branch=None)
+    assert one.bytes == roofline.kernel_bound("em_step", k=k, rows=k).bytes == ((10 * k + 3) + 25 * k + 1) * 4
+
+
 def test_estep_attainable_hand_arithmetic_and_fields():
     att = roofline.estep_attainable(512)
     t_fma, t_sfu, t_hbm = 512 * 40 / 67e12, 512 / roofline.H100_SFU_OPS, 16 / 3.35e12

@@ -545,9 +545,22 @@ def _scan_inputs(cuda, k=64, n=5000, seed=25):
     return pts, W, params.mu, sym_pack(A), b
 
 
+def _split_rows(part, nb, seed):
+    """The float64 sum of part's rows split into nb float32 rows by random
+    positive shares: other partial rows of about the same statistics."""
+    g = torch.Generator().manual_seed(seed)
+    share = torch.rand(nb, generator=g, dtype=torch.float64).to(part.device) + 0.5
+    return (part.double().sum(0)[None] * (share / share.sum())[:, None]).float().contiguous()
+
+
 @pytest.mark.parametrize("solver", [0, 1])
 @pytest.mark.parametrize("first,last", [(True, True), (True, False), (False, True)])
-def test_reg_step_against_its_twin(cuda, solver, first, last):
+@pytest.mark.parametrize("nb", [None, 1, 33, 528])
+def test_reg_step_against_its_twin(cuda, solver, first, last, nb):
+    """On reg_stats' own rows (None) and on 1, 33 and 528 rows of the same
+    statistics (528: the rows of a 437,645-point scan; the kernel reads 16
+    rows a pass, so 33 leaves a ragged pass); two launches from one state
+    give equal bits."""
     from hgmm_torch import ops
 
     pts, W, mu, A6, b3 = _scan_inputs(cuda)
@@ -558,9 +571,14 @@ def test_reg_step_against_its_twin(cuda, solver, first, last):
     scan.state[em_ref.SCAN_LL] = -7.0
     twin = em_ref.RegScan(*(t.cpu().clone() for t in scan))
     part = ops.reg_partials(prob, scan).clone()
+    if nb is not None:
+        part = _split_rows(part, nb, nb)
+    again = em_ref.RegScan(*(t.clone() for t in scan))
     before = fused_em.LAUNCHES["reg_step"]
     ops.reg_step(part, scan, 2, solver, first, last, 1e-7)
     assert fused_em.LAUNCHES["reg_step"] == before + 1
+    ops.reg_step(part, again, 2, solver, first, last, 1e-7)
+    assert all(torch.equal(a, b) for a, b in zip(scan, again))
     em_ref.reg_step(part.cpu(), twin, 2, solver, first, last, 1e-7)
     # float64 in the kernel, float32 in the twin: the pose to float32 rounding
     torch.testing.assert_close(scan.state.cpu()[:24], twin.state[:24], rtol=0, atol=2e-5)
@@ -774,13 +792,76 @@ def test_em_step_against_its_twin(cuda, k, cov_type):
     assert fit.logliks.cpu().tolist() == [0.0, float(st.loglik), 0.0]
 
 
+@pytest.mark.parametrize("k", [8, 40, 64, 100, 512])
+@pytest.mark.parametrize("layout", ["plain", "grouped"])
+@pytest.mark.parametrize("cov_type", ["full", "iso", "diag"])
+def test_em_step_on_partial_rows_against_its_twin(cuda, k, layout, cov_type):
+    """em_step on the rows of the three em_stats bodies (plain: the first
+    body at K = 8, the tiled one at K >= 40; grouped: the masked body by
+    parent chunks), one launch: against a float64 run of the twin on the
+    rows' float32 sums (em_ref.sum_partials), within a few float32 roundings
+    of each value (the table's entries against their row's largest); the
+    loglik within a float32 rounding of the rows' sum; the floor rows (K =
+    40, 100: 64 and 128 rows); two launches give equal bits."""
+    from hgmm_torch import ops
+
+    n = 20_000
+    pts, w = _inputs(n, k + 60, cuda)
+    w[::4] = 0.0
+    p = _mixture(k, k + 61, cuda, dead=(0,))
+    W = pack_loglik_weights(p)
+    p4 = prepare(pts, w).pts4
+    if layout == "plain":
+        parts = fused_em.em_partials(p4, W)
+    else:
+        parent = torch.randint(-1, -(-k // 8), (n,), generator=torch.Generator().manual_seed(k)).to(cuda)
+        parts = fused_em.em_partials_grouped(fused_em.group_by_parent(p4, parent, 8, k), W)
+    host = parts._replace(partial=parts.partial.cpu(),
+                          parent_off=None if parts.parent_off is None else parts.parent_off.cpu())
+    st = em_ref.sum_partials(host)
+    total, cf = w.sum(), torch.tensor(1e-4, device=cuda)
+    fits = [ops.new_fit(p, 2, total, cf, masked=layout == "grouped") for _ in range(2)]
+    rows = fits[0].table.wn.shape[0]
+    f64 = em_ref.new_fit(MixtureParams(*(a.cpu().double() for a in p)), 2, total.cpu().double(),
+                         cf.cpu().double(), rows)
+    before = fused_em.LAUNCHES["em_step"]
+    for fit in fits:
+        ops.em_step(parts, fit, 1, 1e-6, cov_type)
+    assert fused_em.LAUNCHES["em_step"] == before + 2
+    for a, b in zip((*fits[0].params, fits[0].table.wn, fits[0].logliks),
+                    (*fits[1].params, fits[1].table.wn, fits[1].logliks)):
+        assert torch.equal(a, b)
+    fit = fits[0]
+    em_ref.em_step(em_ref.EmStats(st.S.double(), st.loglik.double()), f64, 1, 1e-6, cov_type)
+    for name in ("pi", "mu", "sigma"):
+        got, ref = getattr(fit, name).cpu().double(), getattr(f64, name)
+        _close(got, ref, 1e-6, 1e-6 * float(ref.abs().max()))
+    live = f64.pi > 0
+    got, ref = fit.table.wn.cpu().double(), f64.table.wn
+    row_top = ref[:k].abs().amax(1, keepdim=True)
+    err = (got[:k] - ref[:k]).abs()[live]
+    assert bool((err <= 1e-6 * ref[:k][live].abs() + 1e-6 * row_top[live]).all())
+    assert float(fit.pi[0]) == 0.0 and bool((got[:k, 9][~live] < -1e29).all())
+    pad = fit.table.wn.cpu()[k:]
+    assert bool((pad[:, :9] == 0).all()) and bool((pad[:, 9] == em_ref.NEG_INF).all())
+    lls = fit.logliks.cpu()
+    assert float(lls[0]) == 0.0 and abs(float(lls[1]) - float(st.loglik)) <= 2.0 ** -23 * abs(float(st.loglik))
+
+
 @pytest.mark.parametrize("case", ["flat8", "flat64", "grouped64"])
 def test_fit_sweeps_on_the_card_make_no_host_sync(cuda, case):
     """A level's sweeps on the card: the E-step (the first body at K = 8, the
     tiled one at K = 64 on its padded table, the grouped one masked) and
     em_step, one launch of each a sweep, no host sync inside the loop (torch's
-    sync debug mode set to raise); the per-point loglik after the sweeps
-    against the same loop on the CPU through the plain versions."""
+    sync debug mode set to raise), two kernels a sweep by the profiler (the
+    body, then em_step on its partial rows: the kernels of 2s sweeps less
+    those of s, over s); the per-point loglik after the sweeps against the
+    same loop on the CPU through the plain versions."""
+    import json
+    import tempfile
+    from pathlib import Path
+
+    from hgmm_torch.utils.profiling import trace
     from hgmm_torch import ops
     from hgmm_torch.data.synthetic import make_cloud
     from hgmm_torch.models.gmm import em_sweeps, init_params, scene_variance, total_weight
@@ -815,6 +896,15 @@ def test_fit_sweeps_on_the_card_make_no_host_sync(cuda, case):
             estep = "em_stats_masked" if case == "grouped64" else "em_stats"
             assert fused_em.LAUNCHES[estep] - before[estep] == sweeps
             assert fused_em.LAUNCHES["em_step"] - before["em_step"] == sweeps
+            kernels = []
+            for s_ in (sweeps, 2 * sweeps):
+                with tempfile.TemporaryDirectory() as d:
+                    with trace(d):
+                        em_sweeps(data, start, s_, total, cf)
+                        torch.cuda.synchronize()
+                    events = json.loads((Path(d) / "trace.json").read_text())["traceEvents"]
+                kernels.append(sum(1 for e in events if e.get("cat") == "kernel" and "dur" in e))
+            assert (kernels[1] - kernels[0]) / sweeps == 2
         else:
             fit = em_sweeps(data, start, sweeps, total, cf)
         fits[dev.type] = (fit.logliks.cpu() / total.cpu(), fit)

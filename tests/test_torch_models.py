@@ -171,6 +171,72 @@ def test_tree_fit_sweep_loop_weighted_diag():
     assert [lvl.pi.shape[0] for lvl in tt.levels] == [8, 64]
 
 
+def _chunk_partials(pts, w, W, parent=None, branch=8, chunks=5):
+    """An E-step's partial rows from point chunks, as the card's bodies cut
+    them: plain, a row a chunk of the points (em_ref.em_stats on it); grouped
+    by parent, a row a chunk of one parent's points (its children's block of
+    em_ref.em_stats_masked on it), parent_off each parent's first row."""
+    from hgmm_torch.ops import em_ref
+
+    k = W.k if isinstance(W, em_ref.Packed) else W.shape[1]
+    if parent is None:
+        rows = [em_ref.partials_of(em_ref.em_stats(pts[c], W, w[c])).partial
+                for c in np.array_split(np.arange(pts.shape[0]), chunks)]
+        return em_ref.EmPartials(torch.cat(rows), k, len(rows), len(rows))
+    n_par = -(-k // branch)
+    rows, off = [], [0]
+    for par in range(n_par):
+        mine = np.flatnonzero(parent.numpy() == par)
+        for c in np.array_split(mine, 2) if mine.size else []:
+            st = em_ref.em_stats_masked(pts[c], W, parent[c], branch, w[c])
+            block = torch.zeros(branch, 10)
+            block[: min(branch, k - par * branch)] = st.S[par * branch:(par + 1) * branch]
+            rows.append(torch.cat([block.reshape(-1), st.loglik.reshape(1)])[None])
+        off.append(len(rows))
+    return em_ref.EmPartials(torch.cat(rows), k, len(rows), 2, branch, torch.tensor(off, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("cov_type", ["full", "diag"])
+def test_fits_through_the_partial_rows_twin_equal_the_fits_on_summed_statistics(cov_type):
+    """On the CPU a flat fit and a tree level's grouped fit, as em_sweeps
+    runs them (ops.em_partials, then em_ref.em_step on the rows), bit-equal
+    the loop on summed statistics (em_stats, then em_ref.em_step on S); the
+    same sweeps on an E-step cut into chunk rows of either layout (the
+    twin's float64 sum of the rows) stay within the tolerances that hold the
+    two packages' fits together: another order of float32 sums over the
+    points."""
+    from hgmm_torch import ops
+    from hgmm_torch.models.gmm_tree import seed_children
+    from hgmm_torch.ops import em_ref
+
+    pts_np = _cloud(1500, seed=9)
+    w_np = np.random.default_rng(10).uniform(0.2, 1.0, 1500).astype(np.float32)
+    w_np[::5] = 0.0
+    pts, w = torch.from_numpy(pts_np), torch.from_numpy(w_np)
+    prep = ops.prepare(pts, w)
+    total, cf = tgmm.total_weight(pts, w), 1e-3 * tgmm.scene_variance(pts, w)
+    init = convert.mixture_from_numpy(*_init(pts_np, 8, 11))
+    level0 = tgmm.em_sweeps(prep, init, 6, total, cf, cov_type=cov_type)
+    parent = ops.assign(prep, level0.table)
+    groups = ops.group_by_parent(prep, parent, 8, 64)
+    cases = (("flat", prep, init, None), ("grouped", groups, seed_children(level0.params, 8), parent))
+    for name, data, start, par in cases:
+        fit = tgmm.em_sweeps(data, start, 6, total, cf, cov_type=cov_type)
+        before, chunked = (ops.new_fit(start, 6, total, cf, masked=par is not None) for _ in range(2))
+        for it in range(6):
+            st = ops.em_stats(data, before.table) if par is None else ops.em_stats_grouped(data, before.table)
+            em_ref.em_step(st, before, it, 1e-6, cov_type)
+            em_ref.em_step(_chunk_partials(pts, w, chunked.table, par), chunked, it, 1e-6, cov_type)
+        for a, b in zip((*fit.params, fit.table.wn, fit.logliks),
+                        (*before.params, before.table.wn, before.logliks)):
+            assert torch.equal(a, b), name
+        # another float32 sum order over the points: the tolerances of the
+        # two packages' fits above (test_em_fit_sweep_loop_from_same_init)
+        for c, b, tol in zip((*chunked.params, chunked.logliks), (*before.params, before.logliks),
+                             ((1e-3, 1e-5), (1e-3, 1e-4), (1e-2, 1e-5), (1e-4, 1e-2))):
+            _close(c, b, *tol)
+
+
 def test_init_params_and_scene_variance():
     pts = torch.from_numpy(_cloud(500))
     a = tgmm.init_params(pts, 8, torch.Generator().manual_seed(3))

@@ -324,3 +324,85 @@ def test_em_step_twin_is_hgmms_mstep_and_packing(k, weighted, cov_type):
     assert fit.logliks.tolist() == [0.0, float(ll), 0.0]
     # The table reads back as W bit for bit.
     assert torch.equal(tref.weights(fit.table), tg.pack_loglik_weights(fit.params))
+
+
+def _rows_of(S, ll, layout, k):
+    """Partial rows whose float64 sum is exactly S and ll: shares 1/2, 1/4,
+    1/8, 1/8 of every value (scaling by a power of two is exact), plain
+    ([4, K*10 + 1], every row a share of all of S) or grouped by parent
+    (branch 8: 1 to 4 rows a parent, each a share of its children's rows of S
+    and of the loglik); two NaN rows past the last, which no sum may read."""
+    full = np.concatenate([S.reshape(-1), [ll]]).astype(np.float32)
+    shares = np.array([0.5, 0.25, 0.125, 0.125], np.float32)
+    if layout == "plain":
+        rows = shares[:, None] * full[None, :]
+        off, span = None, 4
+    else:
+        branch, n_par = 8, -(-k // 8)
+        Sp = np.zeros((n_par * branch, 10), np.float32)
+        Sp[:k] = S
+        counts = [1 + p % 4 for p in range(n_par)]
+        ll_share = np.float32(ll) / np.float32(n_par)  # a power of two only at n_par = 1, 2, 4, 8
+        rows, off = [], [0]
+        for p, c in enumerate(counts):
+            part = np.concatenate([Sp[p * branch:(p + 1) * branch].reshape(-1), [ll_share]])
+            sh = [1.0] if c == 1 else ([0.5, 0.5] if c == 2 else ([0.5, 0.25, 0.25] if c == 3 else shares))
+            rows += [np.float32(x) * part for x in sh]
+            off.append(off[-1] + c)
+        rows = np.stack(rows).astype(np.float32)
+        off, span = torch.tensor(off, dtype=torch.int32), max(counts)
+    rows = np.concatenate([rows, np.full((2, rows.shape[1]), np.nan, np.float32)])
+    n_rows = rows.shape[0] - 2
+    parts = tref.EmPartials(torch.from_numpy(rows), k, n_rows, span, 0 if layout == "plain" else 8, off)
+    total_ll = np.float32(rows[:n_rows, -1].astype(np.float64).sum())
+    return parts, total_ll
+
+
+@pytest.mark.parametrize("layout", ["plain", "grouped"])
+@pytest.mark.parametrize("cov_type", ["full", "iso", "diag"])
+@pytest.mark.parametrize("k,weighted", [(8, True), (8, False), (40, True), (40, False), (64, True), (64, False)])
+def test_em_step_on_partial_rows_is_hgmms_mstep_and_packing(layout, k, weighted, cov_type):
+    """The twin of em_step's partial-rows entry (em_ref.sum_partials, then
+    em_ref.em_step) on rows of either layout whose float64 sum is the S of an
+    E-step: the parameters and the packed table against hgmm's mstep_update +
+    pack_loglik_weights on that S within 1e-5 (float32 against float32 in
+    another order of operations, the tolerance of the test above), and
+    bit-equal to the twin on S itself; the NaN rows past the last are never
+    read."""
+    S, ll, total = _sweep_stats(k, weighted, 60 + k)
+    parts, total_ll = _rows_of(S, ll, layout, k)
+    summed = tref.sum_partials(parts)
+    assert torch.equal(summed.S, torch.from_numpy(S)) and float(summed.loglik) == float(total_ll)
+    init = _mixture(70 + k, k)
+    rows = 64 if k == 40 else k
+    fit, ref_fit = (tref.new_fit(_tp(init), 2, total, 1e-3, rows) for _ in range(2))
+    tref.em_step(parts, fit, 1, cov_reg=1e-6, cov_type=cov_type)
+    tref.em_step(tref.EmStats(torch.from_numpy(S), torch.tensor(total_ll)), ref_fit, 1, cov_reg=1e-6,
+                 cov_type=cov_type)
+    for a, b in zip((*fit.params, fit.table.wn, fit.logliks), (*ref_fit.params, ref_fit.table.wn, ref_fit.logliks)):
+        assert torch.equal(a, b)
+    T0, T1, T2 = jg.unpack_suffstats(jnp.asarray(S))
+    ref = jg.mstep_update(T0, T1, T2, total, cov_reg=1e-6, cov_type=cov_type, cov_floor=1e-3)
+    for a, b in zip(fit.params, ref):
+        _close(a, b, 1e-5, 1e-6)
+    W = np.asarray(jg.pack_loglik_weights(ref))
+    live = np.asarray(ref.pi) > 0
+    _close(fit.table.wn[:k, :10][live], -0.5 * W.T[live], 1e-5, 1e-4)
+    assert bool((fit.table.wn[k:, 9] == tref.NEG_INF).all()) and fit.logliks.tolist() == [0.0, float(total_ll)]
+
+
+def test_em_partials_on_the_cpu_are_the_plain_statistics_as_one_row():
+    """ops.em_partials on the CPU: one plain row, S then the loglik, for a
+    Prepared buffer and for grouped points; summed it is the statistics."""
+    pts = torch.from_numpy(_points(5, 500))
+    m = _mixture(6, 16)
+    W = tg.pack_loglik_weights(_tp(m))
+    prep = ops.prepare(pts)
+    parts = ops.em_partials(prep, W)
+    assert parts.partial.shape == (1, 16 * 10 + 1) and (parts.n_rows, parts.span, parts.branch) == (1, 1, 0)
+    st = ops.em_stats(prep, W)
+    assert torch.equal(tref.sum_partials(parts).S, st.S) and torch.equal(tref.sum_partials(parts).loglik, st.loglik)
+    parent = torch.from_numpy(np.random.default_rng(3).integers(-1, 2, 500).astype(np.int32))
+    grouped = ops.em_partials(ops.group_by_parent(prep, parent, 8, 16), W)
+    ref = ops.em_stats_masked(prep, W, parent, 8)
+    assert torch.equal(tref.sum_partials(grouped).S, ref.S)

@@ -361,8 +361,10 @@ def _hat(w):
 
 
 def emulate_horn(h):
-    """csrc/reg_step.cu:solve_horn: one-sided Jacobi on the columns of H,
-    columns by singular value, u3 = u1 x u2, R = V diag(1, 1, det V) U^T."""
+    """csrc/reg_step.cu:solve_horn: one-sided Jacobi on the columns of H
+    (a pair is rotated while ga^2 > 1e-30 al be; t from one division, c =
+    rsqrt(1 + t^2), here its correctly rounded value), columns by singular
+    value, u3 = u1 x u2, R = V diag(1, 1, det V) U^T."""
     h = np.asarray(h, np.float64)
     Sw = max(h[3, 3], 1e-9)
     Sx, Snu = h[:3, 3], h[3, :3]
@@ -372,11 +374,13 @@ def emulate_horn(h):
         rotated = False
         for p, q in ((0, 1), (0, 2), (1, 2)):
             al, be, ga = W[:, p] @ W[:, p], W[:, q] @ W[:, q], W[:, p] @ W[:, q]
-            if not abs(ga) > 1e-15 * math.sqrt(al * be):
+            if not ga * ga > 1e-30 * (al * be):
                 continue
             rotated = True
-            zeta = (be - al) / (2.0 * ga)
-            t = (1.0 if zeta >= 0 else -1.0) / (abs(zeta) + math.sqrt(1.0 + zeta * zeta))
+            # sign(zeta) / (|zeta| + sqrt(1 + zeta^2)), zeta = (be - al) / (2 ga), times |2 ga| / |2 ga|
+            d, g2 = be - al, 2.0 * ga
+            sgn = 1.0 if d == 0.0 or (d > 0.0) == (ga > 0.0) else -1.0
+            t = sgn * abs(g2) / (abs(d) + math.sqrt(d * d + g2 * g2))
             c = 1.0 / math.sqrt(1.0 + t * t)
             s = c * t
             W[:, [p, q]] = np.stack([c * W[:, p] - s * W[:, q], s * W[:, p] + c * W[:, q]], 1)
@@ -402,7 +406,8 @@ def emulate_horn(h):
 
 def emulate_wls(A, b):
     """csrc/reg_step.cu:solve_wls: the damped system by LU with partial
-    pivoting, the rotation capped at 0.3."""
+    pivoting (the kernel eliminates the rows below the pivot in parallel
+    lanes, each with this arithmetic), the rotation capped at 0.3."""
     A, b = np.asarray(A, np.float64), np.asarray(b, np.float64)
     d = np.diag(A)
     M = A + np.diag(1e-2 * np.maximum(d, 1e-12 * d.sum())) + 1e-6 * max(d.sum() / 6.0, 1.0) * np.eye(6)
@@ -950,3 +955,141 @@ def test_assign_design_is_bit_equal_to_the_previous_body(k, branch, ties, nan):
     assert torch.equal(got, previous_assign(pts, W, parent, branch))
     if not nan:
         assert torch.equal(got, em_ref.assign(pts, W, parent, branch))
+
+
+# --------------------------------------------------------------------------
+# The step kernels' reads: em_step's plan and sum over the partial rows of
+# either layout, reg_step's coalesced sum of [nb, 59] rows
+
+
+@pytest.mark.parametrize("k", [1, 8, 40, 64, 512, 2048])
+@pytest.mark.parametrize("span", [0, 1, 24, 25, 128, 132, 528, 5000])
+def test_plan_em_step_fits_the_rows_and_the_card(k, span):
+    plan = fused_em.plan_em_step(k, span, SMS)
+    assert plan.blocks == k + 1 and 1 <= plan.warps <= fused_em.EMS_MAX_WARPS
+    lane_rows = -(-max(span, 1) // (3 * plan.warps))  # a warp sums three rows at once
+    room = fused_em.EMS_WARPS_PER_SM * SMS // (k + 1)
+    if plan.warps < min(fused_em.EMS_MAX_WARPS, room):  # fewer warps only when a lane has few rows
+        assert lane_rows <= fused_em.EMS_ROWS_A_LANE
+    assert plan.warps == 1 or plan.warps * (k + 1) <= fused_em.EMS_WARPS_PER_SM * SMS
+    if plan.warps > 1:  # one warp fewer would leave a lane more rows than the plan allows
+        assert -(-max(span, 1) // (3 * (plan.warps - 1))) > fused_em.EMS_ROWS_A_LANE
+
+
+def test_plan_em_step_refuses_what_the_kernel_does_not_take():
+    for args in ((0, 10, SMS), (fused_em.MAX_K + 1, 10, SMS), (8, -1, SMS), (8, 10, 0)):
+        with pytest.raises(ValueError):
+            fused_em.plan_em_step(*args)
+
+
+def emulate_em_step_sum(parts, warps):
+    """csrc/em_step.cu's sum in float64: component j's slot g = 3 w + l / 10
+    (lane l < 30 of warp w) adds feature l % 10 of rows r0 + g, r0 + g + 3W,
+    ... on four accumulators (twelve rows a batch, row u of a batch on u mod
+    4, rows past the end as zeros), added in pairs; slot position h = g mod 3
+    over the warps in order, then (h0 + h1) + h2; S rounded to float32. The
+    loglik: thread t of 32 W adds rows t, t + 32 W, ..., a warp's lanes by
+    xor butterflies (lane 0's value), the warps in order."""
+    p = parts.partial[: parts.n_rows].double().numpy()
+    k, gs = parts.k, 3 * warps
+    S = np.zeros((k, 10))
+    for j in range(k):
+        r0, r1, col = 0, parts.n_rows, 10 * j
+        if parts.branch:
+            par = j // parts.branch
+            r0, r1 = int(parts.parent_off[par]), int(parts.parent_off[par + 1])
+            col = (j - par * parts.branch) * 10
+        for f in range(10):
+            slot = []
+            for g in range(gs):
+                a = [0.0] * 4
+                for r in range(r0 + g, r1, 12 * gs):
+                    for u in range(12):
+                        a[u & 3] += p[r + u * gs, col + f] if r + u * gs < r1 else 0.0
+                slot.append((a[0] + a[1]) + (a[2] + a[3]))
+            h = [sum(slot[3 * w + pos] for w in range(warps)) for pos in range(3)]
+            S[j, f] = (h[0] + h[1]) + h[2]
+    threads = 32 * warps
+    lane_sums = np.array([sum(p[t::threads, -1]) if t < len(p) else 0.0 for t in range(threads)])
+    ll = 0.0
+    for w in range(warps):
+        v = lane_sums[32 * w:32 * (w + 1)].copy()
+        for off in (16, 8, 4, 2, 1):
+            v = v + v[np.arange(32) ^ off]
+        ll += v[0]
+    return torch.from_numpy(S).float(), torch.tensor(ll).float()
+
+
+def _int_partials(k, branch, n_rows, seed):
+    """Partial rows of small integers (every float64 sum exact, whatever its
+    order), plain or grouped by parent, with a few rows past n_rows."""
+    rng = np.random.default_rng(seed)
+    width = 10 * (branch or k) + 1
+    partial = torch.from_numpy(rng.integers(-50, 51, (n_rows + 3, width)).astype(np.float32))
+    if not branch:
+        return em_ref.EmPartials(partial, k, n_rows, n_rows)
+    n_par = -(-k // branch)
+    cuts = np.sort(rng.integers(0, n_rows + 1, n_par - 1))
+    off = torch.from_numpy(np.concatenate([[0], cuts, [n_rows]]).astype(np.int32))
+    return em_ref.EmPartials(partial, k, n_rows, int((off[1:] - off[:-1]).max()), branch, off)
+
+
+@pytest.mark.parametrize("k,branch", [(1, None), (8, None), (40, None), (64, 8), (100, 8), (40, 3)])
+@pytest.mark.parametrize("n_rows", [0, 1, 23, 24, 25, 97, 528])
+def test_em_step_sum_covers_every_row_once(k, branch, n_rows):
+    """The kernel's order of the sum, with the plan's warps, against the
+    twin's (em_ref.sum_partials) on exact rows: bit-equal."""
+    parts = _int_partials(k, branch, n_rows, k + n_rows)
+    S, ll = emulate_em_step_sum(parts, fused_em.plan_em_step(k, parts.span, SMS).warps)
+    ref = em_ref.sum_partials(parts)
+    assert torch.equal(S, ref.S) and torch.equal(ll, ref.loglik)
+
+
+def emulate_reg_step_sum(partial, blocks):
+    """csrc/reg_step.cu's coalesced sum of [nb, 59] rows in float64 on a
+    cluster of B blocks: pass i (944 floats from 944 i, 16 rows) belongs to
+    block i mod B; thread t reads the four floats from 4 t of a pass, so float
+    q of thread t is always row 16 i + (4 t + q) / 59, column (4 t + q) mod
+    59. A block takes its passes sixteen a batch, the u-th of a batch on
+    accumulator u mod 4 (passes past the last full one as zeros), and the
+    last, ragged pass (block full mod B's) on the first, last; the
+    accumulators in pairs; a block's 16 rows of a pass in order; then the B
+    blocks in rank order."""
+    nb = partial.shape[0]
+    flat = partial.double().reshape(-1).numpy()
+    full = nb // 16
+    part = np.zeros((blocks, 59))
+    for b in range(blocks):
+        window = np.zeros((16, 59))
+        for t in range(236):
+            for q in range(4):
+                a = [0.0] * 4
+                for i0 in range(b, full, 16 * blocks):
+                    for u in range(16):
+                        i = i0 + blocks * u
+                        a[u & 3] += flat[944 * i + 4 * t + q] if i < full else 0.0
+                if full % blocks == b and 944 * full + 4 * t + q < flat.size:
+                    a[0] += flat[944 * full + 4 * t + q]
+                slot = 4 * t + q
+                window[slot // 59, slot % 59] = (a[0] + a[1]) + (a[2] + a[3])
+        for o in range(59):
+            part[b, o] = sum(window[:, o])
+    return torch.tensor([sum(part[:, o]) for o in range(59)], dtype=torch.float64)
+
+
+@pytest.mark.parametrize("nb", [1, 15, 16, 17, 33, 127, 128, 129, 256, 257, 528, 4100])
+@pytest.mark.parametrize("blocks", [1, fused_em.STEP_CLUSTER])
+def test_reg_step_sum_covers_every_row_once(nb, blocks):
+    """On exact rows the kernel's order gives the plain float64 sum, on one
+    block or a cluster."""
+    partial = torch.from_numpy(np.random.default_rng(nb).integers(-50, 51, (nb, 59)).astype(np.float32))
+    assert torch.equal(emulate_reg_step_sum(partial, blocks), partial.double().sum(0))
+
+
+def test_plan_reg_step_takes_a_cluster_past_one_batch_of_loads():
+    batch = fused_em.STEP_PASS_ROWS * fused_em.STEP_UNROLL  # 256 rows: the odometry bucket's scan
+    assert [fused_em.plan_reg_step(nb) for nb in (1, 255, batch, batch + 1, 528)] == \
+        [1, 1, 1, fused_em.STEP_CLUSTER, fused_em.STEP_CLUSTER]
+    assert 944 == 4 * 4 * 59 == fused_em.STEP_PASS_ROWS * 59  # csrc/reg_step.cu: a float4 a thread, 236 threads
+    with pytest.raises(ValueError):
+        fused_em.plan_reg_step(0)
