@@ -1302,8 +1302,8 @@ def slice_checks(torch, dev, errs):
         record("assign", k, lambda: fused_em.assign(tgt.pts4, W, par, 8),
                lambda: em_ref.assign(target, W, par, 8), headline=lvl == 2)
     # em_step on each level's E-step body's partial rows, on that level's
-    # table, as the sweeps launch it; the twin on the same rows on the card
-    # beside it.
+    # table, as the sweeps launch it: held to its twin (em_step_check) and
+    # timed, the twin on the same rows on the card beside it.
     from hgmm_torch import ops
     from hgmm_torch.models.gmm import scene_variance
 
@@ -1311,6 +1311,7 @@ def slice_checks(torch, dev, errs):
     for lvl, params in enumerate(tree.levels):
         parts = (fused_em.em_partials(tgt.pts4, Ws[0]) if lvl == 0 else fused_em.em_partials_grouped(
             fused_em.group_by_parent(tgt.pts4, parents[lvl], 8, Ws[lvl].shape[1]), Ws[lvl]))
+        em_step_check(torch, f"level {lvl}", params, parts, total, cf, errs)
         fit = ops.new_fit(params, 1, total, cf, masked=lvl > 0)
         twin = em_ref.new_fit(params, 1, total, cf, fit.table.wn.shape[0])
         timings["em_step"].append({
@@ -1917,13 +1918,16 @@ def odometry_shapes(torch, dev, frames, tree, pose, errs, metric_errs, timings):
     direct form (check_f64), and timed: frame 0's bucket (16,384 of its
     voxels: every scan of the sequence voxelizes to more than the bucket)
     and its fitted tree (K = 8 / 64 / 512), frame 1 registered with outlier
-    -8. The checks run again on both buckets with their last quarter made
+    -8; em_step on each level's body rows (em_step_check: the plain rows at
+    K = 8, the rows of the level's real parent grouping at K = 64 and 512).
+    The checks run again on both buckets with their last quarter made
     zero-weight rows at the origin, the padding _bucketize gives a scan of
     12,288 voxels."""
     import collections
 
     import numpy as np
 
+    from hgmm_torch.models.gmm import scene_variance
     from hgmm_torch.ops import em_ref, fused_em, prepare
     from hgmm_torch.ops.gaussians import pack_loglik_weights
     from hgmm_torch.pipelines.register import model_terms
@@ -1978,6 +1982,11 @@ def odometry_shapes(torch, dev, frames, tree, pose, errs, metric_errs, timings):
                        lambda: em_ref.em_stats_masked(tgt, W, par, 8, tw),
                        wrapper_ms=lambda: cuda_ms(torch, lambda: fused_em.em_stats_masked(tp.pts4, W, par, 8)),
                        chunks=lambda: groups.n_chunks, chunk_points=lambda: groups.chunk_points)
+            parts = (fused_em.em_partials(tp.pts4, W) if par is None
+                     else fused_em.em_partials_grouped(groups, W))
+            gaps[f"em_step_K{W.shape[1]}{tag}"] = em_step_check(
+                torch, f"odometry K{W.shape[1]}{tag}", tree.levels[lvl], parts, tw.sum(),
+                1e-4 * scene_variance(tgt, tw), metric_errs)
         for params in tree.levels:
             W, mu, A6, b3 = model_terms(params)
             k = W.shape[1]

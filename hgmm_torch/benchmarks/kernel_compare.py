@@ -308,7 +308,8 @@ def step_times(np, torch, dev, n) -> dict:
     H100) against the same sum in one row (nb = 1), and at the odometry
     bucket (16,384 points, lanes); Horn against WLS; an iteration's middle
     step against its last (se3_log, the outputs); and a step on a done scan
-    (the launch, one read, nothing else). A fit's sweep, device µs by kernel
+    (the launch, one read, nothing else); in a tree whose plan takes a
+    cluster past 256 rows, the 528 rows also on one plain block. A fit's sweep, device µs by kernel
     a sweep: the flat K = 8 sweep at n and at 16,384 points and the grouped
     K = 64 one at n, through models.gmm.em_sweeps as a fit runs them; a sweep
     from a graph of a fit's launches (2s sweeps less s, over s); and, in a
@@ -318,7 +319,7 @@ def step_times(np, torch, dev, n) -> dict:
     from hgmm_torch.data.synthetic import make_cloud
     from hgmm_torch.models.gmm import em_sweeps, init_params, scene_variance, total_weight
     from hgmm_torch.models.gmm_tree import seed_children
-    from hgmm_torch.ops import em_ref
+    from hgmm_torch.ops import em_ref, fused_em
 
     if dev.type != "cuda":
         return {}
@@ -340,6 +341,16 @@ def step_times(np, torch, dev, n) -> dict:
                     scan = ops.new_scan(pose[0], pose[1], 2)
                     fn = lambda: ops.reg_step(p, scan, 1, solver, False, last, 0.0)  # noqa: E731
                     key = f"reg_step_{sname}_{nb}_{'last' if last else 'mid'}_{tag}"
+                    out[f"{key}_device_us"] = device_us(fn)[0]
+                    out[f"{key}_graph_us"] = graph_us(torch, fn, calls=20)
+        if nn == n and getattr(fused_em, "plan_reg_step", lambda nb: 1)(part.shape[0]) > 1:
+            # The same 528 rows on one plain block: the C entry's blocks = 1
+            # in a tree whose plan takes a cluster past 256 rows.
+            for solver, sname in ((0, "horn"), (1, "wls")):
+                for last in (False, True):
+                    scan = ops.new_scan(pose[0], pose[1], 2)
+                    fn = lambda: _one_block_reg_step(torch, part, scan, solver, last)  # noqa: E731
+                    key = f"reg_step_{sname}_nb{part.shape[0]}_one_block_{'last' if last else 'mid'}_{tag}"
                     out[f"{key}_device_us"] = device_us(fn)[0]
                     out[f"{key}_graph_us"] = graph_us(torch, fn, calls=20)
         if nn == n:
@@ -435,6 +446,19 @@ def pair_counts(np, torch, dev, n) -> dict:
         out[f"{name}_host_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
         out[f"{name}_s"] = wall
     return out
+
+
+def _one_block_reg_step(torch, partial, scan, solver, last):
+    """ops.reg_step's launch (iteration 1, not its first step, tol 0) with
+    the C entry's blocks = 1 instead of the plan's cluster."""
+    from hgmm_torch.ops import _build
+
+    err = _build.load().hgmm_reg_step(
+        partial.data_ptr(), partial.shape[0], scan.state.data_ptr(), scan.logliks.data_ptr(),
+        scan.deltas.data_ptr(), 1, solver, 0, int(last), 0.0, 1,
+        torch.cuda.current_stream(partial.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"reg_step on one block: CUDA error {err}")
 
 
 def diff(a: dict, b: dict) -> dict:

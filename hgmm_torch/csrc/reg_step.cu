@@ -42,7 +42,8 @@
 //   - the rows are read coalesced, a float4 a thread, 16 loads in flight (a
 //     warp whose lanes stride down the rows fetches 32 sectors for 128 useful
 //     bytes); past one batch of loads on 8 SMs: one SM takes ~0.8 us a batch
-//     of 60 KB, and a cluster launch and its barrier ~1 us (PERF.md);
+//     of 60 KB, and a cluster launch and its barrier ~1 us; at 528 rows the
+//     cluster takes ~1.25 us less than one block (PERF.md);
 //   - W and V of the Jacobi stay in registers (no dynamically indexed array);
 //     a rotation takes one square root, one division and one reciprocal
 //     square root, and tests convergence without a square root (ga^2 > 1e-30

@@ -128,7 +128,7 @@ def em_partials(data, W) -> EmPartials:
 
 def em_step(stats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
     """The M-step of sweep `it` on the fit state, in place (em_ref.em_step),
-    from the sweep's EmPartials (em_partials) or its EmStats."""
+    from the sweep's EmPartials (em_partials)."""
     if fit.mu.is_cuda:
         return fused_em.em_step(stats, fit, it, cov_reg, cov_type)
     return em_ref.em_step(stats, fit, it, cov_reg, cov_type)

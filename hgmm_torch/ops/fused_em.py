@@ -48,7 +48,6 @@ from hgmm_torch.ops.em_ref import (
     RegScan,
     RegStats,
     pack_table,
-    partials_of,
 )
 from hgmm_torch.ops.em_ref import new_scan as em_ref_new_scan
 
@@ -319,12 +318,11 @@ def plan_em_step(k: int, span: int, sms: int) -> StepPlan:
 
 def em_step(parts, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
     """Kernel twin of em_ref.em_step (csrc/em_step.cu): one launch after an
-    em_stats body that sums its partial rows (EmPartials, either layout; an
-    EmStats is taken as one row) and writes the fit's parameters, table and
-    logliks[it] on the card from them and the total and cov_floor there,
-    nothing read back."""
-    if isinstance(parts, EmStats):
-        parts = partials_of(parts)
+    em_stats body that sums its partial rows (EmPartials, either layout) and
+    writes the fit's parameters, table and logliks[it] on the card from them
+    and the total and cov_floor there, nothing read back."""
+    if not isinstance(parts, EmPartials):
+        raise TypeError(f"em_step: expected an em_stats body's EmPartials, got {type(parts).__name__}")
     k, wn = fit.table.k, fit.table.wn
     rows = wn.shape[0]
     dev = wn.device
@@ -620,7 +618,8 @@ def plan_reg_step(nb: int) -> int:
     partial rows are one batch of its loads (STEP_PASS_ROWS x STEP_UNROLL
     rows), STEP_CLUSTER past it, which read the rows side by side and add
     their sums through distributed shared memory. On an H100 a block takes
-    ~0.8 us a batch of 256 rows, and the cluster's barriers ~1 us (PERF.md)."""
+    ~0.8 us a batch of 256 rows, and the cluster's barriers ~1 us; at 528
+    rows the cluster takes ~1.25 us less than one block (PERF.md)."""
     if nb < 1:
         raise ValueError(f"plan_reg_step: {nb} partial rows")
     return 1 if nb <= STEP_PASS_ROWS * STEP_UNROLL else STEP_CLUSTER

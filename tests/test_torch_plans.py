@@ -982,6 +982,16 @@ def test_plan_em_step_refuses_what_the_kernel_does_not_take():
             fused_em.plan_em_step(*args)
 
 
+def test_em_step_takes_only_partial_rows():
+    """The kernel's wrapper reads an em_stats body's rows (EmPartials); the
+    summed statistics go to the twin alone."""
+    k = 8
+    p = MixtureParams(torch.full((k,), 1.0 / k), torch.zeros(k, 3), torch.eye(3).repeat(k, 1, 1))
+    fit = em_ref.new_fit(p, 1, torch.tensor(10.0), torch.tensor(1e-4), fused_em.table_rows(k))
+    with pytest.raises(TypeError):
+        fused_em.em_step(em_ref.EmStats(torch.zeros(k, 10), torch.tensor(0.0)), fit, 0)
+
+
 def emulate_em_step_sum(parts, warps):
     """csrc/em_step.cu's sum in float64: component j's slot g = 3 w + l / 10
     (lane l < 30 of warp w) adds feature l % 10 of rows r0 + g, r0 + g + 3W,
