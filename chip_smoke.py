@@ -8,7 +8,10 @@ Run from the root of a checkout. It
 1. prints the card's name and power limit (nvidia-smi) and fails without CUDA;
 2. builds the CUDA kernels of hgmm_torch/csrc with nvcc (timed) and prints the
    registers and spill bytes of every redesigned kernel (REPORTED_KERNELS)
-   from the -Xptxas -v log; a spill fails the run;
+   from the -Xptxas -v log, and the tensor-core instructions (HGMMA, HMMA) in
+   the SASS of every probe kernel (cuobjdump); a spill fails the run, and so
+   does a bf16 logits or stats kernel (WGMMA_KERNELS) without HGMMA, with
+   HMMA, or with its wgmma serialized by ptxas;
 3. checks each kernel against its plain PyTorch version on the card at small
    shapes (weights, outlier, dead components, parent -1, top_k gating with
    exact ties, nearest neighbours with exact ties; for the two redesigned
@@ -76,9 +79,13 @@ Run from the root of a checkout. It
      launches and host syncs are printed as register_pair's are.
 8. the bench path: each unit-rate probe (csrc/probes.cu) against its plain
    version (probe_checks, right after the small kernel checks) at K=64/T=256,
-   K=512/T=2048 and K=64/T=8192, steps 3 with reps 2 and 6 and, at the two
+   K=512/T=2048 and K=64/T=8192, steps 3 with reps 2 and 6, 1 x 7 (with the
+   loops below, every remainder of the bf16 stats kernel's four reps a
+   step) and, at the two
    shapes that are timed, the timed loops themselves (steps 1024, reps 2 and
-   6; vpu 512 x 512, steps 2048, reps 4 and 8); every result is read twice
+   6; vpu 512 x 512, steps 2048, reps 4 and 8), and the bf16 logits and
+   stats with A = 0 (PROBE_ZERO_A_LOOPS), where every rep's eps shows; each
+   kernel is launched twice for equal bits, and every result is read twice
    and must not change between the reads;
    the two microbenchmarks at the reference's defaults (mxu: K=512/T=2048 and
    K=64/T=8192, steps 1024, reps 2 -> 6; vpu: 512 x 512, steps 2048, reps
@@ -98,7 +105,8 @@ a float64 run of its twin; the gaps are printed.
 Each phase prints one JSON line; the line before the last is the kernel
 table (every kernel with its launches on its main path, its time, its plain
 version's time, its bound from hgmm_torch.eval.roofline and, for the matrix
-probes, torch.matmul's time for the same products), the last line {"ok": true, "device": ...}. Any failure exits non-zero.
+probes, torch.matmul's time for the same products in one CUDA graph, the
+eager calls' beside it), the last line {"ok": true, "device": ...}. Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -159,7 +167,11 @@ MAIN_PATH = {"knn": "cli_icp", **{name: "probes" for name in PROBES}}
 # operands likewise. atol is a share of the largest |reference| (a sum of
 # products of both signs can land near zero).
 PROBE_CHECK_SHAPES = ((64, 256), (512, 2048), (64, 8192))
-PROBE_CHECK_LOOPS = ((3, 2), (3, 6))  # steps, reps; the timed loops are checked besides
+PROBE_CHECK_LOOPS = ((3, 2), (3, 6), (1, 7))  # steps, reps; the timed loops are checked besides
+# bf16 logits and stats with A = 0 (wt, phi32): the result is steps * sum of
+# eps_r times B's column sums, so a kernel that drops, repeats or hoists a
+# rep's eps shows (with normal operands bf16(x + 1e-6) = x almost everywhere).
+PROBE_ZERO_A_LOOPS = ((1, 1), (3, 6), (2, 64))
 PROBE_TOL = {"bf16": (2e-3, 1e-4), "f32": (1e-5, 1e-5)}  # rtol, atol / max|ref|
 # float32 adds that one accumulator makes a product (csrc/probes.cu): the
 # float32 stats kernel accumulates by FMA over its block's T slice (ST = 32),
@@ -192,7 +204,13 @@ BEFORE_NOTE = "constants recorded on an NVIDIA H100 80GB HBM3, 700.00 W; not mea
 # Kernels whose -Xptxas -v report the build line prints; a spill fails the run.
 REPORTED_KERNELS = ("em_stats_tiled_kernel", "knn_kernel", "reg_stats_lanes_kernel",
                     "reg_stats_top_k_kernel", "reg_step_kernel", "em_stats_grouped_kernel",
-                    "em_stats_kernel", "assign_all_kernel", "assign_masked_kernel", "em_step_kernel")
+                    "em_stats_kernel", "assign_all_kernel", "assign_masked_kernel", "em_step_kernel",
+                    "probe_logits_bf16_kernel", "probe_stats_bf16_kernel")
+# Kernels on the warpgroup tensor cores: each instantiation's SASS must hold
+# HGMMA (wgmma) and no HMMA (mma.sync), ptxas must not have serialized its
+# wgmma, and it keeps no stack frame. The build line prints the tensor-core
+# instructions of every probe.
+WGMMA_KERNELS = ("probe_logits_bf16_kernel", "probe_stats_bf16_kernel")
 # em_step against its plain twin (float32, the order of ops/gaussians.py):
 # T2 / T0 - mu mu^T cancels in float32, so the kernel (float64 inside, float32
 # out) is held to a float64 run of the twin on the same statistics, within
@@ -387,13 +405,22 @@ def main() -> int:
     _build.load()
     build_s = time.perf_counter() - t0
     report = {name: rep for key in REPORTED_KERNELS for name, rep in _build.kernel_report(key).items()}
+    tensor_ops = _build.sass_report("probe_")
     log({"phase": "build", "seconds": build_s, "library": _build.library_path().name,
-         "compiled_here": not prebuilt, "ptxas": report})
+         "compiled_here": not prebuilt, "ptxas": report, "tensor_ops": tensor_ops})
     spilled = {name: rep for name, rep in report.items()
                if rep.get("spill_store_bytes") or rep.get("spill_load_bytes") or "registers" not in rep}
     if spilled or not all(any(key in name for name in report) for key in REPORTED_KERNELS):
         raise CheckFailed(f"build: a kernel spills registers or is missing from the ptxas log: "
                           f"{spilled or sorted(report)}")
+    wg = {name: ops for name, ops in tensor_ops.items() if any(key in name for key in WGMMA_KERNELS)}
+    not_wgmma = {name: {**ops, **report.get(name, {})} for name, ops in wg.items()
+                 if ops["HGMMA"] == 0 or ops["HMMA"] or report.get(name, {}).get("wgmma_serialized")
+                 or report.get(name, {}).get("stack_bytes")}
+    if not_wgmma or not all(any(key in name for name in wg) for key in WGMMA_KERNELS):
+        raise CheckFailed(f"build: a wgmma kernel holds no HGMMA, holds HMMA, has its wgmma "
+                          f"serialized, keeps a stack frame (a register array indexed at run "
+                          f"time) or is missing from the SASS: {not_wgmma or sorted(wg)}")
 
     errs = {name: 0.0 for name in fused_em.LAUNCHES}
     small_checks(torch, dev, errs)
@@ -1091,6 +1118,15 @@ def probe_checks(torch, dev, errs) -> dict:
                                   f"{float((got - ref).abs().max())}")
             if (steps, reps) in PROBE_CHECK_LOOPS:
                 hold_vpu(ins["x"].clamp(-1.5, -0.5), steps, reps, tag)
+        wt0, phi32_0 = torch.zeros_like(ins["wt"]), torch.zeros_like(ins["phi"][:32])
+        for steps, reps in PROBE_ZERO_A_LOOPS:
+            tag = f"K{k}_T{t}_{steps}x{reps}"
+            hold("probe_logits", f"logits_bf16_zero_a_{tag}",
+                 lambda: probes.logits_cuda(wt0, ins["phi"], steps, reps),
+                 lambda: probes.logits_ref(wt0, ins["phi"], steps, reps), "bf16", 0.0)
+            hold("probe_stats", f"stats_bf16_zero_a_{tag}",
+                 lambda: probes.stats_cuda(phi32_0, ins["e"], steps, reps),
+                 lambda: probes.stats_ref(phi32_0, ins["e"], steps, reps), "bf16", 0.0)
     vk, vt = VPU_LOOP["k"], VPU_LOOP["t"]
     x = make_inputs(vk, vt, dev)["x"].clamp(-1.5, -0.5)
     for reps in (VPU_LOOP["r1"], VPU_LOOP["r2"]):
@@ -1119,8 +1155,10 @@ def probes_phase(torch, dev, timings):
     """The two microbenchmarks at the reference's defaults, with the counters
     at 0 just before; then each probe's headline time (steps and the larger rep
     count of the microbenchmark, K=512, T=2048) beside its plain version's and,
-    for the matrix probes, torch.matmul's for the same steps * reps products."""
+    for the matrix probes, torch.matmul's for the same steps * reps products
+    (in one CUDA graph; the eager calls beside it)."""
     from hgmm_torch.benchmarks import mxu_microbench, vpu_microbench
+    from hgmm_torch.benchmarks.kernel_compare import graph_us
     from hgmm_torch.benchmarks.mxu_microbench import make_inputs
     from hgmm_torch.ops import fused_em, probes
 
@@ -1144,18 +1182,19 @@ def probes_phase(torch, dev, timings):
 
     def matmuls(a, b):
         out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=dev)
-
-        def run():
-            for _ in range(steps * reps):
-                torch.matmul(a, b, out=out)
-        return run
+        return lambda: torch.matmul(a, b, out=out)
 
     def record(name, kern, plain, library, **bound_args):
+        calls = steps * reps
         timings[name].append({
             **bound_args, "ms": cuda_ms(torch, kern, reps=5, warmup=1),
             "plain_ms": cuda_ms(torch, plain, reps=1, warmup=1),
-            "library_ms": None if library is None else cuda_ms(torch, library, reps=1, warmup=1),
-            "library": None if library is None else f"{steps * reps} x torch.matmul",
+            # The steps * reps calls captured in one CUDA graph (the card's
+            # time, no host dispatch between launches), and queued eagerly.
+            "library_ms": None if library is None else graph_us(torch, library, calls, 2) * calls / 1e3,
+            "library_eager_ms": None if library is None else cuda_ms(
+                torch, lambda: [library() for _ in range(calls)], reps=1, warmup=1),
+            "library": None if library is None else f"{calls} x torch.matmul in one CUDA graph",
             "bound_args": bound_args, "headline": True})
 
     loop = dict(k=k, t=t, steps=steps, reps=reps)

@@ -1,6 +1,7 @@
 """Two trees' kernels on the same card, in one process each: outputs and times.
 
     python hgmm_torch/benchmarks/kernel_compare.py --root TREE --save A.pt [--device cpu] [--n N]
+        [--probes-only]
     python hgmm_torch/benchmarks/kernel_compare.py --diff A.pt B.pt
 
 A change to a kernel is compared with its parent inside one call on one card,
@@ -38,6 +39,16 @@ with its kernels, copies and memsets (profiler) and host syncs (torch's sync
 debug mode): ``register_pair`` (config2_tree_8x3) at N and one odometry pair
 (config 4's tree fit and registration on the bucket). ``--diff`` prints, for
 every output of the two files, ``bit-equal`` or the largest gap.
+
+The unit-rate probes (``probe_times``, alone with ``--probes-only``): at the
+two MXU shapes (K = 512, T = 2048 and K = 64, T = 8192) every probe's output
+at 3 x 6 and 1,024 x 6 products (the bf16 logits and stats also with A = 0)
+is saved, and the bf16 logits' and stats' are held to their plain versions
+within PROBE_TOL (``probe_twin_gaps``: their tensor cores' sum order is
+their own); device µs a call (device_us) at 1,024 x 2 and 1,024 x 6 products
+(vpu: 512 x 512, 2,048 x 4 and 2,048 x 8), the bound and its share, and the
+library's yardstick: the same 1,024 x 6 ``torch.matmul`` calls in one CUDA
+graph (graph_us).
 """
 
 from __future__ import annotations
@@ -51,9 +62,20 @@ BENCH_N = 1 << 21
 BENCH_K = 512
 N = 437_645
 BRANCH = 8
+# The unit-rate probes: the MXU shapes, the loops saved and timed, and the
+# bf16 tolerance against the plain versions (chip_smoke.PROBE_TOL["bf16"]:
+# rtol, atol as a share of the largest |reference|) plus 2^-24 for each of
+# the float32 adds of a long loop (chip_smoke.probe_checks' chain).
+PROBE_SHAPES = ((512, 2048), (64, 8192))
+PROBE_SAVED = ((3, 6), (1024, 6))
+PROBE_TIMED = ((1024, 2), (1024, 6))
+VPU_TIMED = ((2048, 4), (2048, 8))
+PROBE_TOL_BF16 = (2e-3, 1e-4)
+MAX_SHARE = 1.05  # of a bound: above it a reading is a wrong count (chip_smoke.MAX_SHARE)
 
 
-def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = BENCH_K) -> tuple[dict, dict]:
+def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = BENCH_K,
+        probes_only: bool = False) -> tuple[dict, dict]:
     """TREE's kernels on the fixed inputs: (outputs by name, times in ms)."""
     sys.path.insert(0, str(root))
     import numpy as np
@@ -69,6 +91,9 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
     if Path(hgmm_torch.__file__).resolve().parent != root / "hgmm_torch":
         raise SystemExit(f"imported hgmm_torch from {hgmm_torch.__file__}, not from {root}")
     dev = resolve_device(device)
+    if probes_only:
+        out, times = probe_times(torch, dev)
+        return {name: tuple(t.cpu() for t in ts) for name, ts in out.items()}, times
     rng = np.random.default_rng(123)
     pts = torch.from_numpy(rng.standard_normal((n, 3), dtype=np.float32)).to(dev)
     w = rng.uniform(size=n).astype(np.float32)
@@ -108,6 +133,9 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
     times.update(device_times(np, torch, dev, n))
     times.update(step_times(np, torch, dev, n))
     times.update(pair_counts(np, torch, dev, n))
+    probe_out, probe_t = probe_times(torch, dev)
+    out.update(probe_out)
+    times.update(probe_t)
     return {name: tuple(t.cpu() for t in ts) for name, ts in out.items()}, times
 
 
@@ -389,6 +417,96 @@ def step_times(np, torch, dev, n) -> dict:
     return out
 
 
+def probe_times(torch, dev) -> tuple[dict, dict]:
+    """The unit-rate probes at the MXU shapes: (outputs by name, times). See
+    the module's docstring. Needs only what every tree since the probes
+    were ported has (ops.probes, mxu_microbench.make_inputs, kernel_bound)."""
+    from hgmm_torch.benchmarks.mxu_microbench import make_inputs
+    from hgmm_torch.eval.roofline import kernel_bound
+    from hgmm_torch.ops import probes
+
+    out, times, gaps = {}, {}, {}
+    on_card = dev.type == "cuda"
+    for k, t in PROBE_SHAPES:
+        ins = make_inputs(k, t, dev)
+        phi32, phi32_f = ins["phi"][:32], ins["phi_f32"][:32]
+        zero_wt, zero_phi32 = torch.zeros_like(ins["wt"]), torch.zeros_like(phi32)
+        calls = {  # name: (probe call of (steps, reps), its plain version or None)
+            "logits_bf16": (lambda s, r: probes.logits(ins["wt"], ins["phi"], s, r),
+                            lambda s, r: probes.logits_ref(ins["wt"], ins["phi"], s, r)),
+            "stats_bf16": (lambda s, r: probes.stats(phi32, ins["e"], s, r),
+                           lambda s, r: probes.stats_ref(phi32, ins["e"], s, r)),
+            "logits_bf16_zero_a": (lambda s, r: probes.logits(zero_wt, ins["phi"], s, r),
+                                   lambda s, r: probes.logits_ref(zero_wt, ins["phi"], s, r)),
+            "stats_bf16_zero_a": (lambda s, r: probes.stats(zero_phi32, ins["e"], s, r),
+                                  lambda s, r: probes.stats_ref(zero_phi32, ins["e"], s, r)),
+            "logits_f32": (lambda s, r: probes.logits(ins["wt_f32"], ins["phi_f32"], s, r), None),
+            "stats_f32": (lambda s, r: probes.stats(phi32_f, ins["e_f32"], s, r), None),
+            "norm_bf16": (lambda s, r: probes.norm(ins["ones"], ins["e"], s, r), None),
+            "addonly": (lambda s, r: probes.addonly(ins["x"], s, r), None),
+        }
+        if k * t >= 512 * 512:  # vpu_microbench's 512 x 512 elements
+            x_vpu = ins["x"].reshape(-1)[: 512 * 512].reshape(512, 512).clamp(-1.5, -0.5)
+            calls.update({"vpu_exp2": (lambda s, r: probes.vpu(x_vpu, s, r, "exp2"), None),
+                          "vpu_cast": (lambda s, r: probes.vpu(x_vpu, s, r, "cast"), None)})
+        for name, (fn, plain) in calls.items():
+            for steps, reps in PROBE_SAVED if on_card else ((1, 2),):
+                key = f"probe_{name}_K{k}_T{t}_{steps}x{reps}"
+                got = fn(steps, reps)
+                out[key] = (got,)
+                if plain is not None:
+                    ref = plain(steps, reps)
+                    top = float(ref.abs().max())
+                    chain = steps * reps * 2.0 ** -24 if steps > 3 else 0.0
+                    rtol, arel = PROBE_TOL_BF16
+                    excess = float(((got - ref).abs() - (arel + chain) * top
+                                    - (rtol + chain) * ref.abs()).max())
+                    gaps[key] = {"max_abs_gap": float((got - ref).abs().max()), "max_abs_ref": top,
+                                 "within_probe_tol": excess <= 0.0}
+        if not on_card:
+            continue
+        tag = f"K{k}_T{t}"
+        bound_shape = dict(k=k, t=t)
+        for name, kernel, dtype, fn, lib in (
+                ("logits_bf16", "probe_logits", "bf16", calls["logits_bf16"][0], (ins["wt"], ins["phi"])),
+                ("stats_bf16", "probe_stats", "bf16", calls["stats_bf16"][0], (phi32, ins["e"].T)),
+                ("logits_f32", "probe_logits", "f32", calls["logits_f32"][0], None),
+                ("stats_f32", "probe_stats", "f32", calls["stats_f32"][0], None),
+                ("norm_bf16", "probe_norm", None, calls["norm_bf16"][0], (ins["ones"], ins["e"])),
+                ("addonly", "probe_addonly", None, calls["addonly"][0], None),
+                ("vpu_exp2", "probe_vpu", None, calls.get("vpu_exp2", (None,))[0], None)):
+            if fn is None:
+                continue
+            loops = VPU_TIMED if kernel == "probe_vpu" else PROBE_TIMED
+            for steps, reps in loops:
+                key = f"probe_{name}_{tag}_{steps}x{reps}"
+                extra = {"dtype": dtype} if dtype else {"mode": "exp2"} if kernel == "probe_vpu" else {}
+                shape = dict(k=512, t=512) if kernel == "probe_vpu" else bound_shape
+                kb = kernel_bound(kernel, steps=steps, reps=reps, **shape, **extra)
+                # A trace that lost a kernel record reads below the bound: take it again.
+                for _ in range(3):
+                    us, by_kernel = device_us(lambda: fn(steps, reps), reps=5)
+                    if kb.seconds * 1e6 / us <= MAX_SHARE:
+                        break
+                else:
+                    raise RuntimeError(f"{key}: {us} µs a call, below its bound {kb.seconds * 1e6} µs")
+                times[f"{key}_device_us"] = us
+                times[f"{key}_device_us_by_kernel"] = {nm[:60]: v for nm, v in by_kernel.items()}
+                times[f"{key}_bound_us"] = kb.seconds * 1e6
+                times[f"{key}_share_of_bound"] = kb.seconds * 1e6 / us
+            if lib is not None:
+                steps, reps = PROBE_TIMED[-1]
+                a, b = lib
+                res = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=dev)
+                per_call = graph_us(torch, lambda: torch.matmul(a, b, out=res), calls=steps * reps, replays=2)
+                times[f"probe_{name}_{tag}_{steps}x{reps}_library_graph_us"] = per_call * steps * reps
+    times["probe_twin_gaps"] = gaps
+    times["probe_plans"] = {f"{name}_K{k}_T{t}": str(plan(k, t, False, probes._sms(dev)))
+                            for k, t in PROBE_SHAPES if on_card
+                            for name, plan in (("logits", probes.plan_logits), ("stats", probes.plan_stats))}
+    return out, times
+
+
 def pair_counts(np, torch, dev, n) -> dict:
     """Seconds, kernels, copies, memsets and host syncs of one register_pair
     (config2_tree_8x3 at n points) and one odometry pair (config 4 on a
@@ -490,6 +608,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--n", type=int, default=N)
     ap.add_argument("--bench-n", type=int, default=BENCH_N)
     ap.add_argument("--bench-k", type=int, default=BENCH_K)
+    ap.add_argument("--probes-only", action="store_true", help="run and time the unit-rate probes alone")
     args = ap.parse_args(argv)
     if (args.save is None) == (args.diff is None):
         ap.error("give either --save FILE or --diff A B")
@@ -497,7 +616,8 @@ def main(argv=None) -> dict:
         report = diff(*(torch.load(f) for f in args.diff))
         print(json.dumps({"diff": report}), flush=True)
         return report
-    outputs, times = run(args.root.resolve(), args.device, args.n, args.bench_n, args.bench_k)
+    outputs, times = run(args.root.resolve(), args.device, args.n, args.bench_n, args.bench_k,
+                         args.probes_only)
     torch.save(outputs, args.save)
     print(json.dumps({"root": str(args.root), **times}), flush=True)
     return times

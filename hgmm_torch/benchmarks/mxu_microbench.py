@@ -23,8 +23,12 @@ that is written out, and the A operand is perturbed by eps_r per rep, so the
 compiler can neither drop nor hoist a product. Where the kernel adds the
 product into its accumulator in a pass of its own, an add-only probe measures
 that pass and the report subtracts it (raw and corrected are both printed).
-Beside each shape: the time of one ``torch.matmul`` of the same product (the
-mean of 50 calls queued back to back), the library's yardstick. Rates are shares of the card's published peaks
+Beside each shape: the time of one ``torch.matmul`` of the same product, the
+library's yardstick, twice: ``torch_matmul_us_graph``, the mean of 50 calls
+captured in one CUDA graph and replayed (the card's time a call, with no host
+work between the launches), and ``torch_matmul_us``, the same 50 calls queued
+eagerly (which times the host's dispatch of a call, ~17 µs on an H100's
+host, for products of well under 1 µs). Rates are shares of the card's published peaks
 (``hgmm_torch.eval.roofline``). On the CPU the plain versions run and the
 times are the host's: a rehearsal, not a device rate.
 """
@@ -37,6 +41,7 @@ import json
 import numpy as np
 import torch
 
+from hgmm_torch.benchmarks.kernel_compare import graph_us
 from hgmm_torch.eval.roofline import H100_BF16_FLOPS, H100_FP32_FLOPS, H100_SMS
 from hgmm_torch.ops import probes
 from hgmm_torch.utils.device import resolve_device
@@ -45,7 +50,7 @@ from hgmm_torch.utils.timing import time_fn
 K = 512
 T = 2048  # the reference's tile width; small K needs T >= 8192 so that a rep's
 # work stands out of the differencing noise
-LIBRARY_CALLS = 50  # torch.matmul calls queued back to back in one timed run
+LIBRARY_CALLS = 50  # torch.matmul calls back to back in one timed run (eager, and one graph)
 
 
 def make_inputs(k: int, t: int, device, seed: int = 0) -> dict:
@@ -111,11 +116,14 @@ def run(k: int = K, t: int = T, steps: int = 1024, r1: int = 2, r2: int = 6,
         corr = per_tile - (add_ps * out_elems if has_add else 0.0)
         lib = time_fn(lambda: [torch.matmul(a, b) for _ in range(LIBRARY_CALLS)], warmup=1,
                       iters=5, device=dev)[1] / LIBRARY_CALLS
+        lib_graph = (graph_us(torch, lambda: torch.matmul(a, b), calls=LIBRARY_CALLS)
+                     if dev.type == "cuda" else None)  # no CUDA graph on the CPU
         report["cases"][name] = {
             "us_per_tile_raw": per_tile * 1e6, "us_per_tile_add_corrected": corr * 1e6,
             "tflops_raw": flops / per_tile / 1e12, "tflops_add_corrected": flops / corr / 1e12,
             "share_of_peak_raw": flops / per_tile / peak, "peak_tflops": peak / 1e12,
             "ps_per_point": per_tile / t * 1e12, "torch_matmul_us": lib * 1e6,
+            "torch_matmul_us_graph": lib_graph,
             "grid": list(plan.grid), "threads": plan.threads, "blocks_per_sm": plan.blocks / sms,
         }
     if "norm_bf16" in report["cases"]:
@@ -136,11 +144,13 @@ def print_report(report: dict) -> None:
     print(f"f32 add pass: {report['add_ps_per_elem']:.4f} ps/elem "
           f"({report['add_telem_per_s']:.2f} Telem/s)")
     for name, c in report["cases"].items():
+        graph = c["torch_matmul_us_graph"]
+        graph = "no graph" if graph is None else f"{graph:.3f} us in a graph"
         print(f"{name:>11}: {c['us_per_tile_raw']:8.2f} us/tile raw, "
               f"{c['us_per_tile_add_corrected']:8.2f} add-corrected -> {c['tflops_raw']:6.1f} "
               f"TFLOP/s effective raw ({100 * c['share_of_peak_raw']:4.1f}% of the "
               f"{c['peak_tflops']:.0f} TFLOP/s peak), {c['ps_per_point']:.3f} ps/pt; "
-              f"torch.matmul {c['torch_matmul_us']:.2f} us; grid {c['grid']} x {c['threads']} "
+              f"torch.matmul {graph}, {c['torch_matmul_us']:.2f} us eager; grid {c['grid']} x {c['threads']} "
               f"threads ({c['blocks_per_sm']:.2f} blocks/SM)")
     for mode in ("bf16", "f32"):
         print(f"serial {mode} total {report[f'serial_{mode}_ps_per_point']:.3f} ps/pt -> "

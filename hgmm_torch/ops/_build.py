@@ -5,8 +5,10 @@ The sources are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
 plain C interface, ``hgmm_torch/_build/libhgmm_kernels-<hash>.so``, at first
 use; the hash covers the sources and the flags, so an edited source builds
 anew. The compilers' output (``-Xptxas -v``: registers, shared memory and
-spills of every kernel) is kept beside it as ``<library>.log``. The library
-is loaded with ``ctypes``. Nothing here runs at import time.
+spills of every kernel) is kept beside it as ``<library>.log``, and its
+SASS (``cuobjdump --dump-sass``), read for the tensor-core instructions a
+kernel holds, as ``<library>.sass`` at first use. The library is loaded with
+``ctypes``. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -116,14 +118,22 @@ def kernel_report(match: str = "") -> dict[str, dict[str, int]]:
 
 
 def parse_ptxas_log(log: str, match: str = "") -> dict[str, dict[str, int]]:
+    """As kernel_report, from the log's text; a kernel whose wgmma ptxas
+    serialized (its "Potential Performance Loss" note names the kernel)
+    also gets "wgmma_serialized": 1."""
     report: dict[str, dict[str, int]] = {}
     name = None
     for line in log.splitlines():
+        if "wgmma" in line and "serialized" in line:
+            for fn in re.findall(r"'([^']+)'", line):
+                if match in fn:
+                    report.setdefault(fn, {})["wgmma_serialized"] = 1
+            continue
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
             name = entry.group(1) if match in entry.group(1) else None
             if name is not None:
-                report[name] = {}
+                report.setdefault(name, {})
             continue
         if name is None:
             continue
@@ -135,6 +145,43 @@ def parse_ptxas_log(log: str, match: str = "") -> dict[str, dict[str, int]]:
         used = re.search(r"Used (\d+) registers", line)
         if used:
             report[name]["registers"] = int(used.group(1))
+    return report
+
+
+TENSOR_OPS = ("HGMMA", "HMMA")  # warpgroup (wgmma) and warp (mma.sync, wmma) tensor-core ops
+
+
+def sass_report(match: str = "") -> dict[str, dict[str, int]]:
+    """How many tensor-core instructions of each kind the SASS of every
+    compiled kernel whose (mangled) name contains `match` holds:
+    {name: {"HGMMA": n, "HMMA": n}}. The SASS comes from ``cuobjdump
+    --dump-sass`` (beside nvcc) on the library, kept as ``<library>.sass``."""
+    lib = build()
+    sass = Path(f"{lib}.sass")
+    if not sass.exists():
+        tool = Path(_nvcc()).parent / "cuobjdump"
+        done = subprocess.run([str(tool), "--dump-sass", str(lib)], capture_output=True, text=True)
+        if done.returncode != 0 or "Function" not in done.stdout:
+            raise RuntimeError(f"cuobjdump failed ({done.returncode}):\n{done.stderr[-2000:]}")
+        tmp = sass.with_suffix(f".sass.{os.getpid()}")
+        tmp.write_text(done.stdout)
+        os.replace(tmp, sass)
+    return parse_sass(sass.read_text(), match)
+
+
+def parse_sass(text: str, match: str = "") -> dict[str, dict[str, int]]:
+    report: dict[str, dict[str, int]] = {}
+    name = None
+    for line in text.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = fn.group(1) if match in fn.group(1) else None
+            if name is not None:
+                report.setdefault(name, dict.fromkeys(TENSOR_OPS, 0))
+            continue
+        if name is not None:
+            for op in re.findall(r"\b(HGMMA|HMMA)\b", line):
+                report[name][op] += 1
     return report
 
 

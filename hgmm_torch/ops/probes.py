@@ -19,8 +19,10 @@ bodies' arithmetic: tensor cores, float32 accumulate) or float32 operands
 Dispatch is by device, as in ``hgmm_torch.ops``: CPU tensors run the plain
 versions (``*_ref``), CUDA tensors launch the hand-written kernels of
 ``csrc/probes.cu`` (``*_cuda``) or raise. The launch geometry is chosen here
-(``plan_*``, from the card's SM count ``sms``), so that the grid has at least
-one block for every SM, and passed to the kernels.
+(``plan_*``, from the card's SM count ``sms``), so that the grid fills the
+card where the shape allows it, and passed to the kernels. The bf16 logits
+and stats kernels run on the warpgroup tensor cores (``wgmma``); their plans
+pick the tile by shape (``_pick_tile``).
 """
 
 from __future__ import annotations
@@ -130,13 +132,49 @@ def _need(ok: bool, what: str) -> None:
         raise ValueError(what)
 
 
+# The bf16 bodies' tiles (csrc/probes.cu). logits: N, the columns of T a
+# block of one warpgroup (probe_logits_bf16_kernel<N>: its accumulator, two
+# products in flight, wt and two A sets are 1.5 N + 60 registers a thread, so
+# N = 128 would pass 255 with the addresses). stats: (D, G), the T slice of a
+# block and its warpgroups, one 64-row slice of K each, which share the
+# block's B tiles (probe_stats_bf16_kernel<D, G>; G = 2 needs D = 64 for a
+# whole 16-byte chunk a thread).
+LOGITS_N = (64, 32)
+STATS_TILES = ((64, 1), (32, 1), (64, 2))
+# A grid fills the card when its blocks leave at most this share of the SMs
+# idle: one block a warpgroup more or less changes little, a wider tile a lot
+# (on an H100, 128 blocks of 64 x 64 beat 256 of 64 x 32: PERF.md section 6).
+FILL = 7 / 8
+
+
+def _pick_tile(cands, t: int, k: int, sms: int, weight=lambda g: 1.0) -> tuple[int, int]:
+    """The tile (w, g) of a grid of (t / w) x (k / 64 g) blocks, each g
+    warpgroups over w columns of T: a block's tensor work is proportional to
+    w g, so the busiest SM takes ceil(blocks / sms) w g, times weight(g) for
+    what else its warpgroups wait on; the least of that among the tiles whose
+    grid fills the card (all tiles where none does), ties to the larger tile
+    (fewer fixed costs a rep)."""
+    fits = [(w, g) for w, g in cands if t % w == 0 and k % (64 * g) == 0]
+    blocks = {c: (t // c[0]) * (k // (64 * c[1])) for c in fits}
+    full = [c for c in fits if blocks[c] >= FILL * sms] or fits
+    return min(full, key=lambda c: (-(-blocks[c] // sms) * c[0] * c[1] * weight(c[1]),
+                                    -c[0] * c[1], -c[0]))
+
+
+def stats_weight(g: int) -> float:
+    """What a stats warpgroup's tensor work waits on besides itself, in its
+    B reads: the block's fenced stores of each B tile, which its g
+    warpgroups share."""
+    return 1.0 + 1.0 / g
+
+
 def plan_logits(k: int, t: int, f32: bool, sms: int) -> Plan:
     if f32:
         _need(k % 16 == 0 and t % 128 == 0, f"logits f32: K={k} % 16 and T={t} % 128 must be 0")
         return Plan((t // 128, k // 16), 128, 128, 0)
     _need(k % 64 == 0 and t % 32 == 0, f"logits bf16: K={k} % 64 and T={t} % 32 must be 0")
-    tile = 64 if t % 64 == 0 and (t // 64) * (k // 64) >= sms else 32
-    return Plan((t // tile, k // 64), 128, tile, 0)
+    n, _ = _pick_tile([(n, 1) for n in LOGITS_N], t, k, sms)
+    return Plan((t // n, k // 64), 128, n, 0)
 
 
 def plan_stats(k: int, t: int, f32: bool, sms: int) -> Plan:
@@ -145,8 +183,8 @@ def plan_stats(k: int, t: int, f32: bool, sms: int) -> Plan:
         threads = next(c for c in (128, 96, 64, 32) if k % c == 0)
         return Plan((t // 32, k // threads), threads, 32, t // 32)
     _need(k % 64 == 0 and t % 32 == 0, f"stats bf16: K={k} % 64 and T={t} % 32 must be 0")
-    tile = 64 if t % 64 == 0 and (t // 64) * (k // 64) >= sms else 32
-    return Plan((t // tile, k // 64), 128, tile, t // tile)
+    d, g = _pick_tile(STATS_TILES, t, k, sms, stats_weight)
+    return Plan((t // d, k // (64 * g)), 128 * g, d, t // d)
 
 
 def plan_norm(k: int, t: int, sms: int) -> Plan:

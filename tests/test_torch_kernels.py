@@ -432,7 +432,7 @@ def _probe_close(got, ref, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k,t", [(64, 256), (128, 384), (512, 2048), (64, 8192)])
-@pytest.mark.parametrize("steps,reps", [(3, 2), (1, 5)])
+@pytest.mark.parametrize("steps,reps", [(3, 2), (1, 5), (1, 7)])
 def test_probe_logits_and_stats(cuda, k, t, steps, reps, dtype):
     from hgmm_torch.ops import probes
 
@@ -442,6 +442,24 @@ def test_probe_logits_and_stats(cuda, k, t, steps, reps, dtype):
     _probe_close(probes.stats(phi[:32], e, steps, reps), probes.stats_ref(phi[:32], e, steps, reps),
                  dtype)
     assert fused_em.LAUNCHES["probe_logits"] == 1 and fused_em.LAUNCHES["probe_stats"] == 1
+
+
+@pytest.mark.parametrize("k,t", [(64, 256), (128, 384), (512, 2048), (64, 8192)])
+@pytest.mark.parametrize("steps,reps", [(1, 1), (3, 6), (2, 64)])
+def test_probe_zero_a_sees_every_rep_eps(cuda, k, t, steps, reps):
+    """bf16 logits and stats with A = 0 (wt, phi32): every rep's eps_r shows
+    in the result (steps * sum_r eps_r times B's column sums); equal bits on
+    two launches."""
+    from hgmm_torch.ops import probes
+
+    _, phi, e, _, _ = _probe_inputs(k, t, cuda, torch.bfloat16)
+    wt0, phi32_0 = torch.zeros((k, 80), dtype=torch.bfloat16, device=cuda), torch.zeros_like(phi[:32])
+    got = probes.logits(wt0, phi, steps, reps)
+    _probe_close(got, probes.logits_ref(wt0, phi, steps, reps), torch.bfloat16)
+    assert torch.equal(got, probes.logits(wt0, phi, steps, reps))
+    got = probes.stats(phi32_0, e, steps, reps)
+    _probe_close(got, probes.stats_ref(phi32_0, e, steps, reps), torch.bfloat16)
+    assert torch.equal(got, probes.stats(phi32_0, e, steps, reps))
 
 
 @pytest.mark.parametrize("k,t", [(64, 256), (128, 48), (256, 2048), (512, 2048), (64, 8192)])

@@ -149,6 +149,58 @@ def test_ptxas_log_gives_registers_and_spills_by_kernel():
     assert _build.parse_ptxas_log(PTXAS_LOG, "no_such_kernel") == {}
 
 
+WGMMA_LOG = """\
+ptxas info    : Compiling entry function '_ZN4hgmm24probe_logits_bf16_kernelILi64EEEvPK13__nv_bfloat16S3_S3_iiiPf' for 'sm_90a'
+ptxas info    : (C7517) warpgroup.wait is injected in around line 6231 by compiler to allow use of registers defined by GMMA in function '_ZN4hgmm24probe_logits_bf16_kernelILi64EEEvPK13__nv_bfloat16S3_S3_iiiPf'
+ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async instructions are serialized due to non wgmma instructions reading accumulator registers of  a wgmma between start and end of the pipeline stage in the function '_ZN4hgmm24probe_logits_bf16_kernelILi64EEEvPK13__nv_bfloat16S3_S3_iiiPf'
+ptxas info    : Function properties for _ZN4hgmm24probe_logits_bf16_kernelILi64EEEvPK13__nv_bfloat16S3_S3_iiiPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 118 registers, used 1 barriers, 10368 bytes smem
+ptxas info    : Compiling entry function '_ZN4hgmm23probe_stats_bf16_kernelILi64ELi2EEEvPK13__nv_bfloat16S3_S3_iiiiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN4hgmm23probe_stats_bf16_kernelILi64ELi2EEEvPK13__nv_bfloat16S3_S3_iiiiPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 190 registers, used 1 barriers, 128 bytes smem
+"""
+
+
+def test_ptxas_log_marks_a_serialized_wgmma():
+    """ptxas's C7514 note (it runs every wgmma of the kernel one at a time)
+    marks the kernel it names, which chip_smoke.py's build check refuses;
+    the C7517 note that comes with it names no other kernel."""
+    rep = _build.parse_ptxas_log(WGMMA_LOG, "probe_")
+    logits = next(v for name, v in rep.items() if "logits" in name)
+    stats = next(v for name, v in rep.items() if "stats" in name)
+    assert logits == {"wgmma_serialized": 1, "stack_bytes": 0, "spill_store_bytes": 0,
+                      "spill_load_bytes": 0, "registers": 118}
+    assert "wgmma_serialized" not in stats and stats["registers"] == 190
+
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN4hgmm24probe_logits_bf16_kernelILi64EEEvPK13__nv_bfloat16S3_S3_iiiPf
+        /*0b30*/                   WARPGROUP.ARRIVE ;
+        /*0b40*/                   HGMMA.64x64x16.F32.BF16 R24, R152, gdesc[UR4], RZ, !UPT ;
+        /*0b50*/                   HGMMA.64x64x16.F32.BF16 R24, R156, gdesc[UR8], R24, gsb0 ;
+        /*0b60*/                   WARPGROUP.DEPBAR.LE gsb0, 0x1 ;
+\t\tFunction : _ZN4hgmm22probe_norm_bf16_kernelILi4EEEvPK13__nv_bfloat16S3_S3_iiiiPf
+        /*0300*/                   HMMA.16816.F32.BF16 R24, R152, R4, R24 ;
+        /*0310*/                   HMMA.16816.F32.BF16 R28, R152, R6, R28 ;
+\t\tFunction : _ZN4hgmm16probe_vpu_kernelILb1EEEvPKfiiPf
+        /*0100*/                   MUFU.EX2 R3, R2 ;
+"""
+
+
+def test_sass_counts_tensor_core_instructions_by_kernel():
+    """HGMMA is the warpgroup instruction (wgmma), HMMA the warp one
+    (mma.sync, wmma): what chip_smoke.py's build line prints and checks."""
+    rep = _build.parse_sass(SASS)
+    counts = {name.split("hgmm")[1][2:14]: ops for name, ops in rep.items()}
+    assert counts == {"probe_logits": {"HGMMA": 2, "HMMA": 0},
+                      "probe_norm_b": {"HGMMA": 0, "HMMA": 2},
+                      "probe_vpu_ke": {"HGMMA": 0, "HMMA": 0}}
+    assert list(_build.parse_sass(SASS, "norm").values()) == [{"HGMMA": 0, "HMMA": 2}]
+
+
 # --------------------------------------------------------------------------
 # knn: chunk minimum, rescan, merge over splits
 

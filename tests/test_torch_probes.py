@@ -80,6 +80,37 @@ def test_matrix_body_matches_pallas(interpret, name):
                                atol=1e-3 * np.abs(ref).max())
 
 
+ZERO_A = {"logits": (jmxu._logits_kernel, ("wt", "phi"), (K, T), probes.logits),
+          "stats": (jmxu._stats_kernel, ("phi32", "e"), (32, K), probes.stats)}
+
+
+@pytest.mark.parametrize("steps,reps", [(1, 1), (3, 6), (2, 64)])
+@pytest.mark.parametrize("name", list(ZERO_A))
+def test_zero_a_sees_every_rep_eps(interpret, name, steps, reps):
+    """A = 0 (wt for logits, phi32 for stats): the result is steps * sum_r
+    eps_r times B's column sums, so each rep's eps counts. With normal
+    operands bf16(x + 1e-6) = x for all but ~1 element in 5,000, and a kernel
+    that dropped or hoisted eps_r would pass; here it cannot."""
+    kern, operands, out_shape, port = ZERO_A[name]
+    ins = _inputs(2)
+    ins["phi32"] = np.zeros((32, T), np.float32)
+    ins["wt"] = np.zeros((K, 80), np.float32)
+    arrs = [ins[o] for o in operands]
+    f = jmxu.build(kern, [a.shape for a in arrs], None, out_shape, steps, reps)
+    ref = np.asarray(f(*map(_bf16, arrs)))
+    got = port(*convert.probe_inputs_from_numpy(*arrs), steps, reps).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-5 * np.abs(ref).max())
+    eps = probes.eps_table(reps, torch.bfloat16).to(torch.float64).numpy()
+    b = np.asarray(_bf16(arrs[1]).astype(jnp.float32), np.float64)
+    colsum = b.sum(0) if name == "logits" else b.sum(1)  # B = phi [80, T], or e [K, T] transposed
+    want = steps * eps.sum() * colsum
+    np.testing.assert_allclose(got, np.broadcast_to(want, out_shape), rtol=1e-3,
+                               atol=1e-5 * np.abs(want).max())
+    if reps > 1:  # one rep's eps taken for all of them is far off
+        wrong = steps * reps * eps[0] * colsum
+        assert np.abs(got - wrong).max() > 0.1 * np.abs(wrong).max()
+
+
 def test_addonly_body_matches_pallas(interpret):
     x = _inputs()["x"]
     f = jmxu.build(jmxu._addonly_kernel, [(K, T)], None, (K, T), STEPS, REPS)
@@ -146,25 +177,84 @@ def test_float32_mode_against_float64(name):
 @pytest.mark.parametrize("k,t", [(512, 2048), (64, 8192), (64, 256), (512, 512)])
 def test_plans_fill_the_card_and_divide_the_shapes(k, t):
     """The launch geometry the wrappers pass to csrc/probes.cu: whole tiles,
-    and at the benchmark's shapes at least one block for every SM."""
+    and at the benchmark's shapes blocks for (nearly) every SM. The bf16
+    logits and stats bodies (wgmma) take a tile width that is a multiple of 8
+    and divides T, and at the two MXU shapes their blocks fill whole waves of
+    the SMs to within an eighth of the SMs (probes.FILL): one block a
+    warpgroup, or two warpgroups sharing a stats block's B tiles."""
     sms = 132  # an H100's
     plans = {"logits_bf16": probes.plan_logits(k, t, False, sms),
              "logits_f32": probes.plan_logits(k, t, True, sms),
              "stats_bf16": probes.plan_stats(k, t, False, sms),
              "stats_f32": probes.plan_stats(k, t, True, sms), "norm": probes.plan_norm(k, t, sms)}
     for name, p in plans.items():
-        assert p.blocks >= 1 and p.threads in (32, 64, 96, 128), (name, p)
+        assert p.blocks >= 1 and p.threads in (32, 64, 96, 128, 256), (name, p)
         if (k, t) in ((512, 2048), (64, 8192)):
-            assert p.blocks >= sms, (name, p)
-    assert plans["logits_bf16"].tile in (32, 64) and t % plans["logits_bf16"].tile == 0
-    assert plans["logits_bf16"].grid == (t // plans["logits_bf16"].tile, k // 64)
+            assert p.blocks >= (probes.FILL * sms if name.endswith("bf16") else sms), (name, p)
+    lb, sb = plans["logits_bf16"], plans["stats_bf16"]
+    assert lb.tile in probes.LOGITS_N and lb.threads == 128
+    assert (sb.tile, sb.threads // 128) in probes.STATS_TILES and sb.threads % 128 == 0
+    for p in (lb, sb):
+        assert p.tile % 8 == 0 and t % p.tile == 0, p
+        assert p.grid == (t // p.tile, k // (64 * (p.threads // 128))), p
+        if (k, t) in ((512, 2048), (64, 8192)):
+            waves = -(-p.blocks // sms)
+            assert waves * sms - p.blocks <= sms // 8, p  # the last wave is (nearly) full
+    assert lb.partials == 0 and sb.partials == t // sb.tile
     assert plans["logits_f32"].grid == (t // 128, k // 16)
-    sb, sf = plans["stats_bf16"], plans["stats_f32"]
-    assert sb.partials == t // sb.tile == sb.grid[0] and sb.grid[1] == k // 64
+    sf = plans["stats_f32"]
     assert sf.tile == 32 and sf.partials == t // 32 and sf.grid[1] * sf.threads == k
     nk = plans["norm"].tile
     assert nk in (1, 2, 4) and plans["norm"].grid == (t // 16, k // (64 * nk))
     assert plans["norm"].partials == k // (64 * nk)
+
+
+# Every shape that tests/test_torch_kernels.py runs the probes at.
+CARD_TEST_SHAPES = [(64, 256), (128, 384), (512, 2048), (64, 8192)]
+CARD_NORM_SHAPES = [(64, 256), (128, 48), (256, 2048), (512, 2048), (64, 8192)]
+
+
+@pytest.mark.parametrize("k,t", CARD_TEST_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_bf16_plans_keep_the_card_tests_shapes(k, t, sms):
+    """The wgmma bodies take only their compiled tiles (N in LOGITS_N; (D, G)
+    in STATS_TILES); every shape the card tests run gets one, on any SM
+    count, and among the tiles that fill the card no other gives the busiest
+    SM less work (stats: weighted by 1 + 1 / G, its fenced B stores)."""
+    def least(cands, weight):
+        cost, full = {}, []
+        for w, g in cands:
+            if t % w or k % (64 * g):
+                continue
+            blocks = (t // w) * (k // (64 * g))
+            cost[(w, g)] = -(-blocks // sms) * w * g * weight(g)
+            if blocks >= 7 / 8 * sms:
+                full.append((w, g))
+        return cost, min(cost[c] for c in (full or cost))
+
+    lp = probes.plan_logits(k, t, False, sms)
+    assert lp.tile in probes.LOGITS_N and lp.threads == 128 and lp.grid == (t // lp.tile, k // 64)
+    cost, low = least([(n, 1) for n in probes.LOGITS_N], lambda g: 1.0)
+    assert cost[(lp.tile, 1)] == low
+    sp = probes.plan_stats(k, t, False, sms)
+    g = sp.threads // 128
+    assert (sp.tile, g) in probes.STATS_TILES and k % (64 * g) == 0
+    assert sp.grid == (t // sp.tile, k // (64 * g)) and sp.partials == t // sp.tile
+    cost, low = least(probes.STATS_TILES, lambda gg: 1 + 1 / gg)
+    assert cost[(sp.tile, g)] == low
+
+
+def test_stats_plan_shares_b_where_k_allows():
+    """At K = 512, T = 2048 two warpgroups share each B tile (its fenced
+    stores halve); at K = 64 there is one 64-row slice of K."""
+    assert probes.plan_stats(512, 2048, False, 132).threads == 256
+    assert probes.plan_stats(64, 8192, False, 132).threads == 128
+
+
+@pytest.mark.parametrize("k,t", CARD_NORM_SHAPES)
+def test_norm_plan_keeps_the_card_tests_shapes(k, t):
+    p = probes.plan_norm(k, t, 132)
+    assert p.tile in (1, 2, 4) and k % (64 * p.tile) == 0 and t % 16 == 0
 
 
 def test_plans_refuse_ragged_shapes():
