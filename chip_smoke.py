@@ -11,7 +11,11 @@ Run from the root of a checkout. It
    from the -Xptxas -v log, and the tensor-core instructions (HGMMA, HMMA) in
    the SASS of every probe kernel (cuobjdump); a spill fails the run, and so
    does a bf16 logits or stats kernel (WGMMA_KERNELS) without HGMMA, with
-   HMMA, or with its wgmma serialized by ptxas;
+   HMMA, or with its wgmma serialized by ptxas; it prints the instructions a
+   step of probe_vpu's busiest loop issues, by kind, and fails if an exp2
+   body holds no MUFU.EX2 or more conversions a step than the design's one
+   packed convert (ops/probes.py:VPU_CONVERTS), or any kernel of the probe
+   the single convert F2F;
 3. checks each kernel against its plain PyTorch version on the card at small
    shapes (weights, outlier, dead components, parent -1, top_k gating with
    exact ties, nearest neighbours with exact ties; for the two redesigned
@@ -406,8 +410,13 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     report = {name: rep for key in REPORTED_KERNELS for name, rep in _build.kernel_report(key).items()}
     tensor_ops = _build.sass_report("probe_")
+    from hgmm_torch.ops import probes
+
+    vpu_steps = {name: probes.vpu_sass_counts(loops)
+                 for name, loops in _build.sass_loops("probe_vpu_kernel").items()}
     log({"phase": "build", "seconds": build_s, "library": _build.library_path().name,
-         "compiled_here": not prebuilt, "ptxas": report, "tensor_ops": tensor_ops})
+         "compiled_here": not prebuilt, "ptxas": report, "tensor_ops": tensor_ops,
+         "vpu_step_instructions": vpu_steps})
     spilled = {name: rep for name, rep in report.items()
                if rep.get("spill_store_bytes") or rep.get("spill_load_bytes") or "registers" not in rep}
     if spilled or not all(any(key in name for name in report) for key in REPORTED_KERNELS):
@@ -421,6 +430,19 @@ def main() -> int:
         raise CheckFailed(f"build: a wgmma kernel holds no HGMMA, holds HMMA, has its wgmma "
                           f"serialized, keeps a stack frame (a register array indexed at run "
                           f"time) or is missing from the SASS: {not_wgmma or sorted(wg)}")
+
+    # exp2 bodies (ILb1E): a MUFU.EX2 a step, at most VPU_CONVERTS packed
+    # converts; no body converts on the quarter-rate F2F (a body without a
+    # loop that converts has no convert_f2f count and fails too).
+    bad_vpu = {name: c for name, c in vpu_steps.items()
+               if c.get("convert_f2f", 1.0) > 0.0
+               or ("ILb1E" in name and (c["exp2"] < 1.0
+                                        or c["convert_f2fp"] + c["convert_f2f"] > probes.VPU_CONVERTS))}
+    modes = {mode for mode in ("ILb1E", "ILb0E") if any(mode in name for name in vpu_steps)}
+    if bad_vpu or len(modes) < 2:
+        raise CheckFailed(f"build: a probe_vpu body converts on F2F, issues no MUFU.EX2 a step, more "
+                          f"conversions a step than the design's {probes.VPU_CONVERTS}, or is missing "
+                          f"from the SASS: {bad_vpu or sorted(vpu_steps)}")
 
     errs = {name: 0.0 for name in fused_em.LAUNCHES}
     small_checks(torch, dev, errs)

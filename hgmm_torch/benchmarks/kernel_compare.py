@@ -46,7 +46,7 @@ at 3 x 6 and 1,024 x 6 products (the bf16 logits and stats also with A = 0)
 is saved, and the bf16 logits' and stats' are held to their plain versions
 within PROBE_TOL (``probe_twin_gaps``: their tensor cores' sum order is
 their own); device µs a call (device_us) at 1,024 x 2 and 1,024 x 6 products
-(vpu: 512 x 512, 2,048 x 4 and 2,048 x 8), the bound and its share, and the
+(vpu, exp2 and cast modes: 512 x 512, 2,048 x 4 and 2,048 x 8), the bound and its share, and the
 library's yardstick: the same 1,024 x 6 ``torch.matmul`` calls in one CUDA
 graph (graph_us).
 """
@@ -474,13 +474,15 @@ def probe_times(torch, dev) -> tuple[dict, dict]:
                 ("stats_f32", "probe_stats", "f32", calls["stats_f32"][0], None),
                 ("norm_bf16", "probe_norm", None, calls["norm_bf16"][0], (ins["ones"], ins["e"])),
                 ("addonly", "probe_addonly", None, calls["addonly"][0], None),
-                ("vpu_exp2", "probe_vpu", None, calls.get("vpu_exp2", (None,))[0], None)):
+                ("vpu_exp2", "probe_vpu", None, calls.get("vpu_exp2", (None,))[0], None),
+                ("vpu_cast", "probe_vpu", None, calls.get("vpu_cast", (None,))[0], None)):
             if fn is None:
                 continue
             loops = VPU_TIMED if kernel == "probe_vpu" else PROBE_TIMED
             for steps, reps in loops:
                 key = f"probe_{name}_{tag}_{steps}x{reps}"
-                extra = {"dtype": dtype} if dtype else {"mode": "exp2"} if kernel == "probe_vpu" else {}
+                extra = ({"dtype": dtype} if dtype else {"mode": name[4:]} if kernel == "probe_vpu"
+                         else {})
                 shape = dict(k=512, t=512) if kernel == "probe_vpu" else bound_shape
                 kb = kernel_bound(kernel, steps=steps, reps=reps, **shape, **extra)
                 # A trace that lost a kernel record reads below the bound: take it again.

@@ -719,18 +719,84 @@ __global__ void __launch_bounds__(256)
   out[i] = acc;
 }
 
-// ---- vpu: one element a thread, a chain of iters dependent steps.
+// ---- vpu: K independent chains a thread, each a dependent chain of iters
+// steps on one element.
+//
+// What bounds it: the special-function unit's exp2 rate (MUFU.EX2, 16 results
+// a clock an SM). The conversion matters as much: the single convert
+// F2F.BF16.F32 (what __float2bfloat16_rn compiles to) issues on the same
+// quarter-rate path: on an H100, one element a thread read 2,205-2,223 us
+// against a 1,026 us bound, and the chain without the exp2 (cast mode) 1,115. The
+// packed convert F2FP.BF16.F32.PACK_AB (cvt.rn.bf16x2.f32) does not: with
+// zero as its other operand it writes bf16(y) into the high half of a word
+// whose low half is zero, which is float32(bf16(y)) itself, so the upcast
+// goes too; it issues at half the FP32 rate (64 lanes a clock an SM), which
+// bounds the cast chain. An exp2 step is then exp2f (MUFU.EX2 and its
+// denormal fix-up: FSETP and two predicated FMULs), an FADD of the minus
+// and one F2FP, under the SFU's 8 clocks a warp; rounding is the hardware's
+// (to nearest even; NaN stays NaN, and values that round past the largest
+// bfloat16 become inf, as in the twin). Rounding to bf16 with integer
+// operations instead costs four INT32 instructions a step on the half-rate
+// integer pipe, no faster than F2F on an H100 (PERF.md section 6).
+//
+// Layout (ops/probes.py:plan_vpu): block b takes the elements
+// [b n / blocks, (b + 1) n / blocks), which spreads them over the SMs within
+// one element; warp w of the block takes 32 K consecutive of them, chain j of
+// lane l the element 32 j + l of that run (coalesced loads and stores). A
+// warp runs as many chains as its run holds rows of 32 (the block's last
+// warp may hold fewer), so a block costs the SFU one warp instruction an
+// iteration for each 32 elements, rounded up once.
+
+// float32(bf16(y)): the packed convert with zero as the low operand.
+__device__ __forceinline__ float bf16_round(float y) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(0.0f, y);  // {.x: bf16(0), .y: bf16(y)}
+  return __uint_as_float(*reinterpret_cast<const uint32_t*>(&p));
+}
+
+// -f32(bf16(y)) = f32(bf16(-y)) (rounding to nearest even is odd-symmetric):
+// an FADD of the minus and the convert. Moving the minus onto exp2f's
+// operands instead (a chain of u = -x) issues as many instructions a step
+// and read slower on an H100 (PERF.md section 6).
 template <bool EXP2>
-__global__ void __launch_bounds__(256)
-    probe_vpu_kernel(const float* __restrict__ x, int n, int iters, float* __restrict__ out) {
-  const int i = blockIdx.x * 256 + threadIdx.x;
-  if (i >= n) return;
-  float v = x[i];
+__device__ __forceinline__ float vpu_step(float v) {
+  return bf16_round(-(EXP2 ? exp2f(v) : v));
+}
+
+template <bool EXP2, int K>
+__device__ __forceinline__ void vpu_chains(const float* __restrict__ x, float* __restrict__ out,
+                                           long long at, long long end, int iters) {
+  float v[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) v[j] = at + 32 * j < end ? x[at + 32 * j] : 0.0f;
+#pragma unroll 4
   for (int it = 0; it < iters; ++it) {
-    const float y = EXP2 ? exp2f(v) : v;
-    v = -__bfloat162float(__float2bfloat16_rn(y));
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[j] = vpu_step<EXP2>(v[j]);
   }
-  out[i] = v;
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    if (at + 32 * j < end) out[at + 32 * j] = v[j];
+}
+
+// A warp's `rows` (1..K) chains: the instantiation of that many.
+template <bool EXP2, int K>
+__device__ __forceinline__ void vpu_rows(const float* __restrict__ x, float* __restrict__ out,
+                                         long long at, long long end, int rows, int iters) {
+  if constexpr (K > 1) {
+    if (rows < K) return vpu_rows<EXP2, K - 1>(x, out, at, end, rows, iters);
+  }
+  vpu_chains<EXP2, K>(x, out, at, end, iters);
+}
+
+template <bool EXP2, int K>
+__global__ void __launch_bounds__(1024)
+    probe_vpu_kernel(const float* __restrict__ x, int n, int iters, float* __restrict__ out) {
+  const long long lo = (long long)blockIdx.x * n / gridDim.x;
+  const long long hi = (long long)(blockIdx.x + 1) * n / gridDim.x;
+  const long long run = lo + (long long)(threadIdx.x / 32) * 32 * K;  // the warp's first element
+  if (run >= hi) return;
+  const int rows = (int)min((hi - run + 31) / 32, (long long)K);
+  vpu_rows<EXP2, K>(x, out, run + threadIdx.x % 32, hi, rows, iters);
 }
 
 }  // namespace hgmm
@@ -861,18 +927,31 @@ int hgmm_probe_addonly(const void* x, const void* eps, int n, int steps, int rep
 }
 
 // out[n] f32: the chain of steps * reps iterations from x[n]; exp2 != 0:
-// x <- -f32(bf16(exp2(x))), else x <- -f32(bf16(x)).
-int hgmm_probe_vpu(const void* x, int n, int steps, int reps, int exp2, void* out, void* stream) {
+// x <- -f32(bf16(exp2(x))), else x <- -f32(bf16(x)). chains in {1, 2, 4}
+// (K, the chains a thread), `blocks` blocks of `threads` threads (a multiple
+// of 32, at most 1024) with ceil(n / blocks) <= threads * chains.
+int hgmm_probe_vpu(const void* x, int n, int steps, int reps, int exp2, int chains, int blocks,
+                   int threads, void* out, void* stream) {
   using namespace hgmm;
-  if (bad_loop(steps, reps) || n < 1) return (int)cudaErrorInvalidValue;
+  if (bad_loop(steps, reps) || n < 1 || blocks < 1 || blocks > n || threads < 32 ||
+      threads > 1024 || threads % 32 || (chains != 1 && chains != 2 && chains != 4) ||
+      ((long long)n + blocks - 1) / blocks > (long long)threads * chains)
+    return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int nb = (n + 255) / 256;
   const auto* in = static_cast<const float*>(x);
   auto* o = static_cast<float*>(out);
-  if (exp2)
-    probe_vpu_kernel<true><<<nb, 256, 0, s>>>(in, n, steps * reps, o);
-  else
-    probe_vpu_kernel<false><<<nb, 256, 0, s>>>(in, n, steps * reps, o);
+  const int iters = steps * reps;
+#define HGMM_VPU(E, K) probe_vpu_kernel<E, K><<<blocks, threads, 0, s>>>(in, n, iters, o)
+  if (exp2) {
+    if (chains == 4) HGMM_VPU(true, 4);
+    else if (chains == 2) HGMM_VPU(true, 2);
+    else HGMM_VPU(true, 1);
+  } else {
+    if (chains == 4) HGMM_VPU(false, 4);
+    else if (chains == 2) HGMM_VPU(false, 2);
+    else HGMM_VPU(false, 1);
+  }
+#undef HGMM_VPU
   return (int)cudaGetLastError();
 }
 

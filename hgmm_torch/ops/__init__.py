@@ -20,7 +20,17 @@ import torch
 
 from hgmm_torch.ops import em_ref, fused_em
 from hgmm_torch.ops.em_ref import EmFit, EmPartials, EmStats, Packed, RegScan, RegStats  # noqa: F401
-from hgmm_torch.ops.gaussians import MixtureParams, unpack_suffstats  # noqa: F401
+from hgmm_torch.ops.gaussians import (  # noqa: F401
+    PHI_DIM,
+    MixtureParams,
+    features,
+    mstep_update,
+    pack_loglik_weights,
+    precision_terms,
+    sym_pack,
+    sym_unpack,
+    unpack_suffstats,
+)
 
 
 class Prepared(NamedTuple):

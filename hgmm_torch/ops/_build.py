@@ -49,7 +49,7 @@ _SIGNATURES = {
     "hgmm_probe_stats": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "hgmm_probe_norm": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "hgmm_probe_addonly": (_P, _P, _I, _I, _I, _P, _P),
-    "hgmm_probe_vpu": (_P, _I, _I, _I, _I, _P, _P),
+    "hgmm_probe_vpu": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 
@@ -151,11 +151,9 @@ def parse_ptxas_log(log: str, match: str = "") -> dict[str, dict[str, int]]:
 TENSOR_OPS = ("HGMMA", "HMMA")  # warpgroup (wgmma) and warp (mma.sync, wmma) tensor-core ops
 
 
-def sass_report(match: str = "") -> dict[str, dict[str, int]]:
-    """How many tensor-core instructions of each kind the SASS of every
-    compiled kernel whose (mangled) name contains `match` holds:
-    {name: {"HGMMA": n, "HMMA": n}}. The SASS comes from ``cuobjdump
-    --dump-sass`` (beside nvcc) on the library, kept as ``<library>.sass``."""
+def _sass() -> str:
+    """The library's SASS (``cuobjdump --dump-sass``, beside nvcc), kept as
+    ``<library>.sass``."""
     lib = build()
     sass = Path(f"{lib}.sass")
     if not sass.exists():
@@ -166,7 +164,20 @@ def sass_report(match: str = "") -> dict[str, dict[str, int]]:
         tmp = sass.with_suffix(f".sass.{os.getpid()}")
         tmp.write_text(done.stdout)
         os.replace(tmp, sass)
-    return parse_sass(sass.read_text(), match)
+    return sass.read_text()
+
+
+def sass_report(match: str = "") -> dict[str, dict[str, int]]:
+    """How many tensor-core instructions of each kind the SASS of every
+    compiled kernel whose (mangled) name contains `match` holds:
+    {name: {"HGMMA": n, "HMMA": n}}."""
+    return parse_sass(_sass(), match)
+
+
+def sass_loops(match: str = "") -> dict[str, list[dict[str, int]]]:
+    """The instructions of each loop in the SASS of every compiled kernel
+    whose (mangled) name contains `match`, by opcode (parse_sass_loops)."""
+    return parse_sass_loops(_sass(), match)
 
 
 def parse_sass(text: str, match: str = "") -> dict[str, dict[str, int]]:
@@ -182,6 +193,45 @@ def parse_sass(text: str, match: str = "") -> dict[str, dict[str, int]]:
         if name is not None:
             for op in re.findall(r"\b(HGMMA|HMMA)\b", line):
                 report[name][op] += 1
+    return report
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)")
+_BRANCH = re.compile(r"^\s+(0x[0-9a-f]+)")
+
+
+def parse_sass_loops(text: str, match: str = "") -> dict[str, list[dict[str, int]]]:
+    """For every function whose name contains `match`, one dict a loop, in
+    address order: {opcode (with its modifiers): count} over the instructions
+    from a backward branch's target to the branch itself (the branch
+    included)."""
+    report: dict[str, list[dict[str, int]]] = {}
+    name, ins = None, []
+
+    def close():
+        if name is None:
+            return
+        loops = []
+        for addr, op, rest in ins:
+            target = _BRANCH.match(rest) if op == "BRA" else None
+            if target and int(target.group(1), 16) < addr:
+                lo, counts = int(target.group(1), 16), {}
+                for a, o, _ in ins:
+                    if lo <= a <= addr:
+                        counts[o] = counts.get(o, 0) + 1
+                loops.append(counts)
+        report[name] = loops
+
+    for line in text.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            close()
+            name, ins = (fn.group(1) if match in fn.group(1) else None), []
+            continue
+        m = _SASS_LINE.search(line) if name is not None else None
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    close()
     return report
 
 

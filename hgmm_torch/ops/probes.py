@@ -22,7 +22,9 @@ versions (``*_ref``), CUDA tensors launch the hand-written kernels of
 (``plan_*``, from the card's SM count ``sms``), so that the grid fills the
 card where the shape allows it, and passed to the kernels. The bf16 logits
 and stats kernels run on the warpgroup tensor cores (``wgmma``); their plans
-pick the tile by shape (``_pick_tile``).
+pick the tile by shape (``_pick_tile``). The vpu kernel runs up to four
+independent chains a thread and spreads the elements over the SMs
+(``plan_vpu``); ``vpu_sass_counts`` reads what a step of its chain issues.
 """
 
 from __future__ import annotations
@@ -194,6 +196,72 @@ def plan_norm(k: int, t: int, sms: int) -> Plan:
     return Plan((t // 16, k // (64 * nk)), 128, nk, k // (64 * nk))
 
 
+@dataclasses.dataclass(frozen=True)
+class VpuPlan:
+    chains: int  # independent chains a thread (probe_vpu_kernel<E, K>: K)
+    blocks: int  # block b takes the elements [b n / blocks, (b + 1) n / blocks)
+    threads: int  # threads a block, 32 * chains elements a warp
+
+
+VPU_CHAINS = (4, 2, 1)  # the K the kernel is built for (csrc/probes.cu:hgmm_probe_vpu)
+VPU_THREADS = 1024  # the most threads a block
+
+
+def plan_vpu(n: int, sms: int) -> VpuPlan:
+    """The vpu launch for n elements on `sms` SMs: blocks a whole multiple
+    of the SMs (one block an SM where 1,024 threads hold its share), the
+    elements spread over them within one, each block's warps on runs of 32 K
+    consecutive elements. K is the most chains a thread that still leaves
+    each of an SM's four warp schedulers a warp; fewer blocks where n is
+    small (at least 32 elements a block)."""
+    _need(n >= 1 and sms >= 1, f"vpu: n={n} and sms={sms} must be >= 1")
+    per_sm = -(-n // sms)
+    chains = next((k for k in VPU_CHAINS if -(-per_sm // (32 * k)) >= 4), VPU_CHAINS[-1])
+    blocks = min(sms * -(-per_sm // (VPU_THREADS * chains)), -(-n // 32))
+    size = -(-n // blocks)  # the largest block's elements
+    threads = 32 * -(-size // (32 * chains))
+    return VpuPlan(chains, blocks, threads)
+
+
+# What a step of the vpu chain issues (csrc/probes.cu:vpu_step), by the SASS
+# opcode's prefix; the rest counts as "other".
+VPU_SASS_KINDS = {
+    "exp2": ("MUFU.EX2",),
+    "convert_f2f": ("F2F.",),  # the single convert: the quarter-rate path
+    "convert_f2fp": ("F2FP.",),  # the packed convert
+    "upcast": ("PRMT", "SHF", "IMAD.U32", "IMAD.SHL", "LOP3"),
+    "exp2f_fixup": ("FSETP", "FMUL", "FSEL"),
+    "negate": ("FADD",),
+    "loop": ("VIADD", "IADD3", "ISETP", "BRA", "IMAD.MOV", "MOV", "PLOP3"),
+}
+VPU_CONVERTS = 1  # conversions an element and step the design issues: one F2FP, no F2F
+
+
+def vpu_sass_counts(loops: list[dict[str, int]]) -> dict[str, float]:
+    """Instructions an element and step by kind (VPU_SASS_KINDS) in the
+    busiest loop of a probe_vpu kernel (``_build.sass_loops``): the loop with
+    the most steps a trip, counted by its exp2s or, with none in the kernel
+    (cast mode), by its conversions. {"steps_a_trip": 0} for a kernel
+    without a loop that converts."""
+
+    def kind(op: str) -> str:
+        return next((k for k, pre in VPU_SASS_KINDS.items() if op.startswith(pre)), "other")
+
+    def by_kind(loop):
+        out = dict.fromkeys([*VPU_SASS_KINDS, "other"], 0)
+        for op, c in loop.items():
+            out[kind(op)] += c
+        return out
+
+    kinds = [by_kind(loop) for loop in loops]
+    key = "exp2" if any(k["exp2"] for k in kinds) else None
+    steps = [k["exp2"] if key else k["convert_f2f"] + k["convert_f2fp"] for k in kinds]
+    if not steps or max(steps) == 0:
+        return {"steps_a_trip": 0}
+    i = max(range(len(steps)), key=steps.__getitem__)
+    return {"steps_a_trip": steps[i], **{k: v / steps[i] for k, v in kinds[i].items()}}
+
+
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -302,10 +370,12 @@ def vpu_cuda(x: torch.Tensor, steps: int, reps: int, mode: str = "exp2") -> torc
     _check_mode(mode)
     _check("x", x, torch.float32, tuple(x.shape))
     _need(x.numel() >= 1, "vpu: empty input")
+    plan = plan_vpu(x.numel(), _sms(x.device))
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = _build.load().hgmm_probe_vpu(x.data_ptr(), x.numel(), steps, reps,
-                                           int(mode == "exp2"), out.data_ptr(), _stream(x))
+        err = _build.load().hgmm_probe_vpu(x.data_ptr(), x.numel(), steps, reps, int(mode == "exp2"),
+                                           plan.chains, plan.blocks, plan.threads, out.data_ptr(),
+                                           _stream(x))
     _raise_on(err, "probe_vpu")
     LAUNCHES["probe_vpu"] += 1
     return out

@@ -486,6 +486,53 @@ def test_probe_addonly_and_vpu(cuda, steps, reps):
         assert float((ulp > 0).float().mean()) < 0.01
 
 
+def _bf16_ulp(got, ref):
+    return (got.to(torch.bfloat16).view(torch.int16).int()
+            - ref.to(torch.bfloat16).view(torch.int16).int()).abs()
+
+
+def test_probe_vpu_cast_every_float32(cuda):
+    """Cast mode, one step, over every float32 bit pattern but the NaNs (in
+    chunks of 2^28): bit-equal to the plain version (torch's rounding to
+    bfloat16, to nearest even) on the card."""
+    from hgmm_torch.ops import probes
+
+    chunk = 1 << 28
+    for c in range((1 << 32) // chunk):
+        bits = torch.arange(c * chunk, (c + 1) * chunk, dtype=torch.int64, device=cuda)
+        x = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32).view(torch.float32)
+        x = x[~torch.isnan(x)]
+        got = probes.vpu_cuda(x, 1, 1, "cast")
+        ref = probes.vpu_ref(x, 1, 1, "cast")
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), f"chunk {c}"
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 33, 127, 129, 4 * 32 * 16 + 3, 262_147])
+def test_probe_vpu_exp2_edges(cuda, n):
+    """Exp2 mode where exp2 gives a denormal (inputs in [-149, -126]), inf
+    (large inputs) and exactly 1 (±0), at element counts off the chain
+    width: within one bfloat16 ulp of the plain version, finite where it
+    is, NaN where it is; cast mode bit-equal."""
+    from hgmm_torch.ops import probes
+
+    g = torch.Generator().manual_seed(n)
+    pools = [-149.0 + 23.0 * torch.rand(n, generator=g), 120.0 + 10.0 * torch.rand(n, generator=g),
+             -1.5 + torch.rand(n, generator=g)]
+    pick = torch.randint(0, 3, (n,), generator=g)
+    x = torch.stack(pools)[pick, torch.arange(n)]
+    x[: min(n, 4)] = torch.tensor([0.0, -0.0, float("nan"), -149.0])[: min(n, 4)]
+    x = x.to(cuda)
+    for steps, reps in ((1, 1), (3, 2)):
+        got, ref = probes.vpu_cuda(x, steps, reps, "exp2"), probes.vpu_ref(x, steps, reps, "exp2")
+        nan = torch.isnan(ref)
+        assert torch.equal(torch.isnan(got), nan)
+        assert int(_bf16_ulp(got[~nan], ref[~nan]).max()) <= 1
+        assert bool(torch.isfinite(got[torch.isfinite(ref)]).all())
+        got, ref = probes.vpu_cuda(x, steps, reps, "cast"), probes.vpu_ref(x, steps, reps, "cast")
+        assert torch.equal(got[~nan].view(torch.int32), ref[~nan].view(torch.int32))
+        assert bool(torch.isnan(got[nan]).all())
+
+
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from hgmm_torch.ops import probes
 

@@ -1155,3 +1155,146 @@ def test_plan_reg_step_takes_a_cluster_past_one_batch_of_loads():
     assert 944 == 4 * 4 * 59 == fused_em.STEP_PASS_ROWS * 59  # csrc/reg_step.cu: a float4 a thread, 236 threads
     with pytest.raises(ValueError):
         fused_em.plan_reg_step(0)
+
+
+# --------------------------------------------------------------------------
+# probe_vpu: the plan, and the SASS counts of a step
+
+
+def _vpu_warp_rows(n, plan):
+    """The kernel's mapping (csrc/probes.cu:probe_vpu_kernel): for each block
+    and warp, its first element, its chains and the block's end."""
+    b = np.arange(plan.blocks, dtype=np.int64)
+    lo, hi = b * n // plan.blocks, (b + 1) * n // plan.blocks
+    w = np.arange(plan.threads // 32, dtype=np.int64)
+    run = lo[:, None] + w[None, :] * 32 * plan.chains
+    rows = np.clip(-(-(hi[:, None] - run) // 32), 0, plan.chains)
+    return run, rows, hi
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("n", [1, 5, 31, 33, 4 * 32 * 16 + 3, 262_143, 262_144, 262_147, 1_000_003])
+def test_plan_vpu_covers_every_element_once(n, sms):
+    from hgmm_torch.ops.probes import VPU_CHAINS, VPU_THREADS, plan_vpu
+
+    plan = plan_vpu(n, sms)
+    assert plan.chains in VPU_CHAINS and plan.threads % 32 == 0 and 32 <= plan.threads <= VPU_THREADS
+    assert 1 <= plan.blocks <= -(-n // 32) and -(-n // plan.blocks) <= plan.threads * plan.chains
+    run, rows, hi = _vpu_warp_rows(n, plan)
+    seen = np.zeros(n, dtype=np.int64)
+    lane = np.arange(32)
+    for j in range(plan.chains):
+        idx = run[..., None] + 32 * j + lane  # [blocks, warps, 32]
+        live = (rows[..., None] > j) & (idx < hi[:, None, None])
+        np.add.at(seen, idx[live], 1)
+    assert (seen == 1).all()
+    # The elements spread over the blocks within one; each block costs the
+    # SFU one warp instruction a step for each 32 of its elements, rounded up
+    # once (only the block's last warp runs fewer than `chains` chains).
+    sizes = np.diff(np.arange(plan.blocks + 1, dtype=np.int64) * n // plan.blocks)
+    assert sizes.max() - sizes.min() <= 1
+    assert (rows.sum(axis=1) == -(-sizes // 32)).all()
+    if n >= 32 * sms:
+        assert plan.blocks % sms == 0
+
+
+def test_plan_vpu_main_shape_and_refusals():
+    """vpu_microbench's 512 x 512 on 132 SMs: one block an SM of 16 warps of
+    four chains, 63 warp rows an SM at most against 62.06 on average; the
+    launch before this plan (1,024 blocks of 256, one element a thread) put
+    8 blocks of 8 warps on 100 SMs, 64 rows."""
+    from hgmm_torch.ops.probes import VpuPlan, plan_vpu
+
+    plan = plan_vpu(512 * 512, 132)
+    assert plan == VpuPlan(chains=4, blocks=132, threads=512)
+    _, rows, _ = _vpu_warp_rows(512 * 512, plan)
+    assert rows.sum(axis=1).max() == 63 and 512 * 512 / 32 / 132 == pytest.approx(62.06, abs=0.01)
+    assert -(-1024 // 132) * 256 // 32 == 64
+    for n, sms in ((0, 132), (5, 0)):
+        with pytest.raises(ValueError):
+            plan_vpu(n, sms)
+
+
+# Before this design (the parent's exp2 body, cuobjdump --dump-sass on the
+# H100's build): a loop of four steps and the one-step remainder.
+VPU_SASS = """\
+\t\tFunction : _ZN4hgmm16probe_vpu_kernelILb1EEEvPKfiiPf
+        /*0130*/              @!P1 BRA 0x350 ;
+        /*0140*/                   IADD3 R4, -R2, R7, RZ ;
+        /*0150*/                   IMAD.MOV.U32 R9, RZ, RZ, R5 ;
+        /*0160*/                   VIADD R4, R4, 0xfffffffc ;
+        /*0170*/                   FSETP.GEU.AND P1, PT, R9, -126, PT ;
+        /*0180*/              @!P1 FMUL R9, R9, 0.5 ;
+        /*0190*/                   MUFU.EX2 R5, R9 ;
+        /*01a0*/              @!P1 FMUL R5, R5, R5 ;
+        /*01b0*/                   F2F.BF16.F32 R5, R5 ;
+        /*01c0*/                   IMAD.U32 R6, R5, 0x10000, RZ ;
+        /*01d0*/                   FMUL R7, R6.reuse, -0.5 ;
+        /*01e0*/                   FSETP.GEU.AND P1, PT, -R6, -126, PT ;
+        /*01f0*/                   FSEL R7, R7, -R6, !P1 ;
+        /*0200*/                   MUFU.EX2 R6, R7 ;
+        /*0210*/              @!P1 FMUL R6, R6, R6 ;
+        /*0220*/                   F2F.BF16.F32 R6, R6 ;
+        /*0230*/                   SHF.L.U32 R8, R6, 0x10, RZ ;
+        /*0240*/                   FSETP.GEU.AND P1, PT, -R8.reuse, -126, PT ;
+        /*0250*/                   FMUL R9, R8, -0.5 ;
+        /*0260*/                   FSEL R9, R9, -R8, !P1 ;
+        /*0270*/                   MUFU.EX2 R5, R9 ;
+        /*0280*/              @!P1 FMUL R5, R5, R5 ;
+        /*0290*/                   F2F.BF16.F32 R5, R5 ;
+        /*02a0*/                   IMAD.U32 R8, R5, 0x10000, RZ ;
+        /*02b0*/                   FMUL R7, R8.reuse, -0.5 ;
+        /*02c0*/                   FSETP.GEU.AND P1, PT, -R8, -126, PT ;
+        /*02d0*/                   FSEL R7, R7, -R8, !P1 ;
+        /*02e0*/                   MUFU.EX2 R6, R7 ;
+        /*02f0*/              @!P1 FMUL R6, R6, R6 ;
+        /*0300*/                   ISETP.NE.AND P1, PT, R4, RZ, PT ;
+        /*0310*/                   F2F.BF16.F32 R6, R6 ;
+        /*0320*/                   SHF.L.U32 R8, R6, 0x10, RZ ;
+        /*0330*/                   FADD R5, -R8, -RZ ;
+        /*0340*/               @P1 BRA 0x150 ;
+        /*0350*/              @!P0 BRA 0x400 ;
+        /*0360*/                   FSETP.GEU.AND P0, PT, R5, -126, PT ;
+        /*0370*/                   VIADD R2, R2, 0xffffffff ;
+        /*0380*/              @!P0 FMUL R5, R5, 0.5 ;
+        /*0390*/                   MUFU.EX2 R4, R5 ;
+        /*03a0*/              @!P0 FMUL R4, R4, R4 ;
+        /*03b0*/                   ISETP.NE.AND P0, PT, R2, RZ, PT ;
+        /*03c0*/                   F2F.BF16.F32 R4, R4 ;
+        /*03d0*/                   SHF.L.U32 R6, R4, 0x10, RZ ;
+        /*03e0*/                   FADD R5, -R6, -RZ ;
+        /*03f0*/               @P0 BRA 0x360 ;
+        /*0400*/                   ULDC.64 UR6, c[0x0][0x220] ;
+\t\tFunction : _ZN4hgmm22probe_norm_bf16_kernelILi4EEEvPK13__nv_bfloat16S3_S3_iiiiPf
+        /*0300*/                   HMMA.16816.F32.BF16 R24, R152, R4, R24 ;
+        /*0310*/               @P0 BRA 0x300 ;
+"""
+
+
+def test_sass_loops_by_opcode():
+    loops = _build.parse_sass_loops(VPU_SASS, "probe_vpu")
+    (name, found), = loops.items()
+    assert "probe_vpu" in name and len(found) == 2
+    main, rest = found
+    assert main["MUFU.EX2"] == 4 and main["F2F.BF16.F32"] == 4 and main["BRA"] == 1
+    assert rest == {"FSETP.GEU.AND": 1, "VIADD": 1, "FMUL": 2, "MUFU.EX2": 1, "ISETP.NE.AND": 1,
+                    "F2F.BF16.F32": 1, "SHF.L.U32": 1, "FADD": 1, "BRA": 1}
+    # forward branches (0x130, 0x350) close no loop; the loop runs from the
+    # branch's target to the branch
+    assert _build.parse_sass_loops(VPU_SASS, "norm") == {
+        "_ZN4hgmm22probe_norm_bf16_kernelILi4EEEvPK13__nv_bfloat16S3_S3_iiiiPf":
+            [{"HMMA.16816.F32.BF16": 1, "BRA": 1}]}
+    # the tensor-core counts read the same listing as before
+    assert list(_build.parse_sass(VPU_SASS, "norm").values()) == [{"HGMMA": 0, "HMMA": 1}]
+
+
+def test_vpu_sass_counts_a_step_of_the_busiest_loop():
+    from hgmm_torch.ops.probes import vpu_sass_counts
+
+    counts = vpu_sass_counts(_build.parse_sass_loops(VPU_SASS, "probe_vpu").popitem()[1])
+    assert counts == {"steps_a_trip": 4, "exp2": 1.0, "convert_f2f": 1.0, "convert_f2fp": 0.0,
+                      "upcast": 1.0, "exp2f_fixup": 3.75, "negate": 0.25, "loop": 1.0, "other": 0.0}
+    # cast mode (no exp2): steps counted by the conversions
+    cast = vpu_sass_counts([{"F2FP.BF16.F32.PACK_AB": 8, "VIADD": 1, "ISETP.NE.AND": 1, "BRA": 1}])
+    assert cast["steps_a_trip"] == 8 and cast["convert_f2fp"] == 1.0 and cast["loop"] == 3 / 8
+    assert vpu_sass_counts([{"IADD3": 1, "BRA": 1}]) == {"steps_a_trip": 0}

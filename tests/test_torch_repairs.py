@@ -283,3 +283,71 @@ def test_dispatch_takes_point_weights_in_the_reference_position():
                  lambda: tops.reg_stats(prep, tW, tp.mu, tg.sym_pack(tA), tb, tpose, tw)):
         with pytest.raises(ValueError, match="Prepared"):
             call()
+
+
+# --------------------------------------------------------------------------
+# the sub-packages' re-exports (hgmm/models/__init__.py, hgmm/ops/__init__.py)
+
+# Names of the reference's packages that the port does not copy (ROADMAP,
+# "What not to copy"): the TPU's feature padding and the backend switch.
+DO_NOT_COPY = {"PHI_PAD", "set_backend", "get_backend"}
+# What the port's ops package has besides the reference's: the fit state and
+# the registration scan on the card, and their types.
+PORT_EXTRAS = {
+    "models": set(),
+    "ops": {"EmFit", "EmPartials", "Grouped", "Packed", "RegProblem", "RegScan", "em_partials",
+            "em_stats_grouped", "em_step", "group_by_parent", "new_fit", "new_scan",
+            "reg_partials", "reg_problem", "reg_step"},
+}
+REEXPORTS = [
+    ("models", "se3", ("Pose", "se3_exp", "se3_log")),
+    ("models", "gmm", ("Gmm", "GmmParams", "fit_gmm")),
+    ("models", "gmm_tree", ("GmmTree", "fit_gmm_tree")),
+    ("ops", "gaussians", ("PHI_DIM", "MixtureParams", "features", "mstep_update", "pack_loglik_weights",
+                          "precision_terms", "sym_pack", "sym_unpack", "unpack_suffstats")),
+    ("ops", "em_ref", ("EmStats", "RegStats")),
+]
+
+
+def _public(mod) -> set:
+    """A package's public names other than modules (a submodule becomes an
+    attribute of its package once anything imports it; the re-exported
+    module `pose` is checked on its own) and typing's or __future__'s."""
+    import types
+
+    return {name for name, obj in vars(mod).items()
+            if not name.startswith("_") and not isinstance(obj, types.ModuleType)
+            and getattr(obj, "__module__", None) not in ("typing", "__future__")}
+
+
+@pytest.mark.parametrize("sub", ["models", "ops"])
+def test_subpackage_names_match_the_reference(sub):
+    import importlib
+
+    ref = _public(importlib.import_module(f"hgmm.{sub}"))
+    port = _public(importlib.import_module(f"hgmm_torch.{sub}"))
+    missing = {n for n in ref - port if n not in DO_NOT_COPY and not n.startswith("HGMM_")}
+    assert not missing, f"hgmm_torch.{sub} lacks {sorted(missing)}"
+    assert port - ref == PORT_EXTRAS[sub]
+
+
+@pytest.mark.parametrize("sub,module,name", [(s, m, n) for s, m, names in REEXPORTS for n in names])
+def test_reexport_is_the_defining_modules_object(sub, module, name):
+    import importlib
+
+    pkg = importlib.import_module(f"hgmm_torch.{sub}")
+    assert getattr(pkg, name) is getattr(importlib.import_module(f"hgmm_torch.{sub}.{module}"), name)
+    assert hasattr(importlib.import_module(f"hgmm.{sub}"), name)
+
+
+def test_models_reexports_the_pose_module_and_imports_without_a_cycle():
+    import subprocess
+    import sys
+
+    from hgmm_torch import models
+    from hgmm_torch.models import pose
+
+    assert models.pose is pose and pose.__name__ == "hgmm_torch.models.pose"
+    for mod in ("hgmm_torch.models.se3", "hgmm_torch.models", "hgmm_torch.ops", "hgmm_torch"):
+        done = subprocess.run([sys.executable, "-c", f"import {mod}"], capture_output=True, text=True)
+        assert done.returncode == 0, done.stderr
