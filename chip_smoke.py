@@ -10,12 +10,14 @@ Run from the root of a checkout. It
    registers and spill bytes of every redesigned kernel (REPORTED_KERNELS)
    from the -Xptxas -v log, and the tensor-core instructions (HGMMA, HMMA) in
    the SASS of every probe kernel (cuobjdump); a spill fails the run, and so
-   does a bf16 logits or stats kernel (WGMMA_KERNELS) without HGMMA, with
-   HMMA, or with its wgmma serialized by ptxas; it prints the instructions a
+   does a bf16 logits, stats or norm kernel (WGMMA_KERNELS) without HGMMA,
+   with HMMA, or with its wgmma serialized by ptxas; it prints the instructions a
    step of probe_vpu's busiest loop issues, by kind, and fails if an exp2
    body holds no MUFU.EX2 or more conversions a step than the design's one
    packed convert (ops/probes.py:VPU_CONVERTS), or any kernel of the probe
-   the single convert F2F;
+   the single convert F2F; and it prints the adds an element and rep in
+   probe_addonly's busiest loop (ops/probes.py:addonly_sass_counts) and fails
+   unless it issues two (ADDONLY_FADDS: no add hoisted);
 3. checks each kernel against its plain PyTorch version on the card at small
    shapes (weights, outlier, dead components, parent -1, top_k gating with
    exact ties, nearest neighbours with exact ties; for the two redesigned
@@ -87,8 +89,9 @@ Run from the root of a checkout. It
    loops below, every remainder of the bf16 stats kernel's four reps a
    step) and, at the two
    shapes that are timed, the timed loops themselves (steps 1024, reps 2 and
-   6; vpu 512 x 512, steps 2048, reps 4 and 8), and the bf16 logits and
-   stats with A = 0 (PROBE_ZERO_A_LOOPS), where every rep's eps shows; each
+   6; vpu 512 x 512, steps 2048, reps 4 and 8), and the bf16 logits, stats
+   and norm with A = 0 (PROBE_ZERO_A_LOOPS), where every rep's eps shows,
+   and norm with a seeded standard-normal A at every loop besides; each
    kernel is launched twice for equal bits, and every result is read twice
    and must not change between the reads;
    the two microbenchmarks at the reference's defaults (mxu: K=512/T=2048 and
@@ -172,9 +175,10 @@ MAIN_PATH = {"knn": "cli_icp", **{name: "probes" for name in PROBES}}
 # products of both signs can land near zero).
 PROBE_CHECK_SHAPES = ((64, 256), (512, 2048), (64, 8192))
 PROBE_CHECK_LOOPS = ((3, 2), (3, 6), (1, 7))  # steps, reps; the timed loops are checked besides
-# bf16 logits and stats with A = 0 (wt, phi32): the result is steps * sum of
-# eps_r times B's column sums, so a kernel that drops, repeats or hoists a
-# rep's eps shows (with normal operands bf16(x + 1e-6) = x almost everywhere).
+# bf16 logits, stats and norm with A = 0 (wt, phi32, ones): the result is
+# steps * sum of eps_r times B's column sums, so a kernel that drops, repeats
+# or hoists a rep's eps shows (with normal operands bf16(x + 1e-6) = x almost
+# everywhere).
 PROBE_ZERO_A_LOOPS = ((1, 1), (3, 6), (2, 64))
 PROBE_TOL = {"bf16": (2e-3, 1e-4), "f32": (1e-5, 1e-5)}  # rtol, atol / max|ref|
 # float32 adds that one accumulator makes a product (csrc/probes.cu): the
@@ -209,12 +213,13 @@ BEFORE_NOTE = "constants recorded on an NVIDIA H100 80GB HBM3, 700.00 W; not mea
 REPORTED_KERNELS = ("em_stats_tiled_kernel", "knn_kernel", "reg_stats_lanes_kernel",
                     "reg_stats_top_k_kernel", "reg_step_kernel", "em_stats_grouped_kernel",
                     "em_stats_kernel", "assign_all_kernel", "assign_masked_kernel", "em_step_kernel",
-                    "probe_logits_bf16_kernel", "probe_stats_bf16_kernel")
+                    "probe_logits_bf16_kernel", "probe_stats_bf16_kernel", "probe_norm_bf16_kernel",
+                    "probe_addonly_kernel")
 # Kernels on the warpgroup tensor cores: each instantiation's SASS must hold
 # HGMMA (wgmma) and no HMMA (mma.sync), ptxas must not have serialized its
 # wgmma, and it keeps no stack frame. The build line prints the tensor-core
 # instructions of every probe.
-WGMMA_KERNELS = ("probe_logits_bf16_kernel", "probe_stats_bf16_kernel")
+WGMMA_KERNELS = ("probe_logits_bf16_kernel", "probe_stats_bf16_kernel", "probe_norm_bf16_kernel")
 # em_step against its plain twin (float32, the order of ops/gaussians.py):
 # T2 / T0 - mu mu^T cancels in float32, so the kernel (float64 inside, float32
 # out) is held to a float64 run of the twin on the same statistics, within
@@ -414,9 +419,11 @@ def main() -> int:
 
     vpu_steps = {name: probes.vpu_sass_counts(loops)
                  for name, loops in _build.sass_loops("probe_vpu_kernel").items()}
+    add_reps = {name: probes.addonly_sass_counts(loops)
+                for name, loops in _build.sass_loops("probe_addonly_kernel").items()}
     log({"phase": "build", "seconds": build_s, "library": _build.library_path().name,
          "compiled_here": not prebuilt, "ptxas": report, "tensor_ops": tensor_ops,
-         "vpu_step_instructions": vpu_steps})
+         "vpu_step_instructions": vpu_steps, "addonly_rep_instructions": add_reps})
     spilled = {name: rep for name, rep in report.items()
                if rep.get("spill_store_bytes") or rep.get("spill_load_bytes") or "registers" not in rep}
     if spilled or not all(any(key in name for name in report) for key in REPORTED_KERNELS):
@@ -443,6 +450,12 @@ def main() -> int:
         raise CheckFailed(f"build: a probe_vpu body converts on F2F, issues no MUFU.EX2 a step, more "
                           f"conversions a step than the design's {probes.VPU_CONVERTS}, or is missing "
                           f"from the SASS: {bad_vpu or sorted(vpu_steps)}")
+    bad_add = {name: c for name, c in add_reps.items()
+               if c.get("fadd_per_element_rep") != probes.ADDONLY_FADDS}
+    if bad_add or len(add_reps) != 1:
+        raise CheckFailed(f"build: a probe_addonly body issues other than {probes.ADDONLY_FADDS} adds an "
+                          f"element and rep in its busiest loop (one hoisted), or is missing from the "
+                          f"SASS: {bad_add or sorted(add_reps)}")
 
     errs = {name: 0.0 for name in fused_em.LAUNCHES}
     small_checks(torch, dev, errs)
@@ -1067,6 +1080,7 @@ def add_bound(name, entry) -> None:
 def probe_checks(torch, dev, errs) -> dict:
     """Each probe kernel against its plain version on the card: at small
     steps, and at every shape and loop that the probes phase then times."""
+    from hgmm_torch.benchmarks.kernel_compare import norm_operands
     from hgmm_torch.benchmarks.mxu_microbench import make_inputs
     from hgmm_torch.ops import probes
 
@@ -1115,6 +1129,7 @@ def probe_checks(torch, dev, errs) -> dict:
 
     for k, t in PROBE_CHECK_SHAPES:
         ins = make_inputs(k, t, dev)
+        norm_a = norm_operands(torch, k, dev)
         for steps, reps in PROBE_CHECK_LOOPS + probe_timed_loops(k, t):
             # Kernel and plain version add the steps * reps products in the same
             # order; past the small loops each of those float32 adds may round
@@ -1129,9 +1144,10 @@ def probe_checks(torch, dev, errs) -> dict:
                 hold("probe_stats", f"stats_{mode}_{tag}",
                      lambda: probes.stats_cuda(phi[:32], e, steps, reps),
                      lambda: probes.stats_ref(phi[:32], e, steps, reps), mode, chain)
-            hold("probe_norm", f"norm_bf16_{tag}",
-                 lambda: probes.norm_cuda(ins["ones"], ins["e"], steps, reps),
-                 lambda: probes.norm_ref(ins["ones"], ins["e"], steps, reps), "bf16", chain)
+            for label, ones in ((f"norm_bf16_{tag}", ins["ones"]),
+                                (f"norm_bf16_random_a_{tag}", norm_a["random"])):
+                hold("probe_norm", label, lambda: probes.norm_cuda(ones, ins["e"], steps, reps),
+                     lambda: probes.norm_ref(ones, ins["e"], steps, reps), "bf16", chain)
             # Two float32 adds an element and rep in the plain version's order: equal.
             got = probes.addonly_cuda(ins["x"], steps, reps)
             ref = probes.addonly_ref(ins["x"], steps, reps)
@@ -1149,6 +1165,9 @@ def probe_checks(torch, dev, errs) -> dict:
             hold("probe_stats", f"stats_bf16_zero_a_{tag}",
                  lambda: probes.stats_cuda(phi32_0, ins["e"], steps, reps),
                  lambda: probes.stats_ref(phi32_0, ins["e"], steps, reps), "bf16", 0.0)
+            hold("probe_norm", f"norm_bf16_zero_a_{tag}",
+                 lambda: probes.norm_cuda(norm_a["zero"], ins["e"], steps, reps),
+                 lambda: probes.norm_ref(norm_a["zero"], ins["e"], steps, reps), "bf16", 0.0)
     vk, vt = VPU_LOOP["k"], VPU_LOOP["t"]
     x = make_inputs(vk, vt, dev)["x"].clamp(-1.5, -0.5)
     for reps in (VPU_LOOP["r1"], VPU_LOOP["r2"]):

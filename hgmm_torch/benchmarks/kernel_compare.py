@@ -42,10 +42,10 @@ every output of the two files, ``bit-equal`` or the largest gap.
 
 The unit-rate probes (``probe_times``, alone with ``--probes-only``): at the
 two MXU shapes (K = 512, T = 2048 and K = 64, T = 8192) every probe's output
-at 3 x 6 and 1,024 x 6 products (the bf16 logits and stats also with A = 0)
-is saved, and the bf16 logits' and stats' are held to their plain versions
-within PROBE_TOL (``probe_twin_gaps``: their tensor cores' sum order is
-their own); device µs a call (device_us) at 1,024 x 2 and 1,024 x 6 products
+at 3 x 6 and 1,024 x 6 products (the bf16 logits, stats and norm also with
+A = 0, norm also with a random A: ``norm_operands``) is saved, and the bf16
+logits', stats' and norm's are held to their plain versions within PROBE_TOL
+(``probe_twin_gaps``: their tensor cores' sum order is their own); device µs a call (device_us) at 1,024 x 2 and 1,024 x 6 products
 (vpu, exp2 and cast modes: 512 x 512, 2,048 x 4 and 2,048 x 8), the bound and its share, and the
 library's yardstick: the same 1,024 x 6 ``torch.matmul`` calls in one CUDA
 graph (graph_us).
@@ -304,20 +304,26 @@ def device_times(np, torch, dev, n) -> dict:
     return out
 
 
-def graph_us(torch, fn, calls: int = 1, replays: int = 10) -> float:
+def graph_us(torch, fn, calls: int = 1, replays: int = 10, launches: dict | None = None) -> float:
     """Device µs a call of fn() when `calls` calls run back to back from one
     CUDA graph, with no host work between the launches: CUDA events around
     `replays` replays of the graph, over replays x calls. Beside a kernel's
-    own time (device_us) it gives what a launch adds on the card."""
+    own time (device_us) it gives what a launch adds on the card. `launches`,
+    the port's launch counts (ops.fused_em.LAUNCHES): a replay runs the
+    captured kernels without calling their wrappers, so what the capture
+    counted is counted again for each timed replay (the capture's own count
+    stands for the replay that follows it)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
+    before = dict(launches or {})
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
+    captured = {name: launches[name] - n for name, n in before.items()}
     graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -326,6 +332,8 @@ def graph_us(torch, fn, calls: int = 1, replays: int = 10) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
+    for name, n in captured.items():
+        launches[name] += n * replays
     return start.elapsed_time(end) * 1e3 / (replays * calls)
 
 
@@ -417,6 +425,17 @@ def step_times(np, torch, dev, n) -> dict:
     return out
 
 
+def norm_operands(torch, k: int, dev) -> dict:
+    """The norm probe's A operands [8, K] bf16 beside make_inputs' all-ones
+    one: "random", seeded standard normal (it varies along K and between
+    rows, so a mix-up of the kernel's K-major B tiles or of its output rows
+    shows), and "zero" (the result is then every rep's eps_r times e's
+    column sums)."""
+    g = torch.Generator().manual_seed(k)
+    rand = torch.randn(8, k, generator=g).to(torch.bfloat16).to(dev)
+    return {"random": rand, "zero": torch.zeros_like(rand)}
+
+
 def probe_times(torch, dev) -> tuple[dict, dict]:
     """The unit-rate probes at the MXU shapes: (outputs by name, times). See
     the module's docstring. Needs only what every tree since the probes
@@ -431,6 +450,9 @@ def probe_times(torch, dev) -> tuple[dict, dict]:
         ins = make_inputs(k, t, dev)
         phi32, phi32_f = ins["phi"][:32], ins["phi_f32"][:32]
         zero_wt, zero_phi32 = torch.zeros_like(ins["wt"]), torch.zeros_like(phi32)
+        other = norm_operands(torch, k, dev)
+        norm_a = {"norm_bf16": ins["ones"], "norm_bf16_zero_a": other["zero"],
+                  "norm_bf16_random": other["random"]}
         calls = {  # name: (probe call of (steps, reps), its plain version or None)
             "logits_bf16": (lambda s, r: probes.logits(ins["wt"], ins["phi"], s, r),
                             lambda s, r: probes.logits_ref(ins["wt"], ins["phi"], s, r)),
@@ -442,7 +464,8 @@ def probe_times(torch, dev) -> tuple[dict, dict]:
                                   lambda s, r: probes.stats_ref(zero_phi32, ins["e"], s, r)),
             "logits_f32": (lambda s, r: probes.logits(ins["wt_f32"], ins["phi_f32"], s, r), None),
             "stats_f32": (lambda s, r: probes.stats(phi32_f, ins["e_f32"], s, r), None),
-            "norm_bf16": (lambda s, r: probes.norm(ins["ones"], ins["e"], s, r), None),
+            **{name: (lambda s, r, a=a: probes.norm(a, ins["e"], s, r),
+                      lambda s, r, a=a: probes.norm_ref(a, ins["e"], s, r)) for name, a in norm_a.items()},
             "addonly": (lambda s, r: probes.addonly(ins["x"], s, r), None),
         }
         if k * t >= 512 * 512:  # vpu_microbench's 512 x 512 elements
@@ -503,9 +526,11 @@ def probe_times(torch, dev) -> tuple[dict, dict]:
                 per_call = graph_us(torch, lambda: torch.matmul(a, b, out=res), calls=steps * reps, replays=2)
                 times[f"probe_{name}_{tag}_{steps}x{reps}_library_graph_us"] = per_call * steps * reps
     times["probe_twin_gaps"] = gaps
-    times["probe_plans"] = {f"{name}_K{k}_T{t}": str(plan(k, t, False, probes._sms(dev)))
+    times["probe_plans"] = {f"{name}_K{k}_T{t}": str(plan(k, t, probes._sms(dev)))
                             for k, t in PROBE_SHAPES if on_card
-                            for name, plan in (("logits", probes.plan_logits), ("stats", probes.plan_stats))}
+                            for name, plan in (("logits", lambda k, t, s: probes.plan_logits(k, t, False, s)),
+                                               ("stats", lambda k, t, s: probes.plan_stats(k, t, False, s)),
+                                               ("norm", probes.plan_norm))}
     return out, times
 
 

@@ -18,7 +18,10 @@ FMAs from shared memory (what the port's E-step kernels execute today).
 Method, as the reference's: every probe repeats its product steps * reps times
 inside one launch, operands resident on the SM; it is timed at reps = r1 and
 reps = r2 and (t2 - t1) / ((r2 - r1) steps) cancels the launch, the staging
-and the write-out. Every rep's full product is added into the accumulator
+and the write-out. On the card a rep count is timed as calls back to back
+from one CUDA graph (``seconds_a_call``), so the events hold device time
+only: a call's wrapper time on the host does not cancel in the difference,
+and it exceeds the shortest probes' device time (norm at reps = 2). Every rep's full product is added into the accumulator
 that is written out, and the A operand is perturbed by eps_r per rep, so the
 compiler can neither drop nor hoist a product. Where the kernel adds the
 product into its accumulator in a pass of its own, an add-only probe measures
@@ -51,6 +54,8 @@ K = 512
 T = 2048  # the reference's tile width; small K needs T >= 8192 so that a rep's
 # work stands out of the differencing noise
 LIBRARY_CALLS = 50  # torch.matmul calls back to back in one timed run (eager, and one graph)
+GRAPH_CALLS = 2  # probe calls in the CUDA graph that times a rep count on the card
+GRAPH_REPLAYS = 3  # timed replays of that graph
 
 
 def make_inputs(k: int, t: int, device, seed: int = 0) -> dict:
@@ -68,14 +73,19 @@ def make_inputs(k: int, t: int, device, seed: int = 0) -> dict:
     return ins
 
 
-def time_call(fn, device, iters: int = 5) -> float:
-    return time_fn(fn, warmup=1, iters=iters, device=device)[1]
+def seconds_a_call(fn, device) -> float:
+    """Seconds a call of fn(): on the card GRAPH_CALLS calls back to back from
+    one CUDA graph (kernel_compare.graph_us, which counts every replay's
+    launches in probes.LAUNCHES), the host clock (time_fn) on the CPU."""
+    if device.type == "cuda":
+        return graph_us(torch, fn, calls=GRAPH_CALLS, replays=GRAPH_REPLAYS, launches=probes.LAUNCHES) * 1e-6
+    return time_fn(fn, warmup=1, iters=5, device=device)[1]
 
 
 def run_case(fn, steps: int, r1: int, r2: int, device) -> float:
     """Seconds per rep of fn(steps, reps), by differencing two rep counts."""
-    t1 = time_call(lambda: fn(steps, r1), device)
-    t2 = time_call(lambda: fn(steps, r2), device)
+    t1 = seconds_a_call(lambda: fn(steps, r1), device)
+    t2 = seconds_a_call(lambda: fn(steps, r2), device)
     return (t2 - t1) / ((r2 - r1) * steps)
 
 
@@ -128,7 +138,8 @@ def run(k: int = K, t: int = T, steps: int = 1024, r1: int = 2, r2: int = 6,
         }
     if "norm_bf16" in report["cases"]:
         report["cases"]["norm_bf16"]["note"] = (
-            "rate counts the 8 useful rows; the tensor-core tile pads them to 16")
+            "rate counts the 8 rows a rep; the kernel stacks 16 reps of them along the tensor "
+            "cores' N (its transpose), so no row is padding")
     for mode, names in (("bf16", ("logits_bf16", "stats_bf16", "norm_bf16")),
                         ("f32", ("logits_f32", "stats_f32"))):
         total = sum(report["cases"][n]["ps_per_point"] for n in names) * 1e-12

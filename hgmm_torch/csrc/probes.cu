@@ -28,61 +28,41 @@
 // that reduce_partials sums in a fixed order, as the E-step kernels do. The
 // wrapper picks the slice widths (ops/probes.py:plan_*) and passes them in
 // (`tile`, `nk`).
-//   bf16 logits and stats (the TPU bodies' arithmetic): the warpgroup tensor
-//     cores (wgmma, m64nNk16, A from registers, B from shared memory, float32
-//     accumulate), each body's own note below.
-//   bf16 norm: nvcuda::wmma 16x16x16 (mma.sync). Each rep adds eps_r to the A
-//     operand's fragments element by element in bf16 (the same value on every
-//     element, so the opaque fragment layout does not matter), multiplies into
-//     a zeroed fragment and adds that into the accumulator. The 8-row norm
-//     output pads to a 16-row tile.
+//   bf16 logits, stats and norm (the TPU bodies' arithmetic): the warpgroup
+//     tensor cores (wgmma, m64nNk16, A from registers, B from shared memory,
+//     float32 accumulate), each body's own note below; stats and norm as
+//     their transposes, so that their short side (32 and 8 rows) is N.
 //   f32 (what em_stats.cu and reg_stats.cu execute): FMAs with one operand in
 //     registers and the other read from shared memory at an address that is
 //     uniform across the warp (a broadcast float4), the perturbed operand
 //     rewritten in shared memory once a rep.
 //
 // What bounds them on the card: operations, by construction (operands are
-// read once and stay on the SM): the tensor cores' rate (wgmma for logits
-// and stats, mma.sync for norm), the fp32 FMA rate, the special-function
-// unit's exp2 rate.
+// read once and stay on the SM): the tensor cores' rate (wgmma), the fp32
+// FMA rate, the special-function unit's exp2 rate.
 #include <cuda_bf16.h>
 #include <stdint.h>
-#include <mma.h>
+
+#include <type_traits>
 
 #include "hgmm_kernels.cuh"
 
 namespace hgmm {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int MAX_REPS = 64;   // length of the eps table a block stages
-constexpr int PW = 4;          // warps per block of the norm probe
 constexpr int DEPTH = 80;      // contraction depth of the logits product
 constexpr int LK = 16;         // output rows per block, logits f32
 constexpr int ST = 32;         // T slice per block, stats f32
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__device__ __forceinline__ void perturb(FragA& dst, const FragA& src, bf16 eps) {
-#pragma unroll
-  for (int i = 0; i < FragA::num_elements; ++i) dst.x[i] = __hadd(src.x[i], eps);
-}
-
-__device__ __forceinline__ void add_into(FragC& acc, const FragC& d) {
-#pragma unroll
-  for (int i = 0; i < FragC::num_elements; ++i) acc.x[i] += d.x[i];
-}
 
 template <typename T>
 __device__ __forceinline__ void stage_eps(T* eps_s, const T* __restrict__ eps, int reps) {
   for (int i = threadIdx.x; i < reps; i += blockDim.x) eps_s[i] = eps[i];
 }
 
-// ---- warpgroup tensor-core helpers (wgmma, sm_90a) for the bf16 logits and
-// stats bodies. A warpgroup is four warps; warp w of it owns rows 16 w ..
+// ---- warpgroup tensor-core helpers (wgmma, sm_90a) for the bf16 logits,
+// stats and norm bodies. A warpgroup is four warps; warp w of it owns rows 16 w ..
 // 16 w + 15 of the 64-row tile. Lane l holds, of A's 16-deep step (the RS
 // form: A from registers, as mma.m16n8k16's A fragment), the pairs (row g,
 // cols 2 q, 2 q + 1), (row g + 8, same cols), (row g, cols 2 q + 8, + 9),
@@ -97,6 +77,19 @@ struct Wgmma;
 // D[64, N] (+)= A[64, 16] (registers) @ B[16, N] (shared memory, descriptor
 // b); SCALE_D = 0 ignores D's old contents, so the first step of a product
 // needs no zeroed accumulator.
+template <>
+struct Wgmma<8> {
+  template <int SCALE_D>
+  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(SCALE_D));
+  }
+};
+
 template <>
 struct Wgmma<32> {
   template <int SCALE_D>
@@ -537,58 +530,192 @@ cudaError_t launch_stats(dim3 grid, const bf16* a, const bf16* b, const bf16* ep
   return cudaGetLastError();
 }
 
-// ---- norm, bf16 tensor cores. Block: 16 columns of T; its PW warps split a
-// K range of PW 16 NK between them and their sums are added in order at the
-// end. grid (T / 16, K / (PW 16 NK)); the K splits are partials. The 8 rows
-// of `ones` are staged into a 16-row tile whose lower half is zero.
-template <int NK>
-__global__ void __launch_bounds__(32 * PW)
+// ---- norm, bf16 on the warpgroup tensor cores, computed as its transpose
+// out^T[T, 8] = e^T[T, K] @ (ones + eps_r)^T[K, 8]: the stats body's design
+// with 8 rows a rep instead of 32, e's transpose as A and the contraction
+// over K. M is a 64-row tile of T (the norm orientation would pad ones' 8
+// rows into a 16-row tile), and NORM_NREP = 16 reps share an instruction
+// along N:
+//   [d_r | ... | d_r+15] = e^T @ [ones + eps_r ; ... ; ones + eps_r+15]^T,
+// m64n128k16: a step stores the same bytes of B and does the same tensor
+// work a warpgroup as stats' four reps of 32 rows.
+// Replaces benchmarks/mxu_microbench.py:_norm_kernel (:106). Bound on the
+// card: bf16 tensor-core operations (2 8 K T a rep, the 8 useful rows). As
+// for stats, the fenced rewrite of B, not the tensor work, sets the pace.
+//   - A = the warpgroup's 64 rows of e^T over the block's K slice D, loaded
+//     into registers once (a strided gather of e's columns, outside the
+//     loop); the rows of a last, partial tile of T are zero and not stored
+//     (T is a multiple of 16, so a warp's 16 rows all lie in T or all past
+//     it; every warp still joins the warpgroup's wgmmas).
+//   - B = the 16 reps' bf16(ones + eps), stacked (row 8 h + i: rep h, ones'
+//     row i), [128 x D], K-major as ones lies, no swizzle, rewritten every 16
+//     reps into a ring of three buffers (the stats body's note says why
+//     three) with packed __hadd2, one 16-byte store a core-matrix row, then
+//     fence.proxy.async and a block barrier. D divides 128 G, so all of a
+//     thread's chunks hold the same 8 elements of ones (one uint4 in
+//     registers), each for another rep: chunk c of a buffer is rep c / D.
+//   - G warpgroups a block (G 64-row tiles of T) share each B tile;
+//     ops/probes.py:plan_norm picks D by shape, G = 2. grid (ceil(T / 64 G),
+//     K / D); the K slices are partials [K / D, 8, T] that reduce_partials
+//     sums in a fixed order, outside the differenced loop.
+//   - Each rep's 64 x 8 product is formed whole, in its own 8 columns of D
+//     (registers 4 h .. 4 h + 3 of a thread), and added into the float32
+//     accumulator (4 registers) on its own, in rep order, through `pipeline`.
+//     The last iters % 16 reps run after the loop, one at a time on
+//     m64n8k16 (their count is taken over steps x reps, so they run once a
+//     launch, and not at all at the timed loops).
+//   - The eps table is staged periodic, eps_s[i] = eps[i % reps] for i < reps
+//     + 16, so rep h of a step that starts at rep r reads eps_s[r + h].
+//   - What a thread does between its wait for a step and its next wgmma
+//     delays the tensor work (the barrier waits for the slowest warp), so
+//     nothing there waits on a load or divides: r advances by 16 % reps with
+//     one conditional subtract, and a step's eps are loaded into registers a
+//     step ahead. On an H100 each of the two read clearly faster.
+constexpr int NORM_NREP = 16;  // reps stacked along N in one wgmma
+constexpr int norm_smem(int d) { return 3 * 8 * NORM_NREP * d * 2; }  // the ring
+
+// The A fragments of rows t and t + 8 of e^T, KS steps of 16 from column k,
+// for e [., ld] row-major: A's pair (row t, cols k, k + 1) is e[k][t],
+// e[k + 1][t]. Zero where !live.
+template <int KS>
+__device__ __forceinline__ void load_a_transposed(uint32_t (&a)[KS][4], const bf16* __restrict__ m,
+                                                  size_t ld, int k, int t, bool live) {
+  const bf16* p = m + (size_t)k * ld + t;
+  auto pair = [&](int dk, int dt) -> uint32_t {
+    if (!live) return 0u;
+    const __nv_bfloat162 v = __halves2bfloat162(p[dk * ld + dt], p[(dk + 1) * ld + dt]);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  };
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = pair(16 * kk, 0);
+    a[kk][1] = pair(16 * kk, 8);
+    a[kk][2] = pair(16 * kk + 8, 0);
+    a[kk][3] = pair(16 * kk + 8, 8);
+  }
+}
+
+template <int D, int G>
+__global__ void __launch_bounds__(WG * G)
     probe_norm_bf16_kernel(const bf16* __restrict__ ones, const bf16* __restrict__ e,
                            const bf16* __restrict__ eps, int k, int t, int iters, int reps,
                            float* __restrict__ partial) {
-  __shared__ __align__(32) bf16 a_s[PW][16][16 * NK];
-  __shared__ __align__(32) float red_s[PW][16][16];
-  __shared__ bf16 eps_s[MAX_REPS];
-  stage_eps(eps_s, eps, reps);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col0 = blockIdx.x * 16;
-  const int kbase = (blockIdx.y * PW + warp) * 16 * NK;
-  for (int idx = lane; idx < 16 * 16 * NK; idx += 32) {
-    const int row = idx / (16 * NK), c = idx % (16 * NK);
-    a_s[warp][row][c] = row < 8 ? ones[(size_t)row * k + kbase + c] : __float2bfloat16_rn(0.0f);
-  }
-  __syncthreads();
-  FragA a[NK];
-  FragBRow b[NK];
-  FragC acc;
+  constexpr int KS = D / 16;
+  constexpr int NN = 8 * NORM_NREP;
+  constexpr int THREADS = WG * G;
+  constexpr int RING = 3;  // as stats: step x writes what step x - 3 read
+  static_assert(D % 32 == 0 && THREADS % D == 0, "D: a multiple of 32 that divides 128 G");
+  extern __shared__ __align__(128) unsigned char norm_smem_raw[];
+  auto b_s = reinterpret_cast<bf16 (*)[NN * D]>(norm_smem_raw);  // [RING][16][D/8][8 rows][8 along K]
+  __shared__ bf16 eps_s[MAX_REPS + NORM_NREP];
+  const int tid = threadIdx.x, warp = (tid >> 5) & 3, g = (tid & 31) >> 2, q = tid & 3;
+  for (int i = tid; i < reps + NORM_NREP; i += THREADS) eps_s[i] = eps[i % reps];
+  const int k0 = blockIdx.y * D;
+  const int row = (blockIdx.x * G + (tid >> 7)) * 64 + 16 * warp;  // the warp's first row of T
+  const bool live = row < t;
+  // Chunk c lies at byte 16 c of a buffer: row n = 8 (c / D) + c % 8 (rep
+  // c / D of the step, ones' row c % 8 = tid % 8), columns 8 ((c / 8) % (D /
+  // 8)) .. + 7 of the slice, the same for every chunk tid + 128 G j.
+  const uint4 base =
+      *reinterpret_cast<const uint4*>(ones + (size_t)(tid & 7) * k + k0 + 8 * ((tid % D) >> 3));
+  uint32_t a[KS][4];
+  load_a_transposed(a, e, t, k0 + 2 * q, row + g, live);
+  __syncthreads();  // eps_s
+  const uint64_t desc0 = kmajor_desc(b_s[0], 128, D * 16);
+  constexpr uint64_t DESC_BUF = (NN * D * 2) >> 4;
+
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int r = 0, buf = 0;
+  const int step_adv = NORM_NREP % reps;  // r's advance a step, without a division in the loop
+  // The eps of a whole step's chunks, loaded a step ahead (the loads would
+  // otherwise stand between a wait and the next wgmma).
+  constexpr int CH = NORM_NREP * D / THREADS;  // a thread's chunks a step
+  __nv_bfloat162 e_step[CH];
+  auto load_eps = [&]() {
 #pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    wmma::load_matrix_sync(a[kk], &a_s[warp][0][16 * kk], 16 * NK);
-    wmma::load_matrix_sync(b[kk], e + (size_t)(kbase + 16 * kk) * t + col0, t);
-  }
-  wmma::fill_fragment(acc, 0.0f);
-  int r = 0;
-  for (int it = 0; it < iters; ++it) {
-    const bf16 ep = eps_s[r];
-    if (++r == reps) r = 0;
-    FragC d;
-    wmma::fill_fragment(d, 0.0f);
+    for (int j = 0; j < CH; ++j) e_step[j] = __bfloat162bfloat162(eps_s[r + (tid + THREADS * j) / D]);
+  };
+  load_eps();
+  // Write the B of the next NOW reps into buffer `buf` (its chunks c < NOW D),
+  // publish it to the block's wgmmas and return its descriptor.
+  auto write_b = [&](auto now) {
+    constexpr int NOW = decltype(now)::value;
+    uint4* dst = reinterpret_cast<uint4*>(b_s[buf]);
 #pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      FragA a2;
-      perturb(a2, a[kk], ep);
-      wmma::mma_sync(d, a2, b[kk], d);
+    for (int j = 0; j < (NOW * D + THREADS - 1) / THREADS; ++j) {
+      const int c = tid + THREADS * j;
+      if ((NOW * D) % THREADS == 0 || c < NOW * D) {
+        const __nv_bfloat162 e2 = NOW == NORM_NREP ? e_step[j] : __bfloat162bfloat162(eps_s[r + c / D]);
+        dst[c] = make_uint4(hadd2(base.x, e2), hadd2(base.y, e2), hadd2(base.z, e2), hadd2(base.w, e2));
+      }
     }
-    add_into(acc, d);
-  }
-  wmma::store_matrix_sync(&red_s[warp][0][0], acc, 16, wmma::mem_row_major);
-  __syncthreads();
-  // 8 useful rows x 16 columns: one output per thread, warps summed in order.
-  const int row = threadIdx.x / 16, c = threadIdx.x % 16;
-  float s = 0.0f;
+    if (NOW == NORM_NREP) {
+      r += step_adv;
+      if (r >= reps) r -= reps;
+      load_eps();
+    } else {
+      r = (r + NOW) % reps;
+    }
+    fence_async_smem();
+    __syncthreads();
+    const uint64_t desc = desc0 + buf * DESC_BUF;
+    if (++buf == RING) buf = 0;
+    return desc;
+  };
+  float d[2][NN / 2];
+  auto issue = [&](float (&dj)[NN / 2], int) {
+    const uint64_t desc = write_b(std::integral_constant<int, NORM_NREP>());
+    pin(dj);
+    wg_fence();
+    Wgmma<NN>::template mma<0>(dj, a[0], desc);
 #pragma unroll
-  for (int w = 0; w < PW; ++w) s += red_s[w][row][c];
-  partial[((size_t)blockIdx.y * 8 + row) * t + col0 + c] = s;
+    for (int kk = 1; kk < KS; ++kk) Wgmma<NN>::template mma<1>(dj, a[kk], desc + kk * DESC_STEP);
+    wg_commit();
+  };
+  pipeline(iters / NORM_NREP, d, issue, [&](float (&dj)[NN / 2]) {
+    pin(dj);
+#pragma unroll
+    for (int h = 0; h < NORM_NREP; ++h)  // the step's reps, in order
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] += dj[4 * h + i];
+  });
+  // The last iters % 16 reps, one at a time on m64n8k16. Every warp's groups
+  // are done with the ring before it is rewritten.
+  for (int rest = iters % NORM_NREP; rest > 0; --rest) {
+    __syncthreads();
+    const uint64_t desc = write_b(std::integral_constant<int, 1>());
+    float dl[4];
+    wg_fence();
+    Wgmma<8>::template mma<0>(dl, a[0], desc);
+#pragma unroll
+    for (int kk = 1; kk < KS; ++kk) Wgmma<8>::template mma<1>(dl, a[kk], desc + kk * DESC_STEP);
+    wg_commit();
+    wg_wait<0>();
+    pin(dl);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] += dl[i];
+  }
+  // acc holds out^T rows row + g (+ 8), columns 2 q (+ 1): partial[slice][2 q (+ 1)][row + g (+ 8)].
+  if (live) {
+    float* p = partial + ((size_t)blockIdx.y * 8 + 2 * q) * t + row + g;
+    p[0] = acc[0];
+    p[t] = acc[1];
+    p[8] = acc[2];
+    p[t + 8] = acc[3];
+  }
+}
+
+// Launch probe_norm_bf16_kernel<D, G>; its dynamic shared memory limit is
+// raised once, at the first launch.
+template <int D, int G>
+cudaError_t launch_norm(dim3 grid, const bf16* a, const bf16* b, const bf16* ep, int k, int t,
+                        int iters, int reps, float* part, cudaStream_t s) {
+  constexpr int smem = norm_smem(D);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      probe_norm_bf16_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  probe_norm_bf16_kernel<D, G><<<grid, WG * G, smem, s>>>(a, b, ep, k, t, iters, reps, part);
+  return cudaGetLastError();
 }
 
 // ---- logits, f32 FMA. Block: LK rows of K x 128 columns of T; a thread owns
@@ -696,27 +823,80 @@ __global__ void __launch_bounds__(128)
   for (int f = 0; f < 32; ++f) partial[((size_t)blockIdx.x * 32 + f) * k + kcol] = acc[f];
 }
 
-// ---- addonly: one float4 a thread, two dependent adds an element and rep.
-__global__ void __launch_bounds__(256)
-    probe_addonly_kernel(const float4* __restrict__ x, const float* __restrict__ eps, int n4,
-                         int iters, int reps, float4* __restrict__ out) {
-  __shared__ float eps_s[MAX_REPS];
-  stage_eps(eps_s, eps, reps);
-  __syncthreads();
-  const int i = blockIdx.x * 256 + threadIdx.x;
-  if (i >= n4) return;
-  const float4 v = x[i];
-  float4 acc = v;
-  int r = 0;
-  for (int it = 0; it < iters; ++it) {
-    const float e = eps_s[r];
-    if (++r == reps) r = 0;
-    acc.x += v.x + e;
-    acc.y += v.y + e;
-    acc.z += v.z + e;
-    acc.w += v.w + e;
+// ---- addonly: acc = x, then acc += x + eps_r for every iteration, two
+// float32 adds an element and rep.
+// Replaces benchmarks/mxu_microbench.py:_addonly_kernel (:73). Bound on the
+// card: the FP32 lanes' issue rate (2 adds an element and rep, one lane
+// instruction a clock; the bytes are read and written once). So the design
+// cuts every instruction a rep issues besides the adds:
+//   - ADD_VEC = 4 float4 a thread: thread i of the grid takes the float4s
+//     i + j G, j < 4, G the grid's threads (coalesced loads); the grid is a
+//     whole number of blocks an SM (ops/probes.py:plan_addonly);
+//   - the loop is steps x reps (no wrap compare of the rep index), the reps
+//     four at a time, their eps from one 16-byte shared-memory load issued a
+//     trip ahead (the table repeats eps[0 .. 3] after the last whole four,
+//     so the last trip of a step loads the next step's first four); the
+//     last reps % 4 reps after them, in order, their eps in registers. A rep
+//     is 32 adds a thread (v + eps, then acc + that), in the plain
+//     version's order, so the result is bit-equal to it. An empty asm
+//     statement makes the last reps' eps opaque on every step, so the
+//     compiler cannot keep their x + eps_r in registers across steps
+//     (chip_smoke.py counts the adds a rep in the SASS of the busiest loop:
+//     ops/probes.py:addonly_sass_counts).
+constexpr int ADD_THREADS = 256;
+constexpr int ADD_VEC = 4;  // float4 a thread
+
+__device__ __forceinline__ void add_rep(float4 (&acc)[ADD_VEC], const float4 (&v)[ADD_VEC], float e) {
+#pragma unroll
+  for (int j = 0; j < ADD_VEC; ++j) {
+    acc[j].x += v[j].x + e;
+    acc[j].y += v[j].y + e;
+    acc[j].z += v[j].z + e;
+    acc[j].w += v[j].w + e;
   }
-  out[i] = acc;
+}
+
+__global__ void __launch_bounds__(ADD_THREADS)
+    probe_addonly_kernel(const float4* __restrict__ x, const float* __restrict__ eps, int n4,
+                         int steps, int reps, float4* __restrict__ out) {
+  __shared__ __align__(16) float eps_s[MAX_REPS + 4];
+  const int whole = reps & ~3, rest = reps & 3;
+  for (int i = threadIdx.x; i < whole + 4; i += ADD_THREADS) eps_s[i] = eps[i < whole ? i : (i - whole) % reps];
+  __syncthreads();
+  const int i0 = blockIdx.x * ADD_THREADS + threadIdx.x, stride = gridDim.x * ADD_THREADS;
+  if (i0 >= n4) return;  // no float4 of its own (a small n)
+  float4 v[ADD_VEC], acc[ADD_VEC];
+#pragma unroll
+  for (int j = 0; j < ADD_VEC; ++j) {
+    const int i = i0 + j * stride;
+    v[j] = i < n4 ? x[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    acc[j] = v[j];
+  }
+  const float4* eps4 = reinterpret_cast<const float4*>(eps_s);
+  float4 e = eps4[0];
+  float e0 = rest > 0 ? eps[whole] : 0.0f, e1 = rest > 1 ? eps[whole + 1] : 0.0f,
+        e2 = rest > 2 ? eps[whole + 2] : 0.0f;
+  for (int s = 0; s < steps; ++s) {
+    for (int r = 0; r < whole; r += 4) {
+      const float4 next = eps4[r / 4 + 1];
+      add_rep(acc, v, e.x);
+      add_rep(acc, v, e.y);
+      add_rep(acc, v, e.z);
+      add_rep(acc, v, e.w);
+      e = next;
+    }
+    if (rest) {
+      asm volatile("" : "+f"(e0), "+f"(e1), "+f"(e2));
+      add_rep(acc, v, e0);
+      if (rest > 1) add_rep(acc, v, e1);
+      if (rest > 2) add_rep(acc, v, e2);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < ADD_VEC; ++j) {
+    const int i = i0 + j * stride;
+    if (i < n4) out[i] = acc[j];
+  }
 }
 
 // ---- vpu: K independent chains a thread, each a dependent chain of iters
@@ -886,43 +1066,46 @@ int hgmm_probe_stats(const void* phi32, const void* e, const void* eps, int k, i
   return (int)launch_reduce_partials(part, t / tile, 32 * k, static_cast<float*>(out), s);
 }
 
-// out[8, T] f32 from ones [8, K], e [K, T], eps [reps], all bf16. nk in
-// {1, 2, 4}: 16-deep steps of K a warp; K % (64 nk) == 0, T % 16 == 0;
-// partial is [K / (64 nk), 8, T] scratch.
+// out[8, T] f32 from ones [8, K], e [K, T], eps [reps], all bf16. tile: D,
+// the K slice a block, and threads: 128 G, G warpgroups a block, one 64-row
+// tile of T each; (D, G) in {(64, 2), (32, 2)}; K % tile == 0, T % 16
+// == 0; partial is [K / tile, 8, T] scratch.
 int hgmm_probe_norm(const void* ones, const void* e, const void* eps, int k, int t, int steps,
-                    int reps, int nk, void* partial, void* out, void* stream) {
+                    int reps, int tile, int threads, void* partial, void* out, void* stream) {
   using namespace hgmm;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (bad_loop(steps, reps) || k < 1 || t < 1 || (nk != 1 && nk != 2 && nk != 4) ||
-      k % (16 * PW * nk) || t % 16)
+  const int wgs = threads / WG;
+  if (bad_loop(steps, reps) || k < 1 || t < 1 || threads % WG ||
+      wgs != 2 || (tile != 64 && tile != 32) || k % tile || t % 16)
     return (int)cudaErrorInvalidValue;
   const int iters = steps * reps;
-  const int ksplit = k / (16 * PW * nk);
+  const int ksplit = k / tile;
   const auto* a = static_cast<const bf16*>(ones);
   const auto* b = static_cast<const bf16*>(e);
   const auto* ep = static_cast<const bf16*>(eps);
   auto* part = static_cast<float*>(partial);
-  const dim3 grid(t / 16, ksplit);
-  if (nk == 4)
-    probe_norm_bf16_kernel<4><<<grid, 32 * PW, 0, s>>>(a, b, ep, k, t, iters, reps, part);
-  else if (nk == 2)
-    probe_norm_bf16_kernel<2><<<grid, 32 * PW, 0, s>>>(a, b, ep, k, t, iters, reps, part);
-  else
-    probe_norm_bf16_kernel<1><<<grid, 32 * PW, 0, s>>>(a, b, ep, k, t, iters, reps, part);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((t + 64 * wgs - 1) / (64 * wgs), ksplit);
+  const cudaError_t launched = tile == 64 ? launch_norm<64, 2>(grid, a, b, ep, k, t, iters, reps, part, s)
+                                           : launch_norm<32, 2>(grid, a, b, ep, k, t, iters, reps, part, s);
+  if (launched != cudaSuccess) return (int)launched;
   return (int)launch_reduce_partials(part, ksplit, 8 * t, static_cast<float*>(out), s);
 }
 
-// out[n] f32 = x + sum over steps * reps of (x + eps_r); n % 4 == 0.
-int hgmm_probe_addonly(const void* x, const void* eps, int n, int steps, int reps, void* out,
-                       void* stream) {
+// out[n] f32 = x + sum over steps * reps of (x + eps_r); n % 4 == 0;
+// `blocks` blocks of 256 threads, ADD_VEC float4 a thread, with blocks 256
+// ADD_VEC >= n / 4.
+int hgmm_probe_addonly(const void* x, const void* eps, int n, int steps, int reps, int blocks,
+                       void* out, void* stream) {
   using namespace hgmm;
-  if (bad_loop(steps, reps) || n < 4 || n % 4) return (int)cudaErrorInvalidValue;
-  const int n4 = n / 4;
-  probe_addonly_kernel<<<(n4 + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(x), static_cast<const float*>(eps), n4, steps * reps, reps,
-      static_cast<float4*>(out));
+  if (bad_loop(steps, reps) || n < 4 || n % 4 || blocks < 1 ||
+      (long long)blocks * ADD_THREADS * ADD_VEC < n / 4 ||
+      (long long)blocks * ADD_THREADS * ADD_VEC > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const float4*>(x);
+  const auto* ep = static_cast<const float*>(eps);
+  auto* o = static_cast<float4*>(out);
+  probe_addonly_kernel<<<blocks, ADD_THREADS, 0, s>>>(in, ep, n / 4, steps, reps, o);
   return (int)cudaGetLastError();
 }
 

@@ -131,8 +131,9 @@ def kernel_bound(kernel: str, **s) -> KernelBound:
       "f32"): steps reps products [K,80]@[80,T] / [32,T]@[T,K] at the bf16
       tensor-core or the fp32 peak; operands read and the output written
       once.
-    - ``probe_norm`` (k, t, steps, reps): the 8 useful rows of [8,K]@[K,T]
-      (the tensor-core tile pads them to 16, which the bound does not count).
+    - ``probe_norm`` (k, t, steps, reps): the 8 rows of [8,K]@[K,T] at the
+      bf16 tensor-core peak (the kernel stacks 16 reps of them along N, so
+      no row of its tiles is padding).
     - ``probe_addonly`` (k, t, steps, reps): 2 adds an element and rep, at
       one instruction a lane and clock.
     - ``probe_vpu`` (k, t, steps, reps, mode): mode "exp2": one SFU result an

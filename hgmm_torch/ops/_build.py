@@ -47,8 +47,8 @@ _SIGNATURES = {
     "hgmm_knn": (_P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     "hgmm_probe_logits": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "hgmm_probe_stats": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    "hgmm_probe_norm": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "hgmm_probe_addonly": (_P, _P, _I, _I, _I, _P, _P),
+    "hgmm_probe_norm": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "hgmm_probe_addonly": (_P, _P, _I, _I, _I, _I, _P, _P),
     "hgmm_probe_vpu": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 

@@ -20,16 +20,20 @@ Dispatch is by device, as in ``hgmm_torch.ops``: CPU tensors run the plain
 versions (``*_ref``), CUDA tensors launch the hand-written kernels of
 ``csrc/probes.cu`` (``*_cuda``) or raise. The launch geometry is chosen here
 (``plan_*``, from the card's SM count ``sms``), so that the grid fills the
-card where the shape allows it, and passed to the kernels. The bf16 logits
-and stats kernels run on the warpgroup tensor cores (``wgmma``); their plans
-pick the tile by shape (``_pick_tile``). The vpu kernel runs up to four
+card where the shape allows it, and passed to the kernels. The bf16 logits,
+stats and norm kernels run on the warpgroup tensor cores (``wgmma``); their
+plans pick the tile by shape (``_pick_tile``, ``plan_norm``). The vpu kernel
+runs up to four
 independent chains a thread and spreads the elements over the SMs
 (``plan_vpu``); ``vpu_sass_counts`` reads what a step of its chain issues.
+The addonly kernel takes four float4 a thread over a grid of whole waves
+(``plan_addonly``); ``addonly_sass_counts`` reads the adds a rep issues.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -47,6 +51,15 @@ def eps_table(reps: int, dtype: torch.dtype, device=None) -> torch.Tensor:
     even, as ``jnp.bfloat16(1e-6 * (r + 1))`` rounds)."""
     eps = torch.tensor([1e-6 * (r + 1) for r in range(reps)], dtype=torch.float64)
     return eps.to(torch.float32).to(dtype).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _eps_on_card(reps: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """eps_table on the card, made once: the copy from a host tensor waits for
+    the stream (made on every call it would hold each launch back until the
+    previous kernel ends) and cannot be captured in a CUDA graph (the
+    microbenchmarks time the probes' calls from one)."""
+    return eps_table(reps, dtype, device)
 
 
 # --------------------------------------------------------------------------
@@ -140,12 +153,16 @@ def _need(ok: bool, what: str) -> None:
 # N = 128 would pass 255 with the addresses). stats: (D, G), the T slice of a
 # block and its warpgroups, one 64-row slice of K each, which share the
 # block's B tiles (probe_stats_bf16_kernel<D, G>; G = 2 needs D = 64 for a
-# whole 16-byte chunk a thread).
+# whole 16-byte chunk a thread). norm: (D, G), the K slice of a block and its
+# warpgroups, one 64-row tile of T each, which share the block's B tiles
+# (probe_norm_bf16_kernel<D, G>: D divides 128 G).
 LOGITS_N = (64, 32)
 STATS_TILES = ((64, 1), (32, 1), (64, 2))
+NORM_TILES = ((64, 2), (32, 2))
 # A grid fills the card when its blocks leave at most this share of the SMs
 # idle: one block a warpgroup more or less changes little, a wider tile a lot
-# (on an H100, 128 blocks of 64 x 64 beat 256 of 64 x 32: PERF.md section 6).
+# (on an H100, 128 blocks of 64 x 64 beat 256 of 64 x 32 for stats, and 128
+# norm blocks of (64, 2) beat 256 of (64, 1) or (32, 2): PERF.md section 6).
 FILL = 7 / 8
 
 
@@ -164,9 +181,9 @@ def _pick_tile(cands, t: int, k: int, sms: int, weight=lambda g: 1.0) -> tuple[i
 
 
 def stats_weight(g: int) -> float:
-    """What a stats warpgroup's tensor work waits on besides itself, in its
-    B reads: the block's fenced stores of each B tile, which its g
-    warpgroups share."""
+    """What a stats or norm warpgroup's tensor work waits on besides itself,
+    in its B reads: the block's fenced stores of each B tile, which its g
+    warpgroups share (both bodies store 128 rows of B a step)."""
     return 1.0 + 1.0 / g
 
 
@@ -190,10 +207,16 @@ def plan_stats(k: int, t: int, f32: bool, sms: int) -> Plan:
 
 
 def plan_norm(k: int, t: int, sms: int) -> Plan:
+    """The norm tile (D, G) of a grid of ceil(T / 64 G) x (K / D) blocks,
+    weighed as _pick_tile weighs stats' (a block's tensor work is D G, its B
+    stores stats_weight(G)), T's last 64-row tile possibly partial; the
+    plan's tile is D."""
     _need(k % 64 == 0 and t % 16 == 0, f"norm: K={k} % 64 and T={t} % 16 must be 0")
-    fits = [nk for nk in (4, 2, 1) if k % (64 * nk) == 0]
-    nk = next((c for c in fits if (t // 16) * (k // (64 * c)) >= sms), fits[-1])
-    return Plan((t // 16, k // (64 * nk)), 128, nk, k // (64 * nk))
+    blocks = {(d, g): -(-t // (64 * g)) * (k // d) for d, g in NORM_TILES}
+    full = [c for c in NORM_TILES if blocks[c] >= FILL * sms] or list(NORM_TILES)
+    d, g = min(full, key=lambda c: (-(-blocks[c] // sms) * c[0] * c[1] * stats_weight(c[1]),
+                                    -c[0] * c[1], -c[0]))
+    return Plan((-(-t // (64 * g)), k // d), 128 * g, d, k // d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,6 +285,46 @@ def vpu_sass_counts(loops: list[dict[str, int]]) -> dict[str, float]:
     return {"steps_a_trip": steps[i], **{k: v / steps[i] for k, v in kinds[i].items()}}
 
 
+@dataclasses.dataclass(frozen=True)
+class AddonlyPlan:
+    blocks: int  # blocks of ADDONLY_THREADS; thread i of the grid takes float4s i + j blocks threads
+
+
+ADDONLY_VEC = 4  # float4 a thread (csrc/probes.cu:ADD_VEC)
+ADDONLY_THREADS = 256  # csrc/probes.cu:ADD_THREADS
+
+
+def plan_addonly(n: int, sms: int) -> AddonlyPlan:
+    """The addonly launch for n float32 elements (n / 4 float4) on `sms`
+    SMs, ADDONLY_VEC float4 a thread: the fewest blocks that cover the
+    float4s in a whole number of blocks an SM."""
+    _need(n >= 4 and n % 4 == 0 and sms >= 1, f"addonly: n={n} (a multiple of 4) and sms={sms} must be >= 1")
+    per_sm = -(-(n // 4) // sms)
+    return AddonlyPlan(sms * -(-per_sm // (ADDONLY_THREADS * ADDONLY_VEC)))
+
+
+ADDONLY_FADDS = 2  # float32 adds an element and rep: x + eps_r, then acc + that
+
+
+def addonly_sass_counts(loops: list[dict[str, int]], vec: int = ADDONLY_VEC) -> dict[str, float]:
+    """Adds an element and rep in the busiest loop of a probe_addonly kernel
+    of `vec` float4 a thread (``_build.sass_loops``): the innermost loop that
+    adds (the fewest instructions), its reps counted by the eps it loads from
+    shared memory (LDS.128: four, LDS.64: two, LDS: one).
+    {"reps_a_trip": 0} for a kernel without such a loop."""
+    adding = [loop for loop in loops if loop.get("FADD", 0)]
+    if not adding:
+        return {"reps_a_trip": 0}
+    loop = min(adding, key=lambda c: sum(c.values()))
+    reps = sum(c * (int(op.rsplit(".", 1)[1]) // 32 if op[-3:] in (".64", "128") else 1)
+               for op, c in loop.items() if op.split(".")[0] == "LDS")
+    if reps == 0:
+        return {"reps_a_trip": 0}
+    other = sum(loop.values()) - loop["FADD"]
+    return {"reps_a_trip": reps, "fadd_per_element_rep": loop["FADD"] / (4 * vec * reps),
+            "other_per_rep": other / reps}
+
+
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -297,7 +360,7 @@ def logits_cuda(wt: torch.Tensor, phi: torch.Tensor, steps: int, reps: int) -> t
     _operand("wt", wt, wt.dtype, (k, DEPTH))
     _operand("phi", phi, wt.dtype, (DEPTH, t))
     plan = plan_logits(k, t, f32, _sms(wt.device))
-    eps = eps_table(reps, wt.dtype, wt.device)
+    eps = _eps_on_card(reps, wt.dtype, wt.device)
     out = torch.empty((k, t), dtype=torch.float32, device=wt.device)
     with torch.cuda.device(wt.device):
         err = _build.load().hgmm_probe_logits(
@@ -317,7 +380,7 @@ def stats_cuda(phi32: torch.Tensor, e: torch.Tensor, steps: int, reps: int) -> t
     _operand("phi32", phi32, e.dtype, (32, t))
     _operand("e", e, e.dtype, (k, t))
     plan = plan_stats(k, t, f32, _sms(e.device))
-    eps = eps_table(reps, e.dtype, e.device)
+    eps = _eps_on_card(reps, e.dtype, e.device)
     partial = torch.empty((plan.partials, 32 * k), dtype=torch.float32, device=e.device)
     out = torch.empty((32, k), dtype=torch.float32, device=e.device)
     with torch.cuda.device(e.device):
@@ -330,20 +393,21 @@ def stats_cuda(phi32: torch.Tensor, e: torch.Tensor, steps: int, reps: int) -> t
 
 
 def norm_cuda(ones: torch.Tensor, e: torch.Tensor, steps: int, reps: int) -> torch.Tensor:
-    """Kernel twin of norm_ref: ones [8, K], e [K, T], bfloat16. The 8 rows
-    ride a 16-row tensor-core tile whose other half is discarded."""
+    """Kernel twin of norm_ref: ones [8, K], e [K, T], bfloat16, K % 64 and
+    T % 16 zero. The kernel computes the transpose: T on the tensor cores'
+    64-row side, 16 reps of the 8 rows along N."""
     _loop(steps, reps)
     k, t = e.shape
     _operand("ones", ones, torch.bfloat16, (8, k))
     _operand("e", e, torch.bfloat16, (k, t))
     plan = plan_norm(k, t, _sms(e.device))
-    eps = eps_table(reps, torch.bfloat16, e.device)
+    eps = _eps_on_card(reps, torch.bfloat16, e.device)
     partial = torch.empty((plan.partials, 8 * t), dtype=torch.float32, device=e.device)
     out = torch.empty((8, t), dtype=torch.float32, device=e.device)
     with torch.cuda.device(e.device):
         err = _build.load().hgmm_probe_norm(
             ones.data_ptr(), e.data_ptr(), eps.data_ptr(), k, t, steps, reps, plan.tile,
-            partial.data_ptr(), out.data_ptr(), _stream(e))
+            plan.threads, partial.data_ptr(), out.data_ptr(), _stream(e))
     _raise_on(err, "probe_norm")
     LAUNCHES["probe_norm"] += 1
     return out
@@ -354,11 +418,12 @@ def addonly_cuda(x: torch.Tensor, steps: int, reps: int) -> torch.Tensor:
     _loop(steps, reps)
     _operand("x", x, torch.float32, tuple(x.shape))
     _need(x.numel() >= 4 and x.numel() % 4 == 0, f"addonly: {x.numel()} elements, need a multiple of 4")
-    eps = eps_table(reps, torch.float32, x.device)
+    plan = plan_addonly(x.numel(), _sms(x.device))
+    eps = _eps_on_card(reps, torch.float32, x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = _build.load().hgmm_probe_addonly(x.data_ptr(), eps.data_ptr(), x.numel(), steps, reps,
-                                               out.data_ptr(), _stream(x))
+                                               plan.blocks, out.data_ptr(), _stream(x))
     _raise_on(err, "probe_addonly")
     LAUNCHES["probe_addonly"] += 1
     return out

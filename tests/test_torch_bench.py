@@ -217,6 +217,91 @@ def test_kernel_compare_cpu(tmp_path, capsys):
         kernel_compare.main([])
 
 
+class _FakeCuda:
+    """What kernel_compare.graph_us asks of torch.cuda, on the host: a call
+    made while a graph captures records its kernel in the graph and runs
+    nothing; a replay runs what the graph recorded. `ran` counts the
+    kernels that ran, as the card would."""
+
+    def __init__(self):
+        self.ran, self.capturing, self.graphs = 0, None, []
+        fake = self
+
+        class Graph:
+            def __init__(self):
+                self.kernels = 0
+
+            def replay(self):
+                fake.ran += self.kernels
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                pass
+
+            def record(self):
+                pass
+
+            def elapsed_time(self, end):
+                return 1.0
+
+        self.CUDAGraph, self.Event = Graph, Event
+
+    def launch(self):
+        if self.capturing is not None:
+            self.capturing.kernels += 1
+        else:
+            self.ran += 1
+
+    def graph(self, g):
+        fake = self
+
+        class Capture:
+            def __enter__(self):
+                fake.capturing = g
+
+            def __exit__(self, *exc):
+                fake.capturing = None
+
+        return Capture()
+
+    def Stream(self):  # noqa: N802
+        return self
+
+    def current_stream(self):
+        return self
+
+    def wait_stream(self, other):
+        pass
+
+    def stream(self, s):
+        return self.graph(None)
+
+    def synchronize(self):
+        pass
+
+
+@pytest.mark.parametrize("calls,replays", [(1, 1), (2, 3), (50, 2)])
+def test_graph_us_counts_every_launch(calls, replays):
+    """A probe timed from a CUDA graph (mxu_microbench.seconds_a_call): its
+    wrapper adds to LAUNCHES only when it is called (the warm-up call and
+    the capture), but every replay launches the captured kernels again.
+    graph_us adds those, so the count is what ran on the card."""
+    fake = _FakeCuda()
+    counts = {"probe_norm": 0, "em_step": 5}
+
+    def wrapper():  # a port wrapper: launch, then count
+        fake.launch()
+        counts["probe_norm"] += 1
+
+    us = kernel_compare.graph_us(type("T", (), {"cuda": fake}), wrapper, calls=calls, replays=replays,
+                                 launches=counts)
+    assert us == pytest.approx(1e3 / (replays * calls))
+    assert fake.ran == 1 + calls * (1 + replays)
+    assert counts == {"probe_norm": fake.ran, "em_step": 5}
+    kernel_compare.graph_us(type("T", (), {"cuda": fake}), wrapper, calls=calls, replays=replays)
+    assert counts["probe_norm"] == fake.ran - calls * replays  # without `launches`: the wrappers' count
+
+
 def test_time_fn_and_sync_on_the_cpu():
     calls = []
     out, med, times = timing.time_fn(lambda a, b=1: calls.append(a) or a + b, 2, b=3, warmup=1, iters=4,

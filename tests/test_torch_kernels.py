@@ -462,13 +462,51 @@ def test_probe_zero_a_sees_every_rep_eps(cuda, k, t, steps, reps):
     assert torch.equal(got, probes.stats(phi32_0, e, steps, reps))
 
 
-@pytest.mark.parametrize("k,t", [(64, 256), (128, 48), (256, 2048), (512, 2048), (64, 8192)])
+# Every shape the norm probe runs at on the card (tests/test_torch_probes.py:
+# CARD_NORM_SHAPES): T = 48 leaves the last 64-row tile of T partial.
+NORM_SHAPES = [(64, 256), (128, 48), (256, 2048), (512, 2048), (64, 8192)]
+
+
+@pytest.mark.parametrize("k,t", NORM_SHAPES)
 def test_probe_norm(cuda, k, t):
     from hgmm_torch.ops import probes
 
     _, _, e, ones, _ = _probe_inputs(k, t, cuda, torch.bfloat16)
     ones = (ones * torch.linspace(0.5, 1.5, 8, device=cuda)[:, None]).to(torch.bfloat16)
     _probe_close(probes.norm(ones, e, 3, 2), probes.norm_ref(ones, e, 3, 2), torch.bfloat16)
+
+
+@pytest.mark.parametrize("k,t", NORM_SHAPES)
+@pytest.mark.parametrize("steps,reps", [(3, 2), (1, 7), (2, 20), (1, 49)])
+def test_probe_norm_random_operand(cuda, k, t, steps, reps):
+    """ones [8, K] seeded standard normal, so that it varies along K and
+    between rows: a mix-up of the kernel's K-major B tiles or of its output
+    rows shows (constant rows hide both). The loops cover the 16 reps a wgmma
+    and tails of 1 to 8 reps, one and several steps."""
+    from hgmm_torch.ops import probes
+
+    _, _, e, _, _ = _probe_inputs(k, t, cuda, torch.bfloat16)
+    g = torch.Generator().manual_seed(k + t)
+    ones = torch.randn(8, k, generator=g).to(torch.bfloat16).to(cuda)
+    fused_em.reset_launches()
+    got = probes.norm(ones, e, steps, reps)
+    assert fused_em.LAUNCHES["probe_norm"] == 1
+    _probe_close(got, probes.norm_ref(ones, e, steps, reps), torch.bfloat16)
+
+
+@pytest.mark.parametrize("k,t", NORM_SHAPES)
+@pytest.mark.parametrize("steps,reps", [(1, 1), (3, 6), (2, 64)])
+def test_probe_norm_zero_a_sees_every_rep_eps(cuda, k, t, steps, reps):
+    """bf16 norm with ones = 0: every rep's eps_r shows in the result (steps
+    * sum_r eps_r times e's column sums); equal bits on two launches. The
+    twin of test_probe_zero_a_sees_every_rep_eps."""
+    from hgmm_torch.ops import probes
+
+    _, _, e, ones, _ = _probe_inputs(k, t, cuda, torch.bfloat16)
+    zero = torch.zeros_like(ones)
+    got = probes.norm(zero, e, steps, reps)
+    _probe_close(got, probes.norm_ref(zero, e, steps, reps), torch.bfloat16)
+    assert torch.equal(got, probes.norm(zero, e, steps, reps))
 
 
 @pytest.mark.parametrize("steps,reps", [(0, 1), (3, 2), (64, 7)])
@@ -484,6 +522,35 @@ def test_probe_addonly_and_vpu(cuda, steps, reps):
                - ref.to(torch.bfloat16).view(torch.int16).int()).abs()
         assert int(ulp.max()) <= (1 if mode == "exp2" else 0)
         assert float((ulp > 0).float().mean()) < 0.01
+
+
+@pytest.mark.parametrize("shape", [(512, 2048), (64, 8192), (4,), (1000,), (33, 48)])
+@pytest.mark.parametrize("steps,reps", [(2, 1), (2, 2), (1, 3), (2, 5), (3, 6), (1, 7), (2, 64)])
+def test_probe_addonly_plans(cuda, shape, steps, reps):
+    """addonly through plan_addonly (four float4 a thread, whole waves of
+    blocks) at the timed shapes and below a thread a float4, with every
+    remainder of its four reps a trip: bit-equal to the plain version."""
+    from hgmm_torch.ops import probes
+
+    g = torch.Generator().manual_seed(len(shape) + steps)
+    x = torch.randn(shape, generator=g).to(cuda)
+    fused_em.reset_launches()
+    assert torch.equal(probes.addonly(x, steps, reps), probes.addonly_ref(x, steps, reps))
+    assert fused_em.LAUNCHES["probe_addonly"] == 1
+
+
+def test_graph_timed_probe_counts_every_launch(cuda):
+    """mxu_microbench times a rep count from a CUDA graph: the warm-up call,
+    the captured calls' first replay and every timed replay each launch the
+    kernel, and each counts once."""
+    from hgmm_torch.benchmarks import mxu_microbench
+    from hgmm_torch.ops import probes
+
+    x = torch.randn(4096, device=cuda)
+    fused_em.reset_launches()
+    assert mxu_microbench.seconds_a_call(lambda: probes.addonly(x, 1, 2), cuda) > 0
+    calls, replays = mxu_microbench.GRAPH_CALLS, mxu_microbench.GRAPH_REPLAYS
+    assert fused_em.LAUNCHES["probe_addonly"] == 1 + calls * (1 + replays)
 
 
 def _bf16_ulp(got, ref):

@@ -1298,3 +1298,75 @@ def test_vpu_sass_counts_a_step_of_the_busiest_loop():
     cast = vpu_sass_counts([{"F2FP.BF16.F32.PACK_AB": 8, "VIADD": 1, "ISETP.NE.AND": 1, "BRA": 1}])
     assert cast["steps_a_trip"] == 8 and cast["convert_f2fp"] == 1.0 and cast["loop"] == 3 / 8
     assert vpu_sass_counts([{"IADD3": 1, "BRA": 1}]) == {"steps_a_trip": 0}
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("n", [4, 1000, 64 * 256, 64 * 8192, 512 * 2048, 512 * 2048 + 4, 4 * 132 * 256 * 4])
+def test_plan_addonly_covers_every_element_once(n, sms):
+    """The addonly launch (csrc/probes.cu:probe_addonly_kernel): thread i of
+    the grid takes the float4s i + j G, j < ADDONLY_VEC, G the grid's
+    threads; every float4 is taken once, and the grid is the fewest whole
+    blocks an SM that cover them."""
+    from hgmm_torch.ops.probes import ADDONLY_THREADS, ADDONLY_VEC, plan_addonly
+
+    plan = plan_addonly(n, sms)
+    assert plan.blocks >= sms and plan.blocks % sms == 0
+    n4, grid = n // 4, plan.blocks * ADDONLY_THREADS
+    idx = np.arange(grid)[:, None] + grid * np.arange(ADDONLY_VEC)[None, :]
+    seen = np.zeros(n4, dtype=np.int64)
+    np.add.at(seen, idx[idx < n4], 1)
+    assert (seen == 1).all()
+    # the fewest whole waves that cover the float4s
+    assert (plan.blocks - sms) * ADDONLY_THREADS * ADDONLY_VEC < n4 <= grid * ADDONLY_VEC
+
+
+def test_plan_addonly_main_shapes_and_refusals():
+    """mxu_microbench's [512, 2048] on 132 SMs: 4 float4 a thread, two blocks
+    of 256 an SM (before this plan: 1,024 blocks of one float4 a thread,
+    7.76 waves); [64, 8192]: one block an SM (on an H100 two float4 a thread
+    and two blocks an SM read slower: PERF.md section 6)."""
+    from hgmm_torch.ops.probes import AddonlyPlan, plan_addonly
+
+    assert plan_addonly(512 * 2048, 132) == AddonlyPlan(blocks=264)
+    assert plan_addonly(64 * 8192, 132) == AddonlyPlan(blocks=132)
+    for n, sms in ((0, 132), (6, 132), (8, 0)):
+        with pytest.raises(ValueError):
+            plan_addonly(n, sms)
+
+
+# The parent's addonly loop (one float4 a thread, the eps index wrapped each
+# rep) and the shape of the redesign's: four reps a trip from one LDS.128.
+ADDONLY_SASS = """\
+\t\tFunction : _ZN4hgmm20probe_addonly_kernelEPK6float4PKfiiiPS0_
+        /*0200*/                   LDS R9, [R3] ;
+        /*0210*/                   VIADD R2, R2, 0x1 ;
+        /*0220*/                   FADD R10, R4, R9 ;
+        /*0230*/                   FADD R11, R5, R9 ;
+        /*0240*/                   FADD R12, R6, R9 ;
+        /*0250*/                   FADD R13, R7, R9 ;
+        /*0260*/                   ISETP.NE.AND P0, PT, R2, R8, PT ;
+        /*0270*/                   FADD R16, R16, R10 ;
+        /*0280*/                   FADD R17, R17, R11 ;
+        /*0290*/                   FADD R18, R18, R12 ;
+        /*02a0*/                   FADD R19, R19, R13 ;
+        /*02b0*/                   SEL R3, R3, RZ, P0 ;
+        /*02c0*/               @P0 BRA 0x200 ;
+"""
+
+
+def test_addonly_sass_counts_the_busiest_loop():
+    from hgmm_torch.ops.probes import ADDONLY_FADDS, addonly_sass_counts
+
+    (name, loops), = _build.parse_sass_loops(ADDONLY_SASS, "probe_addonly").items()
+    counts = addonly_sass_counts(loops, vec=1)
+    assert counts == {"reps_a_trip": 1, "fadd_per_element_rep": 2.0, "other_per_rep": 5.0}
+    # four float4 a thread, four reps a trip from one LDS.128, inside a steps loop that also
+    # holds the last reps: the innermost adding loop is counted
+    inner = {"LDS.128": 1, "FADD": 128, "VIADD": 1, "ISETP.GE.AND": 1, "BRA": 1}
+    outer = {op: 2 * c for op, c in inner.items()}
+    counts = addonly_sass_counts([outer, inner])
+    assert counts["reps_a_trip"] == 4 and counts["fadd_per_element_rep"] == ADDONLY_FADDS
+    assert counts["other_per_rep"] == 1.0
+    # x + eps_r kept in registers across steps: one add an element and rep
+    assert addonly_sass_counts([{"LDS.128": 1, "FADD": 64, "BRA": 1}])["fadd_per_element_rep"] == 1.0
+    assert addonly_sass_counts([{"IADD3": 1, "BRA": 1}]) == {"reps_a_trip": 0}

@@ -49,7 +49,10 @@ def _inputs(seed=0):
             "phi": rng.standard_normal((80, T)).astype(np.float32),
             "e": rng.uniform(size=(K, T)).astype(np.float32),
             "x": rng.standard_normal((K, T)).astype(np.float32),
-            "ones": np.ones((8, K), np.float32)}
+            "ones": np.ones((8, K), np.float32),
+            # norm's A operand varying along K (with all ones, a kernel that
+            # mixed up the K-major layout of its B tiles would pass)
+            "ones_rand": rng.standard_normal((8, K)).astype(np.float32)}
 
 
 def _bf16(a):
@@ -60,6 +63,7 @@ CASES = {
     "logits": (jmxu._logits_kernel, ("wt", "phi"), (K, T), probes.logits),
     "stats": (jmxu._stats_kernel, ("phi32", "e"), (32, K), probes.stats),
     "norm": (jmxu._norm_kernel, ("ones", "e"), (8, T), probes.norm),
+    "norm_random": (jmxu._norm_kernel, ("ones_rand", "e"), (8, T), probes.norm),
 }
 
 
@@ -81,20 +85,22 @@ def test_matrix_body_matches_pallas(interpret, name):
 
 
 ZERO_A = {"logits": (jmxu._logits_kernel, ("wt", "phi"), (K, T), probes.logits),
-          "stats": (jmxu._stats_kernel, ("phi32", "e"), (32, K), probes.stats)}
+          "stats": (jmxu._stats_kernel, ("phi32", "e"), (32, K), probes.stats),
+          "norm": (jmxu._norm_kernel, ("ones", "e"), (8, T), probes.norm)}
 
 
 @pytest.mark.parametrize("steps,reps", [(1, 1), (3, 6), (2, 64)])
 @pytest.mark.parametrize("name", list(ZERO_A))
 def test_zero_a_sees_every_rep_eps(interpret, name, steps, reps):
-    """A = 0 (wt for logits, phi32 for stats): the result is steps * sum_r
-    eps_r times B's column sums, so each rep's eps counts. With normal
+    """A = 0 (wt for logits, phi32 for stats, ones for norm): the result is
+    steps * sum_r eps_r times B's column sums, so each rep's eps counts. With normal
     operands bf16(x + 1e-6) = x for all but ~1 element in 5,000, and a kernel
     that dropped or hoisted eps_r would pass; here it cannot."""
     kern, operands, out_shape, port = ZERO_A[name]
     ins = _inputs(2)
     ins["phi32"] = np.zeros((32, T), np.float32)
     ins["wt"] = np.zeros((K, 80), np.float32)
+    ins["ones"] = np.zeros((8, K), np.float32)
     arrs = [ins[o] for o in operands]
     f = jmxu.build(kern, [a.shape for a in arrs], None, out_shape, steps, reps)
     ref = np.asarray(f(*map(_bf16, arrs)))
@@ -102,7 +108,7 @@ def test_zero_a_sees_every_rep_eps(interpret, name, steps, reps):
     np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-5 * np.abs(ref).max())
     eps = probes.eps_table(reps, torch.bfloat16).to(torch.float64).numpy()
     b = np.asarray(_bf16(arrs[1]).astype(jnp.float32), np.float64)
-    colsum = b.sum(0) if name == "logits" else b.sum(1)  # B = phi [80, T], or e [K, T] transposed
+    colsum = b.sum(1) if name == "stats" else b.sum(0)  # B = phi [80, T], e [K, T], or e transposed
     want = steps * eps.sum() * colsum
     np.testing.assert_allclose(got, np.broadcast_to(want, out_shape), rtol=1e-3,
                                atol=1e-5 * np.abs(want).max())
@@ -187,16 +193,20 @@ def test_plans_fill_the_card_and_divide_the_shapes(k, t):
              "logits_f32": probes.plan_logits(k, t, True, sms),
              "stats_bf16": probes.plan_stats(k, t, False, sms),
              "stats_f32": probes.plan_stats(k, t, True, sms), "norm": probes.plan_norm(k, t, sms)}
+    # The wgmma bodies fill FILL of the SMs: on an H100 norm's 128 blocks of
+    # (64, 2) at K = 512 beat 256 blocks of (64, 1) or (32, 2) (PERF.md section 6).
+    wgmma = ("logits_bf16", "stats_bf16", "norm")
     for name, p in plans.items():
         assert p.blocks >= 1 and p.threads in (32, 64, 96, 128, 256), (name, p)
         if (k, t) in ((512, 2048), (64, 8192)):
-            assert p.blocks >= (probes.FILL * sms if name.endswith("bf16") else sms), (name, p)
-    lb, sb = plans["logits_bf16"], plans["stats_bf16"]
+            assert p.blocks >= (probes.FILL * sms if name in wgmma else sms), (name, p)
+    lb, sb, nb = plans["logits_bf16"], plans["stats_bf16"], plans["norm"]
     assert lb.tile in probes.LOGITS_N and lb.threads == 128
     assert (sb.tile, sb.threads // 128) in probes.STATS_TILES and sb.threads % 128 == 0
     for p in (lb, sb):
         assert p.tile % 8 == 0 and t % p.tile == 0, p
         assert p.grid == (t // p.tile, k // (64 * (p.threads // 128))), p
+    for p in (lb, sb, nb):
         if (k, t) in ((512, 2048), (64, 8192)):
             waves = -(-p.blocks // sms)
             assert waves * sms - p.blocks <= sms // 8, p  # the last wave is (nearly) full
@@ -204,9 +214,11 @@ def test_plans_fill_the_card_and_divide_the_shapes(k, t):
     assert plans["logits_f32"].grid == (t // 128, k // 16)
     sf = plans["stats_f32"]
     assert sf.tile == 32 and sf.partials == t // 32 and sf.grid[1] * sf.threads == k
-    nk = plans["norm"].tile
-    assert nk in (1, 2, 4) and plans["norm"].grid == (t // 16, k // (64 * nk))
-    assert plans["norm"].partials == k // (64 * nk)
+    # norm (wgmma, its transpose): G warpgroups a block, one 64-row tile of T
+    # each, over a K slice of D = tile; the K slices are partials.
+    g = nb.threads // 128
+    assert (nb.tile, g) in probes.NORM_TILES and k % nb.tile == 0 and nb.threads % 128 == 0
+    assert nb.grid == (-(-t // (64 * g)), k // nb.tile) and nb.partials == k // nb.tile
 
 
 # Every shape that tests/test_torch_kernels.py runs the probes at.
@@ -253,8 +265,21 @@ def test_stats_plan_shares_b_where_k_allows():
 
 @pytest.mark.parametrize("k,t", CARD_NORM_SHAPES)
 def test_norm_plan_keeps_the_card_tests_shapes(k, t):
-    p = probes.plan_norm(k, t, 132)
-    assert p.tile in (1, 2, 4) and k % (64 * p.tile) == 0 and t % 16 == 0
+    """The norm body takes only its compiled tiles ((D, G) in NORM_TILES, D
+    dividing 128 G); its grid covers every row of T once, the last 64-row
+    tile possibly partial (T = 48), on any SM count; and among the tiles
+    that fill the card none gives the busiest SM less work, weighted as
+    stats' by 1 + 1 / G for the B stores its warpgroups share."""
+    for sms in (132, 114, 1):
+        p = probes.plan_norm(k, t, sms)
+        g = p.threads // 128
+        assert (p.tile, g) in probes.NORM_TILES and 128 * g % p.tile == 0 and t % 16 == 0
+        assert k % p.tile == 0 and p.grid[1] == k // p.tile == p.partials
+        assert (p.grid[0] - 1) * 64 * g < t <= p.grid[0] * 64 * g
+        blocks = {(d, gg): -(-t // (64 * gg)) * (k // d) for d, gg in probes.NORM_TILES}
+        cost = {c: -(-b // sms) * c[0] * c[1] * (1 + 1 / c[1]) for c, b in blocks.items()}
+        full = [c for c, b in blocks.items() if b >= 7 / 8 * sms] or list(blocks)
+        assert cost[(p.tile, g)] == min(cost[c] for c in full)
 
 
 def test_plans_refuse_ragged_shapes():
