@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --probe-checks   # steps 1-3 and probe_checks only
+    python3 chip_smoke.py --sharded-only   # steps 1-2, pair_accounting and step 9
 
 Run from the root of a checkout. It
 1. prints the card's name and power limit (nvidia-smi) and fails without CUDA;
@@ -104,6 +105,24 @@ Run from the root of a checkout. It
    plain version at N = 2^21; then benchmarks/kernel_shapes (five rows, each
    against its bound). A share above 105 % of a bound or a peak fails: it is a
    wrong count, not a fast kernel.
+9. the sharded path (hgmm_torch.parallel) on a torch.distributed world of one
+   process over NCCL (make_mesh; a card run without NCCL raises) and on
+   SHARD_RANKS ranks emulated in one process on the card (EmulatedMesh), after
+   pair_accounting: (a) config 5, N = 10,485,760, K = 512, 20 sweeps,
+   sharded_em_fit against em_fit from one init (per-sweep loglik within
+   FIT_LL_RTOL, parameters within tests/test_parallel.py's tolerances), ms a
+   sweep of both, the sharded sweeps under the sync debug mode "error", the
+   NCCL kernels a sweep and their device us by the profiler; (b) the config-2
+   pair through sharded_tree_fit and sharded_register_tree: the pose bounds,
+   register_pair's pose within them, the pair's kernels and host syncs (none
+   where register_pair has none); (c) the same through the emulated ranks: the bounds,
+   each level's per-point loglik within FIT_LL_RTOL of (b)'s; with the
+   odometry sequence, (d) `odometry --sharded` (dead reckoning), resumed with
+   --detect-closures --refine --map, and `localize --sharded`, held to the
+   bounds of the unsharded commands; (e) refine_chain_sharded on that run's
+   chain and closures at world size 1 and on the emulated ranks against the
+   dense refine_pose_graph (PG_ATOL). The runs of (a)-(c) are the `shard`
+   path of the kernel table (each with the counters at 0, summed).
 Before the CLI phases, em_stats, em_stats_masked, assign and reg_stats (outlier
 -8) are checked against their plain versions at LiDAR scale (coordinates in
 +-40 m, a 0.02 m minor axis, 30 % zero-weight rows), and both against float64
@@ -153,7 +172,10 @@ TREE_PATH = ("em_stats", "em_stats_masked", "em_step", "assign", "reg_stats", "r
 PROBES = ("probe_logits", "probe_addonly", "probe_stats", "probe_norm", "probe_vpu")
 PATH_KERNELS = {"register_pair": TREE_PATH, "cli_icp": ("knn",), "cli_register_config3": TREE_PATH,
                 "cli_odometry": TREE_PATH, "cli_odometry_closures": TREE_PATH,
-                "cli_localize": ("reg_stats", "reg_step"), "cli_bench": ("em_stats",), "probes": PROBES}
+                "cli_localize": ("reg_stats", "reg_step"), "cli_bench": ("em_stats",), "probes": PROBES,
+                "shard": TREE_PATH, "cli_odometry_sharded": TREE_PATH,
+                "cli_odometry_closures_sharded": TREE_PATH,
+                "cli_localize_sharded": ("reg_stats", "reg_step")}
 SOURCES = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu", "em_step": "em_step.cu",
            "assign": "assign.cu",
            "reg_stats": "reg_stats.cu", "reg_step": "reg_step.cu", "knn": "knn.cu",
@@ -237,6 +259,16 @@ FIT_LL_RTOL = 1e-3
 # A fit's sweep on the card: em_stats' body, then em_step, which sums the
 # body's partial rows (em_stats' reduce kernel is not on the fit path).
 SWEEP_KERNELS = 2
+# The sharded phase: config 5 at benchmarks/large_n.py's size (N, K, sweeps);
+# the emulated ranks of the multi-rank runs on one card; refine_chain_sharded
+# against the dense solver (tests/test_pose_graph.py's sharded-vs-dense atol,
+# 10 Gauss-Newton steps as refine_odometry takes).
+SHARD_N = 10 * (1 << 20)
+SHARD_K = 512
+SHARD_SWEEPS = 20
+SHARD_RANKS = 4
+PG_ITERS = 10
+PG_ATOL = 1e-3
 
 
 # The odometry phase (config 4 through the CLI) and the LiDAR-scale checks.
@@ -465,15 +497,43 @@ def main() -> int:
     log({"phase": "probe_checks", "seconds": time.perf_counter() - t0, **report})
     if sys.argv[1:] == ["--probe-checks"]:
         return 0
+    from hgmm_torch.parallel import make_mesh
+
+    mesh = make_mesh(dev)  # NCCL, a world of one process; raises without NCCL
+    try:
+        return run_paths(torch, dev, repo, mesh, errs)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_paths(torch, dev, repo, mesh, errs) -> int:
+    """Steps 4-9 (see the module docstring) and the kernel table."""
+    from hgmm_torch.ops import fused_em
+
+    work = repo / "chiprun_out" / "smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    if sys.argv[1:] == ["--sharded-only"]:
+        pair = pair_accounting(torch, dev, work)
+        log({"phase": "pair_accounting", **pair})
+        shard, _ = sharded_phase(torch, dev, mesh, work, pair)
+        log({"phase": "sharded", **shard})
+        try:
+            write_lidar_sequence(work / "seq")
+            shard_cli, _ = sharded_cli(torch, dev, mesh, work, work / "seq")
+        finally:
+            shutil.rmtree(work / "seq", ignore_errors=True)
+        log({"phase": "sharded_cli", **shard_cli})
+        return 0
 
     counts, main_res = main_path(torch, dev)
     log({"phase": "main_path", **main_res, "launches": counts})
 
     timings = slice_checks(torch, dev, errs)
-    work = repo / "chiprun_out" / "smoke"
-    work.mkdir(parents=True, exist_ok=True)
-    log({"phase": "pair_accounting", **pair_accounting(torch, dev, work)})
+    pair = pair_accounting(torch, dev, work)
+    log({"phase": "pair_accounting", **pair})
     log({"phase": "sweep_accounting", **sweep_accounting(torch, dev, work)})
+    shard, shard_counts = sharded_phase(torch, dev, mesh, work, pair)
+    log({"phase": "sharded", **shard})
     agreement = cpu_agreement(torch, dev)
     log({"phase": "cpu_agreement", **agreement})
 
@@ -490,12 +550,15 @@ def main() -> int:
         cli_fit_tree(torch, work)
         c3_counts = cli_register_config3(torch, dev, work, errs, timings)
         odo_counts = cli_odometry(torch, dev, work, errs, metric_errs, timings)
+        shard_cli, shard_cli_counts = sharded_cli(torch, dev, mesh, work, work / "seq")
+        log({"phase": "sharded_cli", **shard_cli})
     finally:
         for f in work.glob("*.ply"):
             f.unlink()
         shutil.rmtree(work / "seq", ignore_errors=True)
     launches = {"register_pair": counts, "cli_icp": icp_counts, "cli_register_config3": c3_counts,
-                **odo_counts, "cli_bench": bench_counts, "probes": probe_counts}
+                **odo_counts, "cli_bench": bench_counts, "probes": probe_counts, "shard": shard_counts,
+                **shard_cli_counts}
 
     kernels = []
     for name in fused_em.LAUNCHES:
@@ -2089,6 +2152,297 @@ def odometry_shapes(torch, dev, frames, tree, pose, errs, metric_errs, timings):
                    lanes=lambda: tab.plan.lanes, blocks=lambda: tab.plan.blocks)
     log({"phase": "odometry_kernels", "strict_max_abs_err": strict, "gaps": gaps,
          "timings": {k: [t for t in v if t.get("odometry")] for k, v in timings.items()}})
+
+
+# --------------------------------------------------------------------------
+# the sharded path (hgmm_torch.parallel)
+
+
+@contextlib.contextmanager
+def spied(module, name, calls):
+    """Within the block, module.name records each call's arguments in
+    calls (and runs as before)."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def nccl_calls(trace_json: Path, sweeps: int) -> dict:
+    """The all-reduce in a profiler trace: the NCCL kernels (names, launches,
+    device µs a launch, launches a sweep; at world size 1 an in-place sum
+    launches none) and the host ops of the call (name: calls a sweep, host µs
+    a call)."""
+    events = [e for e in json.loads(trace_json.read_text())["traceEvents"] if "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "nccl" in e.get("name", "").lower()]
+    us = [e["dur"] for e in kernels]
+    host = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") == "cpu_op" and ("allreduce" in name.lower() or "all_reduce" in name.lower()):
+            host.setdefault(name[:60], []).append(e["dur"])
+    return {"kernels": sorted({e["name"][:80] for e in kernels}), "launches": len(us),
+            "launches_per_sweep": len(us) / sweeps,
+            "device_us_per_call": (sum(us) / len(us)) if us else None,
+            "host_ops": {name: {"calls_per_sweep": len(v) / sweeps, "host_us_per_call": sum(v) / len(v)}
+                         for name, v in host.items()}}
+
+
+def config5_check(torch, dev, mesh, work) -> dict:
+    """(a) Config 5 at full width over NCCL: benchmarks/large_n.py's scene
+    (SHARD_N points round 256 centres, K = 512, SHARD_SWEEPS sweeps) through
+    sharded_em_fit and the unsharded em_fit from one init: the per-sweep
+    loglik within FIT_LL_RTOL, the parameters within tests/test_parallel.py's
+    tolerances; ms a sweep of both (host clock to the device's end); the
+    sharded sweeps under torch's sync debug mode "error"; the NCCL kernels
+    by the profiler."""
+    from hgmm_torch import ops
+    from hgmm_torch.benchmarks.large_n import scene
+    from hgmm_torch.models.gmm import em_fit, em_sweeps, init_params
+    from hgmm_torch.ops import fused_em
+    from hgmm_torch.parallel import sharded_em_fit
+    from hgmm_torch.parallel.sharded import _mesh_scalars
+    from hgmm_torch.utils.profiling import trace
+
+    pts = torch.from_numpy(scene(SHARD_N)).to(dev)
+    init = init_params(pts, SHARD_K, torch.Generator().manual_seed(1))
+    out = {"n": SHARD_N, "k": SHARD_K, "sweeps": SHARD_SWEEPS}
+    runs = {}
+    for name, fn in (("unsharded", lambda: em_fit(pts, init, n_iters=SHARD_SWEEPS)),
+                     ("sharded", lambda: sharded_em_fit(pts, init, mesh, n_iters=SHARD_SWEEPS))):
+        fn()
+        torch.cuda.synchronize()
+        fused_em.reset_launches()
+        t0 = time.perf_counter()
+        runs[name] = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms_per_sweep"] = 1e3 * (time.perf_counter() - t0) / SHARD_SWEEPS
+        out[f"{name}_launches"] = {k: v for k, v in fused_em.LAUNCHES.items() if v}
+    counts = dict(out["sharded_launches"])
+    (p1, ll1), (p0, ll0) = runs["sharded"], runs["unsharded"]
+    gaps = ((ll1.double() - ll0.double()).abs() / ll0.double().abs()).cpu()
+    if not bool((gaps <= FIT_LL_RTOL).all()):
+        raise CheckFailed(f"config 5: sharded per-sweep logliks off the unsharded by {gaps.tolist()}")
+    tol = {"pi": (1e-4, 1e-6), "mu": (1e-4, 1e-5), "sigma": (1e-3, 1e-5)}
+    out["param_max_abs_gap"] = {key: close(torch, f"config 5 sharded {key}", getattr(p1, key),
+                                           getattr(p0, key), *tol[key]) for key in tol}
+    out["loglik_max_relative_gap"] = float(gaps.max())
+    out["final_loglik_per_point"] = float(ll1[-1]) / SHARD_N
+    # The sharded sweeps alone: no host sync; the NCCL kernels by the profiler.
+    prep = ops.prepare(pts)
+    total, floor = _mesh_scalars(prep, mesh, 1e-4)
+    em_sweeps(prep, init, 2, total, floor, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        em_sweeps(prep, init, SHARD_SWEEPS, total, floor, mesh=mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    d = work / "shard_trace"
+    with trace(d):
+        em_sweeps(prep, init, SHARD_SWEEPS, total, floor, mesh=mesh)
+        torch.cuda.synchronize()
+    out["host_syncs_in_sweeps"] = 0
+    out["all_reduce"] = nccl_calls(d / "trace.json", SHARD_SWEEPS)
+    shutil.rmtree(d, ignore_errors=True)
+    out["memory_peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    del pts, prep
+    return out, counts
+
+
+def level_logliks(torch, tree, points) -> list:
+    """Each level's per-point loglik of the points under its mixture."""
+    from hgmm_torch.models.gmm import log_likelihood
+
+    return [float(log_likelihood(lvl, points)) for lvl in tree.levels]
+
+
+def sharded_pair(torch, mesh, source, target, gt):
+    """sharded_tree_fit then sharded_register_tree on the config-2 pair, as
+    register_pair runs it (config2_tree_8x3)."""
+    from hgmm_torch.parallel import sharded_register_tree, sharded_tree_fit
+
+    kw = preset_kwargs()
+    tree = sharded_tree_fit(target, mesh, branch=kw["branch"], levels=kw["levels"],
+                            em_iters=kw["fit_iters"], generator=torch.Generator().manual_seed(0))
+    res = sharded_register_tree(source, tree, mesh, complexity_threshold=kw["complexity_threshold"],
+                                n_iters=kw["n_iters"], method=kw["method"], top_k=kw["top_k"],
+                                outlier_logit=kw["outlier_logit"])
+    return tree, res
+
+
+def check_pair(torch, name, source, res, gt, ref_pose) -> dict:
+    finite = all(bool(torch.isfinite(x).all()) for x in (res.pose.R, res.pose.t, res.logliks, res.deltas))
+    if not finite:
+        raise CheckFailed(f"{name}: non-finite output")
+    errors = pose_errors(source, res.pose, gt)
+    vs_pair = pose_errors(source, res.pose, ref_pose)
+    for key, bound in BOUNDS.items():
+        if not (errors[key] < bound and vs_pair[key] < bound):
+            raise CheckFailed(f"{name}: {key} = {errors[key]} (to the truth), {vs_pair[key]} (to "
+                              f"register_pair's pose), not below {bound}")
+    return {"errors": errors, "vs_register_pair": vs_pair, "converged": bool(res.converged)}
+
+
+def sharded_phase(torch, dev, mesh, work, pair_syncs: dict) -> tuple:
+    """(a) config5_check; (b) the config-2 pair through sharded_tree_fit and
+    sharded_register_tree over NCCL at world size 1: the pose bounds of
+    tests/test_register.py, register_pair's pose within them, and the pair's
+    kernels, copies and host syncs (profiled: no sync where register_pair,
+    pair_syncs (pair_accounting's record), has none); (c) the same pair on SHARD_RANKS emulated ranks on the card
+    (parallel.EmulatedMesh: rank-dependent groupings by parent, sums in rank
+    order, on the real kernels): the same bounds, each level's per-point
+    loglik within FIT_LL_RTOL of (b)'s. Returns the phase's record and the
+    launches of its sharded runs (each run with the counters at 0, summed)."""
+    import hgmm_torch
+    from hgmm_torch.ops import fused_em
+    from hgmm_torch.parallel import EmulatedMesh
+
+    t_start = time.perf_counter()
+    counts = {name: 0 for name in fused_em.LAUNCHES}
+
+    def add(c):
+        for key, v in c.items():
+            counts[key] += v
+
+    out = {"world_size": mesh.size, "backend": str(torch.distributed.get_backend())}
+    out["config5"], c = config5_check(torch, dev, mesh, work)
+    add(c)
+    source, target, gt = make_pair(torch, N_POINTS, dev)
+    ref = hgmm_torch.register_pair(source, target=target, generator=torch.Generator().manual_seed(0),
+                                   **preset_kwargs())
+    runs = {}
+    for name, m in (("nccl_ws1", mesh), (f"emulated_{SHARD_RANKS}", EmulatedMesh(SHARD_RANKS, dev))):
+        torch.cuda.synchronize()
+        fused_em.reset_launches()
+        t0 = time.perf_counter()
+        tree, res = sharded_pair(torch, m, source, target, gt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        add(fused_em.LAUNCHES)
+        runs[name] = tree
+        out[name] = {"ranks": m.size, "wall_s": wall, "level_logliks": level_logliks(torch, tree, target),
+                     **check_pair(torch, f"sharded pair {name}", source, res, gt, ref.pose)}
+    a, b = out["nccl_ws1"]["level_logliks"], out[f"emulated_{SHARD_RANKS}"]["level_logliks"]
+    gaps = [abs(x - y) / abs(x) for x, y in zip(a, b)]
+    if not all(g <= FIT_LL_RTOL for g in gaps):
+        raise CheckFailed(f"sharded pair: {SHARD_RANKS} emulated ranks' level logliks {b} off world "
+                          f"size 1's {a} by {gaps}")
+    out["level_loglik_relative_gaps"] = gaps
+    acct = profiled(torch, lambda: sharded_pair(torch, mesh, source, target, gt), work / "shard_pair_trace")
+    # No sync of the sharded pair where register_pair has none, and none more
+    # at a site (register_pair's count also holds the first switch of torch's
+    # sync debug mode in the process, a line of torch's own __init__.py).
+    ref_sites = dict(pair_syncs["host_sync_sites"])
+    extra = {site: n for site, n in acct["host_sync_sites"] if n > ref_sites.get(site, 0)}
+    if extra or acct["host_syncs"] > pair_syncs["host_syncs"]:
+        raise CheckFailed(f"sharded pair: {acct['host_syncs']} host syncs, register_pair has "
+                          f"{pair_syncs['host_syncs']}: more at {extra}")
+    out["pair_accounting"] = acct
+    out["register_pair_host_syncs"] = pair_syncs["host_syncs"]
+    out["register_pair_host_sync_sites"] = pair_syncs["host_sync_sites"]
+    out["seconds"] = time.perf_counter() - t_start
+    require_launched(counts, "shard")
+    return out, counts
+
+
+def sharded_cli(torch, dev, mesh, work, seq) -> tuple:
+    """(d) The CLI with --sharded over NCCL at world size 1 on the odometry
+    sequence, as cli_odometry runs it unsharded: `odometry --sharded` with a
+    checkpoint (dead reckoning), then resumed with --detect-closures --refine
+    --map, then `localize --sharded` of frame 0 against that map, each with
+    the counters at 0 and held to cli_odometry's bounds. (e) refine_chain_
+    sharded on that run's chain and closures (the arguments of its
+    refine_odometry call), at world size 1 and on SHARD_RANKS emulated ranks,
+    against the dense refine_pose_graph within tests/test_pose_graph.py's
+    sharded-vs-dense tolerance (PG_ATOL)."""
+    import ast
+
+    import numpy as np
+
+    from hgmm_torch.eval.metrics import rotation_error_deg
+    from hgmm_torch.models.se3 import Pose
+    from hgmm_torch.ops import fused_em
+    from hgmm_torch.pipelines import odometry
+
+    t_start = time.perf_counter()
+    ck, map_p, loc_p = (work / f for f in ("shard_ck.npz", "shard_map.npz", "shard_loc.npy"))
+    base = ["odometry", str(seq), "--poses", str(seq / "poses.txt"), "--checkpoint", str(ck),
+            "--out", str(work / "shard_traj.npy"), "--sharded", "--device", "cuda"]
+    counts, walls, outs, calls = {}, {}, {}, []
+    for name, argv in (
+        ("cli_odometry_sharded", base),
+        ("cli_odometry_closures_sharded", base + ["--detect-closures", "--refine", "--map", str(map_p)]),
+        ("cli_localize_sharded", ["localize", str(seq / "velodyne" / "000000.bin"), str(map_p),
+                                  "--out", str(loc_p), "--sharded", "--device", "cuda"]),
+    ):
+        torch.cuda.synchronize()
+        fused_em.reset_launches()
+        t0 = time.perf_counter()
+        with spied(odometry, "refine_odometry", calls):
+            outs[name] = run_cli(argv)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        counts[name] = dict(fused_em.LAUNCHES)
+        require_launched(counts[name], name)
+    dead = parse_ate(outs["cli_odometry_sharded"])
+    refined = parse_ate(outs["cli_odometry_closures_sharded"])
+    text = outs["cli_odometry_closures_sharded"]
+    if "loop closures accepted:" not in text:
+        raise CheckFailed("cli odometry --sharded: no loop closure accepted")
+    pairs = ast.literal_eval(text.split("loop closures accepted:")[1].splitlines()[0].strip())
+    ate_bound = ODO_ATE_FACTOR * JAX_CLI_DEAD_ATE + ODO_ATE_SLACK
+    if not any(j - i > 5 for i, j in pairs):
+        raise CheckFailed(f"cli odometry --sharded: no accepted closure with j - i > 5: {pairs}")
+    if not (dead == dead and refined == refined and dead <= ate_bound and refined < dead):
+        raise CheckFailed(f"cli odometry --sharded: dead-reckoned ATE {dead} (bound {ate_bound}), "
+                          f"refined {refined} (must be below it)")
+    T = np.load(loc_p)
+    loc_t = float(np.linalg.norm(T[:3, 3]))
+    loc_deg = float(rotation_error_deg(Pose.from_matrix(torch.from_numpy(T.astype(np.float32))),
+                                       Pose.identity()))
+    if not (np.isfinite(T).all() and loc_t < LOC_TRANS and loc_deg < LOC_DEG):
+        raise CheckFailed(f"cli localize --sharded: |t| = {loc_t} m, rotation {loc_deg} deg")
+    out = {"ate_dead_reckoned_m": dead, "ate_refined_m": refined, "ate_bound_m": ate_bound,
+           "closures": pairs, "localize_t_m": loc_t, "localize_rot_deg": loc_deg,
+           "cli_wall_s": walls, "launches": counts}
+
+    out["refine_chain_sharded"] = chain_check(torch, dev, mesh, calls[-1][0][0])
+    out["seconds"] = time.perf_counter() - t_start
+    return out, counts
+
+
+def chain_check(torch, dev, mesh, result) -> dict:
+    """(e) refine_chain_sharded on an odometry run's chain and closures, at
+    world size 1 (mesh) and on SHARD_RANKS emulated ranks, against the dense
+    refine_pose_graph within PG_ATOL."""
+    from hgmm_torch.parallel import EmulatedMesh
+    from hgmm_torch.pipelines.pose_graph import (concat_edge_lists, odometry_chain_edges,
+                                                 refine_chain_sharded, refine_pose_graph)
+
+    closures = result.closures
+    R = torch.stack([p.R for p in result.abs_poses])
+    t = torch.stack([p.t for p in result.abs_poses])
+    chain = odometry_chain_edges(result.rel_poses)
+    dense = refine_pose_graph(R, t, concat_edge_lists(chain, closures), n_iters=PG_ITERS)
+    gaps = {}
+    for name, m in (("nccl_ws1", mesh), (f"emulated_{SHARD_RANKS}", EmulatedMesh(SHARD_RANKS, dev))):
+        t0 = time.perf_counter()
+        got = refine_chain_sharded(R, t, chain.R, chain.t, m, n_iters=PG_ITERS, closures=closures)
+        torch.cuda.synchronize()
+        gaps[name] = {"t": close(torch, f"refine_chain_sharded {name} t", got.t, dense.t, 0.0, PG_ATOL),
+                      "R": close(torch, f"refine_chain_sharded {name} R", got.R, dense.R, 0.0, PG_ATOL),
+                      "seconds": time.perf_counter() - t0}
+    return {"nodes": int(R.shape[0]), "closures": int(closures.i.numel()), "iters": PG_ITERS,
+            "atol": PG_ATOL, "max_abs_gap_to_dense": gaps}
 
 
 if __name__ == "__main__":

@@ -12,8 +12,10 @@ and printed lines, run by hgmm_torch on the device that --device names.
 
 Clouds are .ply, KITTI .bin or .npy files. --device defaults to cuda and
 the command fails when CUDA is not available; --device cpu runs the plain
-PyTorch path. --sharded (odometry, localize) is not ported: it waits for
-the torch.distributed slice and the command fails.
+PyTorch path. --sharded (odometry, localize) runs the fits, registrations and
+refinement points-sharded over make_mesh(): the default torch.distributed
+process group when there is one (under torchrun, every process runs the
+command), else a world of one process.
 """
 
 from __future__ import annotations
@@ -120,10 +122,13 @@ def _outlier_logit(value: float) -> float | None:
     return None if value != value else value  # nan disables
 
 
-def _no_sharding(args) -> None:
-    if args.sharded:
-        raise SystemExit("--sharded: the distributed path waits for the port's torch.distributed "
-                         "slice; run without --sharded")
+def _mesh(args):
+    """make_mesh() on --device with --sharded, else None."""
+    if not args.sharded:
+        return None
+    from hgmm_torch.parallel import make_mesh
+
+    return make_mesh(args.device)
 
 
 def cmd_odometry(args) -> None:
@@ -136,7 +141,7 @@ def cmd_odometry(args) -> None:
     from hgmm_torch.pipelines.odometry import OdometryConfig, refine_odometry, run_odometry
     from hgmm_torch.utils.profiling import MetricsLog
 
-    _no_sharding(args)
+    mesh = _mesh(args)
     paths = sequence_scan_paths(args.sequence)
     if args.max_frames:
         paths = paths[: args.max_frames]
@@ -154,14 +159,14 @@ def cmd_odometry(args) -> None:
     metrics = MetricsLog(args.metrics) if args.metrics else None
     t0 = time.perf_counter()
     res = run_odometry(scans, cfg, checkpoint_path=args.checkpoint, checkpoint_every=10,
-                       metrics=metrics, detect_closures=args.detect_closures)
+                       metrics=metrics, mesh=mesh, detect_closures=args.detect_closures)
     dt = _elapsed(t0, args.device)
     if res.closures is not None:
         pairs = list(zip(res.closures.i.tolist(), res.closures.j.tolist()))
         print(f"loop closures accepted: {pairs}")
     final_poses = res.abs_poses
     if args.refine:
-        refined = refine_odometry(res)
+        refined = refine_odometry(res, mesh=mesh)
         final_poses = refined.poses()
         traj = refined.t.cpu().numpy()
     else:
@@ -179,7 +184,7 @@ def cmd_odometry(args) -> None:
         from hgmm_torch.utils import checkpoint as ckpt
 
         tree = build_map([load_velodyne_bin(p) for p in paths], final_poses,
-                         MapConfig(voxel=args.voxel))
+                         MapConfig(voxel=args.voxel), mesh=mesh)
         ckpt.save_tree(args.map, tree)
         print(f"global map ({tree.n_leaves} leaves) -> {args.map}")
 
@@ -217,7 +222,7 @@ def cmd_localize(args) -> None:
     from hgmm_torch.pipelines.mapping import localize
     from hgmm_torch.utils import checkpoint as ckpt
 
-    _no_sharding(args)
+    mesh = _mesh(args)
     tree = ckpt.load_tree(args.map, device=args.device)
     scan = _load_cloud(args.scan, args.device)
     init = None
@@ -225,7 +230,7 @@ def cmd_localize(args) -> None:
         T = np.load(args.init)
         init = pose_from_numpy(T[:3, :3], T[:3, 3], args.device)
     t0 = time.perf_counter()
-    res = localize(scan, tree, init_pose=init, n_iters=args.iters,
+    res = localize(scan, tree, init_pose=init, mesh=mesh, n_iters=args.iters,
                    outlier_logit=_outlier_logit(args.outlier_logit))
     dt = _elapsed(t0, args.device)
     T = res.pose.matrix().cpu().numpy()
@@ -303,7 +308,9 @@ def main(argv=None) -> None:
     o.add_argument("--detect-closures", action="store_true",
                    help="propose + registration-verify loop closures, feed --refine")
     o.add_argument("--sharded", action="store_true",
-                   help="not ported yet (the torch.distributed slice): fails")
+                   help="run fits/registrations/refinement points-sharded over make_mesh() (config "
+                   "5; the Schur pose-graph path for --refine; under torchrun, the run's process "
+                   "group)")
     o.add_argument("--out", default=None)
     o.add_argument("--map", default=None, metavar="NPZ",
                    help="fuse scans by the final poses into a global GMM-tree map and save it "
@@ -327,7 +334,7 @@ def main(argv=None) -> None:
                     help="uniform outlier log-density; nan disables (scans usually see "
                     "unmapped geometry — keep gating on)")
     lz.add_argument("--sharded", action="store_true",
-                    help="not ported yet (the torch.distributed slice): fails")
+                    help="register points-sharded over make_mesh()")
     lz.add_argument("--out", default=None, help="save the 4x4 transform (.npy)")
     lz.set_defaults(fn=cmd_localize)
 

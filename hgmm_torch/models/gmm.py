@@ -75,15 +75,24 @@ def total_weight(points: torch.Tensor, point_weights: torch.Tensor | None) -> to
 
 
 def em_sweeps(data, init: MixtureParams, n_iters: int, total, cov_floor, cov_reg: float = 1e-6,
-              cov_type: str = "full") -> ops.EmFit:
+              cov_type: str = "full", mesh=None) -> ops.EmFit:
     """`n_iters` EM sweeps from `init` on `data`: an ops.Prepared buffer, or
     a tree level's points grouped by parent (ops.group_by_parent). Each sweep
     is the E-step on the fit's packed table (ops.em_partials) and
     ops.em_step; total and cov_floor are 0-d tensors on the data's device.
-    Returns the fit state: params, table, logliks [n_iters]."""
+    With a mesh (hgmm_torch.parallel), `data` is this rank's shard, total and
+    cov_floor are the mesh's, and each sweep sums its E-step to one row
+    (ops.em_row) and adds that row over the mesh before the M-step, which
+    then runs replicated. Returns the fit state: params, table, logliks
+    [n_iters]."""
     fit = ops.new_fit(init, n_iters, total, cov_floor, masked=not isinstance(data, ops.Prepared))
     for it in range(n_iters):
-        ops.em_step(ops.em_partials(data, fit.table), fit, it, cov_reg, cov_type)
+        if mesh is None:
+            parts = ops.em_partials(data, fit.table)
+        else:
+            parts = ops.em_row(data, fit.table)
+            mesh.all_reduce_(parts.partial)
+        ops.em_step(parts, fit, it, cov_reg, cov_type)
     return fit
 
 

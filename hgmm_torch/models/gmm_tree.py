@@ -109,7 +109,16 @@ def _fit_tree(
     total = total_weight(points, point_weights)
     cov_floor = cov_floor_rel * scene_variance(points, point_weights)
     prep = ops.prepare(points, point_weights)  # one buffer for every level
-    fit = em_sweeps(prep, init0, em_iters, total, cov_floor, cov_reg, cov_type)
+    return fit_levels(prep, init0, branch, levels, em_iters, total, cov_floor, cov_reg, cov_type)
+
+
+def fit_levels(prep: ops.Prepared, init0: MixtureParams, branch: int, levels: int, em_iters: int,
+               total, cov_floor, cov_reg: float, cov_type: str, mesh=None):
+    """The levels of _fit_tree on a prepared buffer, with its total weight
+    and covariance floor; with a mesh, on this rank's shard, each sweep added
+    over the mesh (em_sweeps) and each rank grouping its own points by
+    parent. Returns (per-level params, the final loglik of each level)."""
+    fit = em_sweeps(prep, init0, em_iters, total, cov_floor, cov_reg, cov_type, mesh)
     level_params = [fit.params]
     level_logliks = [fit.logliks[-1]]
     parent = None
@@ -118,7 +127,7 @@ def _fit_tree(
         p = seed_children(level_params[-1], branch)
         # One grouping of the points by parent for the level's sweeps.
         groups = ops.group_by_parent(prep, parent, branch, p.pi.shape[0])
-        fit = em_sweeps(groups, p, em_iters, total, cov_floor, cov_reg, cov_type)
+        fit = em_sweeps(groups, p, em_iters, total, cov_floor, cov_reg, cov_type, mesh)
         level_params.append(fit.params)
         level_logliks.append(fit.logliks[-1])
     return tuple(level_params), torch.stack(level_logliks)

@@ -9,7 +9,9 @@ sweep or iteration; raw [N, 3] points are accepted too and prepared per call.
 The E-step functions take W [10, K] or the packed table of a fit
 (``Packed``); a fit's sweep is ``em_partials`` on ``fit.table`` (on the card
 the E-step body alone, its partial rows not summed), then ``em_step`` on the
-fit state ``new_fit`` made, which sums the rows and runs the M-step.
+fit state ``new_fit`` made, which sums the rows and runs the M-step. A
+sharded sweep or scan step sums this device's rows to one row first
+(``em_row``, ``reg_row``) and adds that row over the mesh.
 """
 
 from __future__ import annotations
@@ -136,6 +138,26 @@ def em_partials(data, W) -> EmPartials:
     return em_ref.partials_of(em_stats(data, W) if isinstance(data, Prepared) else em_stats_grouped(data, W))
 
 
+def em_row(data, W) -> EmPartials:
+    """The E-step of a sharded sweep: em_partials summed on this device to
+    one plain row [1, K*10 + 1] (S row-major, then the loglik), which the
+    sweep adds over the mesh before em_step. The grouped body's rows depend on
+    the rank's own points by parent, so they cannot be summed across ranks
+    element by element; one row is also K*10 + 1 floats to send, not nb
+    times that. On the card the body and its reduce kernel; on the CPU
+    em_partials' one row."""
+    if isinstance(data, fused_em.ParentGroups):
+        out = torch.empty((1, data.k * 10 + 1), dtype=torch.float32, device=data.pts4.device)
+        fused_em.em_partials_grouped(data, W, out)
+        return EmPartials(out, data.k, 1, 1)
+    if isinstance(data, Prepared) and data.pts4.is_cuda:
+        k = W.k if isinstance(W, Packed) else W.shape[1]
+        out = torch.empty((1, k * 10 + 1), dtype=torch.float32, device=data.pts4.device)
+        fused_em.em_partials(data.pts4, W, None, out)
+        return EmPartials(out, k, 1, 1)
+    return em_partials(data, W)
+
+
 def em_step(stats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
     """The M-step of sweep `it` on the fit state, in place (em_ref.em_step),
     from the sweep's EmPartials (em_partials)."""
@@ -199,6 +221,21 @@ def reg_partials(problem, scan: RegScan) -> torch.Tensor:
     st = em_ref.reg_stats(problem.prep.points, problem.W, problem.mu, problem.A6, problem.b3, scan.pose,
                           problem.prep.weights, problem.top_k, problem.outlier_logit)
     return em_ref.pack_reg(st).to(scan.state.dtype)
+
+
+def reg_row(problem, scan: RegScan) -> torch.Tensor:
+    """reg_partials summed on this device to one row [1, 59], which a
+    sharded scan step adds over the mesh before reg_step (a shard's row count
+    depends on its size, and shards given by shard_points_from_host differ):
+    on the card the statistics kernel and its reduce kernel (which, once the
+    scan is done, sums the last live rows again: reg_step then reads nothing);
+    on the CPU reg_partials' one row."""
+    if isinstance(problem, fused_em.RegTables):
+        out = torch.empty((1, em_ref.REG_OUT), dtype=torch.float32, device=problem.pts4.device)
+        fused_em.reg_partials(problem, scan.state, scan.state[em_ref.SCAN_DONE:em_ref.SCAN_DONE + 1],
+                              out)
+        return out
+    return reg_partials(problem, scan)
 
 
 def reg_step(partial, scan: RegScan, it: int, solver: int, first: bool, last: bool, tol: float) -> None:

@@ -33,6 +33,7 @@ launch geometry from ``plan_reg_stats``) and ``reg_step``
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import torch
 
@@ -93,9 +94,19 @@ LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "em_step": 0, "assign": 0, "reg
             "probe_norm": 0, "probe_vpu": 0}
 
 
+_LAUNCHES_LOCK = threading.Lock()  # the ranks of an EmulatedMesh launch from threads
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to a kernel's count (each wrapper, where it launches)."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
@@ -281,7 +292,7 @@ def em_partials(pts4: torch.Tensor, W, outlier_logit=None, out: torch.Tensor | N
                 partial.data_ptr(), nb, out_p, _stream(pts4),
             )
     _raise_on(err, "em_stats")
-    LAUNCHES["em_stats"] += 1
+    count_launch("em_stats")
     return EmPartials(partial, k, nb, nb)
 
 
@@ -354,7 +365,7 @@ def em_step(parts, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "
             wn.data_ptr(), fit.logliks.data_ptr(), it, plan.warps, _stream(wn),
         )
     _raise_on(err, "em_step")
-    LAUNCHES["em_step"] += 1
+    count_launch("em_step")
 
 
 def plan_parent_chunks(counts: list[int], sms: int) -> tuple[int, list[tuple[int, int, int]]]:
@@ -447,7 +458,7 @@ def em_partials_grouped(groups: ParentGroups, W, out: torch.Tensor | None = None
             groups.partial.data_ptr(), None if out is None else out.data_ptr(), _stream(groups.pts4),
         )
     _raise_on(err, "em_stats_masked")
-    LAUNCHES["em_stats_masked"] += 1
+    count_launch("em_stats_masked")
     return EmPartials(groups.partial, k, groups.n_chunks, groups.parent_rows, groups.branch,
                       groups.parent_off)
 
@@ -484,7 +495,7 @@ def assign(pts4: torch.Tensor, W, parent=None, branch=None) -> torch.Tensor:
             out.data_ptr(), _stream(pts4),
         )
     _raise_on(err, "assign")
-    LAUNCHES["assign"] += 1
+    count_launch("assign")
     return out
 
 
@@ -588,7 +599,7 @@ def reg_partials(tab: RegTables, pose12: torch.Tensor, done: torch.Tensor | None
             _stream(tab.pts4),
         )
     _raise_on(err, "reg_stats")
-    LAUNCHES["reg_stats"] += 1
+    count_launch("reg_stats")
     return tab.partial
 
 
@@ -646,4 +657,4 @@ def reg_step(partial: torch.Tensor, scan: RegScan, it: int, solver: int, first: 
             plan_reg_step(partial.shape[0]), _stream(partial),
         )
     _raise_on(err, "reg_step")
-    LAUNCHES["reg_step"] += 1
+    count_launch("reg_step")

@@ -116,7 +116,7 @@ def nearest_neighbor_cuda(query: torch.Tensor, target: torch.Tensor):
             None if part_d2 is None else part_d2.data_ptr(),
             idx.data_ptr(), d2.data_ptr(), fused_em._stream(query))
     fused_em._raise_on(err, "knn")
-    fused_em.LAUNCHES["knn"] += 1
+    fused_em.count_launch("knn")
     return idx, d2
 
 

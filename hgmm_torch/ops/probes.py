@@ -38,7 +38,7 @@ import functools
 import torch
 
 from hgmm_torch.ops import _build
-from hgmm_torch.ops.fused_em import LAUNCHES, _check, _raise_on, _stream
+from hgmm_torch.ops.fused_em import LAUNCHES, _check, _raise_on, _stream, count_launch  # noqa: F401
 
 DEPTH = 80  # contraction depth of the logits product (csrc/probes.cu:DEPTH)
 MAX_REPS = 64  # csrc/probes.cu:MAX_REPS
@@ -367,7 +367,7 @@ def logits_cuda(wt: torch.Tensor, phi: torch.Tensor, steps: int, reps: int) -> t
             wt.data_ptr(), phi.data_ptr(), eps.data_ptr(), k, t, steps, reps, int(f32), plan.tile,
             out.data_ptr(), _stream(wt))
     _raise_on(err, "probe_logits")
-    LAUNCHES["probe_logits"] += 1
+    count_launch("probe_logits")
     return out
 
 
@@ -388,7 +388,7 @@ def stats_cuda(phi32: torch.Tensor, e: torch.Tensor, steps: int, reps: int) -> t
             phi32.data_ptr(), e.data_ptr(), eps.data_ptr(), k, t, steps, reps, int(f32), plan.tile,
             plan.threads, partial.data_ptr(), out.data_ptr(), _stream(e))
     _raise_on(err, "probe_stats")
-    LAUNCHES["probe_stats"] += 1
+    count_launch("probe_stats")
     return out
 
 
@@ -409,7 +409,7 @@ def norm_cuda(ones: torch.Tensor, e: torch.Tensor, steps: int, reps: int) -> tor
             ones.data_ptr(), e.data_ptr(), eps.data_ptr(), k, t, steps, reps, plan.tile,
             plan.threads, partial.data_ptr(), out.data_ptr(), _stream(e))
     _raise_on(err, "probe_norm")
-    LAUNCHES["probe_norm"] += 1
+    count_launch("probe_norm")
     return out
 
 
@@ -425,7 +425,7 @@ def addonly_cuda(x: torch.Tensor, steps: int, reps: int) -> torch.Tensor:
         err = _build.load().hgmm_probe_addonly(x.data_ptr(), eps.data_ptr(), x.numel(), steps, reps,
                                                plan.blocks, out.data_ptr(), _stream(x))
     _raise_on(err, "probe_addonly")
-    LAUNCHES["probe_addonly"] += 1
+    count_launch("probe_addonly")
     return out
 
 
@@ -442,7 +442,7 @@ def vpu_cuda(x: torch.Tensor, steps: int, reps: int, mode: str = "exp2") -> torc
                                            plan.chains, plan.blocks, plan.threads, out.data_ptr(),
                                            _stream(x))
     _raise_on(err, "probe_vpu")
-    LAUNCHES["probe_vpu"] += 1
+    count_launch("probe_vpu")
     return out
 
 

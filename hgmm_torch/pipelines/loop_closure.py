@@ -103,6 +103,7 @@ def detect_loop_closures(
     result,
     odo_cfg,
     config: ClosureConfig | None = None,
+    mesh=None,
     metrics=None,
 ) -> EdgeList | None:
     """Verify proximity candidates by registration; emit accepted edges.
@@ -111,7 +112,8 @@ def detect_loop_closures(
     result: OdometryResult of the dead-reckoned chain (abs_poses, logliks).
     odo_cfg: the OdometryConfig the chain ran with — verification registers
     with the same model family, iteration budget and device, so acceptance
-    thresholds are comparable with the chain logliks.
+    thresholds are comparable with the chain logliks. mesh: verification fits
+    and registrations run points-sharded over it (run_odometry's mesh).
     Returns an EdgeList on the poses' device, or None when nothing passed.
     """
     from hgmm_torch.pipelines.odometry import _fit_frame_model, _register_to_model, frame_generator
@@ -141,7 +143,7 @@ def detect_loop_closures(
     def model_of(idx: int):
         if idx not in models:
             models[idx] = _fit_frame_model(frames[idx], odo_cfg,
-                                           frame_generator(odo_cfg.seed, idx))
+                                           frame_generator(odo_cfg.seed, idx), mesh)
         return models[idx]
 
     accepted: list[tuple[int, int, Pose, float]] = []
@@ -166,14 +168,14 @@ def detect_loop_closures(
             continue
         verified += 1
         init = result.abs_poses[i].inverse().compose(result.abs_poses[j])
-        res = _register_to_model(model_of(i), frames[j], odo_cfg, init)
+        res = _register_to_model(model_of(i), frames[j], odo_cfg, init, mesh)
         delta = float(res.deltas[-1])
         ll_pp = float(res.logliks[-1]) / max(float(np.sum(frames[j][1])), 1.0)
         ok_conv = bool(res.converged) or delta < cfg.accept_delta
         ok_ll = (not np.isfinite(ll_ref)) or (ll_pp >= ll_ref + cfg.accept_loglik_margin)
         pose, ok_recip, recip_d = res.pose, True, None
         if ok_conv and ok_ll and cfg.reciprocal_tol is not None:
-            rev = _register_to_model(model_of(j), frames[i], odo_cfg, init.inverse())
+            rev = _register_to_model(model_of(j), frames[i], odo_cfg, init.inverse(), mesh)
             ok_recip, pose, recip_d = reciprocal_check(res.pose, rev.pose,
                                                        cfg.reciprocal_tol * med_step)
             ok_recip = ok_recip and (bool(rev.converged) or float(rev.deltas[-1]) < cfg.accept_delta)

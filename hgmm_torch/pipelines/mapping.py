@@ -1,12 +1,12 @@
 """Global mixture-map building + map-based localization.
 
-Counterpart of ``hgmm/pipelines/mapping.py`` on one device. After odometry
-and refinement give globally consistent poses, the frames are fused into ONE
+Counterpart of ``hgmm/pipelines/mapping.py``. After odometry and refinement
+give globally consistent poses, the frames are fused into ONE
 hierarchical-GMM map of the scene: the union of pose-transformed points,
-voxel-downsampled and padded to a bucket, fit with ``GmmTree.fit``. The map is
-then a registration target: ``localize`` runs the coarse-to-fine
-registration of a new scan against it (relocalization without the original
-frames).
+voxel-downsampled and padded to a bucket, fit with ``GmmTree.fit`` (with a
+mesh, points-sharded by ``parallel.sharded_tree_fit``). The map is then a
+registration target: ``localize`` runs the coarse-to-fine registration of a
+new scan against it (relocalization without the original frames).
 """
 
 from __future__ import annotations
@@ -96,16 +96,23 @@ def fuse_frames(frames, poses, voxel: float | None = None) -> np.ndarray:
     return fused.astype(np.float32)
 
 
-def build_map(frames, poses, config: MapConfig | None = None) -> GmmTree:
+def build_map(frames, poses, config: MapConfig | None = None, mesh=None) -> GmmTree:
     """Fit the global GMM-tree map to the fused world cloud, on the poses'
-    device."""
+    device. mesh: the fit runs points-sharded over it
+    (parallel.sharded_tree_fit, the config-5 program: at KITTI scale the fused
+    cloud is the 10M+-point workload of BASELINE.json:11)."""
     cfg = config or MapConfig()
     fused = fuse_frames(frames, poses, voxel=cfg.voxel)
     pts, weights = _to_bucket(fused, cfg.bucket, np.random.default_rng(cfg.seed),
                               device=poses[0].R.device)
+    generator = torch.Generator().manual_seed(cfg.seed)
+    if mesh is not None:
+        from hgmm_torch.parallel import sharded_tree_fit
+
+        return sharded_tree_fit(pts, mesh, branch=cfg.branch, levels=cfg.levels,
+                                em_iters=cfg.em_iters, generator=generator, point_weights=weights)
     tree, _ = GmmTree.fit(pts, branch=cfg.branch, levels=cfg.levels, em_iters=cfg.em_iters,
-                          generator=torch.Generator().manual_seed(cfg.seed),
-                          point_weights=weights)
+                          generator=generator, point_weights=weights)
     return tree
 
 
@@ -113,6 +120,7 @@ def localize(
     scan,
     map_tree: GmmTree,
     init_pose: Pose | None = None,
+    mesh=None,
     n_iters: int = 40,
     method: str = "wls",
     outlier_logit: float | None = -8.0,
@@ -123,7 +131,9 @@ def localize(
 
     The map's coarse levels give the wide basin (register_tree); the scan only
     needs pose proximity to the mapped area, not a matching frame. Returns the
-    RegistrationResult whose pose maps scan points into the map (world) frame.
+    RegistrationResult whose pose maps scan points into the map (world) frame
+    (with a mesh, sharded over it: parallel.sharded_register_tree's
+    ShardedRegResult).
     """
     from hgmm_torch.pipelines.register import register_tree
 
@@ -132,8 +142,13 @@ def localize(
         scan = scan.to(device=dev, dtype=torch.float32)
     else:
         scan = torch.from_numpy(np.asarray(scan, np.float32)).to(dev)
-    return register_tree(scan, map_tree, init_pose=init_pose, n_iters=n_iters, method=method,
-                         outlier_logit=outlier_logit, complexity_threshold=complexity_threshold)
+    kw = dict(init_pose=init_pose, n_iters=n_iters, method=method, outlier_logit=outlier_logit,
+              complexity_threshold=complexity_threshold)
+    if mesh is not None:
+        from hgmm_torch.parallel import sharded_register_tree
+
+        return sharded_register_tree(scan, map_tree, mesh, **kw)
+    return register_tree(scan, map_tree, **kw)
 
 
 def sample_mixture(params, n: int, seed: int = 0) -> np.ndarray:
@@ -157,6 +172,7 @@ def update_map(
     frames,
     poses,
     config: MapConfig | None = None,
+    mesh=None,
     carry_points: int | None = None,
     old_new_ratio: float = 1.0,
 ) -> GmmTree:
@@ -166,7 +182,8 @@ def update_map(
     The old map's evidence is carried by `carry_points` samples from its leaf
     mixture, weighted so that it carries `old_new_ratio` times the new
     points' total mass. The refit warm-starts level 0 from the old map's
-    level 0 (GmmTree.fit(init0=...)), on the map's device."""
+    level 0 (GmmTree.fit(init0=...)), on the map's device; with a mesh the
+    refit runs points-sharded (parallel.sharded_tree_fit)."""
     cfg = config or MapConfig()
     fused_new = fuse_frames(frames, poses, voxel=cfg.voxel)
     n_new = fused_new.shape[0]
@@ -187,6 +204,11 @@ def update_map(
             f"map branch {init0.pi.shape[0]} != MapConfig.branch {cfg.branch}: the warm "
             f"start must match the tree layout"
         )
+    if mesh is not None:
+        from hgmm_torch.parallel import sharded_tree_fit
+
+        return sharded_tree_fit(pts_t, mesh, branch=cfg.branch, levels=cfg.levels,
+                                em_iters=cfg.em_iters, point_weights=w_t, init0=init0)
     tree, _ = GmmTree.fit(pts_t, branch=cfg.branch, levels=cfg.levels, em_iters=cfg.em_iters,
                           point_weights=w_t, init0=init0)
     return tree

@@ -7,7 +7,9 @@ point bucket, and each pair's points go to ``OdometryConfig.device`` for the
 target fit and the registration (the card unless the caller names another
 device). Warm starts: each pair starts from the
 previous relative pose (constant velocity). Resumable at frame granularity
-through ``hgmm_torch.utils.checkpoint``.
+through ``hgmm_torch.utils.checkpoint``. With a mesh (``hgmm_torch.parallel``)
+each pair's fit and registration run points-sharded over it and refinement
+runs the distributed Schur solver.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from hgmm_torch.pipelines.pose_graph import (
     PoseGraphResult,
     concat_edge_lists,
     odometry_chain_edges,
+    refine_chain_sharded,
     refine_pose_graph,
 )
 from hgmm_torch.pipelines.register import register_points, register_tree
@@ -102,11 +105,22 @@ def _on(frame, device):
     return torch.from_numpy(pts).to(device), torch.from_numpy(w).to(device)
 
 
-def _fit_frame_model(tgt, cfg: OdometryConfig, generator: torch.Generator):
+def _fit_frame_model(tgt, cfg: OdometryConfig, generator: torch.Generator, mesh=None):
     """Fit the per-frame target model: flat MixtureParams or a GmmTree
-    (registered coarse-to-fine). Loop-closure verification caches these per
-    frame index — the fit dominates per-candidate cost."""
+    (registered coarse-to-fine), through the sharded fits with a mesh.
+    Loop-closure verification caches these per frame index — the fit
+    dominates per-candidate cost."""
     pts, w = _on(tgt, cfg.device)
+    if mesh is not None:
+        from hgmm_torch.models.gmm import init_params
+        from hgmm_torch.parallel import sharded_em_fit, sharded_tree_fit
+
+        if cfg.model_kind == "flat":
+            params, _ = sharded_em_fit(pts, init_params(pts, cfg.k, generator, point_weights=w), mesh,
+                                       n_iters=cfg.fit_iters, point_weights=w)
+            return params
+        return sharded_tree_fit(pts, mesh, branch=cfg.branch, levels=cfg.levels,
+                                em_iters=cfg.fit_iters, generator=generator, point_weights=w)
     if cfg.model_kind == "flat":
         gmm, _ = Gmm.fit(pts, k=cfg.k, n_iters=cfg.fit_iters, generator=generator,
                          point_weights=w)
@@ -116,11 +130,19 @@ def _fit_frame_model(tgt, cfg: OdometryConfig, generator: torch.Generator):
     return tree
 
 
-def _register_to_model(model, src, cfg: OdometryConfig, init: Pose):
-    """Register source frame points onto a fitted model."""
+def _register_to_model(model, src, cfg: OdometryConfig, init: Pose, mesh=None):
+    """Register source frame points onto a fitted model (sharded with a
+    mesh)."""
     pts, w = _on(src, cfg.device)
     reg_kw = dict(init_pose=init, n_iters=cfg.reg_iters, method=cfg.method, top_k=cfg.top_k,
                   outlier_logit=cfg.outlier_logit, point_weights=w)
+    if mesh is not None:
+        from hgmm_torch.parallel import sharded_register_points, sharded_register_tree
+
+        if isinstance(model, GmmTree):
+            return sharded_register_tree(pts, model, mesh,
+                                         complexity_threshold=cfg.complexity_threshold, **reg_kw)
+        return sharded_register_points(pts, model, mesh, **reg_kw)
     if isinstance(model, GmmTree):
         # Coarse-to-fine down the tree: the leaf basin alone is smaller than
         # typical frame motion.
@@ -128,10 +150,11 @@ def _register_to_model(model, src, cfg: OdometryConfig, init: Pose):
     return register_points(pts, model, **reg_kw)
 
 
-def _register_frames(tgt, src, cfg: OdometryConfig, generator: torch.Generator, init: Pose):
+def _register_frames(tgt, src, cfg: OdometryConfig, generator: torch.Generator, init: Pose,
+                     mesh=None):
     """Fit a model to the target frame and register the source frame onto it
     (one odometry pair)."""
-    return _register_to_model(_fit_frame_model(tgt, cfg, generator), src, cfg, init)
+    return _register_to_model(_fit_frame_model(tgt, cfg, generator, mesh), src, cfg, init, mesh)
 
 
 def run_odometry(
@@ -140,6 +163,7 @@ def run_odometry(
     checkpoint_path: str | Path | None = None,
     checkpoint_every: int = 10,
     metrics=None,
+    mesh=None,
     detect_closures: bool = False,
     closure_config=None,
 ) -> OdometryResult:
@@ -147,7 +171,9 @@ def run_odometry(
     (hgmm_torch.data.kitti loads real sequences).
 
     metrics: optional hgmm_torch.utils.profiling.MetricsLog — one JSONL
-    record per pair. detect_closures: after the chain, propose loop-closure
+    record per pair. mesh: a hgmm_torch.parallel mesh; each pair's fit and
+    registration run points-sharded over it (config 5 of BASELINE.json:
+    multi-host frames), and so does closure verification. detect_closures: after the chain, propose loop-closure
     candidates by pose proximity and verify them by registration
     (pipelines.loop_closure); accepted edges land in result.closures and feed
     refine_odometry by default. The poses stay on the config's device."""
@@ -177,7 +203,8 @@ def run_odometry(
     prev_rel = rel_poses[-1] if rel_poses else Pose.identity(device=cfg.device)
     for i in range(start, f - 1):
         init = prev_rel if cfg.warm_start else Pose.identity(device=cfg.device)
-        res = _register_frames(frames[i], frames[i + 1], cfg, frame_generator(cfg.seed, i), init)
+        res = _register_frames(frames[i], frames[i + 1], cfg, frame_generator(cfg.seed, i), init,
+                               mesh)
         # res.pose maps source (frame i+1) points into frame i: that IS the
         # pose of frame i+1 expressed in frame i.
         rel = res.pose
@@ -197,7 +224,7 @@ def run_odometry(
         from hgmm_torch.pipelines.loop_closure import detect_loop_closures
 
         result.closures = detect_loop_closures(frames, result, cfg, config=closure_config,
-                                               metrics=metrics)
+                                               mesh=mesh, metrics=metrics)
     return result
 
 
@@ -205,24 +232,35 @@ def refine_odometry(
     result: OdometryResult,
     loop_closures: EdgeList | None = None,
     n_iters: int = 10,
+    mesh=None,
     robust_delta: float | None = None,
 ) -> PoseGraphResult:
-    """Dense pose-graph refinement of an odometry run.
+    """Pose-graph refinement of an odometry run.
 
     loop_closures: optional EdgeList to append to the chain; defaults to the
-    closures detected by run_odometry(detect_closures=True). robust_delta:
-    Geman-McClure gate on edge residual norms (pose_graph._robust_weight).
-    The graph is solved on the poses' device."""
+    closures detected by run_odometry(detect_closures=True). mesh: a
+    hgmm_torch.parallel mesh; refinement runs the distributed segment-wise
+    Schur solver (pose_graph.refine_chain_sharded), which takes any chain
+    length and closure count and falls back to the dense solver for chains
+    too short to shard. robust_delta: Geman-McClure gate on edge residual
+    norms (pose_graph._robust_weight). The graph is solved on the poses'
+    device."""
     if loop_closures is None:
         loop_closures = result.closures
     R = torch.stack([p.R for p in result.abs_poses])
     t = torch.stack([p.t for p in result.abs_poses])
+    if mesh is not None:
+        return refine_chain_sharded(R, t, torch.stack([p.R for p in result.rel_poses]),
+                                    torch.stack([p.t for p in result.rel_poses]), mesh,
+                                    n_iters=n_iters, closures=loop_closures,
+                                    robust_delta=robust_delta)
     if R.shape[0] > 512:
         # The dense solver builds an [M, M, 6, 6] Hessian per Gauss-Newton
         # step: a 2000-frame KITTI chain is ~2.3 GB of Hessian.
         warnings.warn(
             f"refine_odometry: dense pose-graph solve on {R.shape[0]} nodes builds an "
-            f"[M, M, 6, 6] Hessian — the distributed Schur solver handles this scale",
+            f"[M, M, 6, 6] Hessian — pass mesh= to use the distributed Schur solver at this "
+            f"scale",
             stacklevel=2,
         )
     edges = odometry_chain_edges(result.rel_poses)

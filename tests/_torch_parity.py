@@ -4,8 +4,9 @@ tests/test_odometry.py and tests/test_loop_closure.py rebuilt with numpy.
 
 The JAX package draws a fit's initial means with jax.random and the port with
 a torch.Generator, so whole-run parity patches both packages' init_params
-(in models.gmm and models.gmm_tree) with init_np: a seeded numpy choice among
-the positive-weight points and the JAX package's bounding-box covariance.
+(in models.gmm, models.gmm_tree and parallel.sharded) with init_np: a seeded
+numpy choice among the positive-weight points and the JAX package's
+bounding-box covariance.
 """
 
 import jax.numpy as jnp
@@ -16,11 +17,13 @@ import torch
 from hgmm.models import gmm as jgmm
 from hgmm.models import gmm_tree as jtree
 from hgmm.ops import gaussians as jg
+from hgmm.parallel import sharded as jsharded
 from hgmm_torch.data.synthetic import make_cloud_np
 from hgmm_torch.models import gmm as tgmm
 from hgmm_torch.models import gmm_tree as ttree
 from hgmm_torch.models.se3 import Pose, so3_exp
 from hgmm_torch.ops import gaussians as tg
+from hgmm_torch.parallel import sharded as tsharded
 
 
 def _host(x):
@@ -56,9 +59,9 @@ def _torch_init(points, k, generator=None, point_weights=None):
 def same_init():
     """Patch both packages' init_params with init_np for the module."""
     with pytest.MonkeyPatch.context() as mp:
-        for mod in (jgmm, jtree):
+        for mod in (jgmm, jtree, jsharded):
             mp.setattr(mod, "init_params", _jax_init)
-        for mod in (tgmm, ttree):
+        for mod in (tgmm, ttree, tsharded):
             mp.setattr(mod, "init_params", _torch_init)
         yield
 

@@ -19,6 +19,7 @@ def test_import_leaves_no_jax_or_hgmm_module():
         "import hgmm_torch.utils.timing, hgmm_torch.utils.device, hgmm_torch.cli.main\n"
         "import hgmm_torch.benchmarks.mxu_microbench, hgmm_torch.benchmarks.vpu_microbench\n"
         "import hgmm_torch.benchmarks.kernel_shapes, hgmm_torch.benchmarks.trace_accounting\n"
+        "import hgmm_torch.parallel, hgmm_torch.benchmarks.large_n\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hgmm', 'benchmarks')]\n"
         "assert not bad, bad\n"
         "import hgmm_torch.ops._build as b\n"
@@ -35,7 +36,9 @@ def test_no_source_file_imports_jax_or_hgmm():
     paths = sorted((REPO / "hgmm_torch").rglob("*.py"))
     for new in ("bench.py", "ops/probes.py", "eval/roofline.py", "utils/timing.py",
                 "benchmarks/mxu_microbench.py", "benchmarks/vpu_microbench.py",
-                "benchmarks/kernel_shapes.py", "benchmarks/trace_accounting.py"):
+                "benchmarks/kernel_shapes.py", "benchmarks/trace_accounting.py",
+                "parallel/__init__.py", "parallel/mesh.py", "parallel/sharded.py",
+                "benchmarks/large_n.py"):
         assert REPO / "hgmm_torch" / new in paths
     for path in paths + [REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):

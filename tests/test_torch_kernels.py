@@ -1043,3 +1043,116 @@ def test_fit_sweeps_on_the_card_make_no_host_sync(cuda, case):
     card, cpu = fits["cuda"][0], fits["cpu"][0]
     assert bool(torch.isfinite(card).all())
     torch.testing.assert_close(card[-1], cpu[-1], rtol=1e-3, atol=0)
+
+
+# --------------------------------------------------------------------------
+# the sharded path (hgmm_torch.parallel) on the card
+
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    """The NCCL world of one process that make_mesh starts without a process
+    group, taken down at the end of the module if this module made it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from hgmm_torch.parallel import make_mesh
+
+    made = not dist.is_initialized()
+    mesh = make_mesh("cuda")
+    yield mesh
+    if made:
+        dist.destroy_process_group()
+
+
+def _sharded_meshes(world):
+    from hgmm_torch.parallel import EmulatedMesh
+
+    return {"nccl_1": world, "emulated_4": EmulatedMesh(4, "cuda")}
+
+
+@pytest.mark.parametrize("mesh_kind", ["nccl_1", "emulated_4"])
+@pytest.mark.parametrize("k,weighted", [(8, False), (64, True), (512, False)])
+def test_sharded_em_fit_on_the_card(cuda, nccl_world, mesh_kind, k, weighted):
+    """sharded_em_fit over NCCL at world size 1 and on 4 emulated ranks
+    against the unsharded em_fit on the card from one init, with the
+    tolerances of tests/test_parallel.py:36-39; one E-step launch (body and
+    reduce) and one em_step a sweep on each rank."""
+    from hgmm_torch.models.gmm import em_fit
+    from hgmm_torch.parallel import sharded_em_fit
+
+    mesh = _sharded_meshes(nccl_world)[mesh_kind]
+    pts, w = _inputs(40_003, 30 + k, cuda)
+    w = w if weighted else None
+    init = _mixture(k, 31, cuda)
+    ref, ll_ref = em_fit(pts, init, n_iters=6, point_weights=w)
+    fused_em.reset_launches()
+    got, ll = sharded_em_fit(pts, init, mesh, n_iters=6, point_weights=w)
+    torch.cuda.synchronize()
+    ranks = mesh.size
+    assert fused_em.LAUNCHES["em_stats"] == 6 * ranks and fused_em.LAUNCHES["em_step"] == 6 * ranks
+    _close(got.pi, ref.pi, 1e-4, 1e-6)
+    _close(got.mu, ref.mu, 1e-4, 1e-5)
+    _close(got.sigma, ref.sigma, 1e-3, 1e-5)
+    _close(ll, ll_ref, 1e-5, 0.0)
+
+
+@pytest.mark.parametrize("mesh_kind", ["nccl_1", "emulated_4"])
+def test_sharded_tree_and_registration_on_the_card(cuda, nccl_world, mesh_kind):
+    """sharded_tree_fit and sharded_register_tree on the card against
+    GmmTree.fit and register_tree there (one init0): each level's per-point
+    loglik within 1e-3, the pose within tests/test_parallel.py:59-60's
+    tolerance; the tree kernels all launched."""
+    from hgmm_torch.data.synthetic import make_cloud
+    from hgmm_torch.models.gmm import init_params, log_likelihood
+    from hgmm_torch.models.gmm_tree import GmmTree
+    from hgmm_torch.models.se3 import Pose
+    from hgmm_torch.parallel import sharded_register_tree, sharded_tree_fit
+    from hgmm_torch.pipelines.register import register_tree
+
+    mesh = _sharded_meshes(nccl_world)[mesh_kind]
+    target = make_cloud(60_000, "trefoil", seed=3, device=cuda)
+    gt = Pose(so3_exp(torch.tensor([0.0, 0.0, 0.2], device=cuda)), torch.tensor([0.03, -0.02, 0.04], device=cuda))
+    source = gt.inverse().apply(target)
+    init0 = init_params(target, 8, torch.Generator().manual_seed(0))
+    ref, _ = GmmTree.fit(target, levels=3, em_iters=8, init0=init0)
+    fused_em.reset_launches()
+    tree = sharded_tree_fit(target, mesh, levels=3, em_iters=8, init0=init0)
+    res = sharded_register_tree(source, tree, mesh, n_iters=30, complexity_threshold=0.02)
+    torch.cuda.synchronize()
+    for name in ("em_stats", "em_stats_masked", "em_step", "assign", "reg_stats", "reg_step"):
+        assert fused_em.LAUNCHES[name] > 0, name
+    for a, b in zip(tree.levels, ref.levels):
+        _close(log_likelihood(a, target), log_likelihood(b, target), 1e-3, 0.0)
+    single = register_tree(source, ref, n_iters=30, method="horn+wls", complexity_threshold=0.02)
+    _close(res.pose.R, single.pose.R, 1e-3, 1e-4)
+    _close(res.pose.t, single.pose.t, 1e-3, 1e-4)
+
+
+def test_sharded_sweeps_and_scan_steps_never_sync(cuda, nccl_world):
+    """Under torch's sync debug mode "error": a sharded sweep (body, reduce,
+    NCCL all-reduce, em_step) and a sharded scan step (reg_stats, reduce,
+    all-reduce, reg_step) make the host wait nowhere."""
+    from hgmm_torch import ops
+    from hgmm_torch.models.gmm import em_sweeps
+    from hgmm_torch.parallel.sharded import _mesh_scalars, _scan
+
+    pts, _ = _inputs(30_000, 41, cuda)
+    init = _mixture(64, 42, cuda)
+    prep = ops.prepare(pts)
+    total, floor = _mesh_scalars(prep, nccl_world, 1e-4)
+    from hgmm_torch.models.se3 import Pose
+
+    pose = Pose.identity(device=cuda)
+    w = torch.ones(pts.shape[0], device=cuda)
+    for run in (lambda: em_sweeps(prep, init, 4, total, floor, mesh=nccl_world),
+                lambda: _scan(pts, w, init, nccl_world, pose, 6, "horn+wls", 1e-7, None, None, 2)):
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

@@ -115,3 +115,37 @@ def test_budget_skipped_candidates_are_observable(tmp_path):
     skipped = [json.loads(line) for line in log.read_text().splitlines()]
     assert skipped and all(r["event"] == "loop_closure_candidate_skipped"
                            and r["reason"] == "verification_budget" for r in skipped)
+
+
+def test_detection_and_refine_through_mesh(detected):
+    """tests/test_loop_closure.py:132: verification through the sharded fits
+    and registrations (2 ranks emulated on the CPU), the detected closures
+    into the sharded Schur refinement: the same closures and chain as the
+    unsharded run, which matches hgmm's, and the same 0.8 x ATE margin."""
+    from hgmm_torch.parallel import EmulatedMesh
+
+    from hgmm.parallel import make_mesh
+
+    gt, _, single, _ = detected
+    frames, _ = loop_sequence(n_frames=20)
+    closure = dict(min_separation=5, reg_iters=40)
+    ref = jodo.run_odometry(frames, jodo.OdometryConfig(**CFG), mesh=make_mesh(), detect_closures=True,
+                            closure_config=jlc.ClosureConfig(**closure))
+    mesh = EmulatedMesh(2, "cpu")
+    got = todo.run_odometry(frames, todo.OdometryConfig(**CFG, device="cpu"), mesh=mesh,
+                            detect_closures=True, closure_config=tlc.ClosureConfig(**closure))
+    assert got.closures is not None, "no closures through the sharded path"
+    for other in (single.closures, ref.closures):
+        assert got.closures.i.tolist() == np.asarray(other.i).tolist()
+        assert got.closures.j.tolist() == np.asarray(other.j).tolist()
+        np.testing.assert_allclose(got.closures.t.numpy(), np.asarray(other.t), atol=1e-3)
+    for p, q, r in zip(got.abs_poses, single.abs_poses, ref.abs_poses):
+        assert float(pose_delta_norm(p, q)) < 1e-3
+        assert float(pose_delta_norm(p, to_torch_pose(r))) < 1e-3
+    refined = todo.refine_odometry(got, n_iters=12, mesh=mesh)
+    dense = todo.refine_odometry(got, n_iters=12)
+    jrefined = jodo.refine_odometry(ref, n_iters=12, mesh=make_mesh())
+    for other in (dense.t.numpy(), np.asarray(jrefined.t)):
+        np.testing.assert_allclose(refined.t.numpy(), other, atol=1e-3)
+    dead, fixed = float(ate(got.abs_poses, gt)), float(ate(refined.poses(), gt))
+    assert fixed < 0.8 * dead, (dead, fixed)

@@ -122,3 +122,37 @@ def test_export_map_and_trajectory(maps, tmp_path):
     # The plot is skipped where matplotlib is absent, as in the JAX package.
     has_mpl = importlib.util.find_spec("matplotlib") is not None
     assert png.exists() == has_mpl and (not has_mpl or png.stat().st_size > 0)
+
+
+def test_build_map_localize_and_update_through_mesh(maps):
+    """tests/test_mapping.py:67: the map fit through sharded_tree_fit and
+    localization through sharded_register_tree, by hgmm (its 8 fake devices)
+    and the port (3 ranks emulated on the CPU); the port's mesh map against
+    its unsharded one and hgmm's mesh map, and update_map through the mesh."""
+    from hgmm.parallel import make_mesh
+    from hgmm_torch.parallel import EmulatedMesh
+
+    frames, gt, _, single = maps
+    mesh = EmulatedMesh(3, "cpu")
+    cfg = tmap.MapConfig(**MAP)
+    got = tmap.build_map(frames, gt, cfg, mesh=mesh)
+    ref = jmap.build_map(frames, [to_jax_pose(p) for p in gt], jmap.MapConfig(**MAP), mesh=make_mesh())
+    for other in (single.levels[-1].mu.numpy(), np.asarray(ref.levels[-1].mu)):
+        np.testing.assert_allclose(got.levels[-1].mu.numpy(), other, atol=1e-3)
+    th = np.pi / 12.0
+    radius = 0.09 * 12 / (2 * np.pi)
+    hp = Pose(so3_exp(torch.tensor([0.0, 0.0, 0.3 * np.sin(th)], dtype=torch.float32)),
+              torch.tensor([radius * np.cos(th) - radius, radius * np.sin(th), 0.0],
+                           dtype=torch.float32))
+    scan = hp.inverse().apply(torch.from_numpy(make_cloud_np(4000, "trefoil", seed=0))).numpy()
+    scan = scan[np.abs(np.arctan2(scan[:, 1], scan[:, 0])) < 1.6]
+    scan = scan + 0.004 * np.random.default_rng(99).standard_normal(scan.shape).astype(np.float32)
+    res = tmap.localize(scan, got, mesh=mesh, n_iters=25, outlier_logit=-3.0)
+    plain = tmap.localize(scan, got, n_iters=25, outlier_logit=-3.0)
+    assert float(pose_delta_norm(res.pose, plain.pose)) < 1e-4
+    assert float(torch.linalg.norm(res.pose.t - hp.t)) < 0.02  # tests/test_mapping.py:90
+    new_frames, new_gt = loop_sequence(n_frames=4, seed=1)
+    ucfg = tmap.MapConfig(**dict(MAP, bucket=8192))
+    a = tmap.update_map(got, new_frames, new_gt, ucfg, mesh=mesh)
+    b = tmap.update_map(got, new_frames, new_gt, ucfg)
+    np.testing.assert_allclose(a.levels[0].mu.numpy(), b.levels[0].mu.numpy(), atol=1e-3)

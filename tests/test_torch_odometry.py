@@ -159,3 +159,62 @@ def test_direct_form_oracle(scale):
     got = em_ref.em_stats_direct(pts, p32, w, None, parent, 8)
     ref = em_ref.em_stats_masked(pts.double(), W64, parent, 8, w.double())
     torch.testing.assert_close(got.S, ref.S, rtol=1e-7, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def sharded_flat(same_init):
+    """tests/test_odometry.py:72: the flat model through a mesh, by hgmm (its
+    8 fake devices) and the port (3 ranks emulated on the CPU), and the
+    port's unsharded run, on the same frames."""
+    from hgmm.parallel import make_mesh
+    from hgmm_torch.parallel import EmulatedMesh
+
+    frames, gt = odometry_sequence(n_frames=3, n_scene=2000)
+    kw = dict(model_kind="flat", k=16, fit_iters=8, reg_iters=12, bucket=1024, outlier_logit=None)
+    ref = jodo.run_odometry(frames, jodo.OdometryConfig(**kw), mesh=make_mesh())
+    got = todo.run_odometry(frames, todo.OdometryConfig(**kw, device="cpu"), mesh=EmulatedMesh(3, "cpu"))
+    single = todo.run_odometry(frames, todo.OdometryConfig(**kw, device="cpu"))
+    return gt, ref, got, single
+
+
+def test_sharded_odometry_matches_jax_mesh(sharded_flat):
+    gt, ref, got, single = sharded_flat
+    for p, q, r in zip(got.abs_poses, ref.abs_poses, single.abs_poses):
+        assert float(pose_delta_norm(p, to_torch_pose(q))) < 1e-3
+        assert float(pose_delta_norm(p, r)) < 1e-3
+    np.testing.assert_allclose(got.logliks, ref.logliks, rtol=1e-3)
+    assert float(ate(got.abs_poses, gt)) < 0.05  # tests/test_odometry.py:85
+
+
+def test_sharded_tree_odometry_and_refinement(runs, sharded_flat):
+    """The tree model through 2 emulated ranks equals the unsharded chain;
+    refine_odometry(mesh=) runs the Schur solver and equals hgmm's."""
+    from hgmm.parallel import make_mesh
+    from hgmm_torch.parallel import EmulatedMesh
+
+    frames, _, _, single = runs["tree"]
+    got = todo.run_odometry(frames, todo.OdometryConfig(**TREE, device="cpu"),
+                            mesh=EmulatedMesh(2, "cpu"))
+    for p, q in zip(got.abs_poses, single.abs_poses):
+        assert float(pose_delta_norm(p, q)) < 1e-3
+    _, ref, chain, _ = sharded_flat
+    jr = jodo.refine_odometry(ref, n_iters=5, mesh=make_mesh())
+    carried = todo.OdometryResult(abs_poses=[to_torch_pose(p) for p in ref.abs_poses],
+                                  rel_poses=[to_torch_pose(p) for p in ref.rel_poses],
+                                  logliks=list(ref.logliks))
+    tr = todo.refine_odometry(carried, n_iters=5, mesh=EmulatedMesh(2, "cpu"))
+    np.testing.assert_allclose(tr.R.numpy(), np.asarray(jr.R), atol=1e-3)
+    np.testing.assert_allclose(tr.t.numpy(), np.asarray(jr.t), atol=1e-3)
+    dense = todo.refine_odometry(carried, n_iters=5)
+    np.testing.assert_allclose(tr.t.numpy(), dense.t.numpy(), atol=1e-3)
+
+
+def test_dense_refinement_warning_names_the_mesh():
+    """Past 512 nodes the dense solve warns and names mesh= (hgmm/pipelines/
+    odometry.py:288-292)."""
+    from hgmm_torch.models.se3 import Pose
+
+    res = todo.OdometryResult(abs_poses=[Pose.identity()] * 600, rel_poses=[Pose.identity()] * 599,
+                              logliks=[])
+    with pytest.warns(UserWarning, match="pass mesh= to use the distributed Schur solver"):
+        todo.refine_odometry(res, n_iters=0)

@@ -291,13 +291,17 @@ def test_dispatch_takes_point_weights_in_the_reference_position():
 # Names of the reference's packages that the port does not copy (ROADMAP,
 # "What not to copy"): the TPU's feature padding and the backend switch.
 DO_NOT_COPY = {"PHI_PAD", "set_backend", "get_backend"}
-# What the port's ops package has besides the reference's: the fit state and
-# the registration scan on the card, and their types.
+# What the port's packages have besides the reference's: in ops the fit state
+# and the registration scan on the card, their types, and a sharded sweep's
+# and scan step's one summed row (em_row, reg_row); in parallel the in-process
+# emulation of R ranks and the type of a rank's own rows (shard_points_from_
+# host returns it where the reference returns a global jax.Array).
 PORT_EXTRAS = {
     "models": set(),
     "ops": {"EmFit", "EmPartials", "Grouped", "Packed", "RegProblem", "RegScan", "em_partials",
-            "em_stats_grouped", "em_step", "group_by_parent", "new_fit", "new_scan",
-            "reg_partials", "reg_problem", "reg_step"},
+            "em_row", "em_stats_grouped", "em_step", "group_by_parent", "new_fit", "new_scan",
+            "reg_partials", "reg_problem", "reg_row", "reg_step"},
+    "parallel": {"EmulatedMesh", "ShardedPoints"},
 }
 REEXPORTS = [
     ("models", "se3", ("Pose", "se3_exp", "se3_log")),
@@ -320,7 +324,7 @@ def _public(mod) -> set:
             and getattr(obj, "__module__", None) not in ("typing", "__future__")}
 
 
-@pytest.mark.parametrize("sub", ["models", "ops"])
+@pytest.mark.parametrize("sub", ["models", "ops", "parallel"])
 def test_subpackage_names_match_the_reference(sub):
     import importlib
 
