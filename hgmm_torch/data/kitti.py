@@ -1,10 +1,11 @@
 """KITTI odometry dataset loaders (BASELINE.json config 4).
 
-Counterpart of ``hgmm/data/kitti.py`` on its numpy paths (the JAX package's
-native C++ reader is not ported yet). Velodyne scans are flat little-endian
-float32 [N, 4] (x, y, z, reflectance) ``.bin`` files; poses are 3x4
-row-major matrices per line (cam0 frame); calib.txt carries the Tr
-velo->cam0 extrinsic.
+Counterpart of ``hgmm/data/kitti.py``. Velodyne scans are flat
+little-endian float32 [N, 4] (x, y, z, reflectance) ``.bin`` files; poses
+are 3x4 row-major matrices per line (cam0 frame); calib.txt carries the Tr
+velo->cam0 extrinsic. Scans and voxelization go through the native C++
+reader (``hgmm_torch.data.native``) when its library has been built, else
+through numpy, with the same results.
 """
 
 from __future__ import annotations
@@ -14,11 +15,16 @@ from pathlib import Path
 import numpy as np
 
 from hgmm_torch.convert import pose_from_numpy
+from hgmm_torch.data import native
 from hgmm_torch.models.se3 import Pose
 
 
 def load_velodyne_bin(path: str | Path, dtype=np.float32) -> np.ndarray:
     """Read a KITTI velodyne scan -> [N, 3] xyz (reflectance dropped)."""
+    if native.available():
+        out = native.load_kitti_bin(str(path))
+        if out is not None:
+            return out.astype(dtype, copy=False)
     raw = np.fromfile(str(path), dtype="<f4")
     if raw.size % 4 != 0:
         raise ValueError(f"{path}: size {raw.size} not divisible by 4")
@@ -55,7 +61,14 @@ def sequence_scan_paths(seq_dir: str | Path) -> list[Path]:
 
 def voxel_downsample(points: np.ndarray, voxel: float) -> np.ndarray:
     """Host-side voxel-grid downsample: one point per occupied voxel, the
-    centroid of its points, in the order of the voxels' hash keys."""
+    centroid of its points, in the order of the voxels' hash keys. Runs the
+    native single-pass hash table when its library is built (~7x faster at
+    10M points on the reference's host); the numpy path below is
+    bit-compatible on float32 points."""
+    if native.available():
+        out = native.voxel_downsample(points, voxel)
+        if out is not None:
+            return out.astype(points.dtype, copy=False)
     keys = np.floor(points / voxel).astype(np.int64)
     # Hash voxel coords into one int64 (no collisions within +-2^20 cells).
     h = (keys[:, 0] & 0xFFFFF) | ((keys[:, 1] & 0xFFFFF) << 20) | (

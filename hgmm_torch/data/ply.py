@@ -1,10 +1,11 @@
 """PLY point-cloud I/O (Stanford scans: bunny/dragon/happy-buddha —
 BASELINE.json configs 1-2).
 
-Counterpart of ``hgmm/data/ply.py`` on its pure-numpy path (the JAX
-package's native C++ reader is not ported yet). Supports ascii and binary
-little- and big-endian files with float/double vertex properties;
-non-vertex elements (faces) are skipped.
+Counterpart of ``hgmm/data/ply.py``. Supports ascii and binary little- and
+big-endian files with float/double vertex properties; non-vertex elements
+(faces) are skipped. A binary little-endian file with contiguous float x, y, z
+goes through the native C++ reader (``hgmm_torch.data.native``) when its
+library has been built (``python -m hgmm_torch.data.native --build``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+
+from hgmm_torch.data import native
 
 _PLY_DTYPES = {
     "float": ("<f4", 4), "float32": ("<f4", 4),
@@ -28,6 +31,10 @@ _PLY_DTYPES = {
 def load_ply(path: str | Path, dtype=np.float32) -> np.ndarray:
     """Read vertex x/y/z from a PLY file -> [N, 3] array."""
     path = Path(path)
+    if native.available():
+        out = native.load_ply(str(path))
+        if out is not None:
+            return out.astype(dtype, copy=False)
     with open(path, "rb") as f:
         magic = f.readline().strip()
         if magic != b"ply":

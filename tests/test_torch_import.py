@@ -20,10 +20,15 @@ def test_import_leaves_no_jax_or_hgmm_module():
         "import hgmm_torch.benchmarks.mxu_microbench, hgmm_torch.benchmarks.vpu_microbench\n"
         "import hgmm_torch.benchmarks.kernel_shapes, hgmm_torch.benchmarks.trace_accounting\n"
         "import hgmm_torch.parallel, hgmm_torch.benchmarks.large_n\n"
+        "import hgmm_torch.data.native, hgmm_torch.data.kitti, hgmm_torch.data.ply\n"
+        "import hgmm_torch.benchmarks.registration_suite, hgmm_torch.benchmarks.odometry_suite\n"
+        "import hgmm_torch.benchmarks.scaling\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hgmm', 'benchmarks')]\n"
         "assert not bad, bad\n"
         "import hgmm_torch.ops._build as b\n"
         "assert b._lib is None\n"
+        "import hgmm_torch.data.native as n\n"
+        "assert not n._handles and not n._key.cache_info().currsize\n"
         "print('clean')\n"
     )
     r = subprocess.run([sys.executable, "-c", prog], cwd=REPO, capture_output=True, text=True,
@@ -38,7 +43,8 @@ def test_no_source_file_imports_jax_or_hgmm():
                 "benchmarks/mxu_microbench.py", "benchmarks/vpu_microbench.py",
                 "benchmarks/kernel_shapes.py", "benchmarks/trace_accounting.py",
                 "parallel/__init__.py", "parallel/mesh.py", "parallel/sharded.py",
-                "benchmarks/large_n.py"):
+                "benchmarks/large_n.py", "data/native.py", "benchmarks/registration_suite.py",
+                "benchmarks/odometry_suite.py", "benchmarks/scaling.py"):
         assert REPO / "hgmm_torch" / new in paths
     for path in paths + [REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
