@@ -146,6 +146,19 @@ Run from the root of a checkout. It
    within 0.1 m of the refined pose or nearer it than its start, each
    phase's kernels launched), then sharded on 16 frames without e2e
    (localize likewise, the path's kernels launched).
+11. every branch and top_k that the JAX package takes, after step 10 (so
+   that the earlier phases' counts stay as recorded), each run with the
+   counters at 0 (any_branch_and_top_k): register_pair with a branch-16,
+   2-level tree and with a branch-12, 3-level tree on the config-2 pair
+   (config 2's other arguments), each within the pose bounds and its fit's
+   per-level per-point loglik within FIT_LL_RTOL of the plain fit on 20,000
+   of the points, the masked em_stats' wide body (em_stats_masked_wide,
+   branch > 8) at K = 256, 144 and 1,728 against its plain version and
+   timed; `fit-gmm --tree --branch 16 --levels 2` through the CLI; and
+   config3_mahalanobis with top_k = 64 and 128 through register_pair within
+   the pose bounds, reg_stats' select body (reg_stats_select, 32 < top_k <
+   K) at the leaves against its plain version (check_reg_top_k) and timed
+   beside the ungated body.
 Before the CLI phases, em_stats, em_stats_masked, assign and reg_stats (outlier
 -8) are checked against their plain versions at LiDAR scale (coordinates in
 +-40 m, a 0.02 m minor axis, 30 % zero-weight rows), and both against float64
@@ -192,6 +205,7 @@ ICP_RMSE = 0.02
 ICP_ITERS = 250
 # The kernels each path must launch (each path runs with the counters at 0).
 TREE_PATH = ("em_stats", "em_stats_masked", "em_step", "assign", "reg_stats", "reg_step")
+WIDE_PATH = ("em_stats", "em_stats_masked_wide", "em_step", "assign", "reg_stats", "reg_step")
 PROBES = ("probe_logits", "probe_addonly", "probe_stats", "probe_norm", "probe_vpu")
 PATH_KERNELS = {"register_pair": TREE_PATH, "cli_icp": ("knn",), "cli_register_config3": TREE_PATH,
                 "cli_odometry": TREE_PATH, "cli_odometry_closures": TREE_PATH,
@@ -200,13 +214,20 @@ PATH_KERNELS = {"register_pair": TREE_PATH, "cli_icp": ("knn",), "cli_register_c
                 "cli_odometry_closures_sharded": TREE_PATH,
                 "cli_localize_sharded": ("reg_stats", "reg_step"),
                 "registration_suite": TREE_PATH + ("knn",), "odometry_suite": TREE_PATH,
-                "odometry_suite_sharded": TREE_PATH, "scaling": ("em_stats", "em_step")}
-SOURCES = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu", "em_step": "em_step.cu",
-           "assign": "assign.cu",
-           "reg_stats": "reg_stats.cu", "reg_step": "reg_step.cu", "knn": "knn.cu",
+                "odometry_suite_sharded": TREE_PATH, "scaling": ("em_stats", "em_step"),
+                "branch16_pair": WIDE_PATH, "cli_fit_branch16": ("em_stats", "em_stats_masked_wide", "em_step",
+                                                                 "assign"),
+                "branch12_pair": WIDE_PATH,
+                **{f"config3_top_k{t}": ("em_stats", "em_stats_masked", "em_step", "assign", "reg_stats_select",
+                                         "reg_step") for t in (64, 128)}}
+SOURCES = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu", "em_stats_masked_wide": "em_stats.cu",
+           "em_step": "em_step.cu", "assign": "assign.cu",
+           "reg_stats": "reg_stats.cu", "reg_stats_select": "reg_stats.cu", "reg_step": "reg_step.cu", "knn": "knn.cu",
            **{name: "probes.cu" for name in PROBES}}
 REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops/fused_em.py:559",
+            "em_stats_masked_wide": "hgmm/ops/fused_em.py:559",
             "assign": "hgmm/ops/fused_em.py:859", "reg_stats": "hgmm/ops/fused_em.py:920",
+            "reg_stats_select": "hgmm/ops/fused_em.py:920",
             # no TPU kernel: the XLA ops of the reference's scan steps
             "reg_step": "hgmm/pipelines/register.py:80", "em_step": "hgmm/models/gmm.py:121",
             "knn": "hgmm/ops/knn.py:60", "probe_logits": "benchmarks/mxu_microbench.py:54",
@@ -215,7 +236,8 @@ REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops
             "probe_norm": "benchmarks/mxu_microbench.py:106",
             "probe_vpu": "benchmarks/vpu_microbench.py:52"}
 # The path a kernel's `launches` are read from, where it is not register_pair.
-MAIN_PATH = {"knn": "cli_icp", **{name: "probes" for name in PROBES}}
+MAIN_PATH = {"knn": "cli_icp", **{name: "probes" for name in PROBES},
+             "em_stats_masked_wide": "branch16_pair", "reg_stats_select": "config3_top_k64"}
 # The bench path. Probe checks: bfloat16 operands carry identical bits in the
 # kernel and its plain version and only the float32 sum order differs; float32
 # operands likewise. atol is a share of the largest |reference| (a sum of
@@ -258,7 +280,8 @@ PAIR_BEFORE = {"odometry_pair_kernels_before_scan_on_card": 29_493,
 BEFORE_NOTE = "constants recorded on an NVIDIA H100 80GB HBM3, 700.00 W; not measured in this run"
 # Kernels whose -Xptxas -v report the build line prints; a spill fails the run.
 REPORTED_KERNELS = ("em_stats_tiled_kernel", "knn_kernel", "reg_stats_lanes_kernel",
-                    "reg_stats_top_k_kernel", "reg_step_kernel", "em_stats_grouped_kernel",
+                    "reg_stats_top_k_kernel", "reg_stats_select_kernel", "reg_step_kernel",
+                    "em_stats_grouped_kernel", "em_stats_grouped_wide_kernel",
                     "em_stats_kernel", "assign_all_kernel", "assign_masked_kernel", "em_step_kernel",
                     "probe_logits_bf16_kernel", "probe_stats_bf16_kernel", "probe_norm_bf16_kernel",
                     "probe_addonly_kernel")
@@ -612,13 +635,15 @@ def run_paths(torch, dev, repo, mesh, errs) -> int:
         # run after every phase whose counts earlier runs recorded.
         log({"phase": "native", **native_phase(torch, work, work / "seq")})
         suite_counts = run_suites(torch, dev, work, errs, timings)
+        # After every earlier phase, so that their counts stay as recorded.
+        wide_counts = any_branch_and_top_k(torch, dev, work, errs, timings)
     finally:
         for f in work.glob("*.ply"):
             f.unlink()
         shutil.rmtree(work / "seq", ignore_errors=True)
     launches = {"register_pair": counts, "cli_icp": icp_counts, "cli_register_config3": c3_counts,
                 **odo_counts, "cli_bench": bench_counts, "probes": probe_counts, "shard": shard_counts,
-                **shard_cli_counts, **suite_counts}
+                **shard_cli_counts, **suite_counts, **wide_counts}
 
     kernels = []
     for name in fused_em.LAUNCHES:
@@ -633,7 +658,7 @@ def run_paths(torch, dev, repo, mesh, errs) -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head.get("library_ms"),
             "max_abs_err_metric_scale": metric_errs.get(name),
-            "main_path": path, "launches_by_path": {p: c[name] for p, c in launches.items()},
+            "main_path": path, "launches_by_path": {p: c.get(name, 0) for p, c in launches.items()},
             "shapes": timings[name],
         })
     log({"ms_before_redesign": MS_BEFORE_REDESIGN, **PAIR_BEFORE, "note": BEFORE_NOTE})
@@ -708,13 +733,14 @@ def check_em(torch, name, got, ref, n, errs):
     errs[name] = max(errs[name], e1, e2)
 
 
-def check_reg(torch, got, ref, n, errs):
-    """n: the point count of the sums (the points of weight > 0)."""
+def check_reg(torch, got, ref, n, errs, name="reg_stats"):
+    """n: the point count of the sums (the points of weight > 0); name: the
+    body's entry in errs."""
     scale = n / 300.0
-    e = [close(torch, f"reg_stats.{f}", getattr(got, f), getattr(ref, f), r, a * scale)
+    e = [close(torch, f"{name}.{f}", getattr(got, f), getattr(ref, f), r, a * scale)
          for f, (r, a) in ((f, TOL_REG[f]) for f in ("horn", "A", "b"))]
-    e.append(close(torch, "reg_stats.loglik", got.loglik, ref.loglik, TOL_REG["ll_rtol"], 0.0))
-    errs["reg_stats"] = max(errs["reg_stats"], *e)
+    e.append(close(torch, f"{name}.loglik", got.loglik, ref.loglik, TOL_REG["ll_rtol"], 0.0))
+    errs[name] = max(errs[name], *e)
 
 
 def check_assign(torch, got, ref, points, W, parent, branch, errs, rel=0.0):
@@ -754,7 +780,8 @@ def check_reg_top_k(torch, pts, w, W, mu, A6, b3, pose, top_k, outlier, errs, ma
     w = (torch.ones_like(pts[:, 0]) if w is None else w) * (~near)
     got = fused_em.reg_stats(prepare(pts, w).pts4, W, mu, A6, b3, pose, top_k, outlier)
     ref = em_ref.reg_stats(pts, W, mu, A6, b3, pose, w, top_k, outlier)
-    check_reg(torch, got, ref, int((w > 0).sum()), errs)
+    name = "reg_stats_select" if fused_em.MAX_TOP_K < top_k < W.shape[1] else "reg_stats"
+    check_reg(torch, got, ref, int((w > 0).sum()), errs, name)
     return share
 
 
@@ -1195,6 +1222,10 @@ def add_bound(name, entry) -> None:
 
     if name in ("em_stats", "em_stats_masked"):
         kb = kernel_bound(name, n=entry["n"], k=entry["k"], branch=8)
+    elif name == "em_stats_masked_wide":
+        kb = kernel_bound(name, n=entry["n"], k=entry["k"], branch=entry["branch"])
+    elif name == "reg_stats_select":
+        kb = kernel_bound(name, n=entry["n"], k=entry["k"], top_k=entry["top_k"])
     elif name == "assign":
         kb = kernel_bound(name, n=entry["n"], k=entry["k"], branch=8 if entry["masked"] else None)
     elif name == "reg_stats":
@@ -1619,7 +1650,7 @@ def sweep_accounting(torch, dev, work) -> dict:
 
     from hgmm_torch import ops
     from hgmm_torch.models.gmm import em_sweeps, init_params, scene_variance, total_weight
-    from hgmm_torch.models.gmm_tree import GmmTree, seed_children
+    from hgmm_torch.models.gmm_tree import seed_children
     from hgmm_torch.ops import fused_em
     from hgmm_torch.utils.profiling import trace
 
@@ -1673,21 +1704,7 @@ def sweep_accounting(torch, dev, work) -> dict:
                      "host_syncs_in_sweeps": 0, "enqueue_s": enqueue_s, "wall_s": wall_s,
                      "ms_per_sweep": 1e3 * wall_s / sweeps}
 
-    # The tree fit on the card and through the plain versions, from one init.
-    idx = torch.randperm(N_POINTS, generator=torch.Generator().manual_seed(1))[:40_000]
-    sub = target.cpu()[idx]
-    init_sub = init_params(sub, branch, torch.Generator().manual_seed(2))
-    per_point = {}
-    for d in (dev, torch.device("cpu")):
-        _, lls = GmmTree.fit(sub.to(d), branch=branch, levels=kw["levels"], em_iters=sweeps,
-                             init0=type(init_sub)(*(a.to(d) for a in init_sub)))
-        per_point[d.type] = (lls.double().cpu() / sub.shape[0]).tolist()
-    gaps = [abs(a - b) / abs(b) for a, b in zip(per_point["cuda"], per_point["cpu"])]
-    if not all(g <= FIT_LL_RTOL for g in gaps):
-        raise CheckFailed(f"tree fit on the card vs the plain versions: per-point logliks "
-                          f"{per_point}, relative gaps {gaps} above {FIT_LL_RTOL}")
-    out["tree_fit_vs_plain"] = {"n": sub.shape[0], "per_point_loglik": per_point,
-                                "relative_gaps": gaps, "rtol": FIT_LL_RTOL}
+    out["tree_fit_vs_plain"] = fit_vs_plain(torch, dev, target, branch, kw["levels"], sweeps, 40_000)
     return out
 
 
@@ -1801,7 +1818,7 @@ def cli_fit_tree(torch, work):
     t0 = time.perf_counter()
     run_cli(["fit-gmm", str(cloud_p), "--tree", "--out", str(tree_p), "--device", "cuda"])
     wall = time.perf_counter() - t0
-    tree = load_tree(tree_p)
+    tree = load_tree(tree_p, device="cuda")
     sizes = [int(lvl.pi.shape[0]) for lvl in tree.levels]
     if sizes != [8, 64, 512] or tree.branch != 8:
         raise CheckFailed(f"cli fit-gmm --tree: levels {sizes}, branch {tree.branch}")
@@ -1867,6 +1884,179 @@ def cli_register_config3(torch, dev, work, errs, timings):
     log({"phase": "cli_register_config3", "n_source": N_POINTS, "n_target": N_POINTS,
          "wall_s": wall, "errors": errors, "bounds": BOUNDS, "launches": counts,
          "top_k_near_tie_share": share, "reg_stats_top_k": timings["reg_stats"][-2:]})
+    return counts
+
+
+def fit_vs_plain(torch, dev, target, branch, levels, sweeps, n_sub) -> dict:
+    """The tree fit on the card against the same fit through the plain
+    versions on the CPU, on n_sub of the target's points from one init:
+    each level's per-point loglik within FIT_LL_RTOL (sweep_accounting's
+    rule)."""
+    from hgmm_torch.models.gmm import init_params
+    from hgmm_torch.models.gmm_tree import GmmTree
+
+    idx = torch.randperm(target.shape[0], generator=torch.Generator().manual_seed(1))[:n_sub]
+    sub = target.cpu()[idx]
+    init_sub = init_params(sub, branch, torch.Generator().manual_seed(2))
+    per_point = {}
+    for d in (dev, torch.device("cpu")):
+        _, lls = GmmTree.fit(sub.to(d), branch=branch, levels=levels, em_iters=sweeps,
+                             init0=type(init_sub)(*(a.to(d) for a in init_sub)))
+        per_point[d.type] = (lls.double().cpu() / sub.shape[0]).tolist()
+    gaps = [abs(a - b) / abs(b) for a, b in zip(per_point["cuda"], per_point["cpu"])]
+    if not all(g <= FIT_LL_RTOL for g in gaps):
+        raise CheckFailed(f"branch {branch} tree fit on the card vs the plain versions: per-point logliks "
+                          f"{per_point}, relative gaps {gaps} above {FIT_LL_RTOL}")
+    return {"n": sub.shape[0], "per_point_loglik": per_point, "relative_gaps": gaps, "rtol": FIT_LL_RTOL}
+
+
+def any_branch_and_top_k(torch, dev, work, errs, timings) -> dict:
+    """Step 11: the inputs of the JAX package that the card once refused,
+    each with the counters at 0, on the config-2 pair (N_POINTS each):
+    (a) register_pair with a branch-16, 2-level tree (K = 16, 256; the other
+    arguments config 2's) within BOUNDS, the fit against the plain fit
+    (fit_vs_plain) and the wide masked body at K = 256 against its plain
+    version, timed beside the branch-8 body at K = 64, with the masked
+    assign and em_step on its rows (width 161) against theirs; (b) `fit-gmm --tree
+    --branch 16 --levels 2` through the CLI; (c) register_pair with a
+    branch-12, 3-level tree (K = 12, 144, 1,728: a partial group of
+    children, reg_stats' tables near the shared-memory limit), the same
+    checks at K = 144 and 1,728; (d) config3_mahalanobis with top_k = 64 and
+    128 through register_pair on the config-3 tree, within BOUNDS, and the
+    select body at the leaves (K = 512) at the final pose against its plain
+    version (check_reg_top_k), timed beside the ungated lanes body."""
+    import hgmm_torch
+    from hgmm_torch.configs.presets import PRESETS
+    from hgmm_torch.models.gmm import scene_variance
+    from hgmm_torch.models.gmm_tree import GmmTree
+    from hgmm_torch.ops import em_ref, fused_em, prepare
+    from hgmm_torch.ops.gaussians import pack_loglik_weights
+    from hgmm_torch.pipelines.register import model_terms
+    from hgmm_torch.utils.checkpoint import load_tree
+
+    kw = preset_kwargs()
+    source, target, gt = make_pair(torch, N_POINTS, dev)
+    tgt = prepare(target)
+    counts, out = {}, {}
+
+    def pair(path, **args):
+        torch.cuda.synchronize()
+        fused_em.reset_launches()
+        t0 = time.perf_counter()
+        res = hgmm_torch.register_pair(source, generator=torch.Generator().manual_seed(0), **args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[path] = dict(fused_em.LAUNCHES)
+        errors = pose_errors(source, res.pose, gt)
+        if not all(bool(torch.isfinite(x).all()) for x in (res.pose.R, res.pose.t, res.logliks)):
+            raise CheckFailed(f"{path}: non-finite output")
+        for key, bound in BOUNDS.items():
+            if not errors[key] < bound:
+                raise CheckFailed(f"{path}: {key} = {errors[key]} not below {bound}")
+        require_launched(counts[path], path)
+        out[path] = {"wall_s": wall, "errors": errors, "converged": bool(res.converged),
+                     "launches": {k: v for k, v in counts[path].items() if v}}
+        return res
+
+    total, cf = torch.tensor(float(N_POINTS), device=dev), 1e-4 * scene_variance(target)
+
+    def wide_level(tree, lvl, headline):
+        """The wide body on level lvl's grouping against em_ref, timed; the
+        masked assign that made the grouping and em_step on the body's rows
+        against theirs."""
+        Ws = [pack_loglik_weights(p) for p in tree.levels]
+        par = None
+        for i in range(lvl):
+            b_i = tree.branch if i else None
+            nxt = fused_em.assign(tgt.pts4, Ws[i], par, b_i)
+            check_assign(torch, nxt, em_ref.assign(target, Ws[i], par, b_i), target, Ws[i], par, b_i, errs)
+            par = nxt
+        W, k, b = Ws[lvl], Ws[lvl].shape[1], tree.branch
+        groups = fused_em.group_by_parent(tgt.pts4, par, b, k)
+        check_em(torch, "em_stats_masked_wide", fused_em.em_stats_grouped(groups, W),
+                 em_ref.em_stats_masked(target, W, par, b), N_POINTS, errs)
+        em_step_check(torch, f"branch {b} level {lvl}", tree.levels[lvl],
+                      fused_em.em_partials_grouped(groups, W), total, cf, errs)
+        entry = timed_shape(torch, lambda: fused_em.em_partials_grouped(groups, W),
+                            lambda: em_ref.em_stats_masked(target, W, par, b), k=k, n=N_POINTS, branch=b,
+                            chunks=groups.n_chunks, chunk_points=groups.chunk_points,
+                            warps_a_block=fused_em.plan_grouped_wide(b).warps)
+        entry["headline"] = headline
+        timings["em_stats_masked_wide"].append(entry)
+        return entry
+
+    # (a) branch 16, two levels.
+    a_kw = dict(kw, branch=16, levels=2)
+    pair("branch16_pair", target=target, **a_kw)
+    out["branch16_pair"]["fit_vs_plain"] = fit_vs_plain(torch, dev, target, 16, 2, kw["fit_iters"], 20_000)
+    tree16, _ = GmmTree.fit(target, branch=16, levels=2, em_iters=kw["fit_iters"],
+                            generator=torch.Generator().manual_seed(0))
+    wide = wide_level(tree16, 1, headline=True)
+    # The branch-8 body on the main path's K = 64 level, timed beside it.
+    tree8, _ = GmmTree.fit(target, branch=8, levels=2, em_iters=kw["fit_iters"],
+                           generator=torch.Generator().manual_seed(0))
+    W8 = [pack_loglik_weights(p) for p in tree8.levels]
+    g8 = fused_em.group_by_parent(tgt.pts4, fused_em.assign(tgt.pts4, W8[0]), 8, 64)
+    wide["branch8_body_ms_k64"] = device_ms(torch, lambda: fused_em.em_partials_grouped(g8, W8[1]))
+
+    # (b) the CLI at branch 16.
+    from hgmm_torch.data.ply import save_ply
+
+    cloud_p, tree_p = work / "fit16_target.ply", work / "tree16.npz"
+    save_ply(cloud_p, target.cpu().numpy())
+    torch.cuda.synchronize()
+    fused_em.reset_launches()
+    t0 = time.perf_counter()
+    run_cli(["fit-gmm", str(cloud_p), "--tree", "--branch", "16", "--levels", "2", "--out", str(tree_p),
+             "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    counts["cli_fit_branch16"] = dict(fused_em.LAUNCHES)
+    require_launched(counts["cli_fit_branch16"], "cli_fit_branch16")
+    cli_tree = load_tree(tree_p, device="cuda")
+    sizes = [int(lvl.pi.shape[0]) for lvl in cli_tree.levels]
+    if sizes != [16, 256] or cli_tree.branch != 16:
+        raise CheckFailed(f"cli fit-gmm --branch 16: levels {sizes}, branch {cli_tree.branch}")
+    if not all(bool(torch.isfinite(x).all()) for lvl in cli_tree.levels for x in lvl):
+        raise CheckFailed("cli fit-gmm --branch 16: non-finite parameters")
+    out["cli_fit_branch16"] = {"wall_s": wall, "levels": sizes,
+                               "launches": {k: v for k, v in counts["cli_fit_branch16"].items() if v}}
+
+    # (c) branch 12, three levels.
+    c_kw = dict(kw, branch=12, levels=3)
+    pair("branch12_pair", target=target, **c_kw)
+    out["branch12_pair"]["fit_vs_plain"] = fit_vs_plain(torch, dev, target, 12, 3, kw["fit_iters"], 20_000)
+    tree12, _ = GmmTree.fit(target, branch=12, levels=3, em_iters=kw["fit_iters"],
+                            generator=torch.Generator().manual_seed(0))
+    for lvl in (1, 2):
+        wide_level(tree12, lvl, headline=False)
+
+    # (d) config 3 with top_k 64 and 128; the kernel checks on the leaves of
+    # the tree that register_pair fits (the same seed, so the same tree).
+    p3 = PRESETS["config3_mahalanobis"]
+    tree3, _ = GmmTree.fit(target, branch=p3.branch, levels=p3.levels, em_iters=p3.fit_iters,
+                           generator=torch.Generator().manual_seed(0))
+    W, mu, A6, b3 = model_terms(tree3.leaf_mixture())
+    src = prepare(source)
+    for top_k in (64, 128):
+        path = f"config3_top_k{top_k}"
+        res = pair(path, target=target, model_kind=p3.model_kind, branch=p3.branch, levels=p3.levels,
+                   fit_iters=p3.fit_iters, n_iters=p3.reg_iters, method=p3.method, top_k=top_k,
+                   outlier_logit=p3.outlier_logit, complexity_threshold=p3.complexity_threshold)
+        pose = (res.pose.R.contiguous(), res.pose.t.contiguous())
+        share = check_reg_top_k(torch, source, None, W, mu, A6, b3, pose, top_k, p3.outlier_logit, errs)
+        tab = fused_em.reg_tables(src.pts4, W, mu, A6, b3, top_k, p3.outlier_logit)
+        ungated = fused_em.reg_tables(src.pts4, W, mu, A6, b3, None, p3.outlier_logit)
+        pose12 = torch.cat([pose[0].reshape(9), pose[1]]).contiguous()
+        entry = timed_shape(torch, lambda: fused_em.reg_partials(tab, pose12),
+                            lambda: em_ref.reg_stats(source, W, mu, A6, b3, pose, None, top_k, p3.outlier_logit),
+                            k=W.shape[1], n=N_POINTS, top_k=top_k, outlier_logit=p3.outlier_logit,
+                            blocks=tab.plan.blocks, near_tie_share=share,
+                            lanes_body_ms=device_ms(torch, lambda: fused_em.reg_partials(ungated, pose12)))
+        entry["headline"] = top_k == 64
+        timings["reg_stats_select"].append(entry)
+    cloud_p.unlink(missing_ok=True)
+    log({"phase": "any_branch_and_top_k", **out, "em_stats_masked_wide": timings["em_stats_masked_wide"],
+         "reg_stats_select": timings["reg_stats_select"]})
     return counts
 
 
@@ -2082,7 +2272,7 @@ def cli_odometry(torch, dev, work, errs, metric_errs, timings):
     T = np.load(loc_p)
     loc = Pose.from_matrix(torch.from_numpy(T.astype(np.float32)))
     loc_t = float(np.linalg.norm(T[:3, 3]))
-    loc_deg = float(rotation_error_deg(loc, Pose.identity()))
+    loc_deg = float(rotation_error_deg(loc, Pose.identity(device="cpu")))
     if not (np.isfinite(T).all() and loc_t < LOC_TRANS and loc_deg < LOC_DEG):
         raise CheckFailed(f"cli localize: |t| = {loc_t} m, rotation {loc_deg} deg "
                           f"(bounds {LOC_TRANS} m, {LOC_DEG} deg)")
@@ -2498,7 +2688,7 @@ def sharded_cli(torch, dev, mesh, work, seq) -> tuple:
     T = np.load(loc_p)
     loc_t = float(np.linalg.norm(T[:3, 3]))
     loc_deg = float(rotation_error_deg(Pose.from_matrix(torch.from_numpy(T.astype(np.float32))),
-                                       Pose.identity()))
+                                       Pose.identity(device="cpu")))
     if not (np.isfinite(T).all() and loc_t < LOC_TRANS and loc_deg < LOC_DEG):
         raise CheckFailed(f"cli localize --sharded: |t| = {loc_t} m, rotation {loc_deg} deg")
     out = {"ate_dead_reckoned_m": dead, "ate_refined_m": refined, "ate_bound_m": ate_bound,

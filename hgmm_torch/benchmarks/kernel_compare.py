@@ -18,7 +18,7 @@ lies in. It needs ``hgmm_torch.bench`` in TREE (there since the bench path).
   parents, branch 8) at N points (default 437,645),
 - ``assign`` at K = 8 and, masked, K = 64, 512,
 - ``reg_stats`` at K = 8, 64, 384, 512 (outlier -8) and K = 512 with
-  top_k = 8 (outlier 0),
+  top_k = 8 and 32 (outlier 0: both register-list bodies),
 - ``nearest_neighbor`` of N moved points against the N points,
 - a flat fit (K = 8, 10 sweeps) and a tree fit (8 x 3, 10 sweeps a level)
   from one init on the odometry bucket (16,384 points at LiDAR scale): the
@@ -141,7 +141,7 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
 
 def reg_inputs(np, torch, convert, dev, pts, extent=None):
     """reg_stats arguments by key: K = 8, 64, 384, 512 (outlier -8) and K =
-    512 with top_k = 8 (outlier 0), at a fixed pose."""
+    512 with top_k = 8 and 32 (outlier 0), at a fixed pose."""
     from hgmm_torch.models.se3 import so3_exp
     from hgmm_torch.ops.gaussians import pack_loglik_weights, precision_terms, sym_pack
     from hgmm_torch.data.synthetic import lidar_mixture_np
@@ -149,7 +149,7 @@ def reg_inputs(np, torch, convert, dev, pts, extent=None):
     pose = (so3_exp(torch.tensor([0.02, -0.03, 0.05], device=dev)), torch.tensor([0.05, 0.0, -0.02], device=dev))
     out = {}
     for k, top_k, outlier in ((8, None, -8.0), (64, None, -8.0), (384, None, -8.0), (512, None, -8.0),
-                              (512, 8, 0.0)):
+                              (512, 8, 0.0), (512, 32, 0.0)):
         if extent is None:
             params = convert.mixture_from_numpy(*_unit_mixture(np, k), device=dev)
         else:

@@ -196,8 +196,8 @@ def cmd_odometry(args) -> None:
         if args.poses:
             from hgmm_torch.eval.metrics import kitti_gt_trajectory
 
-            gt_traj = kitti_gt_trajectory(load_poses(args.poses),
-                                          load_calib_velo_to_cam(calib_path))[: len(final_poses)]
+            gt_traj = kitti_gt_trajectory(load_poses(args.poses, args.device),
+                                          load_calib_velo_to_cam(calib_path, args.device))[: len(final_poses)]
         export_trajectory(args.plot, res.abs_poses, gt_poses=gt_traj,
                           refined_poses=(final_poses if args.refine else None),
                           closures=res.closures)
@@ -208,8 +208,8 @@ def cmd_odometry(args) -> None:
         # dead-reckoned chain otherwise.
         from hgmm_torch.eval.metrics import kitti_ate
 
-        err = float(kitti_ate(final_poses, load_poses(args.poses),
-                              load_calib_velo_to_cam(calib_path)))
+        err = float(kitti_ate(final_poses, load_poses(args.poses, args.device),
+                              load_calib_velo_to_cam(calib_path, args.device)))
         print(f"ATE vs ground truth: {err:.4f} m over {len(final_poses)} frames")
         if metrics is not None:
             metrics.log({"event": "ate", "ate_m": err, "frames": len(final_poses), "wall_s": dt,

@@ -16,6 +16,7 @@ import torch
 from hgmm_torch.models.gmm_tree import GmmTree
 from hgmm_torch.models.se3 import Pose
 from hgmm_torch.ops.gaussians import MixtureParams
+from hgmm_torch.utils.device import resolve_device
 
 
 def to_numpy(x) -> np.ndarray:
@@ -24,7 +25,9 @@ def to_numpy(x) -> np.ndarray:
 
 
 def _t(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+    """A float32 tensor on `device`: None is the card, and an error without
+    one ("cpu" for the plain path)."""
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(resolve_device(device))
 
 
 def mixture_from_numpy(pi, mu, sigma, device=None) -> MixtureParams:

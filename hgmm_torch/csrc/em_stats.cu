@@ -92,6 +92,26 @@
 //   through shared memory into the chunk's [branch*10 + 1] partial row, and
 //   em_grouped_reduce_kernel adds a parent's chunks, in chunk order and in
 //   float64, into its rows of S (and every chunk into the loglik).
+//   It holds at most EG_BMAX = 8 children in registers.
+//
+// em_stats_grouped_wide_kernel: masked calls with branch > 8 (a tree of
+//   branch 12 or 16). The same chunks, rows and reduce as the grouped body;
+//   what differs is that a point's normaliser needs all `branch` children,
+//   and a register array sized by the branch would spill. So a lane works in
+//   two passes over its points:
+//   - pass 1: the max over every child's logit, then the sum of exp2 in
+//     child order (the grouped body's arithmetic), the log-evidence, and the
+//     point's m log2e and scale w / s into its slot in shared memory (a chunk
+//     is at most 32 EG_MAX_PPT points);
+//   - pass 2, once a group of 8 children: the group's logits again, gamma =
+//     exp2(l log2e - m log2e) scale, the same acc[8][10] registers as the
+//     grouped body; then the warp's lanes summed in lane order into the
+//     group's columns of the chunk's row.
+//   So a child's statistics have the bits the grouped body would give it;
+//   the logits of a point are evaluated 2 + 1 times. The parent's rows (3
+//   float4 a child) sit in dynamic shared memory beside the transpose and
+//   the slots; the warps a block shrink where branch makes that too large
+//   (ops/fused_em.py:plan_grouped_wide). Bound: the same 16 bytes a point.
 #include "hgmm_kernels.cuh"
 
 namespace hgmm {
@@ -567,9 +587,13 @@ namespace hgmm {
 // ---------------------------------------------------------------------------
 // The masked E-step by parent chunks (ops/fused_em.py:group_by_parent).
 
-constexpr int EG_BMAX = 8;            // largest branch (ops/fused_em.py:EG_BMAX)
+constexpr int EG_BMAX = 8;            // largest branch of the grouped body (ops/fused_em.py:EG_BMAX)
 constexpr int EG_WARPS = 4;           // chunks a block, one a warp
 constexpr int EG_ROW = EG_BMAX * 10 + 1;  // a lane's row in the transpose (odd: no bank conflict)
+constexpr int EG_MAX_PPT = 16;        // points a lane in a chunk, at most (ops/fused_em.py:EG_MAX_PPT)
+// The wide body's shared memory a warp past the parent's rows: the transpose
+// and two floats a point slot (ops/fused_em.py:EGW_WARP_FLOATS).
+constexpr int EGW_WARP_FLOATS = 32 * EG_ROW + 2 * 32 * EG_MAX_PPT;
 
 // chunks [n_chunks, 3] int32: (parent, first point, point count) in the
 // sorted buffer pts4 [4, n]; a chunk's parent p has children j0 = p branch ..
@@ -640,6 +664,94 @@ __global__ void __launch_bounds__(EG_WARPS * 32)
     if (col == branch * 10 || col < nc * 10)
       for (int l = 0; l < 32; ++l) v += tr[l * EG_ROW + src];
     out[col] = v;
+  }
+}
+
+// The masked E-step for branch > EG_BMAX: the chunks, rows and row layout of
+// em_stats_grouped_kernel, a warp a chunk, blockDim.x / 32 warps a block.
+// Shared memory a warp: the parent's rows [3 branch] float4, the transpose
+// [32 EG_ROW], then m log2e and the scale of each point slot [32 EG_MAX_PPT]
+// each.
+__global__ void __launch_bounds__(EG_WARPS * 32)
+    em_stats_grouped_wide_kernel(const float* __restrict__ pts4, int n, const float* __restrict__ wn,
+                                 int k, int branch, const int* __restrict__ chunks, int n_chunks,
+                                 float* __restrict__ partial) {
+  extern __shared__ float4 egw_smem4[];
+  const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
+  const int chunk = blockIdx.x * (blockDim.x >> 5) + wi;
+  if (chunk >= n_chunks) return;  // uniform across the warp; no block barrier below
+  float4* w4 = egw_smem4 + (size_t)wi * (3 * branch + EGW_WARP_FLOATS / 4);
+  float* tr = reinterpret_cast<float*>(w4 + 3 * branch);
+  float* m2_s = tr + 32 * EG_ROW;
+  float* sc_s = m2_s + 32 * EG_MAX_PPT;
+  const int par = chunks[3 * chunk], first = chunks[3 * chunk + 1], count = chunks[3 * chunk + 2];
+  const int j0 = par * branch;
+  const int nc = min(branch, k - j0);
+  for (int idx = lane; idx < 3 * nc; idx += 32) w4[idx] = reinterpret_cast<const float4*>(wn)[3 * j0 + idx];
+  __syncwarp();
+
+  // Pass 1: each of the lane's points over all nc children; slot = i - first.
+  float ll = 0.0f;
+  for (int slot = lane; slot < count; slot += 32) {
+    const int i = first + slot;
+    const Psi p = features(pts4[i], pts4[(size_t)n + i], pts4[2 * (size_t)n + i]);
+    float m = -INFINITY;
+    for (int c = 0; c < nc; ++c) m = fmaxf(m, logit(w4 + 3 * c, p));
+    const float m2 = fmaxf(m, NEG_INF) * LOG2E;
+    float s = 0.0f;
+    for (int c = 0; c < nc; ++c) s += exp2f(fmaf(logit(w4 + 3 * c, p), LOG2E, -m2));
+    const Soft r = finish_soft(m, m2, s, false, 0.0f, pts4[3 * (size_t)n + i]);
+    ll += r.lse;
+    m2_s[slot] = m2;
+    sc_s[slot] = r.scale;
+  }
+
+  // Pass 2: a group of EG_BMAX children at a time.
+  const int row = branch * 10 + 1;
+  float* out = partial + (size_t)chunk * row;
+  for (int g0 = 0; g0 < nc; g0 += EG_BMAX) {
+    const int gc = min(EG_BMAX, nc - g0);
+    const float4* wg = w4 + 3 * g0;
+    float acc[EG_BMAX][10];
+#pragma unroll
+    for (int c = 0; c < EG_BMAX; ++c)
+#pragma unroll
+      for (int f = 0; f < 10; ++f) acc[c][f] = 0.0f;
+    for (int slot = lane; slot < count; slot += 32) {
+      const float scale = sc_s[slot];
+      if (scale == 0.0f) continue;
+      const float m2 = m2_s[slot];
+      const int i = first + slot;
+      const Psi p = features(pts4[i], pts4[(size_t)n + i], pts4[2 * (size_t)n + i]);
+#pragma unroll
+      for (int c = 0; c < EG_BMAX; ++c) {
+        if (c >= gc) break;
+        const float g = exp2f(fmaf(logit(wg + 3 * c, p), LOG2E, -m2)) * scale;
+#pragma unroll
+        for (int f = 0; f < 10; ++f) acc[c][f] = fmaf(g, p.v[f], acc[c][f]);
+      }
+    }
+    __syncwarp();  // the last group's sums are read
+#pragma unroll
+    for (int c = 0; c < EG_BMAX; ++c)
+#pragma unroll
+      for (int f = 0; f < 10; ++f) tr[lane * EG_ROW + c * 10 + f] = acc[c][f];
+    __syncwarp();
+    for (int col = lane; col < gc * 10; col += 32) {
+      float v = 0.0f;
+      for (int l = 0; l < 32; ++l) v += tr[l * EG_ROW + col];
+      out[g0 * 10 + col] = v;
+    }
+  }
+  // Children past K (the last parent's) get zero columns; the loglik last.
+  for (int col = nc * 10 + lane; col < branch * 10; col += 32) out[col] = 0.0f;
+  __syncwarp();
+  tr[lane * EG_ROW + EG_BMAX * 10] = ll;
+  __syncwarp();
+  if (lane == 0) {
+    float v = 0.0f;
+    for (int l = 0; l < 32; ++l) v += tr[l * EG_ROW + EG_BMAX * 10];
+    out[branch * 10] = v;
   }
 }
 
@@ -720,23 +832,37 @@ int hgmm_em_stats_tiled(const void* pts4, int n, const void* wn, int k, int k_pa
 // parent-sorted buffer pts4 [4, n] and its chunk table (chunks [n_chunks, 3]:
 // parent, first point, count; parent_off [ceil(K / branch) + 1]: the first
 // chunk of each parent, then n_chunks). partial is [n_chunks, branch*10 + 1],
-// the body's rows; out NULL: the body alone. branch <= 8. Returns the CUDA
-// error code of the launches.
+// the body's rows; out NULL: the body alone. branch <= 8 runs the grouped
+// body, branch > 8 the wide one with `warps` (1, 2 or 4) warps a block
+// (ops/fused_em.py:plan_grouped_wide); a chunk holds at most 32 EG_MAX_PPT
+// points. Returns the CUDA error code of the launches.
 int hgmm_em_stats_grouped(const void* pts4, int n, const void* wn, int k, int branch,
-                          const void* chunks, int n_chunks, const void* parent_off, void* partial,
-                          void* out, void* stream) {
+                          const void* chunks, int n_chunks, const void* parent_off, int warps,
+                          void* partial, void* out, void* stream) {
+  using namespace hgmm;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (branch < 1 || branch > hgmm::EG_BMAX) return (int)cudaErrorInvalidValue;
-  if (n_chunks > 0) {
-    const int blocks = (n_chunks + hgmm::EG_WARPS - 1) / hgmm::EG_WARPS;
-    hgmm::em_stats_grouped_kernel<<<blocks, hgmm::EG_WARPS * 32, 0, s>>>(
+  if (branch < 1 || (branch > EG_BMAX && warps != 1 && warps != 2 && warps != 4))
+    return (int)cudaErrorInvalidValue;
+  if (n_chunks > 0 && branch <= EG_BMAX) {
+    const int blocks = (n_chunks + EG_WARPS - 1) / EG_WARPS;
+    em_stats_grouped_kernel<<<blocks, EG_WARPS * 32, 0, s>>>(
         static_cast<const float*>(pts4), n, static_cast<const float*>(wn), k, branch,
         static_cast<const int*>(chunks), n_chunks, static_cast<float*>(partial));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+  } else if (n_chunks > 0) {
+    const size_t smem = (size_t)warps * (sizeof(float4) * 3 * branch + sizeof(float) * EGW_WARP_FLOATS);
+    cudaError_t err = cudaFuncSetAttribute(em_stats_grouped_wide_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    em_stats_grouped_wide_kernel<<<(n_chunks + warps - 1) / warps, warps * 32, smem, s>>>(
+        static_cast<const float*>(pts4), n, static_cast<const float*>(wn), k, branch,
+        static_cast<const int*>(chunks), n_chunks, static_cast<float*>(partial));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
   if (out == nullptr) return (int)cudaSuccess;
-  hgmm::em_grouped_reduce_kernel<<<(k * 10 + 1 + 7) / 8, 256, 0, s>>>(
+  em_grouped_reduce_kernel<<<(k * 10 + 1 + 7) / 8, 256, 0, s>>>(
       static_cast<const float*>(partial), n_chunks, branch, static_cast<const int*>(parent_off), k,
       static_cast<float*>(out));
   return (int)cudaGetLastError();

@@ -43,6 +43,25 @@
 //   those >= th, as before. The index costs the insertion three selects a
 //   step beside the value's two.
 //
+// reg_stats_select_kernel (top_k gating with 32 < top_k < K): a list of
+//   top_k logits in registers would spill, so a warp takes a point. Its lanes
+//   evaluate the K logits once into the warp's slice of shared memory (lane
+//   l takes j = l, l + 32, ...) and their max by butterflies. The threshold
+//   th, the top_k-th largest logit counted with multiplicity
+//   (em_ref.top_k_mask_logits), is found exactly by an MSB-first radix
+//   select over order-preserving 32-bit keys: 4 passes of 8 bits, each a
+//   256-bin histogram of the keys that share the digits found so far (lanes
+//   of one digit add their count once, by __match_any_sync), a scan over the
+//   bins from the top and a ballot for the bin that holds the top_k-th. A
+//   NaN logit sorts below -inf and is never kept, as in the register bodies.
+//   Then each lane sums e and red[12] over its kept logits (>= th, so ties
+//   at th are kept; the outlier is never gated), the lanes merge by
+//   butterflies, and lane 0 adds the point's statistics. The aux table is
+//   read from global memory (L1), so the weight table, the warps' K logits,
+//   their histograms and the sums fit in shared memory up to K = 2,048
+//   (ops/fused_em.py:reg_select_smem_bytes). What bounds it: float32
+//   arithmetic, 10 FMA a logit and the 4 passes over the K keys a point.
+//
 // Inside a registration scan the kernel reads the scan's done flag and
 // returns at once when it is set (the flag is uniform, so every block takes
 // the same branch); the step kernel then ignores the partials.
@@ -356,6 +375,149 @@ __global__ void __launch_bounds__(RS_THREADS)
   write_partial(acc, red_s, partial);
 }
 
+constexpr int RSS_BINS = 256;  // a radix digit of 8 bits
+
+// A key that orders float32 values as unsigned integers; NaN is 0, below -inf.
+__device__ __forceinline__ unsigned order_key(float v) {
+  if (v != v) return 0u;
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+__global__ void __launch_bounds__(RS_THREADS)
+    reg_stats_select_kernel(const float* __restrict__ pts4, int n, const float* __restrict__ pose12,
+                            const float* __restrict__ done, const float* __restrict__ wn,
+                            const float* __restrict__ aux, int k, int top_k, int has_outlier,
+                            float outlier, float* __restrict__ partial) {
+  if (done != nullptr && *done != 0.0f) return;
+  extern __shared__ float4 smem4[];
+  float4* w4 = smem4;                                              // [3 k]
+  float* lg_all = reinterpret_cast<float*>(w4 + 3 * k);            // [RS_WARPS][k]
+  unsigned* hist_all = reinterpret_cast<unsigned*>(lg_all + (size_t)RS_WARPS * k);  // [RS_WARPS][256]
+  float* red_s = reinterpret_cast<float*>(hist_all + RS_WARPS * RSS_BINS);          // [RS_WARPS * NACC]
+  for (int idx = threadIdx.x; idx < 3 * k; idx += RS_THREADS)
+    w4[idx] = reinterpret_cast<const float4*>(wn)[idx];
+  const float4* a4 = reinterpret_cast<const float4*>(aux);
+  float P[12];
+#pragma unroll
+  for (int c = 0; c < 12; ++c) P[c] = pose12[c];
+  float acc[NACC];
+#pragma unroll
+  for (int c = 0; c < NACC; ++c) acc[c] = 0.0f;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* lg = lg_all + (size_t)warp * k;
+  unsigned* hist = hist_all + warp * RSS_BINS;
+  // A warp a point; i is uniform across the warp.
+  for (long long i = (long long)blockIdx.x * RS_WARPS + warp; i < n; i += (long long)gridDim.x * RS_WARPS) {
+    const float x0 = pts4[i], x1 = pts4[(size_t)n + i], x2 = pts4[2 * (size_t)n + i];
+    const float w = pts4[3 * (size_t)n + i];
+    const float y0 = fmaf(P[0], x0, fmaf(P[1], x1, fmaf(P[2], x2, P[9])));
+    const float y1 = fmaf(P[3], x0, fmaf(P[4], x1, fmaf(P[5], x2, P[10])));
+    const float y2 = fmaf(P[6], x0, fmaf(P[7], x1, fmaf(P[8], x2, P[11])));
+    const Psi p = features(y0, y1, y2);
+
+    // The K logits, once, and their max.
+    float m = -INFINITY;
+    for (int j = lane; j < k; j += 32) {
+      const float l = logit(w4 + 3 * j, p);
+      lg[j] = l;
+      m = fmaxf(m, l);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, off));
+    __syncwarp();
+
+    // The top_k-th largest key: 8 bits a pass, most significant first.
+    // `want` counts the keys still to pass among those with the prefix.
+    unsigned prefix = 0u, mask = 0u, want = (unsigned)top_k;
+    for (int shift = 24; shift >= 0; shift -= 8) {
+      for (int b = lane; b < RSS_BINS; b += 32) hist[b] = 0u;
+      __syncwarp();
+      for (int j0 = 0; j0 < k; j0 += 32) {  // uniform, for __match_any_sync
+        const int j = j0 + lane;
+        const unsigned key = j < k ? order_key(lg[j]) : 0u;
+        const bool in = j < k && (key & mask) == prefix;
+        const unsigned digit = in ? (key >> shift) & 0xffu : RSS_BINS;
+        const unsigned peers = __match_any_sync(FULL_MASK, digit);
+        if (in && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], (unsigned)__popc(peers));
+      }
+      __syncwarp();
+      // Lane l holds the digits 255 - 8 l down to 248 - 8 l.
+      unsigned cnt[8], tot = 0u;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        cnt[q] = hist[RSS_BINS - 1 - 8 * lane - q];
+        tot += cnt[q];
+      }
+      unsigned incl = tot;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned v = __shfl_up_sync(FULL_MASK, incl, off);
+        if (lane >= off) incl += v;
+      }
+      const unsigned excl = incl - tot;
+      const int src = __ffs(__ballot_sync(FULL_MASK, excl < want && want <= incl)) - 1;
+      unsigned digit = 0u, above = excl;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (above + cnt[q] >= want) {
+          digit = RSS_BINS - 1 - 8 * lane - q;
+          break;
+        }
+        above += cnt[q];
+      }
+      digit = __shfl_sync(FULL_MASK, digit, src);
+      above = __shfl_sync(FULL_MASK, above, src);
+      want -= above;
+      prefix |= digit << shift;
+      mask |= 0xffu << shift;
+      __syncwarp();  // the histogram is read before the next pass clears it
+    }
+    const float th = key_value(prefix);
+
+    // The kept components: e and red over this lane's, then the lanes merged.
+    const float mo = has_outlier ? fmaxf(m, outlier) : m;
+    const float m2 = fmaxf(mo, NEG_INF) * LOG2E;
+    float s = 0.0f;
+    float red[12];
+#pragma unroll
+    for (int c = 0; c < 12; ++c) red[c] = 0.0f;
+    for (int j = lane; j < k; j += 32) {
+      const float l = lg[j];
+      if (!(l >= th)) continue;
+      const float e = exp2f(fmaf(l, LOG2E, -m2));
+      s += e;
+      add_aux(red, e, a4, j);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(FULL_MASK, s, off);
+#pragma unroll
+      for (int c = 0; c < 12; ++c) red[c] += __shfl_xor_sync(FULL_MASK, red[c], off);
+    }
+    __syncwarp();  // lg is read before the next point writes it
+    if (lane != 0) continue;
+    const Soft r = finish_soft(mo, m2, s, has_outlier, outlier, w);
+    acc[NACC - 1] += r.lse;
+    if (r.scale == 0.0f) continue;
+    add_point(acc, x0, x1, x2, y0, y1, y2, red, s, r.scale);
+  }
+  write_partial(acc, red_s, partial);
+}
+
+// Shared memory of the select body: the weight table, the warps' logits and
+// histograms, the warps' sums (ops/fused_em.py:reg_select_smem_bytes).
+size_t reg_select_smem_bytes(int k) {
+  return sizeof(float4) * 3 * (size_t)k + sizeof(float) * RS_WARPS * (size_t)k +
+         sizeof(unsigned) * RS_WARPS * RSS_BINS + sizeof(float) * RS_WARPS * NACC;
+}
+
 size_t reg_stats_smem_bytes(int k) {
   return sizeof(float4) * 6 * (size_t)k + sizeof(float) * RS_WARPS * NACC;
 }
@@ -375,9 +537,10 @@ extern "C" {
 // The [nb, 59] partials of em_ref.reg_stats at the pose pose12 = [R
 // row-major (9), t (3)] (and, with out != NULL, their float64 sum into
 // out[59]: horn 16, A 36, b 6, loglik). wn and aux are [K, 12]. top_k: 0 =
-// no gating (the lanes body with `lanes` in {1, 2, 4, 8, 16, 32}), else
-// 1..32 < K (the top_k body). done: NULL, or a flag the kernel returns on
-// when it is nonzero. Returns the CUDA error code (0 on success).
+// no gating (the lanes body with `lanes` in {1, 2, 4, 8, 16, 32}), 1..32 <
+// K the top_k body, 33..K-1 the select body (a warp a point, `lanes`
+// ignored). done: NULL, or a flag the kernel returns on when it is nonzero.
+// Returns the CUDA error code (0 on success).
 int hgmm_reg_stats(const void* pts4, int n, const void* pose12, const void* done, const void* wn,
                    const void* aux, int k, int top_k, int lanes, int has_outlier, float outlier,
                    void* partial, int nb, void* out, void* stream) {
@@ -391,8 +554,11 @@ int hgmm_reg_stats(const void* pts4, int n, const void* pose12, const void* done
   auto* part = static_cast<float*>(partial);
   const size_t smem = reg_stats_smem_bytes(k);
   cudaError_t err;
-  if (top_k < 0 || top_k > 32) return (int)cudaErrorInvalidValue;
-  if (top_k > 8) {
+  if (top_k < 0 || top_k >= k) return (int)cudaErrorInvalidValue;
+  if (top_k > 32) {
+    err = launch_reg(reg_stats_select_kernel, nb, reg_select_smem_bytes(k), s, p, n, pose, dn, w, a, k,
+                     top_k, has_outlier, outlier, part);
+  } else if (top_k > 8) {
     err = launch_reg(reg_stats_top_k_kernel<33>, nb, smem, s, p, n, pose, dn, w, a, k, top_k,
                      has_outlier, outlier, part);
   } else if (top_k > 0) {

@@ -17,6 +17,7 @@ import numpy as np
 from hgmm_torch.convert import pose_from_numpy
 from hgmm_torch.data import native
 from hgmm_torch.models.se3 import Pose
+from hgmm_torch.utils.device import resolve_device
 
 
 def load_velodyne_bin(path: str | Path, dtype=np.float32) -> np.ndarray:
@@ -39,18 +40,22 @@ def save_velodyne_bin(path: str | Path, points: np.ndarray) -> None:
     pts.tofile(str(path))
 
 
-def load_poses(path: str | Path) -> list[Pose]:
-    """KITTI ground-truth poses file: each line 12 floats (3x4 row-major)."""
-    return [pose_from_numpy(m[:, :3], m[:, 3]) for m in np.loadtxt(str(path)).reshape(-1, 3, 4)]
+def load_poses(path: str | Path, device=None) -> list[Pose]:
+    """KITTI ground-truth poses file: each line 12 floats (3x4 row-major),
+    as poses on `device` (None: the card, and an error without one)."""
+    device = resolve_device(device)
+    return [pose_from_numpy(m[:, :3], m[:, 3], device) for m in np.loadtxt(str(path)).reshape(-1, 3, 4)]
 
 
-def load_calib_velo_to_cam(path: str | Path) -> Pose:
-    """Parse Tr (velo->cam0) from a KITTI odometry calib.txt."""
+def load_calib_velo_to_cam(path: str | Path, device=None) -> Pose:
+    """Parse Tr (velo->cam0) from a KITTI odometry calib.txt, as a pose on
+    `device` (None: the card, and an error without one)."""
+    device = resolve_device(device)
     with open(path) as f:
         for line in f:
             if line.startswith("Tr"):
                 m = np.array(line.split(":", 1)[1].split(), np.float64).reshape(3, 4)
-                return pose_from_numpy(m[:, :3], m[:, 3])
+                return pose_from_numpy(m[:, :3], m[:, 3], device)
     raise ValueError(f"no Tr entry in {path}")
 
 

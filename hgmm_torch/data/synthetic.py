@@ -14,6 +14,7 @@ import torch
 
 from hgmm_torch.models.se3 import Pose
 from hgmm_torch.ops.gaussians import MixtureParams
+from hgmm_torch.utils.device import resolve_device
 
 
 def sample_gmm(params: MixtureParams, n: int, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -63,8 +64,9 @@ def make_cloud_np(n: int, kind: str = "trefoil", seed: int = 0) -> np.ndarray:
 
 
 def make_cloud(n: int, kind: str = "trefoil", seed: int = 0, device=None) -> torch.Tensor:
-    """make_cloud_np as a float32 tensor on `device`."""
-    return torch.from_numpy(make_cloud_np(n, kind, seed)).to(device)
+    """make_cloud_np as a float32 tensor on `device` (None: the card, and an
+    error without one; "cpu" for the plain path)."""
+    return torch.from_numpy(make_cloud_np(n, kind, seed)).to(resolve_device(device))
 
 
 def perturb(

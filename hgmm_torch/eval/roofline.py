@@ -55,6 +55,10 @@ FLOP_STATS = 20.0  # 10 FMA: gamma * psi into S
 FLOP_REG = 25.0  # 12 FMA + 1 add: e * [mu | A6 | b3] and the mass
 FLOP_REG_POINT = 200.0  # pose, features, horn 4x4, sparse J^T M J and J^T r
 FLOP_KNN_PAIR = 8.0  # 3 sub, 1 mul, 2 FMA
+# reg_stats' select body (32 < top_k < K): 4 radix passes over the K keys of
+# a point, each key's prefix test and digit extraction a pass.
+SELECT_PASSES = 4
+OPS_SELECT_KEY = 2.0
 # csrc/reg_step.cu after the partials' sum, by a count of the source: Horn's
 # moments and a Jacobi SVD of 3 x 3 (~6 sweeps of 3 rotations, ~60 flop each),
 # or the damped 6 x 6 system by LU (~150) and exp and compose (~150); log and
@@ -108,7 +112,8 @@ def kernel_bound(kernel: str, **s) -> KernelBound:
       point and component; reads pts4 16 B a point and W [10, K] f32, writes
       S [K, 10] and loglik.
     - ``em_stats_masked`` (n, k, branch): the same over min(branch, k)
-      components a point, plus 4 B of parent a point.
+      components a point, plus 4 B of parent a point;
+      ``em_stats_masked_wide`` (the body for branch > 8) the same function.
     - ``assign`` (n, k, branch=None): one logit a point and visible component
       (all k, or branch under a parent mask); reads 16 B (+ 4 B parent) and
       writes 4 B a point.
@@ -116,6 +121,9 @@ def kernel_bound(kernel: str, **s) -> KernelBound:
       all), then 25 flop and one exp2 for each kept component (k, or top_k
       when 1 <= top_k < k) and ~200 flop a point for the pose, horn, A and
       b; reads 16 B a point, W and the [K, 12] aux table, writes 59 floats.
+      ``reg_stats_select`` (n, k, top_k; 32 < top_k < k) the same, plus the
+      threshold's SELECT_PASSES passes over the k keys a point,
+      OPS_SELECT_KEY operations a key and pass.
     - ``reg_step`` (nb): the float64 sum of nb [59] partial rows and one pose
       solve (FLOP_REG_STEP) at the float64 peak; reads the rows and the scan
       state, writes the state and one loglik and delta.
@@ -141,19 +149,20 @@ def kernel_bound(kernel: str, **s) -> KernelBound:
       up with the sign folded in).
     """
     f4 = 4.0
-    if kernel in ("em_stats", "em_stats_masked"):
+    if kernel in ("em_stats", "em_stats_masked", "em_stats_masked_wide"):
         n, k = s["n"], s["k"]
-        flops, exp2s, per_pt = _estep_point(k, kernel == "em_stats_masked", s.get("branch", k))
+        flops, exp2s, per_pt = _estep_point(k, kernel != "em_stats", s.get("branch", k))
         return _bound(n * flops, n * per_pt + (20 * k + 1) * f4, n * exp2s)
     if kernel == "assign":
         n, k, branch = s["n"], s["k"], s.get("branch")
         kk = k if branch is None else min(branch, k)
         per_pt = 16.0 + 4.0 + (0.0 if branch is None else 4.0)
         return _bound(n * kk * FLOP_LOGIT, n * per_pt + 10 * k * f4)
-    if kernel == "reg_stats":
+    if kernel in ("reg_stats", "reg_stats_select"):
         n, k, top_k = s["n"], s["k"], s.get("top_k")
         kept = k if top_k is None or top_k >= k else top_k
-        flops = n * (k * FLOP_LOGIT + kept * FLOP_REG + FLOP_REG_POINT)
+        select = SELECT_PASSES * OPS_SELECT_KEY * k if kernel == "reg_stats_select" else 0.0
+        flops = n * (k * FLOP_LOGIT + select + kept * FLOP_REG + FLOP_REG_POINT)
         return _bound(flops, n * 16.0 + (22 * k + 12 + 59) * f4, n * kept)
     if kernel == "reg_step":
         nb = s["nb"]

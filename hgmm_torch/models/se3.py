@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from hgmm_torch.utils.device import resolve_device
+
 
 class Pose(NamedTuple):
     """Rigid transform y = R @ x + t."""
@@ -24,6 +26,9 @@ class Pose(NamedTuple):
 
     @staticmethod
     def identity(dtype=torch.float32, device=None) -> "Pose":
+        """The identity on `device` (None: the card, and an error without
+        one)."""
+        device = resolve_device(device)
         return Pose(torch.eye(3, dtype=dtype, device=device),
                     torch.zeros(3, dtype=dtype, device=device))
 
@@ -128,7 +133,9 @@ def random_pose(generator: torch.Generator | None = None, max_angle: float = 0.5
     """Random SE(3) for tests and synthetic benchmarks: a uniform axis, an
     angle uniform in [-max_angle, max_angle], a translation uniform in
     [-max_trans, max_trans]^3. Draws from `generator` (the reference draws
-    from a jax.random key: same distribution, other draws)."""
+    from a jax.random key: same distribution, other draws), on `device`
+    (None: the card, and an error without one)."""
+    device = resolve_device(device)
     axis = torch.randn(3, generator=generator, dtype=torch.float64)
     axis = axis / (torch.linalg.norm(axis) + 1e-12)
     angle = (2.0 * torch.rand((), generator=generator, dtype=torch.float64) - 1.0) * max_angle

@@ -11,13 +11,15 @@ The kernels compute what the TPU kernels compute with float32 FMAs and an
 exact per-point max in the softmax, so they take no softmax shift; their
 sums are reduced in a fixed order and are reproducible run to run.
 
-``em_stats`` has three kernel bodies (``csrc/em_stats.cu``): unmasked calls with
+``em_stats`` has four kernel bodies (``csrc/em_stats.cu``): unmasked calls with
 K >= 33 run the register-tiled one on a persistent grid, with the launch
 geometry of ``plan_em_tiles``; unmasked calls with K <= 32 the first one, a
 point on 1 to 4 lanes (``plan_em_lanes``); masked calls run by parent chunks
-over the points sorted by parent (``group_by_parent``, ``plan_parent_chunks``).
-K and the mask alone decide. Each takes W [10, K] or the packed table
-(``em_ref.Packed``) that ``em_step`` (``csrc/em_step.cu``) writes. A fit's
+over the points sorted by parent (``group_by_parent``, ``plan_parent_chunks``):
+the grouped body up to EG_BMAX children a parent, the wide one past it
+(``plan_grouped_wide``). K, the mask and the branch alone decide. Each takes
+W [10, K] or the packed table (``em_ref.Packed``) that ``em_step``
+(``csrc/em_step.cu``) writes. A fit's
 sweep launches the body alone (``em_partials``, ``em_partials_grouped``: the
 partial rows, not summed) and then ``em_step``, which sums the rows and runs
 the M-step (launch geometry from ``plan_em_step``): two launches and no host
@@ -26,8 +28,10 @@ read (``new_fit`` holds the state on the card). ``em_stats`` and
 
 A registration scan builds its tables once (``reg_tables``), and its state
 lives on the card (``new_scan``): ``reg_partials`` (``csrc/reg_stats.cu``,
-launch geometry from ``plan_reg_stats``) and ``reg_step``
-(``csrc/reg_step.cu``) read and write it without a host sync.
+launch geometry from ``plan_reg_stats``: the lanes body without gating, the
+top_k body with a register list up to MAX_TOP_K, the select body past it)
+and ``reg_step`` (``csrc/reg_step.cu``) read and write it without a host
+sync.
 """
 
 from __future__ import annotations
@@ -53,11 +57,16 @@ from hgmm_torch.ops.em_ref import (
 from hgmm_torch.ops.em_ref import new_scan as em_ref_new_scan
 
 MAX_K = 2048  # largest K whose tables fit in shared memory
-MAX_TOP_K = 32  # largest top_k < K that reg_stats gates (csrc/reg_stats.cu)
-# The masked em_stats by parent chunks (csrc/em_stats.cu:em_stats_grouped_kernel).
-EG_BMAX = 8  # largest branch on the card
+MAX_TOP_K = 32  # largest top_k < K of reg_stats' register bodies (above it the warp select body)
+# The masked em_stats by parent chunks (csrc/em_stats.cu:em_stats_grouped_kernel,
+# and em_stats_grouped_wide_kernel past EG_BMAX).
+EG_BMAX = 8  # largest branch of the grouped body, which holds the children in registers
 EG_MAX_PPT = 16  # points a lane in a chunk, at most
 EG_TARGET_WARPS = 4  # chunks (warps) an SM the plan aims for
+EG_WARPS = 4  # chunks a block, one a warp
+# The wide body's shared memory a warp past the parent's rows: the lanes'
+# transpose (32 rows of EG_BMAX * 10 + 1) and two floats a point slot.
+EGW_WARP_FLOATS = 32 * (EG_BMAX * 10 + 1) + 2 * 32 * EG_MAX_PPT
 # The register-tiled em_stats kernel (csrc/em_stats.cu:em_stats_tiled_kernel).
 EMT_THREADS = 256
 EMT_PT = 8  # points a thread
@@ -88,10 +97,12 @@ EMS_ROWS_A_LANE = 12  # partial rows a lane sums (its loads in flight at once) b
 EMS_WARPS_PER_SM = 64  # resident warps an SM on the H100
 
 # Kernel launches by wrapper, for showing that a run went through the kernels
-# (ops/knn.py and ops/probes.py count their kernels here too).
-LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "em_step": 0, "assign": 0, "reg_stats": 0,
-            "reg_step": 0, "knn": 0, "probe_logits": 0, "probe_addonly": 0, "probe_stats": 0,
-            "probe_norm": 0, "probe_vpu": 0}
+# (ops/knn.py and ops/probes.py count their kernels here too). The masked
+# em_stats past EG_BMAX children and reg_stats' select body (top_k past
+# MAX_TOP_K) count apart from the bodies their wrappers launch otherwise.
+LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "em_stats_masked_wide": 0, "em_step": 0, "assign": 0,
+            "reg_stats": 0, "reg_stats_select": 0, "reg_step": 0, "knn": 0, "probe_logits": 0,
+            "probe_addonly": 0, "probe_stats": 0, "probe_norm": 0, "probe_vpu": 0}
 
 
 _LAUNCHES_LOCK = threading.Lock()  # the ranks of an EmulatedMesh launch from threads
@@ -351,7 +362,7 @@ def em_step(parts, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "
         if t.device != dev:
             raise ValueError(f"em_step: {name} on {t.device}, the table on {dev}")
     if (not 0 <= it < fit.logliks.shape[0] or cov_type not in COV_TYPES or rows < k or parts.k != k
-            or not 0 <= parts.n_rows <= parts.partial.shape[0] or parts.branch > EG_BMAX):
+            or not 0 <= parts.n_rows <= parts.partial.shape[0]):
         raise ValueError(f"em_step: sweep {it} of {fit.logliks.shape[0]}, cov_type {cov_type!r}, "
                          f"{rows} rows for K={k}, partials of K={parts.k} with {parts.n_rows} rows "
                          f"of {tuple(parts.partial.shape)}, branch {parts.branch}")
@@ -386,6 +397,29 @@ def plan_parent_chunks(counts: list[int], sms: int) -> tuple[int, list[tuple[int
     return size, chunks
 
 
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """Launch geometry of the masked E-step past EG_BMAX children
+    (csrc/em_stats.cu:em_stats_grouped_wide_kernel): `warps` chunks a block
+    and its dynamic shared memory."""
+
+    warps: int
+    smem_bytes: int
+
+
+def plan_grouped_wide(branch: int) -> WidePlan:
+    """EG_WARPS warps a block, halved while their shared memory (the
+    parent's 3 branch float4 rows and EGW_WARP_FLOATS a warp) passes the
+    card's limit; branch > EG_BMAX, at most MAX_K."""
+    if not EG_BMAX < branch <= MAX_K:
+        raise ValueError(f"plan_grouped_wide: branch {branch} outside ({EG_BMAX}, {MAX_K}]")
+    per_warp = 16 * 3 * branch + 4 * EGW_WARP_FLOATS
+    warps = EG_WARPS
+    while warps > 1 and warps * per_warp > SMEM_LIMIT:
+        warps //= 2
+    return WidePlan(warps, warps * per_warp)
+
+
 @dataclasses.dataclass
 class ParentGroups:
     """A tree level's points grouped by parent for the masked E-step, built
@@ -414,8 +448,8 @@ def group_by_parent(pts4: torch.Tensor, parent: torch.Tensor, branch: int, k: in
     masked E-step gives them exactly nothing (dead, or weight 0)."""
     n = _check_points(pts4)
     parent = _parent(parent, n, branch)
-    if branch > EG_BMAX:
-        raise ValueError(f"em_stats_masked: branch {branch} > {EG_BMAX} on the card")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"em_stats_masked: K={k} outside [1, {MAX_K}]")
     n_par = -(-k // branch)
     key = parent.long()
     key = torch.where((key >= 0) & (key < n_par) & (pts4[3] != 0), key, torch.full_like(key, n_par))
@@ -451,14 +485,15 @@ def em_partials_grouped(groups: ParentGroups, W, out: torch.Tensor | None = None
     if k != groups.k:
         raise ValueError(f"em_stats_masked: W has K={k}, the groups were made for K={groups.k}")
     wn = _table(W, groups.pts4.device).wn
+    warps = plan_grouped_wide(groups.branch).warps if groups.branch > EG_BMAX else EG_WARPS
     with torch.cuda.device(groups.pts4.device):
         err = _build.load().hgmm_em_stats_grouped(
             groups.pts4.data_ptr(), groups.pts4.shape[1], wn.data_ptr(), k, groups.branch,
-            groups.chunks.data_ptr(), groups.n_chunks, groups.parent_off.data_ptr(),
+            groups.chunks.data_ptr(), groups.n_chunks, groups.parent_off.data_ptr(), warps,
             groups.partial.data_ptr(), None if out is None else out.data_ptr(), _stream(groups.pts4),
         )
     _raise_on(err, "em_stats_masked")
-    count_launch("em_stats_masked")
+    count_launch("em_stats_masked_wide" if groups.branch > EG_BMAX else "em_stats_masked")
     return EmPartials(groups.partial, k, groups.n_chunks, groups.parent_rows, groups.branch,
                       groups.parent_off)
 
@@ -500,11 +535,12 @@ def assign(pts4: torch.Tensor, W, parent=None, branch=None) -> torch.Tensor:
 
 
 def _top_k(top_k, k: int) -> int:
-    """The kernel's top_k argument: 0 (no gating) for None or top_k >= K."""
+    """The kernel's top_k argument: 0 (no gating) for None or top_k >= K,
+    else top_k, at least 1."""
     if top_k is None or top_k >= k:
         return 0
-    if not 1 <= top_k <= MAX_TOP_K:
-        raise ValueError(f"reg_stats: top_k={top_k} < K={k} outside [1, {MAX_TOP_K}]")
+    if top_k < 1:
+        raise ValueError(f"reg_stats: top_k={top_k} < 1")
     return int(top_k)
 
 
@@ -512,13 +548,13 @@ def _top_k(top_k, k: int) -> int:
 class RegPlan:
     """Launch geometry of reg_stats (csrc/reg_stats.cu): `lanes` lanes of a
     warp share a point and split its K components (the lanes body; 1 with
-    top_k gating, the one-thread-a-point top_k body, whose list holds `kmax`
-    logits), `blocks` blocks of RS_THREADS threads, grid-stride; one partial
-    row a block."""
+    top_k <= MAX_TOP_K, the one-thread-a-point top_k body, whose list holds
+    `kmax` logits; 32 past it, the select body, a warp a point), `blocks`
+    blocks of RS_THREADS threads, grid-stride; one partial row a block."""
 
     lanes: int
     blocks: int
-    kmax: int  # 0: no gating
+    kmax: int  # 0: no register list (no gating, or the select body)
 
     def points_per_block(self) -> int:
         return RS_THREADS // self.lanes
@@ -527,18 +563,29 @@ class RegPlan:
 def plan_reg_stats(n: int, k: int, top_k, sms: int) -> RegPlan:
     """Lanes a point: 1, doubled up to min(32, K) while the points fill fewer
     than RS_MIN_WARPS_PER_SM warps an SM (the odometry bucket, N = 16,384,
-    gets 4); 1 with top_k gating. Blocks: one a RS_THREADS / lanes points, at
-    most RS_BLOCKS_PER_SM an SM. Shared memory: the two [K, 12] tables and the
-    warps' sums, 96 K + 1,408 bytes (csrc/reg_stats.cu:reg_stats_smem_bytes),
-    inside the card's limit up to MAX_K."""
-    if n < 1 or not 1 <= k <= MAX_K:
-        raise ValueError(f"reg_stats: N={n}, K={k}")
+    gets 4); 1 with top_k <= MAX_TOP_K, 32 with a larger top_k < K. Blocks:
+    one a RS_THREADS / lanes points, at most RS_BLOCKS_PER_SM an SM. Shared
+    memory: the two [K, 12] tables and the warps' sums, 96 K + 1,408 bytes
+    (csrc/reg_stats.cu:reg_stats_smem_bytes); the select body's
+    reg_select_smem_bytes. Both inside the card's limit up to MAX_K."""
+    if n < 1 or not 1 <= k <= MAX_K or sms < 1:
+        raise ValueError(f"reg_stats: N={n}, K={k}, {sms} SMs")
     gate = _top_k(top_k, k)
+    if gate > MAX_TOP_K:
+        return RegPlan(lanes=32, blocks=max(1, min(-(-n * 32 // RS_THREADS), RS_BLOCKS_PER_SM * sms)), kmax=0)
     lanes, kmax = 1, (0 if not gate else (9 if gate <= 8 else 33))
     while not gate and 2 * lanes <= min(32, k) and n * lanes < RS_MIN_WARPS_PER_SM * sms * 32:
         lanes *= 2
     blocks = max(1, min(-(-n * lanes // RS_THREADS), RS_BLOCKS_PER_SM * sms))
     return RegPlan(lanes=lanes, blocks=blocks, kmax=kmax)
+
+
+def reg_select_smem_bytes(k: int) -> int:
+    """Shared memory of reg_stats' select body (csrc/reg_stats.cu:
+    reg_select_smem_bytes): the [K, 12] weight table, each warp's K logits
+    and 256-bin histogram, and the warps' 44 sums."""
+    warps = RS_THREADS // 32
+    return 48 * k + 4 * warps * k + 4 * warps * 256 + 4 * warps * 44
 
 
 @dataclasses.dataclass
@@ -599,7 +646,7 @@ def reg_partials(tab: RegTables, pose12: torch.Tensor, done: torch.Tensor | None
             _stream(tab.pts4),
         )
     _raise_on(err, "reg_stats")
-    count_launch("reg_stats")
+    count_launch("reg_stats_select" if tab.gate > MAX_TOP_K else "reg_stats")
     return tab.partial
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``hgmm/utils/checkpoint.py`` with the same npz keys, so a
 file saved by either package loads in the other. Arrays are saved from the
-host as numpy and load as float32 tensors on `device` (the CPU by default).
+host as numpy and load as float32 tensors on `device`: None is the card,
+and an error without one; "cpu" loads for the plain path.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 from hgmm_torch import convert
 from hgmm_torch.models.gmm_tree import GmmTree
 from hgmm_torch.ops.gaussians import MixtureParams
+from hgmm_torch.utils.device import resolve_device
 
 
 def save_odometry(path: str | Path, frame_idx: int, rel_poses, abs_poses, logliks=None) -> None:
@@ -33,6 +35,7 @@ def save_odometry(path: str | Path, frame_idx: int, rel_poses, abs_poses, loglik
 
 def load_odometry(path: str | Path, device=None):
     """Returns (frame_idx, rel_poses, abs_poses, logliks) or None."""
+    device = resolve_device(device)
     path = Path(path)
     if not path.exists():
         return None

@@ -33,7 +33,7 @@ def chain_case(m, device=None):
     from the true poses: (R0, t0, chain edges, closures) on `device`."""
     rng = np.random.default_rng(11)
     steps = [_pose(rng, 0.1, 0.2) for _ in range(m - 1)]
-    gt = [Pose.identity()]
+    gt = [Pose.identity(device="cpu")]
     for z in steps:
         gt.append(gt[-1].compose(z))
     noisy = [z.compose(_pose(rng, 0.02, 0.02)) for z in steps]

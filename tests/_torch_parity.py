@@ -75,7 +75,7 @@ def odometry_sequence(n_frames=5, n_scene=4000, step_angle=0.06, step_t=0.05):
     """tests/test_odometry.py:15-31 with numpy draws: a trefoil scene seen from
     a slowly moving sensor, frame k = the scene in frame k + 0.002 noise."""
     scene = make_cloud_np(n_scene, "trefoil", seed=0)
-    gt = [Pose.identity()]
+    gt = [Pose.identity(device="cpu")]
     for _ in range(1, n_frames):
         gt.append(gt[-1].compose(_yaw_pose(step_angle, [step_t, 0.0, 0.01])))
     frames = []

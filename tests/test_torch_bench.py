@@ -84,7 +84,7 @@ def test_bench_problem_is_seeded_and_well_formed():
 def test_loglik_weights_carry_across():
     mix, _ = bench.bench_problem(8, 16)
     jW = np.asarray(jg.pack_loglik_weights(jg.MixtureParams(*map(jnp.asarray, mix))))
-    tW = pack_loglik_weights(convert.mixture_from_numpy(*mix))
+    tW = pack_loglik_weights(convert.mixture_from_numpy(*mix, device="cpu"))
     assert tW.dtype == torch.float32 and jW.dtype == np.float32 and tW.shape[1] == jW.shape[1]
     np.testing.assert_allclose(jW[:10], tW.numpy()[:10], rtol=1e-4, atol=1e-4)
 
@@ -376,6 +376,21 @@ def test_kernel_bound_estimates_of_the_table():
         roofline.kernel_bound("reg_stats", n=N, k=512).seconds  # top_k >= K gates nothing
     with pytest.raises(ValueError, match="unknown kernel"):
         roofline.kernel_bound("em_sweep", n=1, k=1)
+
+
+def test_kernel_bound_of_the_wide_masked_body_and_the_select_body():
+    """em_stats_masked_wide computes em_stats_masked's function (its bound
+    follows the branch: at 16 children the 40 flop a pair pass the 20 bytes a
+    point); reg_stats_select is reg_stats with top_k plus SELECT_PASSES passes
+    of OPS_SELECT_KEY operations over the K keys a point, the bytes the same."""
+    wide = roofline.kernel_bound("em_stats_masked_wide", n=N, k=256, branch=16)
+    assert wide == roofline.kernel_bound("em_stats_masked", n=N, k=256, branch=16)
+    assert wide.by == "operations" and wide.flops == N * 16 * 40
+    assert roofline.kernel_bound("em_stats_masked", n=N, k=64, branch=8).by == "bytes"
+    sel = roofline.kernel_bound("reg_stats_select", n=N, k=512, top_k=64)
+    gated = roofline.kernel_bound("reg_stats", n=N, k=512, top_k=64)
+    assert sel.flops == gated.flops + N * roofline.SELECT_PASSES * roofline.OPS_SELECT_KEY * 512
+    assert sel.bytes == gated.bytes and sel.by == "operations" and sel.seconds > gated.seconds
 
 
 @pytest.mark.parametrize("nb,branch", [(528, None), (132, None), (900, 8)])

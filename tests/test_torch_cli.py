@@ -113,18 +113,18 @@ def test_fit_gmm_checkpoints_load_in_both_packages(clouds, capsys, tree):
     assert "saved ->" in capsys.readouterr().out
     if tree:
         for path in (ours, theirs):
-            a, b = tckpt.load_tree(path), jckpt.load_tree(path)
+            a, b = tckpt.load_tree(path, device="cpu"), jckpt.load_tree(path)
             assert a.branch == b.branch == 4 and a.n_leaves == b.n_leaves == 16
             for la, lb in zip(a.levels, b.levels):
                 for x, y in zip(la, lb):
                     np.testing.assert_array_equal(x.numpy(), np.asarray(y))
-        tckpt.save_tree(d / "again.npz", tckpt.load_tree(theirs))
+        tckpt.save_tree(d / "again.npz", tckpt.load_tree(theirs, device="cpu"))
         again = jckpt.load_tree(d / "again.npz")
         np.testing.assert_array_equal(np.asarray(again.levels[1].sigma),
                                       np.asarray(jckpt.load_tree(theirs).levels[1].sigma))
     else:
         for path in (ours, theirs):
-            a, b = tckpt.load_mixture(path), jckpt.load_mixture(path)
+            a, b = tckpt.load_mixture(path, device="cpu"), jckpt.load_mixture(path)
             assert a.pi.shape == (8,)
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x.numpy(), np.asarray(y))
@@ -138,11 +138,11 @@ def test_odometry_checkpoint_loads_in_both_packages(tmp_path):
     assert frame == 2 and len(rel) == 2 and len(ab) == 3 and lls == [-1.5, -2.5]
     np.testing.assert_array_equal(np.asarray(ab[2].R), poses[2].R.numpy())
     jckpt.save_odometry(tmp_path / "theirs.npz", 2, rel, ab)
-    frame, rel2, ab2, lls2 = tckpt.load_odometry(tmp_path / "theirs.npz")
+    frame, rel2, ab2, lls2 = tckpt.load_odometry(tmp_path / "theirs.npz", device="cpu")
     assert frame == 2 and len(lls2) == 2
     assert all(np.isnan(lls2))  # a file without logliks pads them with NaN
     np.testing.assert_array_equal(rel2[1].t.numpy(), poses[2].t.numpy())
-    assert tckpt.load_odometry(tmp_path / "missing.npz") is None
+    assert tckpt.load_odometry(tmp_path / "missing.npz", device="cpu") is None
 
 
 def test_cuda_device_without_cuda_exits_nonzero(clouds, monkeypatch):
@@ -169,10 +169,11 @@ def test_loaders_match_jax(tmp_path, binary):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(tkitti.voxel_downsample(a, 0.3),
                                       jkitti.voxel_downsample(b, 0.3))
-    for a, b in zip(tkitti.load_poses(f"{FIXTURE}/poses.txt"),
+    for a, b in zip(tkitti.load_poses(f"{FIXTURE}/poses.txt", device="cpu"),
                     jkitti.load_poses(f"{FIXTURE}/poses.txt")):
         np.testing.assert_array_equal(a.R.numpy(), np.asarray(b.R))
         np.testing.assert_array_equal(a.t.numpy(), np.asarray(b.t))
-    a, b = (m.load_calib_velo_to_cam(f"{FIXTURE}/calib.txt") for m in (tkitti, jkitti))
+    a = tkitti.load_calib_velo_to_cam(f"{FIXTURE}/calib.txt", device="cpu")
+    b = jkitti.load_calib_velo_to_cam(f"{FIXTURE}/calib.txt")
     np.testing.assert_array_equal(a.R.numpy(), np.asarray(b.R))
     np.testing.assert_array_equal(a.t.numpy(), np.asarray(b.t))

@@ -99,7 +99,7 @@ def test_refine_map_then_localize(tree_run, capsys, monkeypatch):
     out = capsys.readouterr().out
     assert "global map (512 leaves) ->" in out and "trajectory plot ->" in out
     assert _ate(out) < 0.1
-    tree = load_tree(map_p)
+    tree = load_tree(map_p, device="cpu")
     assert int((tree.leaf_mixture().pi > 0).sum()) >= 64
     loc = d / "loc.npy"
     main(["localize", str(FIXTURE / "velodyne" / "000000.bin"), str(map_p), "--iters", "25",

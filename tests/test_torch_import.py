@@ -64,7 +64,7 @@ def test_cpu_path_launches_no_kernel():
     from hgmm_torch.pipelines.register import register_tree
 
     fused_em.reset_launches()
-    pts = make_cloud(800, "helix", seed=1)
+    pts = make_cloud(800, "helix", seed=1, device="cpu")
     tree, _ = GmmTree.fit(pts, branch=8, levels=2, em_iters=3,
                           generator=torch.Generator().manual_seed(0))
     register_tree(pts, tree, n_iters=4, method="horn+wls")

@@ -187,9 +187,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     pose = (torch.eye(3, device=cuda), torch.zeros(3, device=cuda))
     p64 = _mixture(64, 12, cuda)
     A64, b64, _ = precision_terms(p64)
-    with pytest.raises(ValueError, match="top_k"):  # 32 < top_k < K
-        fused_em.reg_stats(p, pack_loglik_weights(p64), p64.mu, sym_pack(A64), b64, pose,
-                           top_k=fused_em.MAX_TOP_K + 1)
+    for top_k in (0, -1):  # top_k outside [1, K); every top_k in it runs
+        with pytest.raises(ValueError, match="top_k"):
+            fused_em.reg_stats(p, pack_loglik_weights(p64), p64.mu, sym_pack(A64), b64, pose,
+                               top_k=top_k)
     with pytest.raises(ValueError):
         fused_em.em_stats(p.double(), W)
     with pytest.raises(ValueError):
@@ -747,7 +748,7 @@ def test_register_points_on_the_card_matches_the_cpu(cuda, method):
     from hgmm_torch.models.se3 import Pose
     from hgmm_torch.pipelines.register import register_points
 
-    cloud = make_cloud(3000, "trefoil", seed=10)
+    cloud = make_cloud(3000, "trefoil", seed=10, device="cpu")
     gmm, _ = Gmm.fit(cloud, k=16, n_iters=15, generator=torch.Generator().manual_seed(11))
     init = Pose(so3_exp(torch.tensor([0.0, 0.05, 0.2])), torch.tensor([0.02, -0.03, 0.01]))
     cpu = register_points(cloud, gmm.params, init_pose=init, n_iters=30, method=method, tol=1e-6)
@@ -783,8 +784,62 @@ def test_em_stats_masked_by_parent_chunks(cuda, k, n):
     assert torch.equal(got.S, again.S) and torch.equal(got.loglik, again.loglik)
     W2 = pack_loglik_weights(_mixture(k, k + 32, cuda))
     _check_em(fused_em.em_stats_grouped(groups, W2), em_ref.em_stats_masked(pts, W2, par, 8, w), n)
-    with pytest.raises(ValueError):
-        fused_em.group_by_parent(prep.pts4, par, 9, k)
+    for branch, kk in ((0, k), (8, fused_em.MAX_K + 1)):  # what still raises: branch < 1, K > MAX_K
+        with pytest.raises(ValueError):
+            fused_em.group_by_parent(prep.pts4, par, branch, kk)
+
+
+@pytest.mark.parametrize("branch,k", [(9, 81), (12, 144), (12, 1728), (16, 256), (16, 250), (33, 1089),
+                                      (16, 10)])
+@pytest.mark.parametrize("n", [1, 300, 20_000])
+def test_em_stats_grouped_wide(cuda, branch, k, n):
+    """Branch > 8: the wide body, groups of 8 children after the normaliser
+    over all of them; branch 12 and 33 leave a partial group, K = 250 and 10
+    a parent short of children; parents -1 and past K, zero-weight rows, a
+    dead child; a grouping reused gives equal bits."""
+    pts, w = _inputs(n, k + 70, cuda)
+    w[::7] = 0.0
+    n_par = -(-k // branch)
+    par = torch.randint(-1, n_par + 2, (n,), generator=torch.Generator().manual_seed(k)).to(cuda)
+    W = pack_loglik_weights(_mixture(k, k + 71, cuda, dead=(3,)))
+    groups = fused_em.group_by_parent(prepare(pts, w).pts4, par, branch, k)
+    before = fused_em.LAUNCHES["em_stats_masked_wide"]
+    got = fused_em.em_stats_grouped(groups, W)
+    assert fused_em.LAUNCHES["em_stats_masked_wide"] == before + 1
+    _check_em(got, em_ref.em_stats_masked(pts, W, par, branch, w), n)
+    assert float(got.S[3].abs().max()) == 0.0
+    again = fused_em.em_stats_grouped(groups, W)
+    assert torch.equal(got.S, again.S) and torch.equal(got.loglik, again.loglik)
+
+
+@pytest.mark.parametrize("k", [512, 256])
+@pytest.mark.parametrize("weighted,outlier", [(False, None), (True, -2.0)])
+@pytest.mark.parametrize("top_k", [33, 64, 128, -1])
+def test_reg_stats_select_body(cuda, k, weighted, outlier, top_k):
+    """32 < top_k < K (-1: K - 1): the select body, a warp a point, against
+    the plain version with the points whose gate rounding decides weighed 0
+    in both."""
+    _check_reg_stats(cuda, _mixture(k, k + 8, cuda, dead=(2,)), 20_000, k + 9, weighted,
+                     k - 1 if top_k < 0 else top_k, outlier)
+
+
+@pytest.mark.parametrize("top_k", [33, 64, 95, 191])
+def test_reg_stats_select_keeps_exact_ties(cuda, top_k):
+    """Every component twice (K = 192): the top_k-th logit ties exactly with
+    another one, and both are kept; K - 1 keeps all but the one lowest pair."""
+    half = _mixture(96, 17, cuda, dead=(5,))
+    params = MixtureParams(torch.cat([half.pi, half.pi]) / 2, torch.cat([half.mu, half.mu]),
+                           torch.cat([half.sigma, half.sigma]))
+    _check_reg_stats(cuda, params, 20_000, 18, True, top_k, 0.0)
+
+
+def test_reg_stats_select_at_the_largest_k(cuda):
+    """K = MAX_K, top_k = K - 1 and 64: the select body's shared memory at
+    its largest (above 48 KB, set by the attribute); the dead components'
+    logits at the mask floor sort last."""
+    k = fused_em.MAX_K
+    for top_k in (k - 1, 64):
+        _check_reg_stats(cuda, _mixture(k, 19, cuda, dead=(0, 7)), 3000, 20, True, top_k, None)
 
 
 def test_em_stats_masked_with_no_live_point(cuda):
@@ -864,7 +919,7 @@ def _exact_inputs(n, k, seed, dev, ties=False, nan=False):
 
 
 @pytest.mark.parametrize("k,branch", [(1, None), (5, None), (8, None), (64, 8), (64, 3), (100, 8),
-                                      (512, 8)])
+                                      (512, 8), (256, 16), (144, 12), (1089, 33)])
 @pytest.mark.parametrize("ties,nan", [(False, False), (True, False), (True, True)])
 @pytest.mark.parametrize("n", [1, 33, 50_000])
 def test_assign_bit_equal_to_the_sequential_scan(cuda, k, branch, ties, nan, n):
@@ -925,12 +980,13 @@ def test_em_step_against_its_twin(cuda, k, cov_type):
 
 
 @pytest.mark.parametrize("k", [8, 40, 64, 100, 512])
-@pytest.mark.parametrize("layout", ["plain", "grouped"])
+@pytest.mark.parametrize("layout", ["plain", "grouped", "grouped16"])
 @pytest.mark.parametrize("cov_type", ["full", "iso", "diag"])
 def test_em_step_on_partial_rows_against_its_twin(cuda, k, layout, cov_type):
-    """em_step on the rows of the three em_stats bodies (plain: the first
-    body at K = 8, the tiled one at K >= 40; grouped: the masked body by
-    parent chunks), one launch: against a float64 run of the twin on the
+    """em_step on the rows of the em_stats bodies (plain: the first body at
+    K = 8, the tiled one at K >= 40; grouped: the masked body by parent
+    chunks; grouped16: the wide body at branch 16, rows of width 161), one
+    launch: against a float64 run of the twin on the
     rows' float32 sums (em_ref.sum_partials), within a few float32 roundings
     of each value (the table's entries against their row's largest); the
     loglik within a float32 rounding of the rows' sum; the floor rows (K =
@@ -946,13 +1002,14 @@ def test_em_step_on_partial_rows_against_its_twin(cuda, k, layout, cov_type):
     if layout == "plain":
         parts = fused_em.em_partials(p4, W)
     else:
-        parent = torch.randint(-1, -(-k // 8), (n,), generator=torch.Generator().manual_seed(k)).to(cuda)
-        parts = fused_em.em_partials_grouped(fused_em.group_by_parent(p4, parent, 8, k), W)
+        branch = 16 if layout == "grouped16" else 8
+        parent = torch.randint(-1, -(-k // branch), (n,), generator=torch.Generator().manual_seed(k)).to(cuda)
+        parts = fused_em.em_partials_grouped(fused_em.group_by_parent(p4, parent, branch, k), W)
     host = parts._replace(partial=parts.partial.cpu(),
                           parent_off=None if parts.parent_off is None else parts.parent_off.cpu())
     st = em_ref.sum_partials(host)
     total, cf = w.sum(), torch.tensor(1e-4, device=cuda)
-    fits = [ops.new_fit(p, 2, total, cf, masked=layout == "grouped") for _ in range(2)]
+    fits = [ops.new_fit(p, 2, total, cf, masked=layout != "plain") for _ in range(2)]
     rows = fits[0].table.wn.shape[0]
     f64 = em_ref.new_fit(MixtureParams(*(a.cpu().double() for a in p)), 2, total.cpu().double(),
                          cf.cpu().double(), rows)
@@ -999,7 +1056,7 @@ def test_fit_sweeps_on_the_card_make_no_host_sync(cuda, case):
     from hgmm_torch.models.gmm import em_sweeps, init_params, scene_variance, total_weight
     from hgmm_torch.models.gmm_tree import seed_children
 
-    pts = make_cloud(20_000, "trefoil", seed=12)
+    pts = make_cloud(20_000, "trefoil", seed=12, device="cpu")
     w = torch.rand(20_000, generator=torch.Generator().manual_seed(13))
     w[::6] = 0.0
     k0 = 64 if case == "flat64" else 8

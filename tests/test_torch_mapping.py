@@ -61,7 +61,7 @@ def test_localize_on_the_jax_map(maps):
     localized against the JAX map carried across, by both packages."""
     _, _, ref, _ = maps
     carried = convert.tree_from_numpy([tuple(np.asarray(a) for a in lvl) for lvl in ref.levels],
-                                      ref.branch)
+                                      ref.branch, device="cpu")
     th = np.pi / 12.0
     radius = 0.09 * 12 / (2 * np.pi)
     hp = Pose(so3_exp(torch.tensor([0.0, 0.0, 0.3 * np.sin(th)], dtype=torch.float32)),
@@ -80,7 +80,7 @@ def test_localize_on_the_jax_map(maps):
 def test_sample_mixture_is_bit_equal(maps):
     _, _, ref, _ = maps
     leaves = ref.leaf_mixture()
-    carried = convert.mixture_from_numpy(*(np.asarray(a) for a in leaves))
+    carried = convert.mixture_from_numpy(*(np.asarray(a) for a in leaves), device="cpu")
     got = tmap.sample_mixture(carried, 700, seed=3)
     np.testing.assert_array_equal(got, jmap.sample_mixture(leaves, 700, seed=3))
 
@@ -95,7 +95,7 @@ def test_update_map_matches_jax(maps):
     probe = torch.from_numpy(frames[0][:512])
 
     def ll(tree):
-        W = pack_loglik_weights(convert.mixture_from_numpy(*(np.asarray(x) for x in tree.leaf_mixture())))
+        W = pack_loglik_weights(convert.mixture_from_numpy(*(np.asarray(x) for x in tree.leaf_mixture()), device="cpu"))
         return float(em_ref.em_stats(probe, W).loglik) / 512
 
     np.testing.assert_allclose(ll(a), ll(b), rtol=1e-3)
@@ -113,7 +113,7 @@ def test_export_map_and_trajectory(maps, tmp_path):
     assert ours.shape == theirs.shape
     # Same tree -> same PLY.
     carried = convert.tree_from_numpy([tuple(np.asarray(a) for a in lvl) for lvl in ref.levels],
-                                      ref.branch)
+                                      ref.branch, device="cpu")
     texport.export_map(tmp_path / "carried.ply", carried, samples_per_leaf=8)
     np.testing.assert_allclose(jply.load_ply(tmp_path / "carried.ply"), theirs, atol=1e-5)
     png = tmp_path / "traj.png"

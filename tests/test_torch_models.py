@@ -98,7 +98,7 @@ def test_solve_wls_increment():
     ref = jpose.solve_wls_increment(jnp.asarray(A), jnp.asarray(b))
     _close(got, ref, 1e-4, 1e-6)  # 6x6 solve, float32 LU in both
     assert float(torch.linalg.norm(got[:3])) <= 0.3 + 1e-6
-    pose = tse3.Pose.identity()
+    pose = tse3.Pose.identity(device="cpu")
     _close(tpose.apply_wls_increment(pose, got).R, jpose.apply_wls_increment(
         jse3.Pose.identity(), ref).R, 1e-5, 1e-6)
 
@@ -119,7 +119,7 @@ def _init(pts, k, seed):
 def test_em_fit_from_same_init():
     pts = _cloud(2000)
     init = _init(pts, 16, 0)
-    tp, tll = tgmm.em_fit(torch.from_numpy(pts), convert.mixture_from_numpy(*init), n_iters=10)
+    tp, tll = tgmm.em_fit(torch.from_numpy(pts), convert.mixture_from_numpy(*init, device="cpu"), n_iters=10)
     jp, jll = jgmm.em_fit(jnp.asarray(pts), jg.MixtureParams(*map(jnp.asarray, init)), n_iters=10)
     _close(tll, jll, 1e-4, 1e-2)
     _close(tp.pi, jp.pi, 1e-3, 1e-5)
@@ -142,7 +142,7 @@ def test_em_fit_sweep_loop_from_same_init(cov_type, weighted):
         w = np.random.default_rng(6).uniform(0.2, 1.0, 1500).astype(np.float32)
         w[::5] = 0.0
     init = _init(pts, 8, 2)
-    tp, tll = tgmm.em_fit(torch.from_numpy(pts), convert.mixture_from_numpy(*init), n_iters=8,
+    tp, tll = tgmm.em_fit(torch.from_numpy(pts), convert.mixture_from_numpy(*init, device="cpu"), n_iters=8,
                           cov_type=cov_type, point_weights=None if w is None else torch.from_numpy(w))
     jp, jll = jgmm.em_fit(jnp.asarray(pts), jg.MixtureParams(*map(jnp.asarray, init)), n_iters=8,
                           cov_type=cov_type, point_weights=None if w is None else jnp.asarray(w))
@@ -162,7 +162,7 @@ def test_tree_fit_sweep_loop_weighted_diag():
     w[::6] = 0.0
     init0 = _init(pts, 8, 3)
     tt, tll = ttree.GmmTree.fit(torch.from_numpy(pts), branch=8, levels=2, em_iters=6, cov_type="diag",
-                                point_weights=torch.from_numpy(w), init0=convert.mixture_from_numpy(*init0))
+                                point_weights=torch.from_numpy(w), init0=convert.mixture_from_numpy(*init0, device="cpu"))
     jt, jll = jtree.GmmTree.fit(jnp.asarray(pts), branch=8, levels=2, em_iters=6, cov_type="diag",
                                 point_weights=jnp.asarray(w), init0=jg.MixtureParams(*map(jnp.asarray, init0)))
     _close(tll, jll, 1e-3, 1e-2)
@@ -215,7 +215,7 @@ def test_fits_through_the_partial_rows_twin_equal_the_fits_on_summed_statistics(
     pts, w = torch.from_numpy(pts_np), torch.from_numpy(w_np)
     prep = ops.prepare(pts, w)
     total, cf = tgmm.total_weight(pts, w), 1e-3 * tgmm.scene_variance(pts, w)
-    init = convert.mixture_from_numpy(*_init(pts_np, 8, 11))
+    init = convert.mixture_from_numpy(*_init(pts_np, 8, 11), device="cpu")
     level0 = tgmm.em_sweeps(prep, init, 6, total, cf, cov_type=cov_type)
     parent = ops.assign(prep, level0.table)
     groups = ops.group_by_parent(prep, parent, 8, 64)
@@ -259,12 +259,12 @@ def test_seed_children():
     m = tuple(np.asarray(a) for a in jg.MixtureParams(
         np.array([0.25, 0.75], np.float32), np.array([[0, 0, 0], [1, 2, 3]], np.float32),
         np.stack([np.eye(3), np.diag([0.5, 0.2, 0.1])]).astype(np.float32)))
-    got = ttree.seed_children(convert.mixture_from_numpy(*m), 8)
+    got = ttree.seed_children(convert.mixture_from_numpy(*m, device="cpu"), 8)
     ref = jtree.seed_children(jg.MixtureParams(*map(jnp.asarray, m)), 8)
     for a, b in zip(got, ref):
         _close(a, b, 1e-6, 1e-6)
     # branch != 8 draws its directions from numpy: unit norm, mass preserved.
-    other = ttree.seed_children(convert.mixture_from_numpy(*m), 5)
+    other = ttree.seed_children(convert.mixture_from_numpy(*m, device="cpu"), 5)
     assert other.mu.shape == (10, 3)
     _close(other.pi.sum(), 1.0, 1e-6, 0)
 
@@ -275,7 +275,7 @@ def trees():
     pts = _cloud(3000)
     init0 = _init(pts, 8, 1)
     tt, tll = ttree.GmmTree.fit(torch.from_numpy(pts), branch=8, levels=3, em_iters=8,
-                                init0=convert.mixture_from_numpy(*init0))
+                                init0=convert.mixture_from_numpy(*init0, device="cpu"))
     jt, jll = jtree.GmmTree.fit(jnp.asarray(pts), branch=8, levels=3, em_iters=8,
                                 init0=jg.MixtureParams(*map(jnp.asarray, init0)))
     return pts, tt, tll, jt, jll
@@ -296,7 +296,7 @@ def test_cut_and_compact(trees):
     _close(ttree.node_complexity(tt.levels[1]), jtree.node_complexity(jt.levels[1]), 1e-2, 1e-3)
     # The same (JAX) tree carried across gives the same cut.
     carried = convert.tree_from_numpy(
-        [tuple(np.asarray(a) for a in lvl) for lvl in jt.levels], jt.branch)
+        [tuple(np.asarray(a) for a in lvl) for lvl in jt.levels], jt.branch, device="cpu")
     thr = float(np.quantile(_np(ttree.node_complexity(carried.levels[1])), 0.5))
     got = carried.cut_mixture(thr)
     ref = jt.cut_mixture(thr)
@@ -311,12 +311,12 @@ def test_convert_round_trips():
     rng = np.random.default_rng(5)
     m = (rng.uniform(size=4).astype(np.float32), rng.standard_normal((4, 3)).astype(np.float32),
          np.broadcast_to(np.eye(3, dtype=np.float32), (4, 3, 3)))
-    back = convert.mixture_to_numpy(convert.mixture_from_numpy(*m))
+    back = convert.mixture_to_numpy(convert.mixture_from_numpy(*m, device="cpu"))
     for a, b in zip(back, m):
         np.testing.assert_array_equal(a, b)
     R = jse3.so3_exp(jnp.array([0.1, 0.2, 0.3]))
-    R2, t2 = convert.pose_to_numpy(convert.pose_from_numpy(np.asarray(R), np.array([1, 2, 3])))
+    R2, t2 = convert.pose_to_numpy(convert.pose_from_numpy(np.asarray(R), np.array([1, 2, 3]), device="cpu"))
     np.testing.assert_array_equal(R2, np.asarray(R))
     np.testing.assert_array_equal(t2, np.array([1, 2, 3], np.float32))
-    tree = convert.tree_from_numpy([m, m], branch=2)
+    tree = convert.tree_from_numpy([m, m], branch=2, device="cpu")
     assert tree.branch == 2 and len(tree.levels) == 2 and tree.n_leaves == 4

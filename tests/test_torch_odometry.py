@@ -102,8 +102,8 @@ def test_refine_odometry_on_the_jax_chain(runs):
 def test_refine_odometry_warns_past_512_nodes():
     from hgmm_torch.models.se3 import Pose
 
-    rel = [Pose.identity()] * 512
-    res = todo.OdometryResult(abs_poses=[Pose.identity()] * 513, rel_poses=rel, logliks=[])
+    rel = [Pose.identity(device="cpu")] * 512
+    res = todo.OdometryResult(abs_poses=[Pose.identity(device="cpu")] * 513, rel_poses=rel, logliks=[])
     with pytest.warns(UserWarning, match="dense pose-graph solve on 513 nodes"):
         out = todo.refine_odometry(res, n_iters=0)
     assert out.R.shape == (513, 3, 3)
@@ -214,7 +214,8 @@ def test_dense_refinement_warning_names_the_mesh():
     odometry.py:288-292)."""
     from hgmm_torch.models.se3 import Pose
 
-    res = todo.OdometryResult(abs_poses=[Pose.identity()] * 600, rel_poses=[Pose.identity()] * 599,
+    ident = Pose.identity(device="cpu")
+    res = todo.OdometryResult(abs_poses=[ident] * 600, rel_poses=[ident] * 599,
                               logliks=[])
     with pytest.warns(UserWarning, match="pass mesh= to use the distributed Schur solver"):
         todo.refine_odometry(res, n_iters=0)

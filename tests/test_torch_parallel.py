@@ -215,7 +215,7 @@ def em_refs():
 def test_sharded_em_fit(world, em_refs, kind, case):
     pts, w, init, iters = _em_case(case)
     tw = None if w is None else torch.from_numpy(w)
-    tinit = convert.mixture_from_numpy(*init)
+    tinit = convert.mixture_from_numpy(*init, device="cpu")
     got, ll = tpar.sharded_em_fit(torch.from_numpy(pts), tinit, _mesh(world, kind), n_iters=iters,
                                   point_weights=tw)
     single, ll_s = em_fit(torch.from_numpy(pts), tinit, n_iters=iters, point_weights=tw)
@@ -230,7 +230,7 @@ def test_points_from_each_host(world):
     """Each rank wraps its own rows (shard_points_from_host, unequal shares):
     the fit equals the whole cloud's; a tree fit of such rows needs init0."""
     pts, _, init, iters = _em_case("ragged")
-    tinit = convert.mixture_from_numpy(*init)
+    tinit = convert.mixture_from_numpy(*init, device="cpu")
     cuts = [0, 1000, 2500, 4001]
 
     def prog(m):
@@ -270,9 +270,9 @@ def test_sharded_tree_fit(world, tree_refs, kind):
     pts, init0, ref = tree_refs
     tp = torch.from_numpy(pts)
     got = tpar.sharded_tree_fit(tp, _mesh(world, kind), branch=8, levels=2, em_iters=6,
-                                init0=convert.mixture_from_numpy(*init0))
-    single, _ = GmmTree.fit(tp, branch=8, levels=2, em_iters=6, init0=convert.mixture_from_numpy(*init0))
-    carried = convert.tree_from_numpy([tuple(np.asarray(a) for a in lvl) for lvl in ref.levels], 8)
+                                init0=convert.mixture_from_numpy(*init0, device="cpu"))
+    single, _ = GmmTree.fit(tp, branch=8, levels=2, em_iters=6, init0=convert.mixture_from_numpy(*init0, device="cpu"))
+    carried = convert.tree_from_numpy([tuple(np.asarray(a) for a in lvl) for lvl in ref.levels], 8, device="cpu")
     assert [lvl.pi.shape[0] for lvl in got.levels] == [8, 64]
     for other in (single, carried):
         for a, b in zip(got.levels, other.levels):
@@ -287,10 +287,10 @@ def _trefoil_problem():
     cloud = make_cloud_np(2048, "trefoil", seed=4)
     gt = Pose(so3_exp(torch.tensor([0.05, -0.1, 0.15])), torch.tensor([0.03, -0.02, 0.04]))
     source = gt.inverse().apply(torch.from_numpy(cloud))
-    params, _ = em_fit(torch.from_numpy(cloud), convert.mixture_from_numpy(*_init(cloud, 16, 6)),
+    params, _ = em_fit(torch.from_numpy(cloud), convert.mixture_from_numpy(*_init(cloud, 16, 6), device="cpu"),
                        n_iters=15)
     tree, _ = GmmTree.fit(torch.from_numpy(cloud), branch=8, levels=2, em_iters=8,
-                          init0=convert.mixture_from_numpy(*_init(cloud, 8, 7)))
+                          init0=convert.mixture_from_numpy(*_init(cloud, 8, 7), device="cpu"))
     return source, gt, params, tree
 
 
@@ -546,13 +546,13 @@ def test_two_process_gloo_run(tmp_path):
     assert all(p.returncode == 0 for p in procs), logs
     got = np.load(out)
     pts, init = cloud_case()
-    params, lls = em_fit(torch.from_numpy(pts), convert.mixture_from_numpy(*init), n_iters=5)
+    params, lls = em_fit(torch.from_numpy(pts), convert.mixture_from_numpy(*init, device="cpu"), n_iters=5)
     _close(got["lls"], lls, (2e-4, 0.0))  # tests/test_multiprocess.py:74-76
     _close(got["pi"], params.pi, (0.0, 2e-4))
     _close(got["mu"], params.mu, (0.0, 2e-3))
     gt = gt_pose()
     src = gt.inverse().apply(torch.from_numpy(pts))
-    mp_params = convert.mixture_from_numpy(got["pi"], got["mu"], got["sigma"])
+    mp_params = convert.mixture_from_numpy(got["pi"], got["mu"], got["sigma"], device="cpu")
     res = register_points(src, mp_params, n_iters=20, method="horn")
     _close(got["R"], res.pose.R, (0.0, 1e-4))
     _close(got["t"], res.pose.t, (0.0, 1e-4))

@@ -596,8 +596,11 @@ def test_plan_reg_stats_fills_the_card(n, k, top_k):
 
 
 def test_plan_reg_stats_refuses_what_the_kernel_does_not_take():
+    for top_k in (0, -3):  # top_k outside [1, K); every top_k in it has a body
+        with pytest.raises(ValueError):
+            fused_em.plan_reg_stats(100, 64, top_k, SMS)
     with pytest.raises(ValueError):
-        fused_em.plan_reg_stats(100, 64, fused_em.MAX_TOP_K + 1, SMS)
+        fused_em.plan_reg_stats(100, 64, fused_em.MAX_TOP_K + 1, 0)
     with pytest.raises(ValueError):
         fused_em.plan_reg_stats(0, 64, None, SMS)
     with pytest.raises(ValueError):
@@ -787,6 +790,179 @@ def test_grouped_emulation_matches_the_plain_version(k, n, sms):
     if bool(drop.any()):
         alone = em_ref.em_stats_masked(pts[drop], W, parent[drop], 8, w[drop])
         assert float(alone.S.abs().max()) == 0.0 and float(alone.loglik) == 0.0
+
+
+@pytest.mark.parametrize("branch", [9, 12, 16, 33, 45, 994, 995, fused_em.MAX_K])
+def test_plan_grouped_wide_fits_the_shared_memory(branch):
+    """The wide body: EG_WARPS warps a block while they fit, fewer past
+    that, never more than the card's shared memory; branch <= 8 (the grouped
+    body's) and past MAX_K are refused."""
+    plan = fused_em.plan_grouped_wide(branch)
+    per_warp = 48 * branch + 4 * fused_em.EGW_WARP_FLOATS
+    assert plan.smem_bytes == plan.warps * per_warp <= SMEM_LIMIT
+    assert plan.warps in (1, 2, 4) and (plan.warps == fused_em.EG_WARPS or 2 * plan.smem_bytes > SMEM_LIMIT)
+    if branch <= 45:  # every tree level that fits MAX_K keeps four chunks a block
+        assert plan.warps == fused_em.EG_WARPS
+    for bad in (fused_em.EG_BMAX, 1, fused_em.MAX_K + 1):
+        with pytest.raises(ValueError):
+            fused_em.plan_grouped_wide(bad)
+
+
+def emulate_grouped_wide(points, W, parent, branch, weights, sms=SMS):
+    """csrc/em_stats.cu:em_stats_grouped_wide_kernel's order in plain torch:
+    the chunks of emulate_grouped; pass 1 over all of a chunk's children
+    gives each point m log2e and its scale (the max, then the sum of exp2 in
+    child order); pass 2, a group of 8 children at a time, evaluates the
+    group's logits again and sums gamma psi by lane, the lanes in lane
+    order, into the group's columns."""
+    n, k = points.shape[0], W.shape[1]
+    n_par = -(-k // branch)
+    w = torch.ones(n) if weights is None else weights.float()
+    key = parent.long()
+    key = torch.where((key >= 0) & (key < n_par) & (w != 0), key, torch.full_like(key, n_par))
+    counts = torch.bincount(key, minlength=n_par + 1)[:n_par].tolist()
+    order = torch.sort(key, stable=True).indices[: sum(counts)]
+    pts, w = points[order], w[order]
+    size, chunks = fused_em.plan_parent_chunks(counts, sms)
+    assert size <= 32 * fused_em.EG_MAX_PPT  # a point slot each in shared memory
+    wn = em_ref.pack_table(W).wn[:, :10]
+    S = torch.zeros(k, 10, dtype=torch.float64)
+    ll = torch.zeros((), dtype=torch.float64)
+    for p, first, cnt in chunks:
+        j0, nc = p * branch, min(branch, k - p * branch)
+        psi = features(pts[first:first + cnt])
+        m = torch.full((cnt,), -math.inf)
+        for c in range(nc):  # pass 1: the max, then the sum, in child order
+            m = torch.maximum(m, psi @ wn[j0 + c])
+        m2 = torch.clamp(m, min=em_ref.NEG_INF) * LOG2E
+        s = torch.zeros(cnt)
+        for c in range(nc):
+            s = s + torch.exp2((psi @ wn[j0 + c]) * LOG2E - m2)
+        live = m > em_ref.NEG_INF
+        ss = torch.clamp(s, min=1e-38)
+        scale = torch.where(live, w[first:first + cnt] / ss, torch.zeros_like(ss))
+        lse = torch.where(live, w[first:first + cnt] * (torch.clamp(m, min=em_ref.NEG_INF) + torch.log(ss)),
+                          torch.zeros_like(ss))
+        for g0 in range(0, nc, fused_em.EG_BMAX):  # pass 2, a group of 8 children
+            rows = wn[j0 + g0:j0 + min(nc, g0 + fused_em.EG_BMAX)]
+            g = torch.exp2((psi @ rows.T) * LOG2E - m2[:, None]) * scale[:, None]
+            lane_S = torch.zeros(32, rows.shape[0], 10)
+            for i in range(cnt):
+                if scale[i] != 0:
+                    lane_S[i % 32] += g[i][:, None] * psi[i][None, :]
+            S[j0 + g0:j0 + g0 + rows.shape[0]] += lane_S.sum(0).double()
+        lane_ll = torch.zeros(32)
+        for i in range(cnt):
+            lane_ll[i % 32] += lse[i]
+        ll += lane_ll.sum().double()
+    return em_ref.EmStats(S=S.float(), loglik=ll.float())
+
+
+@pytest.mark.parametrize("branch,k", [(9, 81), (12, 144), (16, 256), (16, 250), (33, 99), (16, 10)])
+@pytest.mark.parametrize("n,sms", [(1, 132), (300, 132), (3000, 1)])
+def test_grouped_wide_emulation_matches_the_plain_version(branch, k, n, sms):
+    """The wide body's order (groups of 8 children after an all-children
+    normaliser) against em_ref at branch > 8: a partial last group (12, 33),
+    a parent short of children (K = 250, 10), parents -1 and past K,
+    zero-weight rows, a dead child."""
+    rng = np.random.default_rng(k + n + branch)
+    pts = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(size=n).astype(np.float32))
+    w[::7] = 0.0
+    parent = torch.from_numpy(rng.integers(-1, -(-k // branch) + 2, n).astype(np.int32))
+    W = pack_loglik_weights(_mixture(k, k, dead=(3,)))
+    got = emulate_grouped_wide(pts, W, parent, branch, w, sms)
+    _check_em(got, em_ref.em_stats_masked(pts, W, parent, branch, w), n)
+    assert float(got.S[3].abs().max()) == 0.0
+
+
+def order_keys(x: np.ndarray) -> np.ndarray:
+    """csrc/reg_stats.cu:order_key: float32 -> uint32 in the floats' order,
+    NaN -> 0 (below -inf)."""
+    u = x.astype(np.float32).view(np.uint32)
+    key = np.where(u & 0x80000000, ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+    return np.where(np.isnan(x), np.uint32(0), key)
+
+
+def radix_select(logits: np.ndarray, top_k: int) -> float:
+    """csrc/reg_stats.cu:reg_stats_select_kernel's threshold for one row: 4
+    passes of 8 bits, most significant first; each a 256-bin histogram of
+    the keys with the prefix found so far, the lanes' 8 bins each from the
+    top, the lane whose running count reaches `want`, its bin."""
+    keys = order_keys(logits)
+    prefix, mask, want = 0, 0, top_k
+    for shift in (24, 16, 8, 0):
+        sel = keys[(keys & np.uint32(mask)) == prefix]
+        hist = np.bincount((sel >> np.uint32(shift)) & np.uint32(0xFF), minlength=256)
+        cnt = hist[::-1].reshape(32, 8)  # lane l: digits 255 - 8 l down to 248 - 8 l
+        incl = np.cumsum(cnt.sum(1))
+        excl = incl - cnt.sum(1)
+        src = int(np.flatnonzero((excl < want) & (want <= incl))[0])
+        above = int(excl[src])
+        for q in range(8):
+            if above + cnt[src, q] >= want:
+                digit = 255 - 8 * src - q
+                break
+            above += int(cnt[src, q])
+        want -= above
+        prefix |= digit << shift
+        mask |= 0xFF << shift
+    key = np.uint32(prefix)
+    u = key & np.uint32(0x7FFFFFFF) if key & np.uint32(0x80000000) else ~key
+    return float(np.array([u], dtype=np.uint32).view(np.float32)[0])
+
+
+@pytest.mark.parametrize("case", ["random", "tied", "neg_inf", "floor", "k2048", "wide_range"])
+def test_radix_select_finds_the_top_k_th_logit(case):
+    """The select body's threshold is torch.topk's top_k-th value, bit for
+    bit, with multiplicity: random rows, rows of few distinct values, -inf
+    and mask-floor logits (dead components), K = 2,048, values from 1e-30 to
+    1e30 of both signs; the kept set (>= threshold) is em_ref's."""
+    rng = np.random.default_rng(len(case))
+    k = 2048 if case == "k2048" else 300
+    x = rng.standard_normal((16, k)).astype(np.float32) * 50
+    if case == "tied":
+        x = rng.integers(-3, 4, (16, k)).astype(np.float32)
+    elif case == "neg_inf":
+        x[:, ::3] = -np.inf
+        x[0] = -np.inf  # a row of nothing but -inf
+    elif case == "floor":
+        x[:, ::2] = em_ref.NEG_INF
+    elif case == "wide_range":
+        x = (rng.choice([-1, 1], (16, k)) * 10.0 ** rng.uniform(-30, 30, (16, k))).astype(np.float32)
+        x[:, 5] = 0.0
+        x[:, 6] = -0.0
+    for top_k in (33, 64, 128, k // 2, k - 1):
+        for row in x:
+            th = radix_select(row, top_k)
+            ref = float(torch.topk(torch.from_numpy(row), top_k).values[-1])
+            assert th == ref or (th == 0.0 and ref == 0.0), (top_k, th, ref)
+        t = torch.from_numpy(x)
+        th = torch.tensor([radix_select(row, top_k) for row in x])[:, None]
+        gated = torch.where(t >= th, t, torch.full_like(t, em_ref.NEG_INF))
+        assert torch.equal(em_ref.top_k_mask_logits(t, top_k), gated)
+
+
+def test_radix_select_puts_nan_below_every_logit():
+    """A NaN logit sorts below -inf, as the register bodies never keep one;
+    only a top_k that reaches into the NaNs gets a NaN threshold."""
+    row = np.array([np.nan, 1.0, -np.inf, 3.0, np.nan, 2.0] + [-5.0] * 40, np.float32)
+    assert radix_select(row, 3) == 1.0 and radix_select(row, 43) == -5.0
+    assert radix_select(row, 44) == -np.inf and math.isnan(radix_select(row, 45))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("k,top_k", [(64, 33), (512, 64), (512, 128), (512, 511), (2048, 2047)])
+def test_plan_reg_stats_select_body(n, k, top_k):
+    """32 < top_k < K: a warp a point (lanes 32, no register list), at most
+    RS_BLOCKS_PER_SM blocks an SM, no more blocks than the warps need; the
+    shared memory fits the card up to MAX_K; the SM count is required."""
+    plan = fused_em.plan_reg_stats(n, k, top_k, SMS)
+    assert plan.lanes == 32 and plan.kmax == 0 and plan.points_per_block() == fused_em.RS_THREADS // 32
+    assert 1 <= plan.blocks <= min(fused_em.RS_BLOCKS_PER_SM * SMS, -(-n // plan.points_per_block()))
+    assert fused_em.reg_select_smem_bytes(fused_em.MAX_K) <= SMEM_LIMIT
+    with pytest.raises(ValueError):
+        fused_em.plan_reg_stats(n, k, top_k, 0)
 
 
 # --------------------------------------------------------------------------

@@ -75,11 +75,11 @@ def test_matrix_body_matches_pallas(interpret, name):
     arrs = [ins[o] for o in operands]
     f = jmxu.build(kern, [a.shape for a in arrs], None, out_shape, STEPS, REPS)
     ref = np.asarray(f(*map(_bf16, arrs)))
-    got = port(*convert.probe_inputs_from_numpy(*arrs), STEPS, REPS)
+    got = port(*convert.probe_inputs_from_numpy(*arrs, device="cpu"), STEPS, REPS)
     assert got.dtype == torch.float32 and tuple(got.shape) == out_shape
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-3, atol=1e-5 * np.abs(ref).max())
     # and it is steps * reps products, not one
-    one = port(*convert.probe_inputs_from_numpy(*arrs), 1, 1).numpy()
+    one = port(*convert.probe_inputs_from_numpy(*arrs, device="cpu"), 1, 1).numpy()
     np.testing.assert_allclose(got.numpy(), STEPS * REPS * one, rtol=2e-2,
                                atol=1e-3 * np.abs(ref).max())
 
@@ -104,7 +104,7 @@ def test_zero_a_sees_every_rep_eps(interpret, name, steps, reps):
     arrs = [ins[o] for o in operands]
     f = jmxu.build(kern, [a.shape for a in arrs], None, out_shape, steps, reps)
     ref = np.asarray(f(*map(_bf16, arrs)))
-    got = port(*convert.probe_inputs_from_numpy(*arrs), steps, reps).numpy()
+    got = port(*convert.probe_inputs_from_numpy(*arrs, device="cpu"), steps, reps).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-5 * np.abs(ref).max())
     eps = probes.eps_table(reps, torch.bfloat16).to(torch.float64).numpy()
     b = np.asarray(_bf16(arrs[1]).astype(jnp.float32), np.float64)
@@ -161,7 +161,7 @@ def test_eps_table_has_jax_bits():
 def test_probe_inputs_round_as_jax():
     a = np.random.default_rng(3).standard_normal((33, 17)).astype(np.float32) * 1e3
     a[0, :4] = [1.00390625, 1.01171875, -1.00390625, 3.0e-39]  # exact ties, a subnormal
-    (got,) = convert.probe_inputs_from_numpy(a)
+    (got,) = convert.probe_inputs_from_numpy(a, device="cpu")
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.to(torch.float32).numpy(),
                                   np.asarray(_bf16(a).astype(jnp.float32)))
@@ -295,7 +295,7 @@ def test_probe_wrappers_refuse_cpu_tensors(name):
     """A kernel wrapper launches on CUDA tensors or raises; it never falls
     back, and the dispatch sends CPU tensors to the plain version uncounted."""
     ins = {k: torch.from_numpy(v) for k, v in _inputs().items()}
-    wt, phi, e, ones = convert.probe_inputs_from_numpy(*(ins[n].numpy() for n in ("wt", "phi", "e", "ones")))
+    wt, phi, e, ones = convert.probe_inputs_from_numpy(*(ins[n].numpy() for n in ("wt", "phi", "e", "ones")), device="cpu")
     args = {"logits": (wt, phi), "stats": (phi[:32], e), "norm": (ones, e), "addonly": (ins["x"],),
             "vpu": (ins["x"],)}[name]
     with pytest.raises(ValueError, match="CUDA"):

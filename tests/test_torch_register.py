@@ -57,7 +57,7 @@ def _assert_bounds(pose, source, gt):
 
 
 def _jpose_to_torch(p):
-    return convert.pose_from_numpy(np.asarray(p.R), np.asarray(p.t))
+    return convert.pose_from_numpy(np.asarray(p.R), np.asarray(p.t), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +86,7 @@ def test_register_tree_on_the_jax_tree(pair, jax_slice):
     source, _, gt, _ = pair
     jtree_fit, jres = jax_slice
     carried = convert.tree_from_numpy(
-        [tuple(np.asarray(a) for a in lvl) for lvl in jtree_fit.levels], jtree_fit.branch)
+        [tuple(np.asarray(a) for a in lvl) for lvl in jtree_fit.levels], jtree_fit.branch, device="cpu")
     res = treg.register_tree(torch.from_numpy(source), carried, wls_inner=2, **REG_KW)
     jpose = _jpose_to_torch(jres.pose)
     _assert_bounds(res.pose, torch.from_numpy(source), gt)
@@ -100,7 +100,7 @@ def test_slice_in_both_packages(pair, jax_slice):
     source, target, gt, init0 = pair
     _, jres = jax_slice
     tree, lls = GmmTree.fit(torch.from_numpy(target), branch=P2.branch, levels=P2.levels,
-                            em_iters=P2.fit_iters, init0=convert.mixture_from_numpy(*init0))
+                            em_iters=P2.fit_iters, init0=convert.mixture_from_numpy(*init0, device="cpu"))
     assert lls.shape == (P2.levels,) and bool(torch.isfinite(lls).all())
     res = treg.register_tree(torch.from_numpy(source), tree, wls_inner=2, **REG_KW)
     _assert_bounds(res.pose, torch.from_numpy(source), gt)
@@ -176,7 +176,7 @@ def test_scan_matches_jax_register_points(pair, jax_slice, method, tol, n_iters)
     source, _, _, _ = pair
     jtree_fit, _ = jax_slice
     lvl = jtree_fit.levels[1]
-    params = convert.mixture_from_numpy(*(np.asarray(a) for a in lvl))
+    params = convert.mixture_from_numpy(*(np.asarray(a) for a in lvl), device="cpu")
     init = Pose(so3_exp(torch.tensor([0.0, 0.0, 0.2])), torch.tensor([0.03, -0.03, 0.05]))
     res = treg.register_points(torch.from_numpy(source), params, init_pose=init, n_iters=n_iters,
                                method=method, tol=tol)

@@ -50,7 +50,7 @@ def test_branch4_tree_matches_jax():
     pts = make_cloud_np(3000, "trefoil", 4)
     init0 = _init0(pts, 4, 1)
     tt, tll = ttree.GmmTree.fit(torch.from_numpy(pts), branch=4, levels=3, em_iters=8,
-                                init0=convert.mixture_from_numpy(*init0))
+                                init0=convert.mixture_from_numpy(*init0, device="cpu"))
     jt, jll = jtree.GmmTree.fit(jnp.asarray(pts), branch=4, levels=3, em_iters=8,
                                 init0=jg.MixtureParams(*map(jnp.asarray, init0)))
     assert [lvl.pi.shape[0] for lvl in tt.levels] == [4, 16, 64]
@@ -58,6 +58,66 @@ def test_branch4_tree_matches_jax():
     for lvl in (0, 1):
         for a, b in zip(tt.levels[lvl], jt.levels[lvl]):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-3, atol=1e-4)
+
+
+def test_branch16_tree_fit_and_registration_match_jax():
+    """Branch 16, two levels (K = 16, 256): on the card the wide masked
+    body's level; here the fit's logliks and level 0, then register_tree's
+    pose, against the JAX package from one init0."""
+    pts = make_cloud_np(3000, "trefoil", 4)
+    gt = Pose(so3_exp(torch.tensor([0.0, 0.0, 0.2])), torch.tensor([0.04, -0.03, 0.05]))
+    source = gt.inverse().apply(torch.from_numpy(pts))
+    init0 = _init0(pts, 16, 2)
+    tt, tll = ttree.GmmTree.fit(torch.from_numpy(pts), branch=16, levels=2, em_iters=8,
+                                init0=convert.mixture_from_numpy(*init0, device="cpu"))
+    jt, jll = jtree.GmmTree.fit(jnp.asarray(pts), branch=16, levels=2, em_iters=8,
+                                init0=jg.MixtureParams(*map(jnp.asarray, init0)))
+    assert [lvl.pi.shape[0] for lvl in tt.levels] == [16, 256]
+    np.testing.assert_allclose(tll.numpy(), np.asarray(jll), rtol=1e-3, atol=1e-2)
+    for a, b in zip(tt.levels[0], jt.levels[0]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-3, atol=1e-4)
+    res = treg.register_tree(source, tt, n_iters=30)
+    jres = jreg.register_tree(jnp.asarray(source.numpy()), jt, n_iters=30)
+    jpose = convert.pose_from_numpy(np.asarray(jres.pose.R), np.asarray(jres.pose.t), device="cpu")
+    assert float(pose_delta_norm(res.pose, gt)) < 0.06
+    assert float(pose_delta_norm(res.pose, jpose)) < 1e-3  # two fits 1e-3 apart (tolerances above)
+
+
+def test_config3_registration_with_top_k_64_matches_jax():
+    """config3_mahalanobis at top_k = 64 of its 512 leaves (on the card the
+    select body): the registration from one tree in both packages. The
+    source points whose gate float32 rounding decides, at the start pose or
+    at the truth (em_ref.top_k_near_ties), are left out, and the top 65
+    logits of those kept hold no exact tie among the live components: the
+    JAX kernel gates at the top_k-th distinct logit, em_ref and the port
+    with multiplicity, and without ties the two agree."""
+    from hgmm_torch.ops.gaussians import pack_loglik_weights
+
+    p3 = PRESETS["config3_mahalanobis"]
+    target = make_cloud_np(3000, "trefoil", seed=4)
+    gt = Pose(so3_exp(torch.tensor([0.0, 0.0, 0.25])), torch.tensor([0.05, -0.04, 0.06]))
+    init0 = _init0(target, p3.branch, 1)
+    tree, _ = ttree.GmmTree.fit(torch.from_numpy(target), branch=p3.branch, levels=p3.levels,
+                                em_iters=p3.fit_iters, init0=convert.mixture_from_numpy(*init0, device="cpu"))
+    jt = jtree.GmmTree(levels=tuple(jg.MixtureParams(*(jnp.asarray(a.numpy()) for a in lvl))
+                                    for lvl in tree.levels), branch=tree.branch)
+    W = pack_loglik_weights(tree.levels[-1])
+    source = gt.inverse().apply(torch.from_numpy(target))
+    near = tref.top_k_near_ties(source, W, (torch.eye(3), torch.zeros(3)), 64)
+    near |= tref.top_k_near_ties(source, W, gt, 64)
+    assert float(near.double().mean()) < 0.02  # < 1 % at each of the two poses
+    source = source[~near].contiguous()
+    top = torch.topk(tref._logits(source, W), 65).values
+    assert bool(((top[:, 1:] < top[:, :-1]) | (top[:, 1:] <= tref.NEG_INF)).all())
+    kw = dict(n_iters=p3.reg_iters, method=p3.method, top_k=64, outlier_logit=p3.outlier_logit,
+              complexity_threshold=p3.complexity_threshold)
+    res = treg.register_tree(source, tree, **kw)
+    jres = jreg.register_tree(jnp.asarray(source.numpy()), jt, **kw)
+    jpose = convert.pose_from_numpy(np.asarray(jres.pose.R), np.asarray(jres.pose.t), device="cpu")
+    assert float(registration_rmse(res.pose, source, gt)) < 0.03
+    assert float(pose_delta_norm(res.pose, gt)) < 0.06
+    assert float(pose_delta_norm(res.pose, jpose)) < 1e-4  # tests/test_torch_register.py AGREE_SLICE
+    np.testing.assert_allclose(res.logliks[-1].item(), float(jres.logliks[-1]), rtol=1e-4)
 
 
 def test_config3_registration_matches_jax():
@@ -71,12 +131,12 @@ def test_config3_registration_matches_jax():
     kw = dict(n_iters=p3.reg_iters, method=p3.method, top_k=p3.top_k,
               outlier_logit=p3.outlier_logit, complexity_threshold=p3.complexity_threshold)
     tree, _ = ttree.GmmTree.fit(torch.from_numpy(target), branch=p3.branch, levels=p3.levels,
-                                em_iters=p3.fit_iters, init0=convert.mixture_from_numpy(*init0))
+                                em_iters=p3.fit_iters, init0=convert.mixture_from_numpy(*init0, device="cpu"))
     res = treg.register_tree(source, tree, **kw)
     jt, _ = jtree.GmmTree.fit(jnp.asarray(target), branch=p3.branch, levels=p3.levels,
                               em_iters=p3.fit_iters, init0=jg.MixtureParams(*map(jnp.asarray, init0)))
     jres = jreg.register_tree(jnp.asarray(source.numpy()), jt, **kw)
-    jpose = convert.pose_from_numpy(np.asarray(jres.pose.R), np.asarray(jres.pose.t))
+    jpose = convert.pose_from_numpy(np.asarray(jres.pose.R), np.asarray(jres.pose.t), device="cpu")
     assert float(registration_rmse(res.pose, source, gt)) < 0.03
     assert float(rotation_error_deg(res.pose, gt)) < 3.0
     assert float(pose_delta_norm(res.pose, gt)) < 0.06
@@ -135,6 +195,55 @@ def test_explicit_cpu_still_runs_the_plain_path():
     assert all(c == 0 for c in fused_em.LAUNCHES.values())
 
 
+def _data_entry(name, tmp_path):
+    """A call of the data entry point `name` that takes `device`, on files
+    it writes into tmp_path: (call(device) -> tensors)."""
+    from hgmm_torch.data import kitti, synthetic
+    from hgmm_torch.models import se3
+    from hgmm_torch.utils import checkpoint as ckpt
+
+    fixture = "tests/fixtures/kitti_mini"
+    mix = (np.full(4, 0.25, np.float32), np.zeros((4, 3), np.float32), np.tile(np.eye(3, dtype=np.float32), (4, 1, 1)))
+    mixture = convert.mixture_from_numpy(*mix, device="cpu")
+    ckpt.save_mixture(tmp_path / "m.npz", mixture)
+    ckpt.save_tree(tmp_path / "t.npz", ttree.GmmTree(levels=(mixture,), branch=4))
+    ident = Pose.identity(device="cpu")
+    ckpt.save_odometry(tmp_path / "o.npz", 1, [ident], [ident, ident], [0.0])
+    calls = {
+        "make_cloud": lambda d: [synthetic.make_cloud(10, device=d)],
+        "random_pose": lambda d: list(se3.random_pose(torch.Generator().manual_seed(0), device=d)),
+        "Pose.identity": lambda d: list(Pose.identity(device=d)),
+        "load_poses": lambda d: [x for pose in kitti.load_poses(f"{fixture}/poses.txt", device=d) for x in pose],
+        "load_calib_velo_to_cam": lambda d: list(kitti.load_calib_velo_to_cam(f"{fixture}/calib.txt", device=d)),
+        "load_odometry": lambda d: [x for pose in ckpt.load_odometry(tmp_path / "o.npz", device=d)[2] for x in pose],
+        "load_mixture": lambda d: list(ckpt.load_mixture(tmp_path / "m.npz", device=d)),
+        "load_tree": lambda d: list(ckpt.load_tree(tmp_path / "t.npz", device=d).levels[0]),
+        "mixture_from_numpy": lambda d: list(convert.mixture_from_numpy(*mix, device=d)),
+        "tree_from_numpy": lambda d: list(convert.tree_from_numpy([mix], 4, device=d).levels[0]),
+        "pose_from_numpy": lambda d: list(convert.pose_from_numpy(np.eye(3), np.zeros(3), device=d)),
+        "probe_inputs_from_numpy": lambda d: list(convert.probe_inputs_from_numpy(np.ones(4), device=d)),
+    }
+    return calls[name]
+
+
+@pytest.mark.parametrize("entry", ["make_cloud", "random_pose", "Pose.identity", "load_poses",
+                                   "load_calib_velo_to_cam", "load_odometry", "load_mixture", "load_tree",
+                                   "mixture_from_numpy", "tree_from_numpy", "pose_from_numpy",
+                                   "probe_inputs_from_numpy"])
+def test_data_entry_points_default_to_the_card(monkeypatch, tmp_path, entry):
+    """The entry points that make tensors from host data (a seed, a file,
+    numpy) put them on the card when `device` is None, and raise without
+    one; they run on the CPU only when asked (the reference's arrays land on
+    the default device, the chip)."""
+    call = _data_entry(entry, tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call(None)
+    got = call("cpu")
+    assert got and all(t.device.type == "cpu" for t in got)
+    assert all(t.device.type == "cpu" for t in call(torch.device("cpu")))
+
+
 @pytest.mark.parametrize("entry", ["bench", "mxu_microbench", "vpu_microbench", "kernel_shapes"])
 def test_bench_entry_points_default_to_the_card(monkeypatch, entry):
     """The bench path's entry points make their data from a seed on the host,
@@ -188,7 +297,7 @@ def test_random_pose_has_the_reference_distribution():
     from hgmm_torch.models.se3 import random_pose, so3_log
 
     g = torch.Generator().manual_seed(0)
-    mine = [random_pose(g, max_angle=0.5, max_trans=0.3) for _ in range(400)]
+    mine = [random_pose(g, max_angle=0.5, max_trans=0.3, device="cpu") for _ in range(400)]
     theirs = jax.vmap(lambda k: jse3.random_pose(k, 0.5, 0.3))(jax.random.split(jax.random.PRNGKey(0), 400))
     ang = np.array([float(torch.linalg.norm(so3_log(p.R))) for p in mine])
     jang = np.linalg.norm(np.stack([np.asarray(jse3.so3_log(r)) for r in theirs.R]), axis=1)
@@ -233,14 +342,14 @@ def test_make_cloud_blob():
     from hgmm.data import synthetic as jsyn
     from hgmm_torch.data.synthetic import make_cloud
 
-    mine = make_cloud(5000, "blob", seed=2).numpy()
+    mine = make_cloud(5000, "blob", seed=2, device="cpu").numpy()
     theirs = np.asarray(jsyn.make_cloud(jax.random.PRNGKey(2), 5000, kind="blob"))
     for x in (mine, theirs):
         assert x.shape == (5000, 3) and x.dtype == np.float32 and np.isfinite(x).all()
         assert np.abs(x).max() < 3.0 and np.all((x.std(0) > 0.35) & (x.std(0) < 0.95))
     np.testing.assert_allclose(mine.std(0), theirs.std(0), atol=0.3)
     with pytest.raises(ValueError):
-        make_cloud(10, "cube")
+        make_cloud(10, "cube", device="cpu")
 
 
 def test_dispatch_takes_point_weights_in_the_reference_position():

@@ -292,7 +292,7 @@ def test_scaling_records_carry_the_reference_keys(scaling_run):
 @pytest.mark.parametrize("ranks", [1, 2, 4, 8])
 def test_scaling_emulated_ranks_match_the_unsharded_fit(scaling_run, ranks):
     _, params = scaling_run
-    pts = make_cloud(2048 * ranks, "trefoil", seed=0)
+    pts = make_cloud(2048 * ranks, "trefoil", seed=0, device="cpu")
     ref, _ = em_fit(pts, init_params(pts, 8, torch.Generator().manual_seed(1)), n_iters=5)
     for key in ("pi", "mu", "sigma"):
         np.testing.assert_allclose(getattr(params[ranks], key).numpy(), getattr(ref, key).numpy(),
