@@ -27,15 +27,17 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL_MASK = 0xffffffffu;  // every lane of a warp
 
 // The registration scan's state, float32 [SCAN_FLOATS] on the card
-// (ops/fused_em.py:SCAN_*): the pose reg_stats reads (R row-major, t), the
+// (ops/em_ref.py:SCAN_*): the pose reg_stats reads (R row-major, t), the
 // pose at the start of the iteration, the loglik of the iteration's first
-// statistics, the last live loglik and delta, and the done flag (0 or 1).
+// statistics, the last live loglik and delta, the done flag (0 or 1), and
+// the steps reg_step ran with done unset.
 constexpr int SCAN_POSE = 0;
 constexpr int SCAN_START = 12;
 constexpr int SCAN_LL = 24;
 constexpr int SCAN_LL_LAST = 25;
 constexpr int SCAN_D_LAST = 26;
 constexpr int SCAN_DONE = 27;
+constexpr int SCAN_LIVE = 28;
 constexpr int SCAN_FLOATS = 32;
 
 struct Psi {

@@ -8,8 +8,8 @@
 //
 // The scan's state lives in one float32 buffer on the card (layout in
 // hgmm_kernels.cuh: the pose reg_stats reads, the iteration's start pose, the
-// iteration's loglik, the last live loglik and delta, the done flag). One
-// launch of B blocks of 4 x 59 threads: one block while the rows are one
+// iteration's loglik, the last live loglik and delta, the done flag, the live
+// steps). One launch of B blocks of 4 x 59 threads: one block while the rows are one
 // batch of loads (nb <= 256), past it a thread block cluster of 8
 // (ops/fused_em.py:plan_reg_step):
 //   1. the [nb, 59] partials of reg_stats are summed in float64 in a fixed
@@ -32,8 +32,10 @@
 //   3. on the iteration's last step, delta = |se3_log(new o start^-1)| of the
 //      poses as stored (float32), the outputs logliks[it] and deltas[it], and
 //      done |= delta < tol.
-// Once done is set, a step changes nothing and its last one re-emits the
-// last live (loglik, delta), the reference's contract.
+// A step run with done unset adds one to the live steps (lane 0 of block 0,
+// the one thread that writes the state). Once done is set, a step changes
+// nothing and its last one re-emits the last live (loglik, delta), the
+// reference's contract.
 //
 // What bounds it: latency. It moves 59 nb floats and solves a 3 x 3 SVD or a
 // 6 x 6 system: a few microseconds of dependent float64 work, against the
@@ -426,6 +428,7 @@ __global__ void __launch_bounds__(STEP_THREADS)
       scan[SCAN_LL] = ll;
     }
     store_pose(scan + SCAN_POSE, nw);
+    scan[SCAN_LIVE] += 1.0f;  // a live step; read by no block of this launch
   }
   if (!last) return;
   // delta of the poses as stored (float32): new o start^-1

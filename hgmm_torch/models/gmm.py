@@ -17,6 +17,7 @@ import torch
 
 from hgmm_torch import ops
 from hgmm_torch.ops.gaussians import MixtureParams, pack_loglik_weights
+from hgmm_torch.utils.profiling import span
 
 
 def init_params(
@@ -32,29 +33,30 @@ def init_params(
     component). Deterministic given the generator's state; the draws differ
     from the JAX package's ``jax.random.choice``.
     """
-    n = points.shape[0]
-    if point_weights is None:
-        idx = torch.randperm(n, generator=generator)[:k]
-        lo = torch.amin(points, dim=0)
-        hi = torch.amax(points, dim=0)
-    else:
-        w = point_weights.detach().to("cpu", torch.float64)
-        n_live = int((w > 0).sum())
-        if n_live < k:
-            raise ValueError(
-                f"init_params: only {n_live} positive-weight points for k={k} components"
-            )
-        idx = torch.multinomial(w / w.sum(), k, replacement=False, generator=generator)
-        live = (point_weights > 0)[:, None]
-        lo = torch.amin(torch.where(live, points, torch.full_like(points, float("inf"))), dim=0)
-        hi = torch.amax(torch.where(live, points, torch.full_like(points, float("-inf"))), dim=0)
-    mu = points[idx.to(points.device)]
-    scale = torch.clamp(torch.max(hi - lo), min=1e-6)
-    var = (scale / max(k ** (1.0 / 3.0), 1.0)) ** 2
-    eye = torch.eye(3, dtype=points.dtype, device=points.device)
-    sigma = (var * eye).expand(k, 3, 3).clone()
-    pi = torch.full((k,), 1.0 / k, dtype=points.dtype, device=points.device)
-    return MixtureParams(pi=pi, mu=mu, sigma=sigma)
+    with span("hgmm_torch.fit.init"):
+        n = points.shape[0]
+        if point_weights is None:
+            idx = torch.randperm(n, generator=generator)[:k]
+            lo = torch.amin(points, dim=0)
+            hi = torch.amax(points, dim=0)
+        else:
+            w = point_weights.detach().to("cpu", torch.float64)
+            n_live = int((w > 0).sum())
+            if n_live < k:
+                raise ValueError(
+                    f"init_params: only {n_live} positive-weight points for k={k} components"
+                )
+            idx = torch.multinomial(w / w.sum(), k, replacement=False, generator=generator)
+            live = (point_weights > 0)[:, None]
+            lo = torch.amin(torch.where(live, points, torch.full_like(points, float("inf"))), dim=0)
+            hi = torch.amax(torch.where(live, points, torch.full_like(points, float("-inf"))), dim=0)
+        mu = points[idx.to(points.device)]
+        scale = torch.clamp(torch.max(hi - lo), min=1e-6)
+        var = (scale / max(k ** (1.0 / 3.0), 1.0)) ** 2
+        eye = torch.eye(3, dtype=points.dtype, device=points.device)
+        sigma = (var * eye).expand(k, 3, 3).clone()
+        pi = torch.full((k,), 1.0 / k, dtype=points.dtype, device=points.device)
+        return MixtureParams(pi=pi, mu=mu, sigma=sigma)
 
 
 def scene_variance(points: torch.Tensor, point_weights: torch.Tensor | None = None) -> torch.Tensor:
@@ -85,15 +87,16 @@ def em_sweeps(data, init: MixtureParams, n_iters: int, total, cov_floor, cov_reg
     (ops.em_row) and adds that row over the mesh before the M-step, which
     then runs replicated. Returns the fit state: params, table, logliks
     [n_iters]."""
-    fit = ops.new_fit(init, n_iters, total, cov_floor, masked=not isinstance(data, ops.Prepared))
-    for it in range(n_iters):
-        if mesh is None:
-            parts = ops.em_partials(data, fit.table)
-        else:
-            parts = ops.em_row(data, fit.table)
-            mesh.all_reduce_(parts.partial)
-        ops.em_step(parts, fit, it, cov_reg, cov_type)
-    return fit
+    with span("hgmm_torch.fit.sweeps"):
+        fit = ops.new_fit(init, n_iters, total, cov_floor, masked=not isinstance(data, ops.Prepared))
+        for it in range(n_iters):
+            if mesh is None:
+                parts = ops.em_partials(data, fit.table)
+            else:
+                parts = ops.em_row(data, fit.table)
+                mesh.all_reduce_(parts.partial)
+            ops.em_step(parts, fit, it, cov_reg, cov_type)
+        return fit
 
 
 def em_fit(
@@ -141,14 +144,15 @@ class Gmm:
         point_weights: torch.Tensor | None = None,
     ) -> tuple["Gmm", torch.Tensor]:
         """generator: draws the initial means (seed 0 when None)."""
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        init = init_params(points, k, generator, point_weights=point_weights)
-        params, logliks = em_fit(
-            points, init, n_iters=n_iters, cov_reg=cov_reg, cov_type=cov_type,
-            cov_floor_rel=cov_floor_rel, point_weights=point_weights,
-        )
-        return cls(params), logliks
+        with span("hgmm_torch.fit"):
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            init = init_params(points, k, generator, point_weights=point_weights)
+            params, logliks = em_fit(
+                points, init, n_iters=n_iters, cov_reg=cov_reg, cov_type=cov_type,
+                cov_floor_rel=cov_floor_rel, point_weights=point_weights,
+            )
+            return cls(params), logliks
 
     def log_likelihood(self, points: torch.Tensor) -> torch.Tensor:
         return log_likelihood(self.params, points)

@@ -20,6 +20,7 @@ import torch
 from hgmm_torch import ops
 from hgmm_torch.models.gmm import em_sweeps, init_params, scene_variance, total_weight
 from hgmm_torch.ops.gaussians import MixtureParams, sym3_eigvalsh
+from hgmm_torch.utils.profiling import span
 
 # Child seeding directions for J=8: cube corners (unit norm).
 _CUBE = np.array(
@@ -123,10 +124,11 @@ def fit_levels(prep: ops.Prepared, init0: MixtureParams, branch: int, levels: in
     level_logliks = [fit.logliks[-1]]
     parent = None
     for _ in range(1, levels):
-        parent = ops.assign(prep, fit.table, parent, None if parent is None else branch)
-        p = seed_children(level_params[-1], branch)
-        # One grouping of the points by parent for the level's sweeps.
-        groups = ops.group_by_parent(prep, parent, branch, p.pi.shape[0])
+        with span("hgmm_torch.fit.group"):
+            parent = ops.assign(prep, fit.table, parent, None if parent is None else branch)
+            p = seed_children(level_params[-1], branch)
+            # One grouping of the points by parent for the level's sweeps.
+            groups = ops.group_by_parent(prep, parent, branch, p.pi.shape[0])
         fit = em_sweeps(groups, p, em_iters, total, cov_floor, cov_reg, cov_type, mesh)
         level_params.append(fit.params)
         level_logliks.append(fit.logliks[-1])
@@ -164,15 +166,16 @@ class GmmTree:
     ) -> tuple["GmmTree", torch.Tensor]:
         """init0: optional level-0 start; None draws one from the data with
         `generator` (seed 0 when None)."""
-        if init0 is None:
-            if generator is None:
-                generator = torch.Generator().manual_seed(0)
-            init0 = init_params(points, branch, generator, point_weights=point_weights)
-        lvls, logliks = _fit_tree(
-            points, init0, branch, levels, em_iters, cov_reg, cov_type, point_weights,
-            cov_floor_rel,
-        )
-        return cls(levels=lvls, branch=branch), logliks
+        with span("hgmm_torch.fit"):
+            if init0 is None:
+                if generator is None:
+                    generator = torch.Generator().manual_seed(0)
+                init0 = init_params(points, branch, generator, point_weights=point_weights)
+            lvls, logliks = _fit_tree(
+                points, init0, branch, levels, em_iters, cov_reg, cov_type, point_weights,
+                cov_floor_rel,
+            )
+            return cls(levels=lvls, branch=branch), logliks
 
     @property
     def n_leaves(self) -> int:

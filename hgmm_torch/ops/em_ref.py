@@ -56,8 +56,10 @@ from hgmm_torch.ops.gaussians import (
 NEG_INF = -1e30
 # The registration scan's state vector (csrc/hgmm_kernels.cuh:SCAN_*): the
 # pose reg_stats reads (R row-major, t), the iteration's start pose, the loglik
-# of the iteration's first statistics, the last live loglik and delta, done.
+# of the iteration's first statistics, the last live loglik and delta, done,
+# and the steps run with done unset (the scan's live steps).
 SCAN_POSE, SCAN_START, SCAN_LL, SCAN_LL_LAST, SCAN_D_LAST, SCAN_DONE = 0, 12, 24, 25, 26, 27
+SCAN_LIVE = 28
 SCAN_FLOATS = 32
 REG_OUT = 59  # a reg_stats row: horn 16, A 36, b 6, loglik 1
 
@@ -323,9 +325,10 @@ def reg_step(partial: torch.Tensor, scan: RegScan, it: int, solver: int, first: 
     models/se3.py in the state's dtype. partial [nb, 59]: the rows of
     reg_stats, summed here (in float64). solver 0: Horn; 1: one Gauss-Newton
     step. `first` records the iteration's start pose and loglik; `last`
-    writes logliks[it], deltas[it] and sets done when delta < tol. Once done,
-    nothing changes and `last` re-emits the last live (loglik, delta). Reads
-    the done flag on the host."""
+    writes logliks[it], deltas[it] and sets done when delta < tol. A step
+    run with done unset adds one to SCAN_LIVE. Once done, nothing changes and
+    `last` re-emits the last live (loglik, delta). Reads the done flag on the
+    host."""
     from hgmm_torch.models.pose import apply_wls_increment, solve_horn, solve_wls_increment
     from hgmm_torch.models.se3 import Pose, se3_log
 
@@ -346,6 +349,7 @@ def reg_step(partial: torch.Tensor, scan: RegScan, it: int, solver: int, first: 
         new = apply_wls_increment(Pose(R, t), solve_wls_increment(sums[16:52].reshape(6, 6), sums[52:58]))
     st[SCAN_POSE:SCAN_POSE + 9] = new.R.reshape(9)
     st[SCAN_POSE + 9:SCAN_POSE + 12] = new.t
+    st[SCAN_LIVE] += 1
     if not last:
         return
     start = Pose(st[SCAN_START:SCAN_START + 9].reshape(3, 3).clone(),

@@ -55,6 +55,7 @@ from hgmm_torch.ops.em_ref import (
     pack_table,
 )
 from hgmm_torch.ops.em_ref import new_scan as em_ref_new_scan
+from hgmm_torch.utils import profiling
 
 MAX_K = 2048  # largest K whose tables fit in shared memory
 MAX_TOP_K = 32  # largest top_k < K of reg_stats' register bodies (above it the warp select body)
@@ -115,9 +116,12 @@ def reset_launches() -> None:
 
 
 def count_launch(name: str) -> None:
-    """Add one to a kernel's count (each wrapper, where it launches)."""
+    """Add one to a kernel's count (each wrapper, where it launches); inside
+    profiling.tracing(), also to the open request's counter launch.<name>."""
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
+    if profiling.tracer is not None:
+        profiling.count("launch." + name)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:

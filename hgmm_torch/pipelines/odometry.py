@@ -36,6 +36,7 @@ from hgmm_torch.pipelines.pose_graph import (
 from hgmm_torch.pipelines.register import register_points, register_tree
 from hgmm_torch.utils import checkpoint as ckpt
 from hgmm_torch.utils.device import resolve_device
+from hgmm_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -101,8 +102,9 @@ def frame_generator(seed: int, frame: int) -> torch.Generator:
 
 
 def _on(frame, device):
-    pts, w = frame
-    return torch.from_numpy(pts).to(device), torch.from_numpy(w).to(device)
+    with span("hgmm_torch.odo.upload"):
+        pts, w = frame
+        return torch.from_numpy(pts).to(device), torch.from_numpy(w).to(device)
 
 
 def _fit_frame_model(tgt, cfg: OdometryConfig, generator: torch.Generator, mesh=None):
@@ -182,11 +184,12 @@ def run_odometry(
 
     rng = np.random.default_rng(cfg.seed)
     frames = []
-    for s in scans:
-        s = np.asarray(s)
-        if cfg.voxel:
-            s = voxel_downsample(s, cfg.voxel)
-        frames.append(_bucketize(s, cfg.bucket, rng))
+    with span("hgmm_torch.odo.frames"):
+        for s in scans:
+            s = np.asarray(s)
+            if cfg.voxel:
+                s = voxel_downsample(s, cfg.voxel)
+            frames.append(_bucketize(s, cfg.bucket, rng))
     f = len(frames)
     if f < 2:
         raise ValueError("run_odometry: need at least two scans")
@@ -202,20 +205,21 @@ def run_odometry(
 
     prev_rel = rel_poses[-1] if rel_poses else Pose.identity(device=cfg.device)
     for i in range(start, f - 1):
-        init = prev_rel if cfg.warm_start else Pose.identity(device=cfg.device)
-        res = _register_frames(frames[i], frames[i + 1], cfg, frame_generator(cfg.seed, i), init,
-                               mesh)
-        # res.pose maps source (frame i+1) points into frame i: that IS the
-        # pose of frame i+1 expressed in frame i.
-        rel = res.pose
-        rel_poses.append(rel)
-        abs_poses.append(abs_poses[-1].compose(rel))
-        logliks.append(float(res.logliks[-1]))
-        if metrics is not None:
-            metrics.log_registration(f"pair_{i}_{i + 1}", res)
-        prev_rel = rel
-        if checkpoint_path is not None and (i + 1) % checkpoint_every == 0:
-            ckpt.save_odometry(checkpoint_path, i + 1, rel_poses, abs_poses, logliks)
+        with span("hgmm_torch.odo.pair"):
+            init = prev_rel if cfg.warm_start else Pose.identity(device=cfg.device)
+            res = _register_frames(frames[i], frames[i + 1], cfg, frame_generator(cfg.seed, i), init,
+                                   mesh)
+            # res.pose maps source (frame i+1) points into frame i: that IS the
+            # pose of frame i+1 expressed in frame i.
+            rel = res.pose
+            rel_poses.append(rel)
+            abs_poses.append(abs_poses[-1].compose(rel))
+            logliks.append(float(res.logliks[-1]))
+            if metrics is not None:
+                metrics.log_registration(f"pair_{i}_{i + 1}", res)
+            prev_rel = rel
+            if checkpoint_path is not None and (i + 1) % checkpoint_every == 0:
+                ckpt.save_odometry(checkpoint_path, i + 1, rel_poses, abs_poses, logliks)
 
     if checkpoint_path is not None:
         ckpt.save_odometry(checkpoint_path, f - 1, rel_poses, abs_poses, logliks)

@@ -13,6 +13,12 @@ statistics kernel (``ops.reg_partials``: ``csrc/reg_stats.cu``, which returns
 at once when the scan is done) and the step kernel (``ops.reg_step``: ``csrc/reg_step.cu``,
 the partials' sum and the pose solve); a sharded run puts its all_reduce of
 the 59 statistics between them. On the CPU both are the plain versions.
+
+Spans (``utils/profiling.span``): ``hgmm_torch.reg`` the whole registration,
+``.reg.cut`` the complexity cut of the last level, ``.reg.prep`` a level's
+tables, ``.reg.scan`` a level's iterate. Counters: ``reg.steps`` the steps
+launched, ``reg.live_steps`` those run before done (the scan state's
+SCAN_LIVE, read after the traced block).
 """
 
 from __future__ import annotations
@@ -25,7 +31,10 @@ from hgmm_torch import ops
 from hgmm_torch.models.gmm import Gmm
 from hgmm_torch.models.gmm_tree import GmmTree
 from hgmm_torch.models.se3 import Pose
+from hgmm_torch.ops.em_ref import SCAN_LIVE
 from hgmm_torch.ops.gaussians import MixtureParams, pack_loglik_weights, precision_terms, sym_pack
+from hgmm_torch.utils import profiling
+from hgmm_torch.utils.profiling import span
 
 
 class RegistrationResult(typing.NamedTuple):
@@ -53,14 +62,18 @@ def run_registration_scan(stats_fn, init_R, init_t, n_iters: int, method: str, t
     if method not in ("horn", "wls", "horn+wls"):
         raise ValueError(f"unknown registration method {method!r}")
     n_horn = n_iters // 2 if method == "horn+wls" else (n_iters if method == "horn" else 0)
-    scan = ops.new_scan(init_R, init_t, n_iters)
-    for it in range(n_iters):
-        solver = 0 if it < n_horn else 1
-        steps = 1 if solver == 0 else max(wls_inner, 1)
-        for s in range(steps):
-            ops.reg_step(stats_fn(scan), scan, it, solver, first=s == 0, last=s == steps - 1, tol=tol)
-    R, t = scan.pose
-    return (R, t, scan.done), scan.logliks, scan.deltas
+    with span("hgmm_torch.reg.scan"):
+        scan = ops.new_scan(init_R, init_t, n_iters)
+        profiling.count("reg.steps", n_horn + (n_iters - n_horn) * max(wls_inner, 1))
+        profiling.count_later("reg.live_steps", scan.state, SCAN_LIVE)
+        for it in range(n_iters):
+            solver = 0 if it < n_horn else 1
+            steps = 1 if solver == 0 else max(wls_inner, 1)
+            for s in range(steps):
+                ops.reg_step(stats_fn(scan), scan, it, solver, first=s == 0, last=s == steps - 1,
+                             tol=tol)
+        R, t = scan.pose
+        return (R, t, scan.done), scan.logliks, scan.deltas
 
 
 def model_terms(params: MixtureParams):
@@ -84,11 +97,21 @@ def register_points(
 ) -> RegistrationResult:
     """Register `source` [N, 3] onto a fitted mixture. Returns the pose T
     with T(source) ~ target."""
+    with span("hgmm_torch.reg"):
+        return _register_points(source, params, init_pose, n_iters, method, tol, top_k,
+                                outlier_logit, point_weights, wls_inner)
+
+
+def _register_points(source, params, init_pose, n_iters, method, tol, top_k, outlier_logit,
+                     point_weights, wls_inner) -> RegistrationResult:
+    """register_points inside the registration's span (one level of
+    register_tree)."""
     if init_pose is None:
         init_pose = Pose.identity(source.dtype, source.device)
-    W, mu, A6, b3 = model_terms(params)
-    # The source buffer, the packed tables and the partials, once for the scan.
-    problem = ops.reg_problem(source, W, mu, A6, b3, point_weights, top_k, outlier_logit)
+    with span("hgmm_torch.reg.prep"):
+        W, mu, A6, b3 = model_terms(params)
+        # The source buffer, the packed tables and the partials, once for the scan.
+        problem = ops.reg_problem(source, W, mu, A6, b3, point_weights, top_k, outlier_logit)
     (R, t, done), logliks, deltas = run_registration_scan(
         lambda scan: ops.reg_partials(problem, scan), init_pose.R, init_pose.t, n_iters, method,
         tol, wls_inner
@@ -112,22 +135,21 @@ def register_tree(
     """Coarse-to-fine registration down the tree: level 0 (wide basin), then
     each finer level warm-started from the last pose, ending on the leaves
     or on their adaptive complexity cut. `n_iters` is per level."""
-    pose = Pose.identity(source.dtype, source.device) if init_pose is None else init_pose
-    lls, deltas, res = [], [], None
-    for li, params in enumerate(tree.levels):
-        if li == len(tree.levels) - 1 and complexity_threshold > 0.0:
-            params = tree.cut_mixture(complexity_threshold)
-        res = register_points(
-            source, params, init_pose=pose, n_iters=n_iters, method=method, tol=tol,
-            top_k=top_k, outlier_logit=outlier_logit, point_weights=point_weights,
-            wls_inner=wls_inner,
+    with span("hgmm_torch.reg"):
+        pose = Pose.identity(source.dtype, source.device) if init_pose is None else init_pose
+        lls, deltas, res = [], [], None
+        for li, params in enumerate(tree.levels):
+            if li == len(tree.levels) - 1 and complexity_threshold > 0.0:
+                with span("hgmm_torch.reg.cut"):
+                    params = tree.cut_mixture(complexity_threshold)
+            res = _register_points(source, params, pose, n_iters, method, tol, top_k, outlier_logit,
+                                   point_weights, wls_inner)
+            pose = res.pose
+            lls.append(res.logliks)
+            deltas.append(res.deltas)
+        return RegistrationResult(
+            pose=pose, logliks=torch.cat(lls), deltas=torch.cat(deltas), converged=res.converged
         )
-        pose = res.pose
-        lls.append(res.logliks)
-        deltas.append(res.deltas)
-    return RegistrationResult(
-        pose=pose, logliks=torch.cat(lls), deltas=torch.cat(deltas), converged=res.converged
-    )
 
 
 def register_pair(

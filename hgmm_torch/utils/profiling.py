@@ -1,14 +1,28 @@
-"""Tracing and metrics: a torch.profiler trace (Chrome trace JSON) and an
-append-only JSONL metrics sink.
+"""Tracing and metrics: a torch.profiler trace (Chrome trace JSON), the
+program's spans and counters, and an append-only JSONL metrics sink.
 
 Counterpart of ``hgmm/utils/profiling.py``, with ``torch.profiler`` in place
 of ``jax.profiler``.
+
+Spans and counters. The program marks its phases with ``span(name)`` (the
+names are ``hgmm_torch.fit``, ``.fit.init``, ``.fit.sweeps``, ``.fit.group``,
+``hgmm_torch.reg``, ``.reg.cut``, ``.reg.prep``, ``.reg.scan`` and
+``hgmm_torch.odo.frames``, ``.odo.pair``, ``.odo.upload``) and counts with
+``count(name, n)``. Off, a span is one shared object that does nothing.
+Under a running ``torch.profiler`` a span is also a ``record_function``, so
+it shows in the Chrome trace as a ``user_annotation`` on the device events'
+clock. Inside ``with tracing() as tr:`` the spans and counters are kept in
+memory, and ``tr.summary()`` after the block gives each request (a span
+opened while none was open, with everything inside it) its milliseconds by
+span name and its counters.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
+import threading
 import time
 from pathlib import Path
 
@@ -92,6 +106,174 @@ def count_syncs():
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     out["syncs"] = len(syncs)
     out["sites"] = dict(collections.Counter(f"{Path(w.filename).name}:{w.lineno}" for w in syncs))
+
+
+_clock = time.perf_counter_ns
+_profiler_enabled = torch.autograd._profiler_enabled
+# The process's tracer while tracing() is on, else None: read it as
+# profiling.tracer (a name imported from here would keep its old value).
+tracer: "Tracer | None" = None
+
+
+class _NoSpan:
+    """What span() returns while nothing records: enters and exits, and
+    does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "tracer", "record", "index")
+
+    def __init__(self, name: str, tracer: "Tracer | None", profiled: bool):
+        self.name, self.tracer = name, tracer
+        self.record = torch.profiler.record_function(name) if profiled else None
+
+    def __enter__(self):
+        if self.record is not None:
+            self.record.__enter__()
+        if self.tracer is not None:
+            self.index = self.tracer._open(self.name)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self.tracer is not None:
+            self.tracer._close(self.index)
+        if self.record is not None:
+            self.record.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager that marks a phase of the program. With nothing
+    recording it is NO_SPAN; under a running torch.profiler it also opens
+    record_function(name); inside tracing() the tracer keeps it."""
+    on = tracer
+    profiled = _profiler_enabled()
+    if on is None and not profiled:
+        return NO_SPAN
+    return _Span(name, on, profiled)
+
+
+def count(name: str, n=1) -> None:
+    """Add n to counter `name` of the request open on this thread, inside
+    tracing(); otherwise, or with no span open on this thread, nothing."""
+    if tracer is not None:
+        tracer._count(name, n)
+
+
+def count_later(name: str, values: torch.Tensor, index: int) -> None:
+    """Inside tracing(): add values[index], as it stands when the tracer's
+    summary() is taken, to counter `name` of the request open on this
+    thread. A counter that the card keeps is read once, after the work."""
+    if tracer is not None:
+        tracer._count_later(name, values, index)
+
+
+class Tracer:
+    """The spans and counters kept inside tracing(). spans: [name, start_ns,
+    end_ns, parent index (-1 at the top), request id] in the order opened, on
+    time.perf_counter_ns. The span stack is per thread: a span opened on a
+    thread with none open starts a new request, and a counter on a thread with
+    none open counts nothing."""
+
+    def __init__(self):
+        self.spans: list[list] = []
+        self.counts: dict[int, dict[str, float]] = {}
+        self._later: list[tuple] = []  # (request, name, values, index)
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self._requests = itertools.count()
+
+    def _stack(self) -> list[int]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _open(self, name: str) -> int:
+        stack = self._stack()
+        with self._lock:
+            if stack:
+                parent = stack[-1]
+                request = self.spans[parent][4]
+            else:
+                parent, request = -1, next(self._requests)
+            index = len(self.spans)
+            self.spans.append([name, _clock(), None, parent, request])
+        stack.append(index)
+        return index
+
+    def _close(self, index: int) -> None:
+        self.spans[index][2] = _clock()
+        self._stack().pop()
+
+    def _request(self) -> int | None:
+        stack = getattr(self._local, "stack", None)
+        return self.spans[stack[-1]][4] if stack else None
+
+    def _count(self, name: str, n) -> None:
+        request = self._request()
+        if request is not None:
+            counts = self.counts.setdefault(request, {})
+            counts[name] = counts.get(name, 0) + n
+
+    def _count_later(self, name: str, values: torch.Tensor, index: int) -> None:
+        request = self._request()
+        if request is not None:
+            self._later.append((request, name, values, index))
+
+    def summary(self) -> list[dict]:
+        """After the tracing() block: for each request in the order opened,
+        {"request", "name" (its top span), "ms" and "self_ms" (milliseconds
+        by span name: in the span, and in it less its child spans), "spans"
+        (how many of each), "counts"}. The counters kept on a device are
+        read here, one read each."""
+        if tracer is self:
+            raise RuntimeError("Tracer.summary(): take it after the tracing() block")
+        for request, name, values, index in self._later:
+            counts = self.counts.setdefault(request, {})
+            v = float(values[index])
+            counts[name] = counts.get(name, 0) + (int(v) if v.is_integer() else v)
+        self._later = []
+        child_ns = [0] * len(self.spans)
+        for name, start, end, parent, _ in self.spans:
+            if parent >= 0 and end is not None:
+                child_ns[parent] += end - start
+        out: dict[int, dict] = {}
+        for i, (name, start, end, parent, request) in enumerate(self.spans):
+            if end is None:
+                continue
+            r = out.setdefault(request, {"request": request, "name": name, "ms": {}, "self_ms": {},
+                                         "spans": {}, "counts": self.counts.get(request, {})})
+            r["ms"][name] = r["ms"].get(name, 0.0) + 1e-6 * (end - start)
+            r["self_ms"][name] = r["self_ms"].get(name, 0.0) + 1e-6 * (end - start - child_ns[i])
+            r["spans"][name] = r["spans"].get(name, 0) + 1
+        return [out[k] for k in sorted(out)]
+
+
+@contextlib.contextmanager
+def tracing():
+    """Keep the program's spans and counters for the block; yields the
+    Tracer, whose summary() is taken after the block. One at a time in a
+    process: a second, nested, raises."""
+    global tracer
+    if tracer is not None:
+        raise RuntimeError("profiling.tracing(): a tracer is already on in this process")
+    tracer = Tracer()
+    try:
+        yield tracer
+    finally:
+        tracer = None
 
 
 class MetricsLog:

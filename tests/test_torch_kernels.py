@@ -737,6 +737,44 @@ def test_reg_step_done_changes_nothing(cuda):
     assert scan.logliks.tolist() == [0.0, -5.0, 0.0] and scan.deltas.tolist() == [0.0, 0.25, 0.0]
 
 
+@pytest.mark.parametrize("n", [16_384, 437_645])
+def test_reg_step_counts_live_steps_as_its_twin(cuda, n):
+    """SCAN_LIVE, the steps run with done unset, from the kernel and from its
+    twin on the same scan: each step of a converging scan (4 Horn iterations, then WLS) on the
+    card, the twin stepped from the card's state before it on the same rows.
+    437,645 points give the clustered step (past 256 rows). The count after
+    the scan is the live iterations (up to and including the first delta
+    below tol) in steps: a Horn iteration one, a WLS iteration wls_inner."""
+    from hgmm_torch import ops
+    from hgmm_torch.data.synthetic import make_cloud
+    from hgmm_torch.models.gmm import Gmm
+    from hgmm_torch.pipelines.register import model_terms
+
+    target = make_cloud(n, "trefoil", seed=4, device=cuda)
+    params = Gmm.fit(target, k=64, n_iters=10, generator=torch.Generator().manual_seed(5))[0].params
+    R0 = so3_exp(torch.tensor([0.03, -0.05, 0.04], device=cuda))
+    source = (target - torch.tensor([0.02, 0.0, -0.01], device=cuda)) @ R0
+    prob = ops.reg_problem(source, *model_terms(params))
+    n_iters, n_horn, wls_inner, tol = 20, 4, 2, 1e-5
+    scan = ops.new_scan(torch.eye(3, device=cuda), torch.zeros(3, device=cuda), n_iters)
+    rows = ops.reg_partials(prob, scan).shape[0]
+    assert (fused_em.plan_reg_step(rows) == fused_em.STEP_CLUSTER) == (n == 437_645)
+    for it in range(n_iters):
+        solver = 0 if it < n_horn else 1
+        steps = 1 if solver == 0 else wls_inner
+        for s in range(steps):
+            part = ops.reg_partials(prob, scan)
+            twin = em_ref.RegScan(*(t.cpu().clone() for t in scan))
+            ops.reg_step(part, scan, it, solver, s == 0, s == steps - 1, tol)
+            em_ref.reg_step(part.cpu(), twin, it, solver, s == 0, s == steps - 1, tol)
+            assert float(scan.state[em_ref.SCAN_LIVE]) == float(twin.state[em_ref.SCAN_LIVE])
+    deltas = scan.deltas.tolist()
+    live = next((i + 1 for i, d in enumerate(deltas) if d < tol), n_iters)
+    assert live < n_iters  # the scan converged: the done steps are exercised
+    want = min(live, n_horn) + max(live - n_horn, 0) * wls_inner
+    assert float(scan.state[em_ref.SCAN_LIVE]) == want
+
+
 @pytest.mark.parametrize("method", ["horn", "wls", "horn+wls"])
 def test_register_points_on_the_card_matches_the_cpu(cuda, method):
     """The whole scan with no host read: the pose within the float32/float64

@@ -1,0 +1,372 @@
+"""hgmm_torch.utils.profiling's spans and counters: off, a span is one shared
+object that does nothing; under torch.profiler it is a record_function;
+inside tracing() the tracer keeps the spans by request, the counters of the
+open request, and the scan's live steps, read after the block. The program's
+span tree on a CPU register_pair and run_odometry, and the scan state's live
+steps against the benchmark's live-iteration rule."""
+
+import importlib.util
+import json
+import sys
+import threading
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from hgmm_torch.data.synthetic import make_cloud_np
+from hgmm_torch.models.gmm import Gmm
+from hgmm_torch.models.se3 import Pose, so3_exp
+from hgmm_torch.ops import em_ref, fused_em
+from hgmm_torch.pipelines.odometry import OdometryConfig, run_odometry
+from hgmm_torch.pipelines.register import register_pair, register_points
+from hgmm_torch.utils import profiling
+from hgmm_torch.utils.profiling import count, count_later, span, trace, tracing
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _roofline():
+    """The benchmark's needed-work arithmetic (regbench/harness/roofline.py),
+    loaded by path: plain Python, no import of the harness."""
+    spec = importlib.util.spec_from_file_location("regbench_roofline",
+                                                  REPO / "regbench" / "harness" / "roofline.py")
+    mod = sys.modules[spec.name] = importlib.util.module_from_spec(spec)  # dataclasses look it up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class _CountingRecordFunction:
+    """Stands in for torch.profiler.record_function and counts its calls."""
+
+    def __init__(self, real):
+        self.real, self.calls = real, 0
+
+    def __call__(self, name, *args):
+        self.calls += 1
+        return self.real(name, *args)
+
+
+@pytest.fixture
+def record_calls(monkeypatch):
+    counting = _CountingRecordFunction(torch.profiler.record_function)
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    return counting
+
+
+@pytest.fixture
+def clock(monkeypatch):
+    """A fake clock: each reading is 1 ms after the last."""
+    ticks = iter(range(0, 10**12, 1_000_000))
+    monkeypatch.setattr(profiling, "_clock", lambda: next(ticks))
+
+
+def _pair(n=1500, seed=3):
+    src = torch.from_numpy(make_cloud_np(n, "trefoil", seed=seed))
+    R = so3_exp(torch.tensor([0.04, -0.03, 0.05]))
+    return src, src @ R.T + torch.tensor([0.01, 0.0, -0.02])
+
+
+def _tree(tracer: profiling.Tracer, request: int):
+    """The span tree of one request: (name, [children]) from its top span."""
+    nodes = {}
+    for i, (name, _, _, parent, req) in enumerate(tracer.spans):
+        if req == request:
+            nodes[i] = (name, [])
+            if parent >= 0:
+                nodes[parent][1].append(nodes[i])
+    roots = [nodes[i] for i, s in enumerate(tracer.spans) if s[4] == request and s[3] < 0]
+    assert len(roots) == 1
+    return roots[0]
+
+
+def _leaf(name):
+    return (name, [])
+
+
+FIT_TREE3 = ("hgmm_torch.fit", [_leaf("hgmm_torch.fit.init"), _leaf("hgmm_torch.fit.sweeps"),
+                                 _leaf("hgmm_torch.fit.group"), _leaf("hgmm_torch.fit.sweeps"),
+                                 _leaf("hgmm_torch.fit.group"), _leaf("hgmm_torch.fit.sweeps")])
+LEVEL = [_leaf("hgmm_torch.reg.prep"), _leaf("hgmm_torch.reg.scan")]
+
+
+# (a) off
+
+
+def test_span_off_is_the_shared_no_op(record_calls):
+    assert profiling.tracer is None
+    s = span("hgmm_torch.fit")
+    assert s is profiling.NO_SPAN and span("other") is s
+    with s as entered:
+        assert entered is s
+    src, tgt = _pair(600)
+    register_pair(src, tgt, fit_iters=2, n_iters=3, complexity_threshold=0.02)
+    count("reg.steps", 5)  # nothing to count into
+    count_later("reg.live_steps", torch.zeros(32), 28)
+    assert record_calls.calls == 0
+    with torch.profiler.profile():
+        with span("on"):
+            pass
+    assert record_calls.calls == 1  # the patch is what span() calls when a profiler runs
+
+
+def test_span_off_passes_exceptions_through():
+    with pytest.raises(ValueError):
+        with span("x"):
+            raise ValueError("inside")
+
+
+# (b) on
+
+
+def test_tracer_nesting_parents_requests_and_self_times(clock):
+    with tracing() as tr:
+        with span("a"):  # request 0: a(b(c), d)
+            with span("b"):
+                with span("c"):
+                    pass
+            with span("d"):
+                pass
+        with span("e"):  # request 1
+            pass
+        with span("a"):  # request 2
+            pass
+    assert [s[0] for s in tr.spans] == ["a", "b", "c", "d", "e", "a"]
+    assert [s[3] for s in tr.spans] == [-1, 0, 1, 0, -1, -1]
+    assert [s[4] for s in tr.spans] == [0, 0, 0, 0, 1, 2]
+    # the clock ticks 1 ms a reading: a 0-7, b 1-4, c 2-3, d 5-6
+    assert [(s[1] // 10**6, s[2] // 10**6) for s in tr.spans[:4]] == [(0, 7), (1, 4), (2, 3), (5, 6)]
+    first, second, third = tr.summary()
+    assert first["request"] == 0 and first["name"] == "a"
+    assert first["ms"] == {"a": 7.0, "b": 3.0, "c": 1.0, "d": 1.0}
+    assert first["self_ms"] == {"a": 3.0, "b": 2.0, "c": 1.0, "d": 1.0}
+    assert first["spans"] == {"a": 1, "b": 1, "c": 1, "d": 1}
+    assert (second["name"], second["ms"]) == ("e", {"e": 1.0})
+    assert (third["request"], third["name"]) == (2, "a")
+    assert tr.summary() == [first, second, third]  # taken again, the same
+
+
+def test_tracer_span_stack_is_per_thread(clock):
+    seen = {}
+
+    def worker():
+        count("lost")  # no span open on this thread: attributed to nothing
+        with span("w"):
+            count("n", 2)
+            seen["request"] = tr._request()
+
+    with tracing() as tr:
+        with span("main"):
+            count("n")
+            t = threading.Thread(target=worker)
+            t.start()
+            t.join()
+            count("n")
+    out = {r["name"]: r for r in tr.summary()}
+    assert seen["request"] == out["w"]["request"] != out["main"]["request"]
+    assert out["main"]["counts"] == {"n": 2} and out["w"]["counts"] == {"n": 2}
+    assert tr.spans[1][3] == -1  # the thread's span has no parent on the main thread
+
+
+def test_tracing_is_one_per_process_and_summary_comes_after():
+    with tracing() as tr:
+        with pytest.raises(RuntimeError):
+            with tracing():
+                pass
+        with pytest.raises(RuntimeError):
+            tr.summary()
+    assert profiling.tracer is None
+    assert tr.summary() == []
+    with tracing():  # on again after the block
+        assert isinstance(span("x"), profiling._Span)
+
+
+def test_a_span_closes_when_its_block_raises(clock):
+    with tracing() as tr:
+        with pytest.raises(KeyError):
+            with span("outer"):
+                with span("inner"):
+                    raise KeyError
+        with span("next"):
+            pass
+    assert [s[4] for s in tr.spans] == [0, 0, 1]  # the stack was emptied
+    assert all(s[2] is not None for s in tr.spans)
+
+
+# (c) under torch.profiler
+
+
+def test_spans_are_nested_user_annotations_in_a_profiler_trace(tmp_path):
+    src, tgt = _pair(600)
+    with trace(tmp_path):
+        register_pair(src, tgt, fit_iters=2, n_iters=3, complexity_threshold=0.02)
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    ann = [e for e in events if e.get("cat") == "user_annotation" and e["name"].startswith("hgmm_torch.")]
+    by = {}
+    for e in ann:
+        by.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+    assert {k: len(v) for k, v in by.items()} == {
+        "hgmm_torch.fit": 1, "hgmm_torch.fit.init": 1, "hgmm_torch.fit.sweeps": 3,
+        "hgmm_torch.fit.group": 2, "hgmm_torch.reg": 1, "hgmm_torch.reg.cut": 1,
+        "hgmm_torch.reg.prep": 3, "hgmm_torch.reg.scan": 3}
+
+    def inside(child, parent):
+        (a, b), = by[parent]
+        return all(a <= s and e <= b for s, e in by[child])
+
+    assert all(inside(c, "hgmm_torch.fit") for c in ("hgmm_torch.fit.init", "hgmm_torch.fit.sweeps",
+                                                     "hgmm_torch.fit.group"))
+    assert all(inside(c, "hgmm_torch.reg") for c in ("hgmm_torch.reg.cut", "hgmm_torch.reg.prep",
+                                                     "hgmm_torch.reg.scan"))
+    assert by["hgmm_torch.fit"][0][1] <= by["hgmm_torch.reg"][0][0]
+
+
+def test_spans_go_to_the_profiler_and_the_tracer_at_once(tmp_path, record_calls):
+    with tracing() as tr, trace(tmp_path):
+        with span("both"):
+            pass
+    assert record_calls.calls == 1 and tr.summary()[0]["name"] == "both"
+
+
+# (d) counters
+
+
+@pytest.fixture
+def launches():
+    saved = dict(fused_em.LAUNCHES)
+    yield fused_em.LAUNCHES
+    fused_em.LAUNCHES.update(saved)
+
+
+def test_count_and_count_launch_go_to_the_open_request(launches):
+    before = launches["reg_step"]
+    with tracing() as tr:
+        fused_em.count_launch("reg_step")  # no span open: LAUNCHES only
+        count("x")
+        with span("r0"):
+            fused_em.count_launch("reg_step")
+            fused_em.count_launch("em_step")
+            count("x", 3)
+        with span("r1"):
+            fused_em.count_launch("reg_step")
+    fused_em.count_launch("reg_step")  # the tracer is off: LAUNCHES only
+    r0, r1 = tr.summary()
+    assert r0["counts"] == {"launch.reg_step": 1, "launch.em_step": 1, "x": 3}
+    assert r1["counts"] == {"launch.reg_step": 1}
+    assert launches["reg_step"] == before + 4  # every launch, traced or not
+
+
+def test_count_later_reads_the_value_after_the_block():
+    state = torch.zeros(32)
+    with tracing() as tr:
+        count_later("off", state, 28)  # no span open: nothing
+        with span("r"):
+            count_later("reg.live_steps", state, 28)
+            count_later("reg.live_steps", state, 29)
+        state[28] = 5.0  # the work runs on after the call
+        state[29] = 2.0
+    assert tr.summary()[0]["counts"] == {"reg.live_steps": 7}
+    assert tr.summary()[0]["counts"] == {"reg.live_steps": 7}  # read once, not added again
+
+
+# (e) the program's span tree
+
+
+def test_register_pair_span_tree_and_counters():
+    src, tgt = _pair()
+    n_iters, wls_inner = 6, 2
+    with tracing() as tr:
+        with span("request"):
+            res = register_pair(src, tgt, fit_iters=3, n_iters=n_iters, complexity_threshold=0.02,
+                                method="horn+wls", wls_inner=wls_inner, tol=1e-4)
+        register_pair(src, tgt, fit_iters=3, n_iters=n_iters, method="horn+wls",
+                      wls_inner=wls_inner, tol=1e-4)  # no cut; fit and registration alone
+    assert _tree(tr, 0) == ("request", [FIT_TREE3, ("hgmm_torch.reg", [
+        *LEVEL, *LEVEL, _leaf("hgmm_torch.reg.cut"), *LEVEL])])
+    assert _tree(tr, 1) == FIT_TREE3
+    assert _tree(tr, 2) == ("hgmm_torch.reg", LEVEL * 3)
+    first = tr.summary()[0]
+    assert first["spans"]["hgmm_torch.reg.scan"] == 3
+    assert sum(first["spans"].values()) == 16  # the request's own span and 15 of the program
+    steps = 3 * (n_iters // 2 + (n_iters - n_iters // 2) * wls_inner)
+    assert first["counts"]["reg.steps"] == steps
+    rule = _roofline()
+    live = rule.live_iterations(res.deltas.tolist(), n_iters, 1e-4)
+    assert first["counts"]["reg.live_steps"] == sum(
+        min(m, n_iters // 2) + max(m - n_iters // 2, 0) * wls_inner for m in live)
+    assert all(v >= 0 for v in first["self_ms"].values())
+
+
+def _scans(n_frames=3, n=900):
+    scene = make_cloud_np(n, "trefoil", seed=0)
+    out = []
+    for k in range(n_frames):
+        R = so3_exp(torch.tensor([0.0, 0.0, 0.04 * k])).numpy()
+        out.append((scene @ R.T + np.float32([0.03 * k, 0.0, 0.0])).astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["tree", "flat"])
+def test_run_odometry_span_tree(kind):
+    cfg = OdometryConfig(model_kind=kind, k=8, fit_iters=2, reg_iters=3, bucket=512, device="cpu")
+    with tracing() as tr:
+        run_odometry(_scans(), cfg)
+    requests = tr.summary()
+    assert [r["name"] for r in requests] == ["hgmm_torch.odo.frames"] + ["hgmm_torch.odo.pair"] * 2
+    assert _tree(tr, 0) == _leaf("hgmm_torch.odo.frames")
+    if kind == "tree":
+        fit, reg = FIT_TREE3, ("hgmm_torch.reg", LEVEL * 3)
+    else:
+        fit = ("hgmm_torch.fit", [_leaf("hgmm_torch.fit.init"), _leaf("hgmm_torch.fit.sweeps")])
+        reg = ("hgmm_torch.reg", LEVEL)
+    upload = _leaf("hgmm_torch.odo.upload")
+    for r in (1, 2):
+        assert _tree(tr, r) == ("hgmm_torch.odo.pair", [upload, fit, upload, reg])
+        levels = 3 if kind == "tree" else 1
+        assert requests[r]["counts"]["reg.steps"] == levels * 3 * 2  # WLS, 2 steps an iteration
+        assert 1 <= requests[r]["counts"]["reg.live_steps"] <= levels * 3 * 2
+    if kind == "tree":
+        assert sum(requests[1]["spans"].values()) == 17
+
+
+# (f) the scan's live steps
+
+
+@pytest.mark.parametrize("method", ["horn", "wls", "horn+wls"])
+@pytest.mark.parametrize("tol", [1e-3, 0.0])
+def test_scan_live_steps_follow_the_live_iteration_rule(method, tol):
+    """The twin's SCAN_LIVE after a whole scan equals the live iterations of
+    the benchmark's rule (up to and including the first delta below tol),
+    turned into steps: a Horn iteration one, a WLS iteration wls_inner.
+    tol 1e-3 stops early, tol 0 never."""
+    src, tgt = _pair(1200, seed=5)
+    params = Gmm.fit(tgt, k=16, n_iters=8)[0].params
+    n_iters, wls_inner = 12, 3
+    with tracing() as tr:
+        with span("r"):
+            res = register_points(src, params, init_pose=Pose.identity(device="cpu"),
+                                  n_iters=n_iters, method=method, tol=tol, wls_inner=wls_inner)
+    counts = tr.summary()[0]["counts"]
+    (live,) = _roofline().live_iterations(res.deltas.tolist(), n_iters, tol)
+    n_horn = {"horn": n_iters, "wls": 0, "horn+wls": n_iters // 2}[method]
+    steps = min(live, n_horn) + max(live - n_horn, 0) * wls_inner
+    assert counts["reg.live_steps"] == steps
+    assert counts["reg.steps"] == n_horn + (n_iters - n_horn) * wls_inner
+    assert (steps < counts["reg.steps"]) == (tol > 0)  # the early stop is exercised
+
+
+def test_twin_step_adds_a_live_step_only_while_not_done():
+    from hgmm_torch import ops
+    from hgmm_torch.pipelines.register import model_terms
+
+    src, tgt = _pair(800, seed=7)
+    problem = ops.reg_problem(tgt, *model_terms(Gmm.fit(tgt, k=8, n_iters=5)[0].params))
+    scan = em_ref.new_scan(torch.eye(3), torch.zeros(3), 4)
+    em_ref.reg_step(ops.reg_partials(problem, scan), scan, 0, 0, True, True, 0.0)
+    em_ref.reg_step(ops.reg_partials(problem, scan), scan, 1, 1, True, False, 0.0)
+    assert float(scan.state[em_ref.SCAN_LIVE]) == 2.0 and not bool(scan.done)
+    em_ref.reg_step(ops.reg_partials(problem, scan), scan, 1, 1, False, True, 1.0)  # done
+    assert float(scan.state[em_ref.SCAN_LIVE]) == 3.0 and bool(scan.done)
+    em_ref.reg_step(torch.zeros((1, em_ref.REG_OUT)), scan, 2, 0, True, True, 1.0)
+    assert float(scan.state[em_ref.SCAN_LIVE]) == 3.0
