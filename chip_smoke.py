@@ -204,25 +204,26 @@ ICP_RMSE = 0.02
 # to 0.061 in 25 iterations and snaps to the exact matches after ~190.
 ICP_ITERS = 250
 # The kernels each path must launch (each path runs with the counters at 0).
-TREE_PATH = ("em_stats", "em_stats_masked", "em_step", "assign", "reg_stats", "reg_step")
-WIDE_PATH = ("em_stats", "em_stats_masked_wide", "em_step", "assign", "reg_stats", "reg_step")
+TREE_PATH = ("em_stats", "em_stats_masked", "em_step", "assign", "reg_stats", "reg_step", "reg_tables")
+WIDE_PATH = ("em_stats", "em_stats_masked_wide", "em_step", "assign", "reg_stats", "reg_step", "reg_tables")
 PROBES = ("probe_logits", "probe_addonly", "probe_stats", "probe_norm", "probe_vpu")
 PATH_KERNELS = {"register_pair": TREE_PATH, "cli_icp": ("knn",), "cli_register_config3": TREE_PATH,
                 "cli_odometry": TREE_PATH, "cli_odometry_closures": TREE_PATH,
-                "cli_localize": ("reg_stats", "reg_step"), "cli_bench": ("em_stats",), "probes": PROBES,
+                "cli_localize": ("reg_stats", "reg_step", "reg_tables"), "cli_bench": ("em_stats",), "probes": PROBES,
                 "shard": TREE_PATH, "cli_odometry_sharded": TREE_PATH,
                 "cli_odometry_closures_sharded": TREE_PATH,
-                "cli_localize_sharded": ("reg_stats", "reg_step"),
+                "cli_localize_sharded": ("reg_stats", "reg_step", "reg_tables"),
                 "registration_suite": TREE_PATH + ("knn",), "odometry_suite": TREE_PATH,
                 "odometry_suite_sharded": TREE_PATH, "scaling": ("em_stats", "em_step"),
                 "branch16_pair": WIDE_PATH, "cli_fit_branch16": ("em_stats", "em_stats_masked_wide", "em_step",
                                                                  "assign"),
                 "branch12_pair": WIDE_PATH,
                 **{f"config3_top_k{t}": ("em_stats", "em_stats_masked", "em_step", "assign", "reg_stats_select",
-                                         "reg_step") for t in (64, 128)}}
+                                         "reg_step", "reg_tables") for t in (64, 128)}}
 SOURCES = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu", "em_stats_masked_wide": "em_stats.cu",
            "em_step": "em_step.cu", "assign": "assign.cu",
-           "reg_stats": "reg_stats.cu", "reg_stats_select": "reg_stats.cu", "reg_step": "reg_step.cu", "knn": "knn.cu",
+           "reg_stats": "reg_stats.cu", "reg_stats_select": "reg_stats.cu", "reg_step": "reg_step.cu",
+           "reg_tables": "reg_tables.cu", "knn": "knn.cu",
            **{name: "probes.cu" for name in PROBES}}
 REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops/fused_em.py:559",
             "em_stats_masked_wide": "hgmm/ops/fused_em.py:559",
@@ -230,6 +231,7 @@ REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops
             "reg_stats_select": "hgmm/ops/fused_em.py:920",
             # no TPU kernel: the XLA ops of the reference's scan steps
             "reg_step": "hgmm/pipelines/register.py:80", "em_step": "hgmm/models/gmm.py:121",
+            "reg_tables": "hgmm/pipelines/register.py:127",
             "knn": "hgmm/ops/knn.py:60", "probe_logits": "benchmarks/mxu_microbench.py:54",
             "probe_addonly": "benchmarks/mxu_microbench.py:73",
             "probe_stats": "benchmarks/mxu_microbench.py:86",
@@ -1234,6 +1236,8 @@ def add_bound(name, entry) -> None:
         kb = kernel_bound(name, nb=entry["nb"])
     elif name == "em_step":
         kb = kernel_bound(name, k=entry["k"], rows=entry["rows"], nb=entry["nb"], branch=entry["branch"])
+    elif name == "reg_tables":
+        kb = kernel_bound(name, k=entry["k"])
     elif name == "knn":
         kb = kernel_bound(name, nq=entry["nq"], nt=entry["nt"])
     else:
@@ -1578,6 +1582,11 @@ def slice_checks(torch, dev, errs):
         # "ms": the launch a scan makes each step (tables built once);
         # "wrapper_ms": the standalone call, tables and the reduction included.
         tab = fused_em.reg_tables(src.pts4, W, mu, A6, b3)
+        reg_tables_check(torch, params, fused_em.reg_tables_of(src.pts4, params), errs)
+        # "ms": a level's tables by the kernel; "plain_ms": the torch ops it
+        # replaced on the card (model_terms, pack_table and the cat).
+        record("reg_tables", k, lambda: fused_em.reg_tables_of(src.pts4, params),
+               lambda: fused_em.reg_tables(src.pts4, *model_terms(params)), headline=lvl == 2)
         pose12 = torch.cat([pose[0].reshape(9), pose[1]]).contiguous()
         record("reg_stats", k, lambda: fused_em.reg_partials(tab, pose12),
                lambda: em_ref.reg_stats(source, W, mu, A6, b3, pose), headline=lvl == 2,
@@ -1594,6 +1603,27 @@ def slice_checks(torch, dev, errs):
         "plain_ms": cuda_ms(torch, lambda: em_ref.reg_step(part, twin, 0, 1, True, True, 0.0), reps=5)})
     log({"phase": "slice_kernels", "timings": timings, "max_abs_err": errs})
     return timings
+
+
+def reg_tables_check(torch, params, tab, errs) -> None:
+    """The kernel's wn and aux against its twin (em_ref.model_terms, then
+    pack_table and the cat of [mu | A6 | b3]) run in float64 on the CPU: one
+    float32 rounding of each value (2^-23 of it) and 1e-9 of its row's
+    largest entry; errs["reg_tables"]: the largest gap to the float32 twin."""
+    from hgmm_torch.ops import em_ref
+    from hgmm_torch.ops.gaussians import MixtureParams
+
+    for dtype in (torch.float64, torch.float32):
+        W, mu, A6, b3 = em_ref.model_terms(MixtureParams(*(a.cpu().to(dtype) for a in params)))
+        for name, got, ref in (("wn", tab.wn, em_ref.pack_table(W).wn),
+                               ("aux", tab.aux, torch.cat([mu, A6, b3], dim=1))):
+            got, ref = got.cpu().double(), ref.double()
+            if dtype == torch.float64:
+                top = ref.abs().amax(1, keepdim=True)
+                if not bool(((got - ref).abs() <= 2.0 ** -23 * ref.abs() + 1e-9 * top).all()):
+                    raise CheckFailed(f"reg_tables.{name}: off its float64 twin")
+            else:
+                errs["reg_tables"] = max(errs["reg_tables"], float((got - ref).abs().max()))
 
 
 def profiled(torch, fn, trace_dir) -> dict:

@@ -70,6 +70,10 @@ SCAN_BYTES = 2 * 32 * 4 + 2 * 4  # the scan state read and written, loglik and d
 # the Cholesky inverse (~45 and three square roots), logdet, b, c and the row
 # (~40 and four logarithms, ~25 each), in float64.
 FLOP_EM_STEP = 400.0
+# csrc/reg_tables.cu a component, by a count of the source: the Cholesky
+# inverse (~45 and three square roots and divisions, ~15 each), logdet and
+# log pi (four logarithms, ~25 each), b, c and the two rows (~40), in float64.
+FLOP_REG_TABLES = 250.0
 
 
 @dataclasses.dataclass
@@ -133,6 +137,9 @@ def kernel_bound(kernel: str, **s) -> KernelBound:
       FLOP_EM_STEP a component, at the float64 peak; reads the rows, total
       and cov_floor, writes pi, mu, sigma (13 floats a component), the
       [rows, 12] table and one loglik. nb = 1 is S and the loglik summed.
+    - ``reg_tables`` (k): FLOP_REG_TABLES a component at the float64 peak;
+      reads pi, mu, sigma (13 floats a component), writes wn and aux
+      ([K, 12] each).
     - ``knn`` (nq, nt): 8 flop a pair; reads both clouds (12 B a point),
       writes 8 B a query.
     - ``probe_logits`` / ``probe_stats`` (k, t, steps, reps, dtype "bf16" or
@@ -172,6 +179,9 @@ def kernel_bound(kernel: str, **s) -> KernelBound:
         width = 10 * (s.get("branch") or k) + 1
         nbytes = (nb * width + 2) * f4 + 13 * k * f4 + 12 * s.get("rows", k) * f4 + f4
         return _bound(nb * width + k * FLOP_EM_STEP, nbytes, flop_rate=H100_FP64_FLOPS)
+    if kernel == "reg_tables":
+        k = s["k"]
+        return _bound(k * FLOP_REG_TABLES, (13 + 24) * k * f4, flop_rate=H100_FP64_FLOPS)
     if kernel == "knn":
         nq, nt = s["nq"], s["nt"]
         return _bound(float(nq) * nt * FLOP_KNN_PAIR, 12.0 * (nq + nt) + 8.0 * nq)

@@ -184,7 +184,8 @@ def reg_stats(x, W, mu, A6, b3, pose, point_weights=None, top_k=None, outlier_lo
 
 class RegProblem(NamedTuple):
     """The inputs of a registration scan on the CPU; on the card
-    reg_problem() returns fused_em.RegTables, the same built once."""
+    reg_problem() and reg_problem_of() return fused_em.RegTables, the same
+    built once."""
 
     prep: Prepared
     W: torch.Tensor
@@ -201,6 +202,18 @@ def reg_problem(x, W, mu, A6, b3, point_weights=None, top_k=None, outlier_logit=
     if p.pts4.is_cuda:
         return fused_em.reg_tables(p.pts4, W, mu, A6, b3, top_k, outlier_logit)
     return RegProblem(p, W, mu, A6, b3, top_k, outlier_logit)
+
+
+def reg_problem_of(points, params: MixtureParams, top_k=None, outlier_logit=None):
+    """reg_problem from the level's mixture: on the card its tables in one
+    launch (fused_em.reg_tables_of; the parameters as float32 on the points'
+    card), on the CPU em_ref.model_terms' W, mu, A6 and b3."""
+    p = _prep(points)
+    if p.pts4.is_cuda:
+        f32 = dict(device=p.pts4.device, dtype=torch.float32)
+        return fused_em.reg_tables_of(p.pts4, MixtureParams(*(a.to(**f32).contiguous() for a in params)),
+                                      top_k, outlier_logit)
+    return RegProblem(p, *em_ref.model_terms(params), top_k, outlier_logit)
 
 
 def new_scan(R: torch.Tensor, t: torch.Tensor, n_iters: int) -> RegScan:

@@ -13,6 +13,11 @@ Contracts (shared with the kernels in ``hgmm_torch.ops.fused_em``):
   assign(points, W, parent, branch)                 -> [N] int32 argmax
   reg_stats(x, W, mu, A6, b3, pose, ...)            -> RegStats(horn [4,4],
                                                        A [6,6], b [6], loglik)
+  model_terms(params)                               -> (W, mu, A6, b3): the
+                                                       terms reg_stats reads
+                                                       (csrc/reg_tables.cu
+                                                       writes pack_table(W)
+                                                       and [mu | A6 | b3])
   reg_step(partial, scan, it, solver, first, last, tol)
                                                     -> one step of the
                                                        registration iterate on
@@ -199,6 +204,13 @@ def top_k_near_ties(x, W, pose, top_k: int, rel: float = 2e-6) -> torch.Tensor:
     scale = 0.5 * (psi.abs() @ W[:10].abs())
     gap = (logits - thresh).abs()
     return ((gap > 0) & (gap < rel * scale)).any(dim=1)
+
+
+def model_terms(params: MixtureParams):
+    """Per-component terms every registration iteration reuses: W [10,K],
+    mu [K,3], A6 [K,6] packed precisions, b3 [K,3] = Sigma^-1 mu."""
+    A, b, _ = precision_terms(params)
+    return pack_loglik_weights(params), params.mu, sym_pack(A), b
 
 
 def reg_stats(

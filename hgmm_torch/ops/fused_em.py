@@ -26,8 +26,10 @@ the M-step (launch geometry from ``plan_em_step``): two launches and no host
 read (``new_fit`` holds the state on the card). ``em_stats`` and
 ``em_stats_grouped`` add the reduce kernel for their other callers.
 
-A registration scan builds its tables once (``reg_tables``), and its state
-lives on the card (``new_scan``): ``reg_partials`` (``csrc/reg_stats.cu``,
+A registration scan builds its tables once, from the level's mixture in one
+launch (``reg_tables_of``: ``csrc/reg_tables.cu``) or from W, mu, A6, b3
+(``reg_tables``), and its state lives on the card (``new_scan``):
+``reg_partials`` (``csrc/reg_stats.cu``,
 launch geometry from ``plan_reg_stats``: the lanes body without gating, the
 top_k body with a register list up to MAX_TOP_K, the select body past it)
 and ``reg_step`` (``csrc/reg_step.cu``) read and write it without a host
@@ -55,6 +57,7 @@ from hgmm_torch.ops.em_ref import (
     pack_table,
 )
 from hgmm_torch.ops.em_ref import new_scan as em_ref_new_scan
+from hgmm_torch.ops.gaussians import MixtureParams
 from hgmm_torch.utils import profiling
 
 MAX_K = 2048  # largest K whose tables fit in shared memory
@@ -102,8 +105,8 @@ EMS_WARPS_PER_SM = 64  # resident warps an SM on the H100
 # em_stats past EG_BMAX children and reg_stats' select body (top_k past
 # MAX_TOP_K) count apart from the bodies their wrappers launch otherwise.
 LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "em_stats_masked_wide": 0, "em_step": 0, "assign": 0,
-            "reg_stats": 0, "reg_stats_select": 0, "reg_step": 0, "knn": 0, "probe_logits": 0,
-            "probe_addonly": 0, "probe_stats": 0, "probe_norm": 0, "probe_vpu": 0}
+            "reg_stats": 0, "reg_stats_select": 0, "reg_step": 0, "reg_tables": 0, "knn": 0,
+            "probe_logits": 0, "probe_addonly": 0, "probe_stats": 0, "probe_norm": 0, "probe_vpu": 0}
 
 
 _LAUNCHES_LOCK = threading.Lock()  # the ranks of an EmulatedMesh launch from threads
@@ -615,17 +618,52 @@ def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+def _reg_tables(pts4, n: int, wn, aux, top_k, outlier_logit) -> RegTables:
+    k = wn.shape[0]
+    plan = plan_reg_stats(n, k, top_k, _sms(pts4.device))
+    return RegTables(pts4, wn, aux, _top_k(top_k, k), _outlier(outlier_logit), plan,
+                     torch.empty((plan.blocks, REG_OUT), dtype=torch.float32, device=pts4.device))
+
+
 def reg_tables(pts4, W, mu, A6, b3, top_k=None, outlier_logit=None) -> RegTables:
+    """A scan's RegTables from W [10, K] (or a Packed table) and model_terms'
+    mu, A6 and b3: wn packed and aux = [mu | A6 | b3] by torch ops."""
     n = _check_points(pts4)
     dev = pts4.device
     wn = _table(W, dev).wn
-    k = wn.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
     aux = torch.cat([mu.to(**f32), A6.to(**f32), b3.to(**f32)], dim=1).contiguous()
-    _check("aux", aux, torch.float32, (k, 12))
-    plan = plan_reg_stats(n, k, top_k, _sms(dev))
-    return RegTables(pts4, wn, aux, _top_k(top_k, k), _outlier(outlier_logit), plan,
-                     torch.empty((plan.blocks, REG_OUT), **f32))
+    _check("aux", aux, torch.float32, (wn.shape[0], 12))
+    return _reg_tables(pts4, n, wn, aux, top_k, outlier_logit)
+
+
+def reg_tables_of(pts4, params: MixtureParams, top_k=None, outlier_logit=None) -> RegTables:
+    """A scan's RegTables from the mixture itself (pi [K], mu [K, 3], sigma
+    [K, 3, 3], float32 and contiguous on the points' card): wn and aux written
+    by one launch of csrc/reg_tables.cu, the float64 twin of em_ref.model_terms,
+    then pack_table of W and the cat of [mu | A6 | b3]; nothing read back."""
+    k = params.k
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"reg_tables: K={k} outside [1, {MAX_K}]")
+    shapes = {"pi": (k,), "mu": (k, 3), "sigma": (k, 3, 3)}
+    for (name, shape), t in zip(shapes.items(), params):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"reg_tables: {name} of shape {tuple(t.shape)}, expected {shape}")
+    n = _check_points(pts4)
+    dev = pts4.device
+    for (name, shape), t in zip(shapes.items(), params):
+        _check(name, t, torch.float32, shape)
+        if t.device != dev:
+            raise ValueError(f"reg_tables: {name} on {t.device}, the points on {dev}")
+    wn = torch.empty((k, 12), dtype=torch.float32, device=dev)
+    aux = torch.empty((k, 12), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load().hgmm_reg_tables(params.pi.data_ptr(), params.mu.data_ptr(),
+                                            params.sigma.data_ptr(), k, wn.data_ptr(), aux.data_ptr(),
+                                            _stream(pts4))
+    _raise_on(err, "reg_tables")
+    count_launch("reg_tables")
+    return _reg_tables(pts4, n, wn, aux, top_k, outlier_logit)
 
 
 def reg_partials(tab: RegTables, pose12: torch.Tensor, done: torch.Tensor | None = None,

@@ -30,7 +30,7 @@ from hgmm_torch.models.gmm_tree import GmmTree, fit_levels
 from hgmm_torch.models.se3 import Pose
 from hgmm_torch.ops.gaussians import MixtureParams
 from hgmm_torch.parallel.mesh import ShardedPoints, make_mesh, per_rank, points_sharding
-from hgmm_torch.pipelines.register import model_terms, run_registration_scan
+from hgmm_torch.pipelines.register import run_registration_scan
 
 
 def pad_points_for_mesh(points: torch.Tensor, mesh, tile: int = 1):
@@ -160,12 +160,11 @@ class ShardedRegResult(NamedTuple):
     converged: torch.Tensor
 
 
-def _scan(local, w, params: MixtureParams, mesh, pose: Pose, n_iters, method, tol, top_k,
+def _scan(prep, params: MixtureParams, mesh, pose: Pose, n_iters, method, tol, top_k,
           outlier_logit, wls_inner):
-    """One registration scan on this rank's rows, each step's statistics
-    summed on the rank (ops.reg_row) and over the mesh."""
-    W, mu, A6, b3 = model_terms(_on(params, mesh.device))
-    problem = ops.reg_problem(local, W, mu, A6, b3, w, top_k, outlier_logit)
+    """One registration scan on this rank's prepared rows, each step's
+    statistics summed on the rank (ops.reg_row) and over the mesh."""
+    problem = ops.reg_problem_of(prep, _on(params, mesh.device), top_k, outlier_logit)
     return run_registration_scan(lambda scan: mesh.all_reduce_(ops.reg_row(problem, scan)),
                                  pose.R, pose.t, n_iters, method, tol, wls_inner)
 
@@ -194,9 +193,10 @@ def sharded_register_tree(
     levels = list(tree.levels)
     if complexity_threshold > 0.0:
         levels[-1] = tree.cut_mixture(complexity_threshold)
+    prep = ops.prepare(local, w)  # one buffer for every level
     lls, deltas, done = [], [], None
     for params in levels:
-        (R, t, done), ll, dd = _scan(local, w, params, mesh, pose, n_iters, method, tol, top_k,
+        (R, t, done), ll, dd = _scan(prep, params, mesh, pose, n_iters, method, tol, top_k,
                                      outlier_logit, wls_inner)
         pose = Pose(R, t)
         lls.append(ll)
@@ -224,6 +224,6 @@ def sharded_register_points(
     mesh = _mesh_for(source, mesh)
     local, w = _shard(source, mesh, point_weights)
     pose = Pose.identity(local.dtype, mesh.device) if init_pose is None else init_pose
-    (R, t, done), lls, deltas = _scan(local, w, params, mesh, pose, n_iters, method, tol, top_k,
-                                      outlier_logit, wls_inner)
+    (R, t, done), lls, deltas = _scan(ops.prepare(local, w), params, mesh, pose, n_iters, method, tol,
+                                      top_k, outlier_logit, wls_inner)
     return ShardedRegResult(Pose(R, t), lls, deltas, done)

@@ -14,6 +14,10 @@ at once when the scan is done) and the step kernel (``ops.reg_step``: ``csrc/reg
 the partials' sum and the pose solve); a sharded run puts its all_reduce of
 the 59 statistics between them. On the CPU both are the plain versions.
 
+The source buffer is prepared once a registration (``ops.prepare``) and each
+level's tables are built from its mixture by ``ops.reg_problem_of``: on the
+card one launch (``csrc/reg_tables.cu``), on the CPU ``model_terms``.
+
 Spans (``utils/profiling.span``): ``hgmm_torch.reg`` the whole registration,
 ``.reg.cut`` the complexity cut of the last level, ``.reg.prep`` a level's
 tables, ``.reg.scan`` a level's iterate. Counters: ``reg.steps`` the steps
@@ -31,8 +35,8 @@ from hgmm_torch import ops
 from hgmm_torch.models.gmm import Gmm
 from hgmm_torch.models.gmm_tree import GmmTree
 from hgmm_torch.models.se3 import Pose
-from hgmm_torch.ops.em_ref import SCAN_LIVE
-from hgmm_torch.ops.gaussians import MixtureParams, pack_loglik_weights, precision_terms, sym_pack
+from hgmm_torch.ops.em_ref import SCAN_LIVE, model_terms  # noqa: F401  (the reference's name here)
+from hgmm_torch.ops.gaussians import MixtureParams
 from hgmm_torch.utils import profiling
 from hgmm_torch.utils.profiling import span
 
@@ -76,13 +80,6 @@ def run_registration_scan(stats_fn, init_R, init_t, n_iters: int, method: str, t
         return (R, t, scan.done), scan.logliks, scan.deltas
 
 
-def model_terms(params: MixtureParams):
-    """Per-component terms every registration iteration reuses: W [10,K],
-    mu [K,3], A6 [K,6] packed precisions, b3 [K,3] = Sigma^-1 mu."""
-    A, b, _ = precision_terms(params)
-    return pack_loglik_weights(params), params.mu, sym_pack(A), b
-
-
 def register_points(
     source: torch.Tensor,
     params: MixtureParams,
@@ -98,20 +95,19 @@ def register_points(
     """Register `source` [N, 3] onto a fitted mixture. Returns the pose T
     with T(source) ~ target."""
     with span("hgmm_torch.reg"):
-        return _register_points(source, params, init_pose, n_iters, method, tol, top_k,
-                                outlier_logit, point_weights, wls_inner)
+        if init_pose is None:
+            init_pose = Pose.identity(source.dtype, source.device)
+        return _register_points(ops.prepare(source, point_weights), params, init_pose, n_iters, method,
+                                tol, top_k, outlier_logit, wls_inner)
 
 
-def _register_points(source, params, init_pose, n_iters, method, tol, top_k, outlier_logit,
-                     point_weights, wls_inner) -> RegistrationResult:
-    """register_points inside the registration's span (one level of
-    register_tree)."""
-    if init_pose is None:
-        init_pose = Pose.identity(source.dtype, source.device)
+def _register_points(prep, params, init_pose, n_iters, method, tol, top_k, outlier_logit,
+                     wls_inner) -> RegistrationResult:
+    """One scan of the prepared source onto `params` (register_points, or a
+    level of register_tree), inside the registration's span."""
     with span("hgmm_torch.reg.prep"):
-        W, mu, A6, b3 = model_terms(params)
-        # The source buffer, the packed tables and the partials, once for the scan.
-        problem = ops.reg_problem(source, W, mu, A6, b3, point_weights, top_k, outlier_logit)
+        # The level's tables and the partials, once for the scan.
+        problem = ops.reg_problem_of(prep, params, top_k, outlier_logit)
     (R, t, done), logliks, deltas = run_registration_scan(
         lambda scan: ops.reg_partials(problem, scan), init_pose.R, init_pose.t, n_iters, method,
         tol, wls_inner
@@ -137,13 +133,14 @@ def register_tree(
     or on their adaptive complexity cut. `n_iters` is per level."""
     with span("hgmm_torch.reg"):
         pose = Pose.identity(source.dtype, source.device) if init_pose is None else init_pose
+        prep = ops.prepare(source, point_weights)  # one source buffer for every level
         lls, deltas, res = [], [], None
         for li, params in enumerate(tree.levels):
             if li == len(tree.levels) - 1 and complexity_threshold > 0.0:
                 with span("hgmm_torch.reg.cut"):
                     params = tree.cut_mixture(complexity_threshold)
-            res = _register_points(source, params, pose, n_iters, method, tol, top_k, outlier_logit,
-                                   point_weights, wls_inner)
+            res = _register_points(prep, params, pose, n_iters, method, tol, top_k, outlier_logit,
+                                   wls_inner)
             pose = res.pose
             lls.append(res.logliks)
             deltas.append(res.deltas)

@@ -348,6 +348,8 @@ HAND = {
     # the [rows, 12] table and one loglik out
     "em_step": (dict(k=512, rows=512), ((10 * 512 + 3) + 13 * 512 + 12 * 512 + 1) * 4 / 3.35e12,
                 "bytes", "hbm"),
+    # pi, mu, sigma (13 a component) in; wn and aux (24 a component) out
+    "reg_tables": (dict(k=512), 148 * 512 / 3.35e12, "bytes", "hbm"),
 }
 
 

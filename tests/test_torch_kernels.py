@@ -803,6 +803,123 @@ def test_register_points_on_the_card_matches_the_cpu(cuda, method):
     torch.testing.assert_close(card.logliks.cpu()[-1], cpu.logliks[-1], rtol=1e-4, atol=0)
 
 
+def _plain_reg_tables(params):
+    """The kernel's twin: model_terms, pack_table of W and [mu | A6 | b3]."""
+    W, mu, A6, b3 = em_ref.model_terms(params)
+    return em_ref.pack_table(W).wn, torch.cat([mu, A6, b3], dim=1)
+
+
+def _reg_tables_mixture(case, cuda):
+    """(params, the pi = 0 rows): K = 8 to 2,048 with a dead component; a
+    compacted cut of K = 384 whose last 41 rows are padding (pi 0, mu 0,
+    Sigma I, as compact_mixture pads); K = 384 with covariances at the 1e-9
+    floor, and with covariances of condition number 1e6."""
+    if case.startswith("k"):
+        k = int(case[1:])
+        return _mixture(k, k + 61, cuda, dead=(k // 2,)), [k // 2]
+    k = 384
+    pi, mu, sigma = _mixture(k, 63, "cpu")
+    if case == "cut384":
+        dead = list(range(k - 41, k))
+        pi, mu, sigma = pi.clone(), mu.clone(), sigma.clone()
+        pi[dead], mu[dead], sigma[dead] = 0.0, 0.0, torch.eye(3)
+        pi = pi / pi.sum()
+    else:
+        g = torch.Generator().manual_seed(62)
+        q, _ = torch.linalg.qr(torch.randn(k, 3, 3, generator=g))
+        ev = (1e-9 * (1 + torch.rand(k, 3, generator=g)) if case == "floor" else
+              torch.tensor([1e-6, 1e-3, 1.0]).expand(k, 3))
+        sigma = q @ torch.diag_embed(ev) @ q.transpose(1, 2)
+        sigma, dead = 0.5 * (sigma + sigma.transpose(1, 2)), []
+    return MixtureParams(pi.to(cuda), mu.to(cuda), sigma.contiguous().to(cuda)), dead
+
+
+@pytest.mark.parametrize("case", ["k8", "k64", "k512", "k2048", "cut384", "floor", "cond1e6"])
+def test_reg_tables_against_the_plain_tables(cuda, case):
+    """One launch writes wn and aux as model_terms + pack_table + the cat.
+    Against a float64 run of the plain tables: the kernel is float64 inside
+    and rounds each value once to float32 (at most 2^-24 relative), so 2^-23
+    of the value, plus 1e-9 of its row's largest entry for what float64's
+    own order of operations moves. Against the float32 plain tables (what
+    the CPU path uses): the plain Cholesky and sums lose a few float32
+    roundings times the covariance's condition, so 4e-6 of the row's largest
+    entry; at condition 1e6 the float32 plain is itself ~4 % of a row off
+    float64, and only the float64 comparison holds there. Dead and padding
+    rows (pi = 0) are inert: the bias at the floor, -1e30."""
+    params, dead = _reg_tables_mixture(case, cuda)
+    k = params.k
+    pts, _ = _inputs(100, 64, cuda)
+    before = fused_em.LAUNCHES["reg_tables"]
+    tab = fused_em.reg_tables_of(prepare(pts).pts4, params)
+    assert fused_em.LAUNCHES["reg_tables"] == before + 1
+    assert tab.wn.shape == tab.aux.shape == (k, 12)
+    p64 = MixtureParams(*(a.cpu().double() for a in params))
+    p32 = MixtureParams(*(a.cpu() for a in params))
+    for got, ref64, ref32 in zip((tab.wn.cpu().double(), tab.aux.cpu().double()), _plain_reg_tables(p64),
+                                 _plain_reg_tables(p32)):
+        top = ref64.abs().amax(1, keepdim=True)
+        assert bool(((got - ref64).abs() <= 2.0 ** -23 * ref64.abs() + 1e-9 * top).all())
+        if case != "cond1e6":
+            assert bool(((got - ref32.double()).abs() <= 4e-6 * top).all())
+    wn = tab.wn.cpu()
+    assert bool((wn[dead, 9] < -1e29).all()) and bool((wn[:, 10:] == 0).all())
+    live = torch.ones(k, dtype=torch.bool)
+    live[dead] = False
+    assert bool((wn[live, 9] > -1e29).all())
+
+
+def test_reg_tables_of_refuses_what_the_kernel_does_not_take(cuda):
+    pts = prepare(_inputs(100, 65, cuda)[0]).pts4
+    params = _mixture(64, 66, cuda)
+    for bad in (MixtureParams(params.pi.double(), params.mu, params.sigma),
+                MixtureParams(params.pi, params.mu, params.sigma.transpose(1, 2)),  # not contiguous
+                MixtureParams(params.pi, params.mu.cpu(), params.sigma)):
+        with pytest.raises(ValueError):
+            fused_em.reg_tables_of(pts, bad)
+
+
+def test_register_tree_on_the_card_builds_each_level_in_one_launch(cuda, monkeypatch):
+    """register_tree with the dragon cells' settings (branch 8, 3 levels,
+    horn+wls, 50 iterations a level, cut 0.02) on the card against the same
+    registration on the CPU through the plain path: one reg_tables launch a
+    level, no precision_terms call on the card (the CPU path makes two a
+    level), and the pose within the dragon_to_map cell's limits on the
+    program's pose (regbench/limits/dragon_to_map.json, read)."""
+    import json
+    from pathlib import Path
+
+    from hgmm_torch.data.synthetic import make_cloud
+    from hgmm_torch.models.gmm_tree import GmmTree
+    from hgmm_torch.models.se3 import Pose
+    from hgmm_torch.ops import gaussians
+    from hgmm_torch.pipelines.register import register_tree
+
+    limits = json.loads((Path(__file__).resolve().parents[1] / "regbench" / "limits" /
+                         "dragon_to_map.json").read_text())
+    target = make_cloud(60_000, "trefoil", seed=3, device="cpu")
+    gt = Pose(so3_exp(torch.tensor([0.05, -0.1, 0.15])), torch.tensor([0.03, -0.02, 0.04]))
+    source = gt.inverse().apply(target)
+    tree, _ = GmmTree.fit(target, levels=3, em_iters=8, generator=torch.Generator().manual_seed(0))
+    inverses = []
+    real = gaussians._inv_and_logdet_3x3
+    monkeypatch.setattr(gaussians, "_inv_and_logdet_3x3", lambda s: inverses.append(s.device) or real(s))
+    kw = dict(n_iters=50, method="horn+wls", complexity_threshold=0.02)
+    cpu = register_tree(source, tree, **kw)
+    assert inverses == [torch.device("cpu")] * 6
+    card_tree = GmmTree(levels=[MixtureParams(*(a.to(cuda) for a in lv)) for lv in tree.levels],
+                        branch=tree.branch)
+    inverses.clear()
+    before = fused_em.LAUNCHES["reg_tables"]
+    card = register_tree(source.to(cuda), card_tree, **kw)
+    torch.cuda.synchronize()
+    assert fused_em.LAUNCHES["reg_tables"] == before + 3 and inverses == []
+    R = card.pose.R.cpu().double() @ cpu.pose.R.double().T
+    rot = float(torch.atan2(0.5 * torch.linalg.vector_norm(torch.stack(
+        [R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])), 0.5 * (torch.trace(R) - 1.0)))
+    trans = float(torch.linalg.vector_norm(card.pose.t.cpu().double() - cpu.pose.t.double()))
+    assert rot <= limits["pose_rot_gap"]["limit"] and trans <= limits["pose_trans_gap"]["limit"]
+
+
 @pytest.mark.parametrize("k", [64, 68, 512])
 @pytest.mark.parametrize("n", [1, 300, 20_000])
 def test_em_stats_masked_by_parent_chunks(cuda, k, n):
@@ -1242,7 +1359,8 @@ def test_sharded_sweeps_and_scan_steps_never_sync(cuda, nccl_world):
     pose = Pose.identity(device=cuda)
     w = torch.ones(pts.shape[0], device=cuda)
     for run in (lambda: em_sweeps(prep, init, 4, total, floor, mesh=nccl_world),
-                lambda: _scan(pts, w, init, nccl_world, pose, 6, "horn+wls", 1e-7, None, None, 2)):
+                lambda: _scan(ops.prepare(pts, w), init, nccl_world, pose, 6, "horn+wls", 1e-7, None, None,
+                              2)):
         run()
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")

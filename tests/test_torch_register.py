@@ -256,3 +256,67 @@ def test_reg_step_twin_is_the_pose_code(case, dtype):
     scan = _twin_step(h, A, b, R0, t0, 1, True, True, done=True)
     torch.testing.assert_close(scan.pose[0], R0, rtol=0, atol=0)
     assert float(scan.logliks[1]) == -5.0 and float(scan.deltas[1]) == 0.25
+
+
+@pytest.mark.parametrize("entry", ["register_tree", "register_points"])
+def test_the_source_is_prepared_once_a_registration(pair, entry, monkeypatch):
+    """register_tree builds the source buffer once for its three levels
+    (register_points once for its one), and on the CPU each level's tables
+    come from model_terms: precision_terms twice a level, through
+    pack_loglik_weights and directly."""
+    from hgmm_torch import ops
+    from hgmm_torch.ops import gaussians
+
+    source, target, _, _ = pair
+    tree, _ = GmmTree.fit(torch.from_numpy(target), levels=3, em_iters=3,
+                          generator=torch.Generator().manual_seed(2))
+    calls = {"prepare": 0, "inverse": 0}
+    prepare, inverse = ops.prepare, gaussians._inv_and_logdet_3x3
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(ops, "prepare", counted("prepare", prepare))
+    monkeypatch.setattr(gaussians, "_inv_and_logdet_3x3", counted("inverse", inverse))
+    src = torch.from_numpy(source)
+    if entry == "register_tree":
+        res = treg.register_tree(src, tree, n_iters=4, complexity_threshold=0.02)
+        levels = 3
+    else:
+        res = treg.register_points(src, tree.levels[1], n_iters=4)
+        levels = 1
+    assert calls == {"prepare": 1, "inverse": 2 * levels}
+    assert res.logliks.shape == (4 * levels,)
+
+
+@pytest.mark.parametrize("case", ["on_the_cpu", "k_past_max", "pi_shape", "mu_shape", "sigma_shape",
+                                  "points_shape"])
+def test_reg_tables_of_refuses_what_the_kernel_does_not_take(case):
+    """fused_em.reg_tables_of takes the card's tensors alone, K in [1, MAX_K]
+    and pi [K], mu [K, 3], sigma [K, 3, 3], pts4 [4, N]; the dispatch sends
+    CPU tensors to the plain path instead."""
+    from hgmm_torch import ops
+    from hgmm_torch.ops import fused_em
+    from hgmm_torch.ops.gaussians import MixtureParams
+
+    k = fused_em.MAX_K + 1 if case == "k_past_max" else 16
+    params = MixtureParams(torch.full((k,), 1.0 / k), torch.zeros(k, 3), torch.eye(3).repeat(k, 1, 1))
+    prep = ops.prepare(torch.zeros(10, 3))
+    pts4 = prep.pts4
+    match = {"on_the_cpu": "CUDA tensor", "k_past_max": "outside", "pi_shape": "pi of shape",
+             "mu_shape": "mu of shape", "sigma_shape": "sigma of shape", "points_shape": "pts4"}[case]
+    if case == "pi_shape":
+        params = params._replace(pi=params.pi[:, None])
+    elif case == "mu_shape":
+        params = params._replace(mu=params.mu[:, :2])
+    elif case == "sigma_shape":
+        params = params._replace(sigma=params.sigma.reshape(k, 9))
+    elif case == "points_shape":
+        pts4 = pts4[:3]
+    with pytest.raises(ValueError, match=match):
+        fused_em.reg_tables_of(pts4, params)
+    if case == "on_the_cpu":
+        assert isinstance(ops.reg_problem_of(prep, params), ops.RegProblem)
