@@ -67,7 +67,8 @@ Run from the root of a checkout. It
      version at full size (float64 distances) and times both;
    - `fit-gmm --tree` to an npz, read back with load_tree (levels 8/64/512);
    - `register --preset config3_mahalanobis` on the config-2 pair: fails
-     unless the pose meets the bounds and reg_stats launched; then checks
+     unless the pose meets the bounds and both reg_stats bodies launched
+     (reg_stats at K = 8, reg_stats_top_k at K = 64 and 512); then checks
      the K=512 reg_stats with top_k=8 against its plain version at the final
      pose and times it with and without top_k;
    - the odometry path (config 4) on a synthetic KITTI-format loop of 40
@@ -207,7 +208,8 @@ ICP_ITERS = 250
 TREE_PATH = ("em_stats", "em_stats_masked", "em_step", "assign", "reg_stats", "reg_step", "reg_tables")
 WIDE_PATH = ("em_stats", "em_stats_masked_wide", "em_step", "assign", "reg_stats", "reg_step", "reg_tables")
 PROBES = ("probe_logits", "probe_addonly", "probe_stats", "probe_norm", "probe_vpu")
-PATH_KERNELS = {"register_pair": TREE_PATH, "cli_icp": ("knn",), "cli_register_config3": TREE_PATH,
+PATH_KERNELS = {"register_pair": TREE_PATH, "cli_icp": ("knn",),
+                "cli_register_config3": TREE_PATH + ("reg_stats_top_k",),
                 "cli_odometry": TREE_PATH, "cli_odometry_closures": TREE_PATH,
                 "cli_localize": ("reg_stats", "reg_step", "reg_tables"), "cli_bench": ("em_stats",), "probes": PROBES,
                 "shard": TREE_PATH, "cli_odometry_sharded": TREE_PATH,
@@ -222,13 +224,14 @@ PATH_KERNELS = {"register_pair": TREE_PATH, "cli_icp": ("knn",), "cli_register_c
                                          "reg_step", "reg_tables") for t in (64, 128)}}
 SOURCES = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu", "em_stats_masked_wide": "em_stats.cu",
            "em_step": "em_step.cu", "assign": "assign.cu",
-           "reg_stats": "reg_stats.cu", "reg_stats_select": "reg_stats.cu", "reg_step": "reg_step.cu",
+           "reg_stats": "reg_stats.cu", "reg_stats_top_k": "reg_stats.cu", "reg_stats_select": "reg_stats.cu",
+           "reg_step": "reg_step.cu",
            "reg_tables": "reg_tables.cu", "knn": "knn.cu",
            **{name: "probes.cu" for name in PROBES}}
 REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops/fused_em.py:559",
             "em_stats_masked_wide": "hgmm/ops/fused_em.py:559",
             "assign": "hgmm/ops/fused_em.py:859", "reg_stats": "hgmm/ops/fused_em.py:920",
-            "reg_stats_select": "hgmm/ops/fused_em.py:920",
+            "reg_stats_top_k": "hgmm/ops/fused_em.py:920", "reg_stats_select": "hgmm/ops/fused_em.py:920",
             # no TPU kernel: the XLA ops of the reference's scan steps
             "reg_step": "hgmm/pipelines/register.py:80", "em_step": "hgmm/models/gmm.py:121",
             "reg_tables": "hgmm/pipelines/register.py:127",
@@ -239,7 +242,8 @@ REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops
             "probe_vpu": "benchmarks/vpu_microbench.py:52"}
 # The path a kernel's `launches` are read from, where it is not register_pair.
 MAIN_PATH = {"knn": "cli_icp", **{name: "probes" for name in PROBES},
-             "em_stats_masked_wide": "branch16_pair", "reg_stats_select": "config3_top_k64"}
+             "em_stats_masked_wide": "branch16_pair", "reg_stats_top_k": "cli_register_config3",
+             "reg_stats_select": "config3_top_k64"}
 # The bench path. Probe checks: bfloat16 operands carry identical bits in the
 # kernel and its plain version and only the float32 sum order differs; float32
 # operands likewise. atol is a share of the largest |reference| (a sum of
@@ -782,7 +786,7 @@ def check_reg_top_k(torch, pts, w, W, mu, A6, b3, pose, top_k, outlier, errs, ma
     w = (torch.ones_like(pts[:, 0]) if w is None else w) * (~near)
     got = fused_em.reg_stats(prepare(pts, w).pts4, W, mu, A6, b3, pose, top_k, outlier)
     ref = em_ref.reg_stats(pts, W, mu, A6, b3, pose, w, top_k, outlier)
-    name = "reg_stats_select" if fused_em.MAX_TOP_K < top_k < W.shape[1] else "reg_stats"
+    name = fused_em.reg_stats_body(fused_em._top_k(top_k, W.shape[1]))
     check_reg(torch, got, ref, int((w > 0).sum()), errs, name)
     return share
 
@@ -1230,8 +1234,8 @@ def add_bound(name, entry) -> None:
         kb = kernel_bound(name, n=entry["n"], k=entry["k"], top_k=entry["top_k"])
     elif name == "assign":
         kb = kernel_bound(name, n=entry["n"], k=entry["k"], branch=8 if entry["masked"] else None)
-    elif name == "reg_stats":
-        kb = kernel_bound(name, n=entry["n"], k=entry["k"], top_k=entry.get("top_k"))
+    elif name in ("reg_stats", "reg_stats_top_k"):
+        kb = kernel_bound("reg_stats", n=entry["n"], k=entry["k"], top_k=entry.get("top_k"))
     elif name == "reg_step":
         kb = kernel_bound(name, nb=entry["nb"])
     elif name == "em_step":
@@ -1903,17 +1907,18 @@ def cli_register_config3(torch, dev, work, errs, timings):
     for top_k in (p3.top_k, None):
         tab = fused_em.reg_tables(src.pts4, W, mu, A6, b3, top_k, p3.outlier_logit)
         pose12 = torch.cat([pose[0].reshape(9), pose[1]]).contiguous()
-        timings["reg_stats"].append({
+        timings["reg_stats_top_k" if top_k else "reg_stats"].append({
             "k": k, "n": N_POINTS, "top_k": top_k, "outlier_logit": p3.outlier_logit,
             "ms": cuda_ms(torch, lambda: fused_em.reg_partials(tab, pose12)),
             "wrapper_ms": cuda_ms(torch, lambda: fused_em.reg_stats(src.pts4, W, mu, A6, b3, pose, top_k,
                                                                     p3.outlier_logit)),
             "plain_ms": cuda_ms(torch, lambda: em_ref.reg_stats(source, W, mu, A6, b3, pose, None,
                                                                 top_k, p3.outlier_logit), reps=5),
-            "headline": False})
+            "headline": bool(top_k)})
     log({"phase": "cli_register_config3", "n_source": N_POINTS, "n_target": N_POINTS,
          "wall_s": wall, "errors": errors, "bounds": BOUNDS, "launches": counts,
-         "top_k_near_tie_share": share, "reg_stats_top_k": timings["reg_stats"][-2:]})
+         "top_k_near_tie_share": share,
+         "reg_stats_top_k": timings["reg_stats_top_k"][-1:] + timings["reg_stats"][-1:]})
     return counts
 
 

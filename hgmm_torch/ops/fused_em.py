@@ -102,11 +102,12 @@ EMS_WARPS_PER_SM = 64  # resident warps an SM on the H100
 
 # Kernel launches by wrapper, for showing that a run went through the kernels
 # (ops/knn.py and ops/probes.py count their kernels here too). The masked
-# em_stats past EG_BMAX children and reg_stats' select body (top_k past
-# MAX_TOP_K) count apart from the bodies their wrappers launch otherwise.
+# em_stats past EG_BMAX children counts apart from the branch-8 body, and
+# reg_stats by body (reg_stats_body): the lanes body, the top_k body with a
+# register list, the select body past MAX_TOP_K.
 LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "em_stats_masked_wide": 0, "em_step": 0, "assign": 0,
-            "reg_stats": 0, "reg_stats_select": 0, "reg_step": 0, "reg_tables": 0, "knn": 0,
-            "probe_logits": 0, "probe_addonly": 0, "probe_stats": 0, "probe_norm": 0, "probe_vpu": 0}
+            "reg_stats": 0, "reg_stats_top_k": 0, "reg_stats_select": 0, "reg_step": 0, "reg_tables": 0,
+            "knn": 0, "probe_logits": 0, "probe_addonly": 0, "probe_stats": 0, "probe_norm": 0, "probe_vpu": 0}
 
 
 _LAUNCHES_LOCK = threading.Lock()  # the ranks of an EmulatedMesh launch from threads
@@ -541,6 +542,15 @@ def assign(pts4: torch.Tensor, W, parent=None, branch=None) -> torch.Tensor:
     return out
 
 
+def reg_stats_body(gate: int) -> str:
+    """The launch counter of the reg_stats body a table's gate (_top_k)
+    selects: "reg_stats" (the lanes body, no gating), "reg_stats_top_k" (the
+    register-list body, 1 <= gate <= MAX_TOP_K), "reg_stats_select" past it."""
+    if not gate:
+        return "reg_stats"
+    return "reg_stats_top_k" if gate <= MAX_TOP_K else "reg_stats_select"
+
+
 def _top_k(top_k, k: int) -> int:
     """The kernel's top_k argument: 0 (no gating) for None or top_k >= K,
     else top_k, at least 1."""
@@ -688,7 +698,7 @@ def reg_partials(tab: RegTables, pose12: torch.Tensor, done: torch.Tensor | None
             _stream(tab.pts4),
         )
     _raise_on(err, "reg_stats")
-    count_launch("reg_stats_select" if tab.gate > MAX_TOP_K else "reg_stats")
+    count_launch(reg_stats_body(tab.gate))
     return tab.partial
 
 

@@ -803,6 +803,30 @@ def test_register_points_on_the_card_matches_the_cpu(cuda, method):
     torch.testing.assert_close(card.logliks.cpu()[-1], cpu.logliks[-1], rtol=1e-4, atol=0)
 
 
+@pytest.mark.parametrize("top_k", [None, 8, 64])
+def test_register_tree_counts_each_reg_stats_body(cuda, top_k):
+    """A tree registration (K = 8, 64, 512) launches one reg_stats a step,
+    counted by body: the lanes body where nothing gates (K <= top_k, or no
+    top_k), reg_stats_top_k where 1 <= top_k <= MAX_TOP_K < K gates,
+    reg_stats_select past it; the three add up to the steps."""
+    from hgmm_torch.data.synthetic import make_cloud
+    from hgmm_torch.models.gmm_tree import GmmTree
+    from hgmm_torch.pipelines.register import register_tree
+
+    cloud = make_cloud(20_000, "trefoil", seed=12, device=cuda)
+    tree, _ = GmmTree.fit(cloud, branch=8, levels=3, em_iters=4, generator=torch.Generator().manual_seed(13))
+    names = ("reg_stats", "reg_stats_top_k", "reg_stats_select")
+    before = dict(fused_em.LAUNCHES)
+    register_tree(cloud, tree, n_iters=10, method="horn+wls", top_k=top_k, outlier_logit=0.0)
+    torch.cuda.synchronize()
+    got = {name: fused_em.LAUNCHES[name] - before[name] for name in names}
+    steps = 5 + 5 * 2  # a level: 5 Horn steps, then 5 WLS iterations of 2 steps
+    body = {None: ["reg_stats"] * 3, 8: ["reg_stats"] + ["reg_stats_top_k"] * 2,
+            64: ["reg_stats"] * 2 + ["reg_stats_select"]}[top_k]
+    assert got == {name: steps * body.count(name) for name in names}
+    assert sum(got.values()) == fused_em.LAUNCHES["reg_step"] - before["reg_step"] == 3 * steps
+
+
 def _plain_reg_tables(params):
     """The kernel's twin: model_terms, pack_table of W and [mu | A6 | b3]."""
     W, mu, A6, b3 = em_ref.model_terms(params)
