@@ -17,8 +17,8 @@ lies in. It needs ``hgmm_torch.bench`` in TREE (there since the bench path).
   outlier logit), K = 64, 512 unmasked (weighted, outlier) and masked (random
   parents, branch 8) at N points (default 437,645),
 - ``assign`` at K = 8 and, masked, K = 64, 512,
-- ``reg_stats`` at K = 8, 64, 384, 512 (outlier -8) and K = 512 with
-  top_k = 8 and 32 (outlier 0: both register-list bodies),
+- ``reg_stats`` at K = 8, 64, 384, 512 (outlier -8), K = 64 with top_k = 8
+  and K = 512 with top_k = 8 and 32 (outlier 0: both register-list bodies),
 - ``nearest_neighbor`` of N moved points against the N points,
 - a flat fit (K = 8, 10 sweeps) and a tree fit (8 x 3, 10 sweeps a level)
   from one init on the odometry bucket (16,384 points at LiDAR scale): the
@@ -31,7 +31,9 @@ bench sweep (``em_stats``, N = 2^21, K = 512) and of the search; of
 at the odometry bucket, 16,384 points at LiDAR scale; the device time a call
 of ``em_stats`` at K = 8 and of ``assign`` at K = 8 and, masked, K = 64, 512
 (profiler trace, by kernel name) at both sizes, and of ``em_stats`` at K = 16,
-32, 33, 63 and 64 at N; the two step kernels by their parts (``step_times``:
+32, 33, 63 and 64 and the gated ``reg_stats`` calls at N (in trees whose plan
+has the top_k body's chunk, ``chunk_times``: that body at each chunk size
+too); the two step kernels by their parts (``step_times``:
 ``reg_step`` on 528 rows and on one, Horn and WLS, an iteration's middle and
 last step, a done scan, each also back to back in a CUDA graph; a fit's sweep
 by kernel); and of two pairs, each
@@ -131,6 +133,7 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
              "card": bench.card_line() if dev.type == "cuda" else None}
     times.update(shape_times(np, torch, dev, n))
     times.update(device_times(np, torch, dev, n))
+    times.update(chunk_times(np, torch, dev, n))
     times.update(step_times(np, torch, dev, n))
     times.update(pair_counts(np, torch, dev, n))
     probe_out, probe_t = probe_times(torch, dev)
@@ -140,8 +143,9 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
 
 
 def reg_inputs(np, torch, convert, dev, pts, extent=None):
-    """reg_stats arguments by key: K = 8, 64, 384, 512 (outlier -8) and K =
-    512 with top_k = 8 and 32 (outlier 0), at a fixed pose."""
+    """reg_stats arguments by key: K = 8, 64, 384, 512 (outlier -8), K = 64
+    with top_k = 8 and K = 512 with top_k = 8 and 32 (outlier 0), at a fixed
+    pose."""
     from hgmm_torch.models.se3 import so3_exp
     from hgmm_torch.ops.gaussians import pack_loglik_weights, precision_terms, sym_pack
     from hgmm_torch.data.synthetic import lidar_mixture_np
@@ -149,7 +153,7 @@ def reg_inputs(np, torch, convert, dev, pts, extent=None):
     pose = (so3_exp(torch.tensor([0.02, -0.03, 0.05], device=dev)), torch.tensor([0.05, 0.0, -0.02], device=dev))
     out = {}
     for k, top_k, outlier in ((8, None, -8.0), (64, None, -8.0), (384, None, -8.0), (512, None, -8.0),
-                              (512, 8, 0.0), (512, 32, 0.0)):
+                              (64, 8, 0.0), (512, 8, 0.0), (512, 32, 0.0)):
         if extent is None:
             params = convert.mixture_from_numpy(*_unit_mixture(np, k), device=dev)
         else:
@@ -301,6 +305,40 @@ def device_times(np, torch, dev, n) -> dict:
             for k in (16, 32, 33, 63, 64):
                 W = pack_loglik_weights(convert.mixture_from_numpy(*_unit_mixture(np, k), device=dev))
                 timed(f"em_stats_K{k}_{tag}", lambda: ops.em_stats(prep, W))
+            for key, (args, kw) in reg_inputs(np, torch, convert, dev, prep.points).items():
+                if kw["top_k"] is not None:  # the gated body, its tables and its reduce
+                    timed(f"reg_stats_{key}_{tag}", lambda: ops.reg_stats(prep, *args, **kw))
+    return out
+
+
+def chunk_times(np, torch, dev, n) -> dict:
+    """Device µs a launch (device_us) of reg_stats' top_k body at each chunk
+    size of the tree's fused_em.RS_CHUNKS, forced through the plan, at the
+    gated reg_inputs at n points (unit scale), beside the plan's own chunk;
+    {} in a tree without it or off the card."""
+    import dataclasses
+
+    from hgmm_torch import convert, ops
+    from hgmm_torch.ops import fused_em
+
+    if dev.type != "cuda" or not hasattr(fused_em, "RS_CHUNKS"):
+        return {}
+    rng = np.random.default_rng(13)
+    pts = torch.from_numpy(rng.standard_normal((n, 3), dtype=np.float32)).to(dev)
+    prep = ops.prepare(pts)
+    out = {}
+    for key, ((W, mu, A6, b3, pose), kw) in reg_inputs(np, torch, convert, dev, pts).items():
+        if kw["top_k"] is None:
+            continue
+        tab = fused_em.reg_tables(prep.pts4, W, mu, A6, b3, **kw)
+        pose12 = torch.cat([pose[0].reshape(9), pose[1]]).contiguous()
+        out[f"reg_stats_{key}_plan_chunk"] = tab.plan.chunk
+        plan = tab.plan
+        for chunk in fused_em.RS_CHUNKS:
+            tab.plan = dataclasses.replace(plan, chunk=chunk)
+            us, _ = device_us(lambda: fused_em.reg_partials(tab, pose12))
+            out[f"reg_stats_{key}_chunk{chunk}_device_us"] = us
+        tab.plan = plan
     return out
 
 

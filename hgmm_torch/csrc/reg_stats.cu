@@ -31,17 +31,32 @@
 //   The L lanes then merge (m, s, red) by xor shuffles in a fixed order; lane
 //   0 of the group adds the outlier term and the point's statistics.
 //
-// reg_stats_top_k_kernel<KMAX> (top_k gating, em_ref.top_k_mask_logits): one
-//   thread a point. Pass 1 evaluates each logit once and keeps the KMAX
-//   largest (value, index) pairs, with multiplicity, in registers sorted by
-//   an unrolled compare-exchange insertion; the threshold th is the top_k-th
-//   of them. Pass 2 touches only the kept components (value >= th, so ties at
-//   the threshold are kept and the outlier is never gated). KMAX = 9 for
-//   top_k <= 8 and 33 for top_k <= 32, so the list holds every component at
-//   or above th unless more than KMAX - top_k logits tie with th; then (the
-//   list's last value >= th) the point recomputes all K logits and keeps
-//   those >= th, as before. The index costs the insertion three selects a
-//   step beside the value's two.
+// reg_stats_top_k_kernel<KMAX, C> (top_k gating, em_ref.top_k_mask_logits):
+//   one thread a point, its K components in chunks of C consecutive ones (C
+//   from the plan, ops/fused_em.py:plan_top_k_chunk). Pass 1 evaluates each
+//   logit once and keeps only each chunk's max (fmaxf, no branch). The chunk
+//   goes into a sorted register list of the KMAX largest as one unsigned key,
+//   the max's order-preserving bits with the low ones replaced by the
+//   chunk's number, so an insertion is two integer min/max an entry, each
+//   from the old list (no chain through the stages), and runs K / C times a
+//   point instead of up to K. KMAX = 9 for top_k <= 8 and 33
+//   for top_k <= 32. The top_k largest keys' chunks hold top_k components at
+//   or above xb, their top_k-th key cut to its high bits, so the threshold
+//   th (the top_k-th largest logit, with multiplicity) is too, and every kept
+//   logit (>= th) lies in a chunk whose key is >= xb: the list's entries >=
+//   xb, unless the list's last entry reaches xb (ties, or maxima within the
+//   cut bits); then every chunk is taken. Stage 2 evaluates the taken
+//   chunks' logits again with the same logit(), so they are the same floats,
+//   into a list of the KMAX - 1 largest with their components (a compare and
+//   four selects an entry, again from the old list): th is its top_k-th, and the kept components
+//   are its entries >= th (ties at th kept, NaN never, the outlier never
+//   gated), or, when more tie with th than it holds, the taken chunks' logits
+//   >= th. Pass 1's reads are the same row for every thread of a warp (a
+//   broadcast); stage 2's are a row of the thread's own, which the warp's
+//   threads read with bank conflicts, so C trades the insertions against
+//   them. With `counters` (int64 [3], or null: a uniform branch) each block
+//   adds, one atomic each, the points it gated, the chunks stage 2 took and
+//   the points that took every chunk.
 //
 // reg_stats_select_kernel (top_k gating with 32 < top_k < K): a list of
 //   top_k logits in registers would spill, so a warp takes a point. Its lanes
@@ -284,98 +299,43 @@ __global__ void __launch_bounds__(RS_THREADS)
   write_partial(acc, red_s, partial);
 }
 
-template <int KMAX>
-__global__ void __launch_bounds__(RS_THREADS)
-    reg_stats_top_k_kernel(const float* __restrict__ pts4, int n, const float* __restrict__ pose12,
-                           const float* __restrict__ done, const float* __restrict__ wn,
-                           const float* __restrict__ aux, int k, int top_k, int has_outlier,
-                           float outlier, float* __restrict__ partial) {
-  if (done != nullptr && *done != 0.0f) return;
-  extern __shared__ float4 smem4[];
-  float4* w4 = smem4;
-  float4* a4 = w4 + 3 * k;
-  float* red_s = reinterpret_cast<float*>(a4 + 3 * k);
-  load_tables(w4, a4, wn, aux, k);
-  float P[12];
+// Insert v (not NaN) with its index vi into the descending list (top, idx):
+// of equal values the one inserted first stays ahead. Each entry is chosen
+// from the old list (keep it, take the one above, or take v), so the stages
+// do not wait on each other.
+template <int N>
+__device__ __forceinline__ void insert_indexed(float (&top)[N], int (&idx)[N], float v, int vi) {
 #pragma unroll
-  for (int c = 0; c < 12; ++c) P[c] = pose12[c];
-  float acc[NACC];
-#pragma unroll
-  for (int c = 0; c < NACC; ++c) acc[c] = 0.0f;
-  __syncthreads();
-
-  for (int i = blockIdx.x * RS_THREADS + threadIdx.x; i < n; i += gridDim.x * RS_THREADS) {
-    const float x0 = pts4[i], x1 = pts4[(size_t)n + i], x2 = pts4[2 * (size_t)n + i];
-    const float w = pts4[3 * (size_t)n + i];
-    const float y0 = fmaf(P[0], x0, fmaf(P[1], x1, fmaf(P[2], x2, P[9])));
-    const float y1 = fmaf(P[3], x0, fmaf(P[4], x1, fmaf(P[5], x2, P[10])));
-    const float y2 = fmaf(P[6], x0, fmaf(P[7], x1, fmaf(P[8], x2, P[11])));
-    const Psi p = features(y0, y1, y2);
-
-    // Pass 1: the KMAX largest logits with their indices, descending; of
-    // equal logits the earlier component stays ahead.
-    float top[KMAX];
-    int idx[KMAX];
-#pragma unroll
-    for (int c = 0; c < KMAX; ++c) {
-      top[c] = -INFINITY;
-      idx[c] = 0;
-    }
-    for (int j = 0; j < k; ++j) {
-      float v = logit(w4 + 3 * j, p);
-      if (v > top[KMAX - 1]) {
-        int vi = j;
-#pragma unroll
-        for (int c = 0; c < KMAX; ++c) {
-          const bool gt = v > top[c];
-          const float hi = gt ? v : top[c], lo = gt ? top[c] : v;
-          const int hii = gt ? vi : idx[c], loi = gt ? idx[c] : vi;
-          top[c] = hi;
-          idx[c] = hii;
-          v = lo;
-          vi = loi;
-        }
-      }
-    }
-    float th = top[0];
-#pragma unroll
-    for (int c = 1; c < KMAX; ++c)
-      if (c < top_k) th = top[c];
-    const float m = has_outlier ? fmaxf(top[0], outlier) : top[0];
-    const float m2 = fmaxf(m, NEG_INF) * LOG2E;
-
-    // Pass 2: the kept components only.
-    float s = 0.0f;
-    float red[12];
-#pragma unroll
-    for (int c = 0; c < 12; ++c) red[c] = 0.0f;
-    if (!(top[KMAX - 1] >= th)) {
-#pragma unroll
-      for (int c = 0; c < KMAX; ++c) {
-        if (top[c] >= th) {
-          const float e = exp2f(fmaf(top[c], LOG2E, -m2));
-          s += e;
-          add_aux(red, e, a4, idx[c]);
-        }
-      }
-    } else {  // more ties at th than the list holds: every component again
-      for (int j = 0; j < k; ++j) {
-        const float l = logit(w4 + 3 * j, p);
-        if (l < th) continue;
-        const float e = exp2f(fmaf(l, LOG2E, -m2));
-        s += e;
-        add_aux(red, e, a4, j);
-      }
-    }
-    const Soft r = finish_soft(m, m2, s, has_outlier, outlier, w);
-    acc[NACC - 1] += r.lse;
-    if (r.scale == 0.0f) continue;
-    add_point(acc, x0, x1, x2, y0, y1, y2, red, s, r.scale);
+  for (int c = N - 1; c > 0; --c) {
+    const bool here = v > top[c], above = v > top[c - 1];
+    top[c] = here ? (above ? top[c - 1] : v) : top[c];
+    idx[c] = here ? (above ? idx[c - 1] : vi) : idx[c];
   }
-  write_partial(acc, red_s, partial);
+  if (v > top[0]) {
+    top[0] = v;
+    idx[0] = vi;
+  }
 }
 
-constexpr int RSS_BINS = 256;  // a radix digit of 8 bits
+// Insert key into the descending list of keys: entry c becomes
+// max(min(key, top[c - 1]), top[c]) of the old list, two integer min/max
+// that do not wait on the other entries.
+template <int N>
+__device__ __forceinline__ void insert_key(unsigned (&top)[N], unsigned key) {
+#pragma unroll
+  for (int c = N - 1; c > 0; --c) top[c] = max(min(key, top[c - 1]), top[c]);
+  top[0] = max(key, top[0]);
+}
+
+// top[r - 1] for 1 <= r <= N, without indexing the registers at run time.
+template <typename T, int N>
+__device__ __forceinline__ T nth(const T (&top)[N], int r) {
+  T v = top[0];
+#pragma unroll
+  for (int c = 1; c < N; ++c)
+    if (c < r) v = top[c];
+  return v;
+}
 
 // A key that orders float32 values as unsigned integers; NaN is 0, below -inf.
 __device__ __forceinline__ unsigned order_key(float v) {
@@ -383,6 +343,163 @@ __device__ __forceinline__ unsigned order_key(float v) {
   const unsigned u = __float_as_uint(v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
+
+constexpr int TK_COUNTERS = 3;  // points gated, chunks stage 2 took, points that took every chunk
+
+// The top_k body's shared memory: the weight table by chunks, a chunk of C
+// rows in 3 C float4s and one of padding when 3 C is even (the stride is
+// odd, so the chunks that a warp's threads read in stage 2 start on every
+// bank quad), the aux table, the warps' sums (ops/fused_em.py:
+// reg_top_k_smem_bytes).
+size_t reg_top_k_smem_bytes(int k, int chunk) {
+  const int stride = 3 * chunk + (chunk % 2 == 0 ? 1 : 0);
+  return sizeof(float4) * ((size_t)(k + chunk - 1) / chunk * stride + 3 * (size_t)k) +
+         sizeof(float) * RS_WARPS * NACC;
+}
+
+template <int KMAX, int C>
+__global__ void __launch_bounds__(RS_THREADS)
+    reg_stats_top_k_kernel(const float* __restrict__ pts4, int n, const float* __restrict__ pose12,
+                           const float* __restrict__ done, const float* __restrict__ wn,
+                           const float* __restrict__ aux, int k, int top_k, int has_outlier,
+                           float outlier, float* __restrict__ partial,
+                           unsigned long long* __restrict__ counters) {
+  if (done != nullptr && *done != 0.0f) return;
+  constexpr int WS = 3 * C + (C % 2 == 0 ? 1 : 0);  // float4s a chunk (reg_top_k_smem_bytes)
+  const int nch = (k + C - 1) / C, nfull = k / C;
+  extern __shared__ float4 smem4[];
+  __shared__ unsigned cnt_s[TK_COUNTERS];
+  __shared__ float P[12];  // the pose, read a point at a time: registers for the lists
+  float4* w4 = smem4;  // chunk c's row q at w4 + c WS + 3 q
+  float4* a4 = w4 + nch * WS;
+  float* red_s = reinterpret_cast<float*>(a4 + 3 * k);
+  for (int idx = threadIdx.x; idx < 3 * k; idx += RS_THREADS) {
+    const int j = idx / 3;
+    w4[j / C * WS + 3 * (j % C) + idx % 3] = reinterpret_cast<const float4*>(wn)[idx];
+    a4[idx] = reinterpret_cast<const float4*>(aux)[idx];
+  }
+  if (threadIdx.x < TK_COUNTERS) cnt_s[threadIdx.x] = 0u;
+  if (threadIdx.x < 12) P[threadIdx.x] = pose12[threadIdx.x];
+  float acc[NACC];
+#pragma unroll
+  for (int c = 0; c < NACC; ++c) acc[c] = 0.0f;
+  __syncthreads();
+
+  const unsigned low = (2u << (31 - __clz(max(nch - 1, 1)))) - 1u;  // the bits of a chunk's number
+  unsigned taken = 0u, every = 0u;
+  const int first = blockIdx.x * RS_THREADS + threadIdx.x, stride = gridDim.x * RS_THREADS;
+  for (int i = first; i < n; i += stride) {
+    const float x0 = pts4[i], x1 = pts4[(size_t)n + i], x2 = pts4[2 * (size_t)n + i];
+    const float w = pts4[3 * (size_t)n + i];
+    const float y0 = fmaf(P[0], x0, fmaf(P[1], x1, fmaf(P[2], x2, P[9])));
+    const float y1 = fmaf(P[3], x0, fmaf(P[4], x1, fmaf(P[5], x2, P[10])));
+    const float y2 = fmaf(P[6], x0, fmaf(P[7], x1, fmaf(P[8], x2, P[11])));
+    const Psi p = features(y0, y1, y2);
+
+    // Pass 1: each logit once; a chunk's max mc goes into the list as the
+    // key (order_key(mc) with its low bits replaced by the chunk's number),
+    // so a key orders chunks by their maxima cut to the high bits, and the
+    // list of the KMAX largest keys, descending, holds chunk and max alike.
+    unsigned key[KMAX];
+#pragma unroll
+    for (int c = 0; c < KMAX; ++c) key[c] = 0u;  // below every chunk's key
+    for (int c = 0; c < nch; ++c) {
+      float cm = -INFINITY;  // a NaN logit is dropped here
+      const float4* wc = w4 + c * WS;
+      if (c < nfull) {
+#pragma unroll
+        for (int q = 0; q < C; ++q) cm = fmaxf(cm, logit(wc + 3 * q, p));
+      } else {
+        for (int q = 0; q < k - c * C; ++q) cm = fmaxf(cm, logit(wc + 3 * q, p));
+      }
+      const unsigned kc = (order_key(cm + 0.0f) & ~low) | (unsigned)c;  // -0 as +0
+      if (kc > key[KMAX - 1]) insert_key(key, kc);
+    }
+    // The top_k largest keys' chunks hold top_k components at or above the
+    // cut value xb, so the threshold th is too, and every kept logit lies in
+    // a chunk whose key is >= xb: the list's entries >= xb (a prefix), or
+    // every chunk when the list's last entry reaches xb.
+    const unsigned xb = nth(key, top_k) & ~low;
+    const bool all = key[KMAX - 1] >= xb;
+    int ntake = nch;
+    if (!all) {
+      ntake = 0;
+#pragma unroll
+      for (int c = 0; c < KMAX - 1; ++c) ntake += key[c] >= xb;
+    }
+    taken += ntake;
+    every += all;
+
+    // Stage 2: the taken chunks' logits again, the same floats, into a list
+    // of the KMAX - 1 largest with their components; th is its top_k-th, and
+    // its head the point's max (the max's chunk is always taken).
+    float t2[KMAX - 1];
+    int i2[KMAX - 1];
+#pragma unroll
+    for (int c = 0; c < KMAX - 1; ++c) {
+      t2[c] = -INFINITY;
+      i2[c] = 0;
+    }
+    for (int e = 0; e < ntake; ++e) {
+      const int c = all ? e : (int)(nth(key, e + 1) & low);
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const int j = c * C + q;
+        if (j >= k) continue;
+        const float v = logit(w4 + c * WS + 3 * q, p);
+        if (v > t2[KMAX - 2]) insert_indexed(t2, i2, v, j);
+      }
+    }
+    const float th = nth(t2, top_k);
+    const float m = has_outlier ? fmaxf(t2[0], outlier) : t2[0];
+    const float m2 = fmaxf(m, NEG_INF) * LOG2E;
+
+    // The kept components only (>= th: ties at th kept, NaN never).
+    float s = 0.0f;
+    float red[12];
+#pragma unroll
+    for (int c = 0; c < 12; ++c) red[c] = 0.0f;
+    if (!(t2[KMAX - 2] >= th)) {
+#pragma unroll
+      for (int c = 0; c < KMAX - 1; ++c) {
+        if (t2[c] >= th) {
+          const float e = exp2f(fmaf(t2[c], LOG2E, -m2));
+          s += e;
+          add_aux(red, e, a4, i2[c]);
+        }
+      }
+    } else {  // more ties at th than the list holds: the taken chunks again
+      for (int e = 0; e < ntake; ++e) {
+        const int c = all ? e : (int)(nth(key, e + 1) & low);
+        for (int j = c * C; j < min(c * C + C, k); ++j) {
+          const float l = logit(w4 + c * WS + 3 * (j - c * C), p);
+          if (!(l >= th)) continue;
+          const float ex = exp2f(fmaf(l, LOG2E, -m2));
+          s += ex;
+          add_aux(red, ex, a4, j);
+        }
+      }
+    }
+    const Soft r = finish_soft(m, m2, s, has_outlier, outlier, w);
+    acc[NACC - 1] += r.lse;
+    if (r.scale == 0.0f) continue;
+    add_point(acc, x0, x1, x2, y0, y1, y2, red, s, r.scale);
+  }
+  if (counters != nullptr) {  // the same branch in every block
+    const unsigned gated = first < n ? (n - 1 - first) / stride + 1 : 0;  // the points this thread took
+    const unsigned v[TK_COUNTERS] = {gated, taken, every};
+#pragma unroll
+    for (int q = 0; q < TK_COUNTERS; ++q) {
+      const unsigned sum = __reduce_add_sync(FULL_MASK, v[q]);
+      if ((threadIdx.x & 31) == 0) atomicAdd(&cnt_s[q], sum);
+    }
+    __syncthreads();
+    if (threadIdx.x < TK_COUNTERS) atomicAdd(counters + threadIdx.x, (unsigned long long)cnt_s[threadIdx.x]);
+  }
+  write_partial(acc, red_s, partial);
+}
+
+constexpr int RSS_BINS = 256;  // a radix digit of 8 bits
 
 __device__ __forceinline__ float key_value(unsigned key) {
   return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
@@ -530,6 +647,20 @@ cudaError_t launch_reg(Kernel kernel, int nb, size_t smem, cudaStream_t s, Args.
   return cudaGetLastError();
 }
 
+// The top_k body with a list of KMAX and chunks of `chunk` components.
+template <int KMAX, typename... Args>
+cudaError_t launch_top_k(int chunk, int nb, int k, cudaStream_t s, Args... args) {
+  const size_t smem = reg_top_k_smem_bytes(k, chunk);
+  switch (chunk) {
+    case 1: return launch_reg(reg_stats_top_k_kernel<KMAX, 1>, nb, smem, s, args...);
+    case 2: return launch_reg(reg_stats_top_k_kernel<KMAX, 2>, nb, smem, s, args...);
+    case 4: return launch_reg(reg_stats_top_k_kernel<KMAX, 4>, nb, smem, s, args...);
+    case 8: return launch_reg(reg_stats_top_k_kernel<KMAX, 8>, nb, smem, s, args...);
+    case 16: return launch_reg(reg_stats_top_k_kernel<KMAX, 16>, nb, smem, s, args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace hgmm
 
 extern "C" {
@@ -538,12 +669,14 @@ extern "C" {
 // row-major (9), t (3)] (and, with out != NULL, their float64 sum into
 // out[59]: horn 16, A 36, b 6, loglik). wn and aux are [K, 12]. top_k: 0 =
 // no gating (the lanes body with `lanes` in {1, 2, 4, 8, 16, 32}), 1..32 <
-// K the top_k body, 33..K-1 the select body (a warp a point, `lanes`
-// ignored). done: NULL, or a flag the kernel returns on when it is nonzero.
-// Returns the CUDA error code (0 on success).
+// K the top_k body with chunks of `chunk` in {1, 2, 4, 8, 16} components
+// and, when counters != NULL, its int64 [3] counters, 33..K-1 the select
+// body (a warp a point, `lanes` ignored). `chunk` and `counters` are read by
+// the top_k body alone. done: NULL, or a flag the kernel returns on when it
+// is nonzero. Returns the CUDA error code (0 on success).
 int hgmm_reg_stats(const void* pts4, int n, const void* pose12, const void* done, const void* wn,
-                   const void* aux, int k, int top_k, int lanes, int has_outlier, float outlier,
-                   void* partial, int nb, void* out, void* stream) {
+                   const void* aux, int k, int top_k, int lanes, int chunk, int has_outlier,
+                   float outlier, void* partial, int nb, void* counters, void* out, void* stream) {
   using namespace hgmm;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* p = static_cast<const float*>(pts4);
@@ -552,6 +685,7 @@ int hgmm_reg_stats(const void* pts4, int n, const void* pose12, const void* done
   const auto* w = static_cast<const float*>(wn);
   const auto* a = static_cast<const float*>(aux);
   auto* part = static_cast<float*>(partial);
+  auto* cnt = static_cast<unsigned long long*>(counters);
   const size_t smem = reg_stats_smem_bytes(k);
   cudaError_t err;
   if (top_k < 0 || top_k >= k) return (int)cudaErrorInvalidValue;
@@ -559,11 +693,9 @@ int hgmm_reg_stats(const void* pts4, int n, const void* pose12, const void* done
     err = launch_reg(reg_stats_select_kernel, nb, reg_select_smem_bytes(k), s, p, n, pose, dn, w, a, k,
                      top_k, has_outlier, outlier, part);
   } else if (top_k > 8) {
-    err = launch_reg(reg_stats_top_k_kernel<33>, nb, smem, s, p, n, pose, dn, w, a, k, top_k,
-                     has_outlier, outlier, part);
+    err = launch_top_k<33>(chunk, nb, k, s, p, n, pose, dn, w, a, k, top_k, has_outlier, outlier, part, cnt);
   } else if (top_k > 0) {
-    err = launch_reg(reg_stats_top_k_kernel<9>, nb, smem, s, p, n, pose, dn, w, a, k, top_k,
-                     has_outlier, outlier, part);
+    err = launch_top_k<9>(chunk, nb, k, s, p, n, pose, dn, w, a, k, top_k, has_outlier, outlier, part, cnt);
   } else {
     switch (lanes) {
       case 1: err = launch_reg(reg_stats_lanes_kernel<1>, nb, smem, s, p, n, pose, dn, w, a, k, has_outlier, outlier, part); break;

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "hgmm_em_stats": (_P, _I, _P, _I, _I, _I, _F, _P, _I, _P, _P),
     "hgmm_em_step": (_P, _I, _P, _I, _P, _P, _I, _I, _D, _I, _P, _P, _P, _P, _P, _I, _I, _P),
     "hgmm_em_stats_tiled": (_P, _I, _P, _I, _I, _I, _F, _P, _I, _P, _P),
-    "hgmm_reg_stats": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _P, _P),
+    "hgmm_reg_stats": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _P, _P, _P),
     "hgmm_reg_step": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _D, _I, _P),
     "hgmm_reg_tables": (_P, _P, _P, _I, _P, _P, _P),
     "hgmm_em_stats_grouped": (_P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P),

@@ -39,6 +39,7 @@ sync.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 
 import torch
@@ -91,6 +92,13 @@ SMEM_LIMIT = 232_448  # bytes of shared memory a block can use on the H100 (227 
 RS_THREADS = 256
 RS_MIN_WARPS_PER_SM = 8  # below it the plan gives a point more lanes
 RS_BLOCKS_PER_SM = 4  # cap of the grid, so of the partial rows
+RS_CHUNKS = (1, 2, 4, 8, 16)  # chunk sizes of the top_k body (csrc/reg_stats.cu:launch_top_k)
+TK_LOGIT = 10  # instructions a logit (9 FMA and an add), in plan_top_k_chunk's cost
+TK_STAGE = 5  # instructions an entry of a list insertion, in plan_top_k_chunk's cost
+TK_RANDOM = 60  # a stage-2 logit from a row of the point's own (bank conflicts), in the same units
+# The top_k body's device counters (int64, the kernel's `counters`): read
+# under profiling.tracing() as these counters.
+TOPK_COUNTERS = ("reg.topk_points", "reg.topk_rechunks", "reg.topk_fallback_points")
 # reg_step (csrc/reg_step.cu) and its plan.
 STEP_PASS_ROWS = 16  # partial rows a pass of the block reads (944 floats)
 STEP_UNROLL = 16  # passes a block has in flight at once
@@ -566,25 +574,62 @@ class RegPlan:
     """Launch geometry of reg_stats (csrc/reg_stats.cu): `lanes` lanes of a
     warp share a point and split its K components (the lanes body; 1 with
     top_k <= MAX_TOP_K, the one-thread-a-point top_k body, whose list holds
-    `kmax` logits; 32 past it, the select body, a warp a point), `blocks`
-    blocks of RS_THREADS threads, grid-stride; one partial row a block."""
+    `kmax` chunk maxima of `chunk` components each; 32 past it, the select
+    body, a warp a point), `blocks` blocks of RS_THREADS threads,
+    grid-stride; one partial row a block."""
 
     lanes: int
     blocks: int
     kmax: int  # 0: no register list (no gating, or the select body)
+    chunk: int = 1  # components a list entry stands for (the top_k body; 1 elsewhere)
 
     def points_per_block(self) -> int:
         return RS_THREADS // self.lanes
 
 
+def warp_insertions(chunks: int, kmax: int) -> float:
+    """Expected insertions a warp makes into its points' lists of kmax over
+    `chunks` chunk maxima in random order: a point inserts its i-th with
+    probability min(1, kmax / i), and the warp runs the insertion when any of
+    its 32 points does."""
+    return sum(1.0 - (1.0 - min(1.0, kmax / i)) ** 32 for i in range(1, chunks + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_top_k_chunk(k: int, top_k: int) -> int:
+    """Components a chunk of the top_k body (csrc/reg_stats.cu:
+    reg_stats_top_k_kernel), from K and top_k alone: the C of RS_CHUNKS
+    whose cost a point, in instructions, is least:
+
+        K (TK_LOGIT + 1) + warp_insertions(K / C, kmax) (TK_STAGE kmax + 1)
+        + top_k C (TK_RANDOM + TK_STAGE (kmax - 1)),
+
+    the logits and their chunk maxima, pass 1's insertions into the list of
+    kmax (9 for top_k <= 8, else 33), and stage 2's top_k chunks of C logits
+    read from rows of the point's own (bank conflicts) with an insertion
+    into the list of kmax - 1 each. A C > 1 whose K / C chunks do not fill
+    the list is not a candidate; of equal costs the smaller C. The constants
+    fit the H100 timings of every C at K = 64 and 512 (PERF.md, the chunk sweeps):
+    K = 512 gives 4 at top_k 8 and 32; K = 64 gives 2 at top_k 8, 1 at 32."""
+    kmax = 9 if top_k <= 8 else 33
+
+    def cost(c: int) -> float:
+        pass1 = k * (TK_LOGIT + 1) + warp_insertions(-(-k // c), kmax) * (TK_STAGE * kmax + 1)
+        return pass1 + top_k * c * (TK_RANDOM + TK_STAGE * (kmax - 1))
+
+    return min((c for c in RS_CHUNKS if c == 1 or -(-k // c) >= kmax), key=cost)
+
+
 def plan_reg_stats(n: int, k: int, top_k, sms: int) -> RegPlan:
     """Lanes a point: 1, doubled up to min(32, K) while the points fill fewer
     than RS_MIN_WARPS_PER_SM warps an SM (the odometry bucket, N = 16,384,
-    gets 4); 1 with top_k <= MAX_TOP_K, 32 with a larger top_k < K. Blocks:
-    one a RS_THREADS / lanes points, at most RS_BLOCKS_PER_SM an SM. Shared
+    gets 4); 1 with top_k <= MAX_TOP_K, 32 with a larger top_k < K. The top_k
+    body's chunk: plan_top_k_chunk (1 for every other body). Blocks: one a
+    RS_THREADS / lanes points, at most RS_BLOCKS_PER_SM an SM. Shared
     memory: the two [K, 12] tables and the warps' sums, 96 K + 1,408 bytes
-    (csrc/reg_stats.cu:reg_stats_smem_bytes); the select body's
-    reg_select_smem_bytes. Both inside the card's limit up to MAX_K."""
+    (csrc/reg_stats.cu:reg_stats_smem_bytes); the top_k body's
+    reg_top_k_smem_bytes, the select body's reg_select_smem_bytes. All inside
+    the card's limit up to MAX_K."""
     if n < 1 or not 1 <= k <= MAX_K or sms < 1:
         raise ValueError(f"reg_stats: N={n}, K={k}, {sms} SMs")
     gate = _top_k(top_k, k)
@@ -594,7 +639,16 @@ def plan_reg_stats(n: int, k: int, top_k, sms: int) -> RegPlan:
     while not gate and 2 * lanes <= min(32, k) and n * lanes < RS_MIN_WARPS_PER_SM * sms * 32:
         lanes *= 2
     blocks = max(1, min(-(-n * lanes // RS_THREADS), RS_BLOCKS_PER_SM * sms))
-    return RegPlan(lanes=lanes, blocks=blocks, kmax=kmax)
+    return RegPlan(lanes=lanes, blocks=blocks, kmax=kmax, chunk=plan_top_k_chunk(k, gate) if gate else 1)
+
+
+def reg_top_k_smem_bytes(k: int, chunk: int) -> int:
+    """Shared memory of reg_stats' top_k body (csrc/reg_stats.cu:
+    reg_top_k_smem_bytes): the weight table by chunks of `chunk` rows, each
+    padded to an odd number of float4 (3 chunk, plus one when even), the
+    [K, 12] aux table and the warps' 44 sums."""
+    stride = 3 * chunk + (chunk % 2 == 0)
+    return 16 * (-(-k // chunk) * stride + 3 * k) + 4 * (RS_THREADS // 32) * 44
 
 
 def reg_select_smem_bytes(k: int) -> int:
@@ -609,7 +663,8 @@ def reg_select_smem_bytes(k: int) -> int:
 class RegTables:
     """What a registration scan reuses on every iteration, built once: the
     source buffer, the packed weights wn and aux = [mu | A6 | b3] ([K, 12]
-    each), the gate, the outlier, the launch plan and the partial buffer."""
+    each), the gate, the outlier, the launch plan, the partial buffer and,
+    for the top_k body inside profiling.tracing(), its counters."""
 
     pts4: torch.Tensor
     wn: torch.Tensor
@@ -618,6 +673,7 @@ class RegTables:
     outlier: tuple[int, float]
     plan: RegPlan
     partial: torch.Tensor
+    counters: torch.Tensor | None = None  # the top_k body's TOPK_COUNTERS, under profiling.tracing()
 
     @property
     def k(self) -> int:
@@ -631,8 +687,15 @@ def _sms(dev) -> int:
 def _reg_tables(pts4, n: int, wn, aux, top_k, outlier_logit) -> RegTables:
     k = wn.shape[0]
     plan = plan_reg_stats(n, k, top_k, _sms(pts4.device))
+    counters = None
+    if plan.kmax and profiling.tracer is not None:
+        # Summed on the card over every launch with these tables, read once
+        # by the tracer's summary().
+        counters = torch.zeros(len(TOPK_COUNTERS), dtype=torch.int64, device=pts4.device)
+        for i, name in enumerate(TOPK_COUNTERS):
+            profiling.count_later(name, counters, i)
     return RegTables(pts4, wn, aux, _top_k(top_k, k), _outlier(outlier_logit), plan,
-                     torch.empty((plan.blocks, REG_OUT), dtype=torch.float32, device=pts4.device))
+                     torch.empty((plan.blocks, REG_OUT), dtype=torch.float32, device=pts4.device), counters)
 
 
 def reg_tables(pts4, W, mu, A6, b3, top_k=None, outlier_logit=None) -> RegTables:
@@ -693,8 +756,9 @@ def reg_partials(tab: RegTables, pose12: torch.Tensor, done: torch.Tensor | None
     with torch.cuda.device(tab.pts4.device):
         err = _build.load().hgmm_reg_stats(
             tab.pts4.data_ptr(), n, pose12.data_ptr(), None if done is None else done.data_ptr(),
-            tab.wn.data_ptr(), tab.aux.data_ptr(), tab.k, tab.gate, tab.plan.lanes, *tab.outlier,
-            tab.partial.data_ptr(), tab.plan.blocks, None if out is None else out.data_ptr(),
+            tab.wn.data_ptr(), tab.aux.data_ptr(), tab.k, tab.gate, tab.plan.lanes, tab.plan.chunk,
+            *tab.outlier, tab.partial.data_ptr(), tab.plan.blocks,
+            None if tab.counters is None else tab.counters.data_ptr(), None if out is None else out.data_ptr(),
             _stream(tab.pts4),
         )
     _raise_on(err, "reg_stats")

@@ -22,7 +22,8 @@ Spans (``utils/profiling.span``): ``hgmm_torch.reg`` the whole registration,
 ``.reg.cut`` the complexity cut of the last level, ``.reg.prep`` a level's
 tables, ``.reg.scan`` a level's iterate. Counters: ``reg.steps`` the steps
 launched, ``reg.live_steps`` those run before done (the scan state's
-SCAN_LIVE, read after the traced block).
+SCAN_LIVE, read after the traced block); on the card a gated level's tables
+add the top_k body's own (``fused_em.TOPK_COUNTERS``).
 """
 
 from __future__ import annotations

@@ -205,7 +205,7 @@ def test_kernel_compare_cpu(tmp_path, capsys):
     rep = kernel_compare.main(["--diff", str(a), str(b)])
     assert set(rep.values()) == {"bit-equal"}
     assert {"knn", "em_stats_K8", "em_stats_K512_weighted_outlier", "em_stats_masked_K512", "assign_K512",
-            "reg_stats_K384", "reg_stats_K512_top8"} <= set(rep)
+            "reg_stats_K384", "reg_stats_K64_top8", "reg_stats_K512_top8"} <= set(rep)
     assert times["reg_stats_K512_top8_n16384_ms"] > 0 and times["em_stats_masked_K64_n16384_ms"] > 0
     out = torch.load(a)
     S, ll = out["em_stats_K8"]

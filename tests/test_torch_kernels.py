@@ -12,6 +12,8 @@ points, so atol is scaled by N / 300. The plain versions run in full float32
 (hgmm_torch turns TF32 off).
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -117,7 +119,17 @@ def test_assign(cuda, k):
             assert float(gap.max()) < 1e-4
 
 
-def _check_reg_stats(cuda, params, n, seed, weighted, top_k, outlier):
+def _reg_stats_at_chunk(pts4, W, mu, A6, b3, pose, top_k, outlier, chunk):
+    """fused_em.reg_stats with the top_k body's chunk forced through the plan."""
+    tab = fused_em.reg_tables(pts4, W, mu, A6, b3, top_k, outlier)
+    assert tab.plan.kmax > 0
+    tab.plan = dataclasses.replace(tab.plan, chunk=chunk)
+    out = torch.empty(59, device=pts4.device)
+    fused_em.reg_partials(tab, torch.cat([pose[0].reshape(9), pose[1]]).contiguous(), out=out)
+    return em_ref.RegStats(horn=out[:16].view(4, 4), A=out[16:52].view(6, 6), b=out[52:58], loglik=out[58])
+
+
+def _check_reg_stats(cuda, params, n, seed, weighted, top_k, outlier, chunk=None):
     pts, w = _inputs(n, seed, cuda)
     w = w if weighted else None
     W = pack_loglik_weights(params)
@@ -130,8 +142,12 @@ def _check_reg_stats(cuda, params, n, seed, weighted, top_k, outlier):
         near = em_ref.top_k_near_ties(pts, W, pose, top_k)
         assert float(near.double().mean()) < 0.01
         w = (torch.ones_like(pts[:, 0]) if w is None else w) * (~near)
-    got = fused_em.reg_stats(prepare(pts, w).pts4, W, params.mu, sym_pack(A), b, pose, top_k,
-                             outlier)
+    if chunk is None:
+        got = fused_em.reg_stats(prepare(pts, w).pts4, W, params.mu, sym_pack(A), b, pose, top_k,
+                                 outlier)
+    else:
+        got = _reg_stats_at_chunk(prepare(pts, w).pts4, W, params.mu, sym_pack(A), b, pose, top_k,
+                                  outlier, chunk)
     ref = em_ref.reg_stats(pts, W, params.mu, sym_pack(A), b, pose, w, top_k, outlier)
     s = n / 300
     _close(got.horn, ref.horn, 2e-3, 2e-3 * s)
@@ -668,6 +684,133 @@ def test_reg_stats_top_k_list_overflows_on_many_ties(cuda, top_k):
     base = _mixture(8, 23, cuda)
     params = MixtureParams(base.pi.repeat(9) / 9, base.mu.repeat(9, 1), base.sigma.repeat(9, 1, 1))
     _check_reg_stats(cuda, params, 5000, 24, True, top_k, 0.0)
+
+
+@pytest.mark.parametrize("chunk", fused_em.RS_CHUNKS)
+@pytest.mark.parametrize("k", [64, 384, 512])
+@pytest.mark.parametrize("top_k", [1, 8, 32])
+@pytest.mark.parametrize("weighted,outlier", [(True, -2.0), (False, None)])
+def test_reg_stats_top_k_at_every_chunk(cuda, chunk, k, top_k, weighted, outlier):
+    """The top_k body at every chunk size the plan can give, forced through
+    the plan (K = 64 with C = 16 or top_k = 32 leaves fewer chunks than the
+    list holds: every point takes every chunk)."""
+    _check_reg_stats(cuda, _mixture(k, k + 7, cuda, dead=(2,)), 20_000, k + 6, weighted, top_k,
+                     outlier, chunk)
+
+
+def _chunk_layout_mixture(layout, dev):
+    """K = 512 mixtures whose kept components sit in chunks in a chosen way:
+    "one_chunk", 32 tight groups of 16 consecutive components (a point's
+    top 8 in one chunk of 16); "own_chunks", the same groups with component j
+    in group j % 32 (each kept component in a chunk of its own at every chunk
+    size); "straddling_ties", 256 components each twice, at 2i + 1 and 2i + 2
+    (and the first at 0 and 511), so exact ties straddle every chunk boundary
+    and, where a tied pair is the top_k-th, two chunks' maxima tie at the
+    list's top_k-th entry."""
+    g = torch.Generator().manual_seed({"one_chunk": 41, "own_chunks": 42, "straddling_ties": 43}[layout])
+    if layout == "straddling_ties":
+        base = _mixture(256, 44, "cpu")
+        order = torch.cat([torch.tensor([0]), torch.arange(1, 256).repeat_interleave(2), torch.tensor([0])])
+        params = MixtureParams(base.pi[order] / 2, base.mu[order], base.sigma[order])
+    else:
+        centers = 1.5 * torch.randn(32, 3, generator=g)
+        group = torch.arange(512) // 16 if layout == "one_chunk" else torch.arange(512) % 32
+        a = 0.2 * torch.randn(512, 3, 3, generator=g)
+        params = MixtureParams(torch.softmax(torch.randn(512, generator=g), 0),
+                               centers[group] + 0.15 * torch.randn(512, 3, generator=g),
+                               a @ a.transpose(1, 2) + 0.05 * torch.eye(3))
+    return MixtureParams(*(x.to(dev) for x in params))
+
+
+@pytest.mark.parametrize("chunk", fused_em.RS_CHUNKS)
+@pytest.mark.parametrize("top_k", [1, 8, 32])
+@pytest.mark.parametrize("layout", ["one_chunk", "own_chunks", "straddling_ties"])
+def test_reg_stats_top_k_chunk_layouts(cuda, chunk, top_k, layout):
+    _check_reg_stats(cuda, _chunk_layout_mixture(layout, cuda), 20_000, 45, True, top_k, 0.0, chunk)
+
+
+def _top_k_counts(cuda, params, n, top_k, passes=1):
+    """The top_k body's counters over `passes` launches of fused_em.reg_stats
+    inside profiling.tracing(), and the host syncs the launches made."""
+    from hgmm_torch.utils import profiling
+
+    pts, w = _inputs(n, 47, cuda)
+    W = pack_loglik_weights(params)
+    A, b, _ = precision_terms(params)
+    pose = (so3_exp(torch.tensor([0.1, -0.2, 0.3], device=cuda)), torch.tensor([0.05, 0.0, -0.1], device=cuda))
+    p = prepare(pts, w).pts4
+    with profiling.count_syncs(), profiling.tracing():  # the first call's set-up, and the sync mode's
+        with profiling.span("warm"):
+            fused_em.reg_stats(p, W, params.mu, sym_pack(A), b, pose, top_k, 0.0)
+    with profiling.count_syncs() as syncs, profiling.tracing() as tr:
+        with profiling.span("request"):
+            for _ in range(passes):
+                fused_em.reg_stats(p, W, params.mu, sym_pack(A), b, pose, top_k, 0.0)
+    return tr.summary()[0]["counts"], syncs["sites"]
+
+
+@pytest.mark.parametrize("top_k", [1, 8, 32])
+def test_top_k_counters_on_generic_data(cuda, top_k):
+    """Every point of every pass is gated; a point takes between top_k and
+    KMAX - 1 chunks, or every chunk where the list cannot tell (chunk maxima
+    that differ only in the keys' cut bits: 4 to 56 points of 40,000 on the
+    H100); the counters add no host sync before the tracer's summary()."""
+    n, k, passes = 20_000, 512, 2
+    counts, syncs = _top_k_counts(cuda, _mixture(k, 46, cuda), n, top_k, passes)
+    plan = fused_em.plan_reg_stats(n, k, top_k, 132)
+    every = counts["reg.topk_fallback_points"]
+    assert counts["reg.topk_points"] == passes * n
+    assert every <= 1e-2 * passes * n
+    assert (top_k * (passes * n - every) <= counts["reg.topk_rechunks"] - every * (k // plan.chunk)
+            <= (plan.kmax - 1) * (passes * n - every))
+    assert counts["launch.reg_stats_top_k"] == passes and syncs == {}
+
+
+@pytest.mark.parametrize("top_k", [1, 8, 32])
+def test_top_k_counters_count_fallbacks_on_many_ties(cuda, top_k):
+    """The nine-copies mixture of ..._list_overflows_on_many_ties: at the
+    plan's chunk more chunk maxima tie than the list holds, and points take
+    every chunk."""
+    base = _mixture(8, 23, cuda)
+    params = MixtureParams(base.pi.repeat(9) / 9, base.mu.repeat(9, 1), base.sigma.repeat(9, 1, 1))
+    counts, _ = _top_k_counts(cuda, params, 5000, top_k)
+    assert counts["reg.topk_points"] == 5000
+    assert counts["reg.topk_fallback_points"] > 0
+
+
+def test_top_k_counters_off_outside_tracing(cuda):
+    """Outside profiling.tracing() the tables hold no counters, and the
+    tables and a launch make no host sync."""
+    from hgmm_torch.utils import profiling
+
+    pts, W, mu, A6, b3 = _scan_inputs(cuda, k=512)
+    p = prepare(pts).pts4
+    pose12 = torch.cat([torch.eye(3, device=cuda).reshape(9), torch.zeros(3, device=cuda)])
+    fused_em.reg_tables(p, W, mu, A6, b3, 8, 0.0)  # the library is loaded
+    with profiling.count_syncs() as syncs:
+        tab = fused_em.reg_tables(p, W, mu, A6, b3, 8, 0.0)
+        fused_em.reg_partials(tab, pose12)
+    assert tab.counters is None and syncs["sites"] == {}
+
+
+def test_top_k_points_count_the_live_scan_steps(cuda):
+    """In a converging registration scan a gated pass runs only before done:
+    the points counted are N times the live steps."""
+    from hgmm_torch.data.synthetic import make_cloud
+    from hgmm_torch.models.gmm import Gmm
+    from hgmm_torch.pipelines.register import register_points
+    from hgmm_torch.utils import profiling
+
+    target = make_cloud(5000, "trefoil", seed=4, device=cuda)
+    params = Gmm.fit(target, k=64, n_iters=10, generator=torch.Generator().manual_seed(5))[0].params
+    R0 = so3_exp(torch.tensor([0.03, -0.05, 0.04], device=cuda))
+    source = (target - torch.tensor([0.02, 0.0, -0.01], device=cuda)) @ R0
+    with profiling.tracing() as tr:
+        with profiling.span("request"):
+            register_points(source, params, n_iters=20, method="wls", top_k=8, outlier_logit=0.0, tol=1e-5)
+    counts = tr.summary()[0]["counts"]
+    assert 0 < counts["reg.live_steps"] < counts["reg.steps"]
+    assert counts["reg.topk_points"] == 5000 * counts["reg.live_steps"]
 
 
 def _scan_inputs(cuda, k=64, n=5000, seed=25):

@@ -582,6 +582,11 @@ def test_plan_reg_stats_fills_the_card(n, k, top_k):
     gated = top_k is not None and top_k < k
     assert plan.kmax == ((9 if top_k <= 8 else 33) if gated else 0)
     assert plan.kmax == 0 or plan.kmax > top_k  # the list holds every kept logit unless ties overflow it
+    # The top_k body's chunk: the rule's (timed at K = 64 and 512 on the H100), 1 where nothing gates;
+    # a chunk past 1 leaves at least as many chunks as the list holds.
+    assert plan.chunk == (fused_em.plan_top_k_chunk(k, top_k) if gated else 1)
+    assert plan.chunk in fused_em.RS_CHUNKS and (plan.chunk == 1 or -(-k // plan.chunk) >= plan.kmax)
+    assert plan.chunk == {(64, 8): 2, (512, 8): 4, (512, 32): 4, (64, 32): 1, (8, 1): 1}.get((k, top_k), plan.chunk)
     assert plan.lanes in (1, 2, 4, 8, 16, 32) and (plan.lanes == 1 or not gated)
     assert plan.lanes <= max(1, k) and fused_em.RS_THREADS % plan.lanes == 0
     assert 1 <= plan.blocks <= fused_em.RS_BLOCKS_PER_SM * SMS
@@ -963,6 +968,131 @@ def test_plan_reg_stats_select_body(n, k, top_k):
     assert fused_em.reg_select_smem_bytes(fused_em.MAX_K) <= SMEM_LIMIT
     with pytest.raises(ValueError):
         fused_em.plan_reg_stats(n, k, top_k, 0)
+
+
+# --------------------------------------------------------------------------
+# reg_stats' top_k body: the chunk rule and the selection by chunk maxima
+
+
+def test_plan_top_k_chunk_is_a_function_of_k_and_top_k():
+    """The chunk reads K and top_k alone: every N and SM count plans the
+    rule's chunk, one of RS_CHUNKS."""
+    for k in (9, 12, 33, 64, 72, 100, 192, 384, 512, 513, 1024, 2048):
+        for top_k in (1, 2, 7, 8, 9, 16, 31, 32):
+            if top_k >= k:
+                continue
+            want = fused_em.plan_top_k_chunk(k, top_k)
+            assert want in fused_em.RS_CHUNKS
+            got = {fused_em.plan_reg_stats(n, k, top_k, sms).chunk for n in SIZES for sms in (1, 66, 132, 264)}
+            assert got == {want}
+
+
+def test_top_k_shared_memory_fits_the_card():
+    """The top_k body's chunked weight table (an odd number of float4 a
+    chunk) beside the aux table fits up to MAX_K at every chunk size, and at
+    chunk 1 it is the lanes body's 96 K + 1,408 bytes."""
+    for chunk in fused_em.RS_CHUNKS:
+        assert fused_em.reg_top_k_smem_bytes(fused_em.MAX_K, chunk) <= SMEM_LIMIT
+        assert (3 * chunk + (chunk % 2 == 0)) % 2 == 1
+    for k in (9, 64, 512, 2048):
+        assert fused_em.reg_top_k_smem_bytes(k, 1) == 96 * k + 4 * 8 * 44
+
+
+def emulate_top_k_chunks(logits, top_k, chunk):
+    """csrc/reg_stats.cu:reg_stats_top_k_kernel's gate in float32, rows side
+    by side: pass 1's keys (a chunk's max, a NaN logit dropped, -0 as +0, in
+    order-preserving bits with the low ones replaced by the chunk's number),
+    their list of the KMAX largest (the min/max insertion in chunk order), xb
+    its top_k-th key cut to the high bits, the chunks stage 2 takes (the
+    entries >= xb, or every chunk when the list's last entry reaches xb), th
+    the top_k-th largest of their logits (NaN as -inf), and the kept
+    components, those >= th in the taken chunks. Returns (kept [N, K] bool,
+    taken [N] chunks, every [N] bool)."""
+    n, k = logits.shape
+    kmax = 9 if top_k <= 8 else 33
+    nch = -(-k // chunk)
+    low = np.uint32((2 << int(math.log2(max(nch - 1, 1)))) - 1)
+    lg = np.full((n, nch * chunk), -np.inf, np.float32)
+    lg[:, :k] = logits
+    cm = np.where(np.isnan(lg), -np.inf, lg).reshape(n, nch, chunk).max(2) + np.float32(0.0)
+    u = cm.view(np.uint32)
+    keys = (np.where(u >> 31, ~u, u | np.uint32(0x80000000)) & ~low) | np.arange(nch, dtype=np.uint32)
+    top = np.zeros((n, kmax), np.uint32)
+    for c in range(nch):
+        v = keys[:, c]
+        ins = v > top[:, -1]
+        for e in range(kmax):
+            hi, v = np.maximum(v, top[:, e]), np.minimum(v, top[:, e])
+            top[:, e] = np.where(ins, hi, top[:, e])
+    xb = top[:, top_k - 1] & ~low
+    every = top[:, -1] >= xb
+    ge = (top[:, :-1] >= xb[:, None]) & ~every[:, None]
+    taken = np.where(every, nch, ge.sum(1))
+    mask = np.repeat(every[:, None], nch, 1)
+    rows = np.arange(n)
+    for e in range(kmax - 1):
+        mask[rows, (top[:, e] & low).astype(np.int64)] |= ge[:, e]
+    comp = np.repeat(mask, chunk, 1)[:, :k]
+    cand = np.where(comp & ~np.isnan(logits), logits, -np.inf)
+    th = -np.sort(-cand, 1)[:, top_k - 1]
+    return comp & (logits >= th[:, None]), taken, every
+
+
+def _gate_rows(kind, k, top_k, seed, n=48):
+    """[n, K] float32 logits: "random"; "tree" (groups of 8 consecutive
+    siblings around a parent's value, as a tree level's leaves); "one_chunk"
+    (the top_k largest consecutive from a multiple of 16); "own_chunks" (the
+    top_k largest spaced as far apart as K allows, up to 16: a chunk each at
+    every chunk size up to that); "straddling_ties" (the top_k-th largest
+    twice, at 16 m - 1 and 16 m, in two 16-blocks with nothing larger, the
+    larger ones elsewhere); "many_ties" (values of 4 levels only: the list
+    overflows); "close_maxima" (every logit within about 2^-20 of 1: the
+    chunk maxima differ below the keys' cut bits, and the list reaches xb)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, k)).astype(np.float32)
+    if kind == "tree":
+        x = (np.repeat(3.0 * rng.standard_normal((n, -(-k // 8))), 8, 1)[:, :k] + 0.3 * x).astype(np.float32)
+    elif kind == "many_ties":
+        x = np.floor(x).clip(-2, 1).astype(np.float32)
+    elif kind == "close_maxima":
+        x = (1.0 + 2.0 ** -20 * x).astype(np.float32)
+    elif kind in ("one_chunk", "own_chunks", "straddling_ties"):
+        big = (10.0 + rng.permutation(top_k)).astype(np.float32)
+        for r in range(n):
+            if kind == "one_chunk":
+                start = 16 * rng.integers(0, max(1, (k - top_k) // 16 + 1))
+                x[r, start:start + top_k] = big
+            elif kind == "own_chunks":
+                gap = min(16, 1 << int(math.log2(k // top_k)))
+                x[r, gap * rng.choice(k // gap, top_k, replace=False)] = big
+            else:
+                m = 16 * rng.integers(1, k // 16)
+                free = np.setdiff1d(np.arange(k), np.arange(m - 16, m + 16))
+                x[r, rng.choice(free, top_k - 1, replace=False)] = big[1:]
+                x[r, [m - 1, m]] = 9.5
+    return x
+
+
+@pytest.mark.parametrize("chunk", fused_em.RS_CHUNKS)
+@pytest.mark.parametrize("k", [64, 384, 512])
+@pytest.mark.parametrize("top_k", [1, 8, 32])
+@pytest.mark.parametrize("kind", ["random", "tree", "one_chunk", "own_chunks", "straddling_ties", "many_ties",
+                                  "close_maxima"])
+def test_top_k_by_chunk_maxima_keeps_what_the_plain_gate_keeps(chunk, k, top_k, kind):
+    """The emulated selection keeps exactly em_ref.top_k_mask_logits' logits
+    (the threshold with multiplicity, ties at it kept) at every chunk size;
+    a point takes top_k to KMAX - 1 chunks, or, past the list, every chunk."""
+    x = _gate_rows(kind, k, top_k, seed=k + 7 * top_k + chunk)
+    kept, taken, every = emulate_top_k_chunks(x, top_k, chunk)
+    t = torch.from_numpy(x)
+    want = (em_ref.top_k_mask_logits(t, top_k) == t).numpy()
+    assert (kept == want).all()
+    kmax = 9 if top_k <= 8 else 33
+    assert ((top_k <= taken) & (taken <= kmax - 1) | every).all()
+    if -(-k // chunk) >= kmax and kind != "straddling_ties":  # the chunks fill the list
+        assert every.any() if kind in ("many_ties", "close_maxima") else not every.any()  # the overflow path
+    if kind == "straddling_ties":
+        assert (want.sum(1) == top_k + 1).all()  # the tie at th: both copies kept
 
 
 # --------------------------------------------------------------------------
