@@ -902,12 +902,25 @@ def small_checks(torch, dev, errs) -> None:
         p4 = prepare(pts, w).pts4
         W = pack_loglik_weights(params)
         total, cf = w.sum(), torch.tensor(1e-4, device=dev)
-        em_step_check(torch, f"K{k}", params, fused_em.em_partials(p4, W), total, cf, errs)
+        em_step_check(torch, f"K{k}", params, sweep_body(torch, p4, W)(), total, cf, errs)
         parent = torch.randint(-1, -(-k // 8), (20_000,), generator=gen).to(dev)
         groups = fused_em.group_by_parent(p4, parent, 8, k)
-        em_step_check(torch, f"K{k} grouped", params, fused_em.em_partials_grouped(groups, W), total, cf,
-                      errs)
+        em_step_check(torch, f"K{k} grouped", params, sweep_body(torch, groups, W)(), total, cf, errs)
     torch.cuda.synchronize()
+
+
+def sweep_body(torch, data, W):
+    """A launch of the em_stats body that a fit's sweep runs on `data` (a
+    prepared [4, N] buffer, or fused_em.ParentGroups) with W [10, K], the
+    body and its table made once: each call returns the partial rows."""
+    from hgmm_torch.ops import em_ref, fused_em
+
+    k = W.shape[1]
+    if isinstance(data, fused_em.ParentGroups):
+        wn = em_ref.pack_table(W.float()).wn
+        return lambda: fused_em.em_partials_grouped(data, wn)
+    body, wn = fused_em.flat_body(data, k), em_ref.pack_table(W.float(), fused_em.table_rows(k)).wn
+    return lambda: fused_em.em_partials(body, wn)
 
 
 def em_step_check(torch, label, params, parts, total, cov_floor, errs) -> dict:
@@ -921,7 +934,6 @@ def em_step_check(torch, label, params, parts, total, cov_floor, errs) -> dict:
     -1e29; floor rows past K; logliks[it] within a float32 rounding of the
     rows' sum; a second launch bit-equal. Records the largest gap to the
     float32 twin in errs["em_step"]; returns the gaps."""
-    from hgmm_torch import ops
     from hgmm_torch.ops import em_ref, fused_em
     from hgmm_torch.ops.gaussians import MixtureParams
 
@@ -932,7 +944,8 @@ def em_step_check(torch, label, params, parts, total, cov_floor, errs) -> dict:
     stats64 = em_ref.EmStats(stats.S.double(), stats.loglik.double())
     out = {}
     for cov_type in em_ref.COV_TYPES:
-        fits = [ops.new_fit(params, 2, total, cov_floor, masked=parts.branch > 0) for _ in range(2)]
+        fits = [em_ref.new_fit(params, 2, total, cov_floor, fused_em.table_rows(k, parts.branch > 0))
+                for _ in range(2)]
         fit = fits[0]
         rows = fit.table.wn.shape[0]
         twin = em_ref.new_fit(MixtureParams(*(a.cpu() for a in params)), 2, total.cpu(), cov_floor.cpu(),
@@ -1005,23 +1018,21 @@ def reg_step_checks(torch, dev, gen, errs) -> None:
     from hgmm_torch import ops
     from hgmm_torch.models.se3 import so3_exp
     from hgmm_torch.ops import em_ref, fused_em
-    from hgmm_torch.ops.gaussians import pack_loglik_weights, precision_terms, sym_pack
 
     pts = torch.randn(5000, 3, generator=gen).to(dev)
     params = random_mixture(torch, 64, gen, dev)
-    A, b, _ = precision_terms(params)
-    prob = ops.reg_problem(pts, pack_loglik_weights(params), params.mu, sym_pack(A), b)
+    prob = ops.reg_problem_of(pts, params)
     for solver, nb in ((s_, nb_) for s_ in (0, 1) for nb_ in (None, 1, 33, 528)):
         for first, last in ((True, True), (True, False), (False, True)):
-            scan = ops.new_scan(so3_exp(torch.tensor([0.05, 0.1, -0.1], device=dev)),
+            scan = ops.new_scan(prob, so3_exp(torch.tensor([0.05, 0.1, -0.1], device=dev)),
                                 torch.tensor([0.1, 0.0, 0.2], device=dev), 3)
             scan.state[em_ref.SCAN_START:em_ref.SCAN_START + 12] = scan.state[:12] + 0.01
             scan.state[em_ref.SCAN_LL] = -7.0
             twin = em_ref.RegScan(*(t.cpu().clone() for t in scan))
-            part = ops.reg_partials(prob, scan).clone()
+            part = ops.reg_partials(prob, scan).partial.clone()
             if nb is not None:
                 part = split_rows(torch, part, nb, gen)
-            ops.reg_step(part, scan, 1, solver, first, last, 1e-7)
+            ops.reg_step(fused_em.reg_rows(part), scan, 1, solver, first, last, 1e-7)
             em_ref.reg_step(part.cpu(), twin, 1, solver, first, last, 1e-7)
             torch.cuda.synchronize()
             err = float((scan.state.cpu()[:24] - twin.state[:24]).abs().max())
@@ -1536,7 +1547,7 @@ def slice_checks(torch, dev, errs):
     # "ms": the public call, body and reduce; "body_ms": the body alone, as a
     # fit's sweep launches it (em_step sums its rows).
     record("em_stats", 8, lambda: fused_em.em_stats(tgt.pts4, W0), lambda: em_ref.em_stats(target, W0),
-           headline=True, body_ms=device_ms(torch, lambda: fused_em.em_partials(tgt.pts4, W0)))
+           headline=True, body_ms=device_ms(torch, sweep_body(torch, tgt.pts4, W0)))
     check_assign(torch, fused_em.assign(tgt.pts4, W0), em_ref.assign(target, W0), target, W0,
                  None, None, errs)
     record("assign", 8, lambda: fused_em.assign(tgt.pts4, W0), lambda: em_ref.assign(target, W0))
@@ -1549,7 +1560,7 @@ def slice_checks(torch, dev, errs):
         record("em_stats_masked", k, lambda: fused_em.em_stats_grouped(groups, W),
                lambda: em_ref.em_stats_masked(target, W, par, 8), headline=lvl == 2,
                wrapper_ms=cuda_ms(torch, lambda: fused_em.em_stats_masked(tgt.pts4, W, par, 8)),
-               body_ms=device_ms(torch, lambda: fused_em.em_partials_grouped(groups, W)),
+               body_ms=device_ms(torch, sweep_body(torch, groups, W)),
                group_ms=cuda_ms(torch, lambda: fused_em.group_by_parent(tgt.pts4, par, 8, k)),
                chunks=groups.n_chunks, chunk_points=groups.chunk_points)
         check_assign(torch, fused_em.assign(tgt.pts4, W, par, 8), em_ref.assign(target, W, par, 8),
@@ -1559,15 +1570,14 @@ def slice_checks(torch, dev, errs):
     # em_step on each level's E-step body's partial rows, on that level's
     # table, as the sweeps launch it: held to its twin (em_step_check) and
     # timed, the twin on the same rows on the card beside it.
-    from hgmm_torch import ops
     from hgmm_torch.models.gmm import scene_variance
 
     total, cf = torch.tensor(float(n), device=dev), 1e-4 * scene_variance(target)
     for lvl, params in enumerate(tree.levels):
-        parts = (fused_em.em_partials(tgt.pts4, Ws[0]) if lvl == 0 else fused_em.em_partials_grouped(
-            fused_em.group_by_parent(tgt.pts4, parents[lvl], 8, Ws[lvl].shape[1]), Ws[lvl]))
+        data = tgt.pts4 if lvl == 0 else fused_em.group_by_parent(tgt.pts4, parents[lvl], 8, Ws[lvl].shape[1])
+        parts = sweep_body(torch, data, Ws[lvl])()
         em_step_check(torch, f"level {lvl}", params, parts, total, cf, errs)
-        fit = ops.new_fit(params, 1, total, cf, masked=lvl > 0)
+        fit = em_ref.new_fit(params, 1, total, cf, fused_em.table_rows(params.pi.shape[0], lvl > 0))
         twin = em_ref.new_fit(params, 1, total, cf, fit.table.wn.shape[0])
         timings["em_step"].append({
             "k": params.pi.shape[0], "rows": fit.table.wn.shape[0], "n": n, "headline": lvl == 2,
@@ -1598,12 +1608,13 @@ def slice_checks(torch, dev, errs):
                lanes=tab.plan.lanes, blocks=tab.plan.blocks)
     # reg_step on the leaves' partials at the final pose, as the main path's
     # last level launches it (a WLS step; tol 0 never sets done).
-    scan = fused_em.new_scan(pose[0], pose[1], 1)
+    scan = fused_em.new_scan(tab, pose[0], pose[1], 1)
     twin = em_ref.RegScan(*(t.clone() for t in scan))
-    part = fused_em.reg_partials(tab, scan.state).clone()
+    part = fused_em.reg_partials(tab, scan.state).partial.clone()
+    rows = fused_em.reg_rows(part)
     timings["reg_step"].append({
         "nb": part.shape[0], "k": k, "n": n, "headline": True,
-        "ms": device_ms(torch, lambda: fused_em.reg_step(part, scan, 0, 1, True, True, 0.0)),
+        "ms": device_ms(torch, lambda: fused_em.reg_step(rows, scan, 0, 1, True, True, 0.0)),
         "plain_ms": cuda_ms(torch, lambda: em_ref.reg_step(part, twin, 0, 1, True, True, 0.0), reps=5)})
     log({"phase": "slice_kernels", "timings": timings, "max_abs_err": errs})
     return timings
@@ -2010,9 +2021,9 @@ def any_branch_and_top_k(torch, dev, work, errs, timings) -> dict:
         groups = fused_em.group_by_parent(tgt.pts4, par, b, k)
         check_em(torch, "em_stats_masked_wide", fused_em.em_stats_grouped(groups, W),
                  em_ref.em_stats_masked(target, W, par, b), N_POINTS, errs)
-        em_step_check(torch, f"branch {b} level {lvl}", tree.levels[lvl],
-                      fused_em.em_partials_grouped(groups, W), total, cf, errs)
-        entry = timed_shape(torch, lambda: fused_em.em_partials_grouped(groups, W),
+        em_step_check(torch, f"branch {b} level {lvl}", tree.levels[lvl], sweep_body(torch, groups, W)(), total,
+                      cf, errs)
+        entry = timed_shape(torch, sweep_body(torch, groups, W),
                             lambda: em_ref.em_stats_masked(target, W, par, b), k=k, n=N_POINTS, branch=b,
                             chunks=groups.n_chunks, chunk_points=groups.chunk_points,
                             warps_a_block=fused_em.plan_grouped_wide(b).warps)
@@ -2032,7 +2043,7 @@ def any_branch_and_top_k(torch, dev, work, errs, timings) -> dict:
                            generator=torch.Generator().manual_seed(0))
     W8 = [pack_loglik_weights(p) for p in tree8.levels]
     g8 = fused_em.group_by_parent(tgt.pts4, fused_em.assign(tgt.pts4, W8[0]), 8, 64)
-    wide["branch8_body_ms_k64"] = device_ms(torch, lambda: fused_em.em_partials_grouped(g8, W8[1]))
+    wide["branch8_body_ms_k64"] = device_ms(torch, sweep_body(torch, g8, W8[1]))
 
     # (b) the CLI at branch 16.
     from hgmm_torch.data.ply import save_ply
@@ -2161,7 +2172,7 @@ def lidar_checks(torch, dev, errs, metric_errs):
                      em_ref.em_stats_direct(pts, params, w, outlier), n)
             # The M-step of a sweep on these points (the body's partial rows).
             rec["em_step"] = em_step_check(torch, f"{extent:g}m K{k}", params,
-                                           fused_em.em_partials(prep.pts4, W), w.sum(),
+                                           sweep_body(torch, prep.pts4, W)(), w.sum(),
                                            1e-4 * scene_variance(pts, w), metric_errs)
             if k > 8:
                 coarse = MixtureParams(torch.full((k // 8,), 8.0 / k, device=dev),
@@ -2438,8 +2449,7 @@ def odometry_shapes(torch, dev, frames, tree, pose, errs, metric_errs, timings):
                        lambda: em_ref.em_stats_masked(tgt, W, par, 8, tw),
                        wrapper_ms=lambda: cuda_ms(torch, lambda: fused_em.em_stats_masked(tp.pts4, W, par, 8)),
                        chunks=lambda: groups.n_chunks, chunk_points=lambda: groups.chunk_points)
-            parts = (fused_em.em_partials(tp.pts4, W) if par is None
-                     else fused_em.em_partials_grouped(groups, W))
+            parts = sweep_body(torch, tp.pts4 if par is None else groups, W)()
             gaps[f"em_step_K{W.shape[1]}{tag}"] = em_step_check(
                 torch, f"odometry K{W.shape[1]}{tag}", tree.levels[lvl], parts, tw.sum(),
                 1e-4 * scene_variance(tgt, tw), metric_errs)
@@ -2897,7 +2907,7 @@ def registration_suite_phase(torch, dev, errs, timings) -> tuple:
     timings["em_stats"].append(timed_shape(
         torch, lambda: fused_em.em_stats(tgt.pts4, W), lambda: em_ref.em_stats(cloud, W),
         k=suite.FLAT_K, n=n, masked=False, path="registration_suite",
-        body_ms=device_ms(torch, lambda: fused_em.em_partials(tgt.pts4, W))))
+        body_ms=device_ms(torch, sweep_body(torch, tgt.pts4, W))))
     thr = float(torch.quantile(node_complexity(tree.levels[-2]), 0.5))
     for name, params, outlier in (("gmm_flat64", gmm.params, None),
                                   ("hgmm_tree_8x3", tree.cut_mixture(0.0), 0.0),

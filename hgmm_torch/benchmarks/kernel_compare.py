@@ -402,35 +402,36 @@ def step_times(np, torch, dev, n) -> dict:
     for tag, nn in (("n%d" % n, n), ("n16384", 16_384)):
         pts = torch.from_numpy(rng.standard_normal((nn, 3), dtype=np.float32)).to(dev)
         (W, mu, A6, b3, pose), _ = reg_inputs(np, torch, convert, dev, pts)["K8"]
-        prob = ops.reg_problem(ops.prepare(pts), W, mu, A6, b3)
-        part = ops.reg_partials(prob, ops.new_scan(pose[0], pose[1], 1)).clone()
-        parts = {f"nb{part.shape[0]}": part}
+        prob = fused_em.reg_tables(ops.prepare(pts).pts4, W, mu, A6, b3)
+        part = ops.reg_partials(prob, ops.new_scan(prob, pose[0], pose[1], 1)).partial.clone()
+        parts = {f"nb{part.shape[0]}": fused_em.reg_rows(part)}
         if nn == n:
-            parts["nb1"] = part.double().sum(0, keepdim=True).float()
+            parts["nb1"] = fused_em.reg_rows(part.double().sum(0, keepdim=True).float())
         for nb, p in parts.items():
             for solver, sname in ((0, "horn"), (1, "wls")):
                 for last in (False, True):
                     if nn != n and not last:
                         continue
-                    scan = ops.new_scan(pose[0], pose[1], 2)
+                    scan = ops.new_scan(prob, pose[0], pose[1], 2)
                     fn = lambda: ops.reg_step(p, scan, 1, solver, False, last, 0.0)  # noqa: E731
                     key = f"reg_step_{sname}_{nb}_{'last' if last else 'mid'}_{tag}"
                     out[f"{key}_device_us"] = device_us(fn)[0]
                     out[f"{key}_graph_us"] = graph_us(torch, fn, calls=20)
-        if nn == n and getattr(fused_em, "plan_reg_step", lambda nb: 1)(part.shape[0]) > 1:
+        if nn == n and fused_em.plan_reg_step(part.shape[0]) > 1:
             # The same 528 rows on one plain block: the C entry's blocks = 1
-            # in a tree whose plan takes a cluster past 256 rows.
+            # where the plan takes a cluster past 256 rows.
+            one_block = parts[f"nb{part.shape[0]}"]._replace(cluster=1)
             for solver, sname in ((0, "horn"), (1, "wls")):
                 for last in (False, True):
-                    scan = ops.new_scan(pose[0], pose[1], 2)
-                    fn = lambda: _one_block_reg_step(torch, part, scan, solver, last)  # noqa: E731
+                    scan = ops.new_scan(prob, pose[0], pose[1], 2)
+                    fn = lambda: ops.reg_step(one_block, scan, 1, solver, False, last, 0.0)  # noqa: E731
                     key = f"reg_step_{sname}_nb{part.shape[0]}_one_block_{'last' if last else 'mid'}_{tag}"
                     out[f"{key}_device_us"] = device_us(fn)[0]
                     out[f"{key}_graph_us"] = graph_us(torch, fn, calls=20)
         if nn == n:
-            scan = ops.new_scan(pose[0], pose[1], 2)
+            scan = ops.new_scan(prob, pose[0], pose[1], 2)
             scan.state[em_ref.SCAN_DONE] = 1.0  # the kernel reads the flag and returns
-            fn = lambda: ops.reg_step(part, scan, 1, 1, False, True, 0.0)  # noqa: E731
+            fn = lambda: ops.reg_step(parts[f"nb{part.shape[0]}"], scan, 1, 1, False, True, 0.0)  # noqa: E731
             out[f"reg_step_done_{tag}_device_us"] = device_us(fn)[0]
             out[f"reg_step_done_{tag}_graph_us"] = graph_us(torch, fn, calls=20)
 
@@ -453,10 +454,10 @@ def step_times(np, torch, dev, n) -> dict:
             one, two = (graph_us(torch, lambda s=s: em_sweeps(data, start, s, total, cf))
                         for s in (sweeps, 2 * sweeps))
             out[f"{key}_graph_us"] = (two - one) / sweeps
-            if name == "flat_K8" and hasattr(ops, "em_partials"):
-                fit = ops.new_fit(start, 1, total, cf)
-                rows = ops.em_partials(data, fit.table)
-                one_row = em_ref.partials_of(em_ref.sum_partials(rows))
+            if name == "flat_K8":
+                fit = ops.new_fit(data, start, 1, total, cf)
+                rows = ops.em_partials(fit)
+                one_row = fused_em.em_rows(em_ref.partials_of(em_ref.sum_partials(rows)), fit)
                 for label, parts in ((f"nb{rows.n_rows}", rows), ("nb1", one_row)):
                     fn = lambda parts=parts: ops.em_step(parts, fit, 0)  # noqa: E731
                     out[f"em_step_{label}_{tag}_device_us"] = device_us(fn)[0]
@@ -480,7 +481,7 @@ def probe_times(torch, dev) -> tuple[dict, dict]:
     were ported has (ops.probes, mxu_microbench.make_inputs, kernel_bound)."""
     from hgmm_torch.benchmarks.mxu_microbench import make_inputs
     from hgmm_torch.eval.roofline import kernel_bound
-    from hgmm_torch.ops import probes
+    from hgmm_torch.ops import _build, probes
 
     out, times, gaps = {}, {}, {}
     on_card = dev.type == "cuda"
@@ -564,7 +565,7 @@ def probe_times(torch, dev) -> tuple[dict, dict]:
                 per_call = graph_us(torch, lambda: torch.matmul(a, b, out=res), calls=steps * reps, replays=2)
                 times[f"probe_{name}_{tag}_{steps}x{reps}_library_graph_us"] = per_call * steps * reps
     times["probe_twin_gaps"] = gaps
-    times["probe_plans"] = {f"{name}_K{k}_T{t}": str(plan(k, t, probes._sms(dev)))
+    times["probe_plans"] = {f"{name}_K{k}_T{t}": str(plan(k, t, _build.sms(dev)))
                             for k, t in PROBE_SHAPES if on_card
                             for name, plan in (("logits", lambda k, t, s: probes.plan_logits(k, t, False, s)),
                                                ("stats", lambda k, t, s: probes.plan_stats(k, t, False, s)),
@@ -629,19 +630,6 @@ def pair_counts(np, torch, dev, n) -> dict:
         out[f"{name}_host_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
         out[f"{name}_s"] = wall
     return out
-
-
-def _one_block_reg_step(torch, partial, scan, solver, last):
-    """ops.reg_step's launch (iteration 1, not its first step, tol 0) with
-    the C entry's blocks = 1 instead of the plan's cluster."""
-    from hgmm_torch.ops import _build
-
-    err = _build.load().hgmm_reg_step(
-        partial.data_ptr(), partial.shape[0], scan.state.data_ptr(), scan.logliks.data_ptr(),
-        scan.deltas.data_ptr(), 1, solver, 0, int(last), 0.0, 1,
-        torch.cuda.current_stream(partial.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"reg_step on one block: CUDA error {err}")
 
 
 def diff(a: dict, b: dict) -> dict:

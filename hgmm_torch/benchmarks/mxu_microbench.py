@@ -46,7 +46,7 @@ import torch
 
 from hgmm_torch.benchmarks.kernel_compare import graph_us
 from hgmm_torch.eval.roofline import H100_BF16_FLOPS, H100_FP32_FLOPS, H100_SMS
-from hgmm_torch.ops import probes
+from hgmm_torch.ops import _build, probes
 from hgmm_torch.utils.device import resolve_device
 from hgmm_torch.utils.timing import time_fn
 
@@ -94,7 +94,7 @@ def run(k: int = K, t: int = T, steps: int = 1024, r1: int = 2, r2: int = 6,
     """Measure every shape once; returns the report as a dict."""
     dev = resolve_device(device)
     ins = make_inputs(k, t, dev)
-    sms = probes._sms(dev) if dev.type == "cuda" else H100_SMS  # the CPU rehearsal plans for an H100
+    sms = _build.sms(dev) if dev.type == "cuda" else H100_SMS  # the CPU rehearsal plans for an H100
 
     t_add2 = run_case(lambda s, r: probes.addonly(ins["x"], s, r), steps, r1, r2, dev)
     add_ps = t_add2 / 2.0 / (k * t)  # the add-only rep is two adds over K*T

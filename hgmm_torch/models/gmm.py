@@ -80,20 +80,20 @@ def em_sweeps(data, init: MixtureParams, n_iters: int, total, cov_floor, cov_reg
               cov_type: str = "full", mesh=None) -> ops.EmFit:
     """`n_iters` EM sweeps from `init` on `data`: an ops.Prepared buffer, or
     a tree level's points grouped by parent (ops.group_by_parent). Each sweep
-    is the E-step on the fit's packed table (ops.em_partials) and
-    ops.em_step; total and cov_floor are 0-d tensors on the data's device.
-    With a mesh (hgmm_torch.parallel), `data` is this rank's shard, total and
+    is the E-step on the fit's packed table (ops.em_partials of the state
+    ops.new_fit made for `data`) and ops.em_step; total and cov_floor are
+    0-d tensors on the data's device. With a mesh (hgmm_torch.parallel), `data` is this rank's shard, total and
     cov_floor are the mesh's, and each sweep sums its E-step to one row
     (ops.em_row) and adds that row over the mesh before the M-step, which
     then runs replicated. Returns the fit state: params, table, logliks
     [n_iters]."""
     with span("hgmm_torch.fit.sweeps"):
-        fit = ops.new_fit(init, n_iters, total, cov_floor, masked=not isinstance(data, ops.Prepared))
+        fit = ops.new_fit(data, init, n_iters, total, cov_floor)
         for it in range(n_iters):
             if mesh is None:
-                parts = ops.em_partials(data, fit.table)
+                parts = ops.em_partials(fit)
             else:
-                parts = ops.em_row(data, fit.table)
+                parts = ops.em_row(fit)
                 mesh.all_reduce_(parts.partial)
             ops.em_step(parts, fit, it, cov_reg, cov_type)
         return fit

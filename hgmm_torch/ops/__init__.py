@@ -7,9 +7,13 @@ plain version in ``em_ref``; a CUDA tensor goes to the CUDA kernel in
 Loops call ``prepare(points)`` once and pass the ``Prepared`` buffer to every
 sweep or iteration; raw [N, 3] points are accepted too and prepared per call.
 The E-step functions take W [10, K] or the packed table of a fit
-(``Packed``); a fit's sweep is ``em_partials`` on ``fit.table`` (on the card
-the E-step body alone, its partial rows not summed), then ``em_step`` on the
-fit state ``new_fit`` made, which sums the rows and runs the M-step. A
+(``Packed``). A fit's sweep is ``em_partials`` on the fit state ``new_fit``
+made for its data (on the card the E-step body alone, its partial rows not
+summed), then ``em_step``, which sums the rows and runs the M-step. A
+registration scan's step is ``reg_partials`` on the tables
+``reg_problem_of`` made and the state ``new_scan`` made for them, then
+``reg_step``. On the card everything those steps launch from was checked,
+planned and allocated where the fit, the tables and the scan were made. A
 sharded sweep or scan step sums this device's rows to one row first
 (``em_row``, ``reg_row``) and adds that row over the mesh.
 """
@@ -119,48 +123,56 @@ def em_stats_grouped(groups, W) -> EmStats:
                                   groups.prep.weights)
 
 
-def new_fit(init: MixtureParams, n_iters: int, total, cov_floor, masked: bool = False) -> EmFit:
-    """The state of a fit of `n_iters` sweeps from `init` on init's device
-    (em_ref.EmFit): its table has the rows that an unmasked (or, masked=True,
-    a grouped) em_stats call of K = init's reads."""
-    return em_ref.new_fit(init, n_iters, total, cov_floor, fused_em.table_rows(init.k, masked))
+def new_fit(data, init: MixtureParams, n_iters: int, total, cov_floor) -> EmFit:
+    """The state of a fit of `n_iters` sweeps from `init` on `data`, a
+    Prepared buffer or a level's points grouped by parent (group_by_parent),
+    on init's device (em_ref.EmFit): its table has the rows that the E-step
+    on `data` reads. On the card its data is the body the sweeps launch
+    (fused_em.flat_body for a Prepared buffer), and the state is checked
+    against it once (fused_em.bind_fit)."""
+    grouped = not isinstance(data, Prepared)
+    fit = em_ref.new_fit(init, n_iters, total, cov_floor, fused_em.table_rows(init.k, grouped))
+    if isinstance(data, fused_em.ParentGroups):
+        return fused_em.bind_fit(data, fit)
+    if not grouped and data.pts4.is_cuda:
+        return fused_em.bind_fit(fused_em.flat_body(data.pts4, init.k), fit)
+    return fit._replace(data=data)
 
 
-def em_partials(data, W) -> EmPartials:
-    """The E-step of a fit's sweep on `data`, a Prepared buffer or a level's
-    points grouped by parent (group_by_parent): on the card the body's
+def em_partials(fit: EmFit) -> EmPartials:
+    """The E-step of a fit's sweep on its data: on the card the body's
     partial rows, one launch, summed by em_step; on the CPU the plain
     statistics as one row (em_ref.partials_of)."""
+    data = fit.data
     if isinstance(data, fused_em.ParentGroups):
-        return fused_em.em_partials_grouped(data, W)
-    if isinstance(data, Prepared) and data.pts4.is_cuda:
-        return fused_em.em_partials(data.pts4, W)
-    return em_ref.partials_of(em_stats(data, W) if isinstance(data, Prepared) else em_stats_grouped(data, W))
+        return fused_em.em_partials_grouped(data, fit.table.wn)
+    if isinstance(data, fused_em.FlatBody):
+        return fused_em.em_partials(data, fit.table.wn)
+    stats = em_stats(data, fit.table) if isinstance(data, Prepared) else em_stats_grouped(data, fit.table)
+    return em_ref.partials_of(stats)
 
 
-def em_row(data, W) -> EmPartials:
+def em_row(fit: EmFit) -> EmPartials:
     """The E-step of a sharded sweep: em_partials summed on this device to
     one plain row [1, K*10 + 1] (S row-major, then the loglik), which the
     sweep adds over the mesh before em_step. The grouped body's rows depend on
     the rank's own points by parent, so they cannot be summed across ranks
     element by element; one row is also K*10 + 1 floats to send, not nb
-    times that. On the card the body and its reduce kernel; on the CPU
-    em_partials' one row."""
+    times that. On the card the body and its reduce kernel, into the body's
+    row; on the CPU em_partials' one row."""
+    data = fit.data
     if isinstance(data, fused_em.ParentGroups):
-        out = torch.empty((1, data.k * 10 + 1), dtype=torch.float32, device=data.pts4.device)
-        fused_em.em_partials_grouped(data, W, out)
-        return EmPartials(out, data.k, 1, 1)
-    if isinstance(data, Prepared) and data.pts4.is_cuda:
-        k = W.k if isinstance(W, Packed) else W.shape[1]
-        out = torch.empty((1, k * 10 + 1), dtype=torch.float32, device=data.pts4.device)
-        fused_em.em_partials(data.pts4, W, None, out)
-        return EmPartials(out, k, 1, 1)
-    return em_partials(data, W)
+        fused_em.em_partials_grouped(data, fit.table.wn, data.row.partial)
+        return data.row
+    if isinstance(data, fused_em.FlatBody):
+        fused_em.em_partials(data, fit.table.wn, data.row.partial)
+        return data.row
+    return em_partials(fit)
 
 
 def em_step(stats, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
     """The M-step of sweep `it` on the fit state, in place (em_ref.em_step),
-    from the sweep's EmPartials (em_partials)."""
+    from the sweep's EmPartials (em_partials, em_row)."""
     if fit.mu.is_cuda:
         return fused_em.em_step(stats, fit, it, cov_reg, cov_type)
     return em_ref.em_step(stats, fit, it, cov_reg, cov_type)
@@ -184,8 +196,7 @@ def reg_stats(x, W, mu, A6, b3, pose, point_weights=None, top_k=None, outlier_lo
 
 class RegProblem(NamedTuple):
     """The inputs of a registration scan on the CPU; on the card
-    reg_problem() and reg_problem_of() return fused_em.RegTables, the same
-    built once."""
+    reg_problem_of() returns fused_em.RegTables, the same built once."""
 
     prep: Prepared
     W: torch.Tensor
@@ -196,18 +207,11 @@ class RegProblem(NamedTuple):
     outlier_logit: float | None
 
 
-def reg_problem(x, W, mu, A6, b3, point_weights=None, top_k=None, outlier_logit=None):
-    """What every iteration of one scan reuses, built once."""
-    p = _prep(x, point_weights)
-    if p.pts4.is_cuda:
-        return fused_em.reg_tables(p.pts4, W, mu, A6, b3, top_k, outlier_logit)
-    return RegProblem(p, W, mu, A6, b3, top_k, outlier_logit)
-
-
 def reg_problem_of(points, params: MixtureParams, top_k=None, outlier_logit=None):
-    """reg_problem from the level's mixture: on the card its tables in one
-    launch (fused_em.reg_tables_of; the parameters as float32 on the points'
-    card), on the CPU em_ref.model_terms' W, mu, A6 and b3."""
+    """What every iteration of one scan reuses, built once from the level's
+    mixture: on the card its tables in one launch (fused_em.reg_tables_of;
+    the parameters as float32 on the points' card), on the CPU
+    em_ref.model_terms' W, mu, A6 and b3."""
     p = _prep(points)
     if p.pts4.is_cuda:
         f32 = dict(device=p.pts4.device, dtype=torch.float32)
@@ -216,43 +220,43 @@ def reg_problem_of(points, params: MixtureParams, top_k=None, outlier_logit=None
     return RegProblem(p, *em_ref.model_terms(params), top_k, outlier_logit)
 
 
-def new_scan(R: torch.Tensor, t: torch.Tensor, n_iters: int) -> RegScan:
-    """A scan's state on the pose's device (float32 on the card)."""
-    if R.is_cuda:
-        return fused_em.new_scan(R, t, n_iters)
+def new_scan(problem, R: torch.Tensor, t: torch.Tensor, n_iters: int) -> RegScan:
+    """A scan's state for `problem`: on the card float32, checked once on the
+    tables' card (fused_em.new_scan); on the CPU in the pose's dtype."""
+    if isinstance(problem, fused_em.RegTables):
+        return fused_em.new_scan(problem, R, t, n_iters)
     return em_ref.new_scan(R, t, n_iters)
 
 
-def reg_partials(problem, scan: RegScan) -> torch.Tensor:
+def reg_partials(problem, scan: RegScan) -> em_ref.RegPartials:
     """The [nb, 59] reg_stats rows at the scan's pose. The kernel reads the
     pose and the done flag on the card (and does nothing once done); the CPU
     path reads the flag on the host and skips its work the same way."""
     if isinstance(problem, fused_em.RegTables):
-        return fused_em.reg_partials(problem, scan.state, scan.state[em_ref.SCAN_DONE:em_ref.SCAN_DONE + 1])
+        return fused_em.reg_partials(problem, scan.state, scan.flag)
     if bool(scan.done):
-        return torch.zeros((1, em_ref.REG_OUT), dtype=scan.state.dtype)
+        return em_ref.RegPartials(torch.zeros((1, em_ref.REG_OUT), dtype=scan.state.dtype))
     st = em_ref.reg_stats(problem.prep.points, problem.W, problem.mu, problem.A6, problem.b3, scan.pose,
                           problem.prep.weights, problem.top_k, problem.outlier_logit)
-    return em_ref.pack_reg(st).to(scan.state.dtype)
+    return em_ref.RegPartials(em_ref.pack_reg(st).to(scan.state.dtype))
 
 
-def reg_row(problem, scan: RegScan) -> torch.Tensor:
+def reg_row(problem, scan: RegScan) -> em_ref.RegPartials:
     """reg_partials summed on this device to one row [1, 59], which a
     sharded scan step adds over the mesh before reg_step (a shard's row count
     depends on its size, and shards given by shard_points_from_host differ):
-    on the card the statistics kernel and its reduce kernel (which, once the
-    scan is done, sums the last live rows again: reg_step then reads nothing);
-    on the CPU reg_partials' one row."""
+    on the card the statistics kernel and its reduce kernel into the tables'
+    row (which, once the scan is done, sums the last live rows again:
+    reg_step then reads nothing); on the CPU reg_partials' one row."""
     if isinstance(problem, fused_em.RegTables):
-        out = torch.empty((1, em_ref.REG_OUT), dtype=torch.float32, device=problem.pts4.device)
-        fused_em.reg_partials(problem, scan.state, scan.state[em_ref.SCAN_DONE:em_ref.SCAN_DONE + 1],
-                              out)
-        return out
+        fused_em.reg_partials(problem, scan.state, scan.flag, problem.row.partial)
+        return problem.row
     return reg_partials(problem, scan)
 
 
-def reg_step(partial, scan: RegScan, it: int, solver: int, first: bool, last: bool, tol: float) -> None:
+def reg_step(rows: em_ref.RegPartials, scan: RegScan, it: int, solver: int, first: bool, last: bool,
+             tol: float) -> None:
     """One step of the registration iterate on the scan (in place)."""
     if scan.state.is_cuda:
-        return fused_em.reg_step(partial, scan, it, solver, first, last, tol)
-    return em_ref.reg_step(partial, scan, it, solver, first, last, tol)
+        return fused_em.reg_step(rows, scan, it, solver, first, last, tol)
+    return em_ref.reg_step(rows.partial, scan, it, solver, first, last, tol)

@@ -9,6 +9,11 @@ spills of every kernel) is kept beside it as ``<library>.log``, and its
 SASS (``cuobjdump --dump-sass``), read for the tensor-core instructions a
 kernel holds, as ``<library>.sass`` at first use. The library is loaded with
 ``ctypes``. Nothing here runs at import time.
+
+Every kernel wrapper of ``hgmm_torch.ops`` launches through ``launch``: the
+tensors' card, its current stream, the library's error code and the count of
+launches by wrapper (``LAUNCHES``) are decided here alone. ``check_tensor`` is
+the tensor test the wrappers share.
 """
 
 from __future__ import annotations
@@ -20,7 +25,12 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
+
+import torch
+
+from hgmm_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -249,3 +259,59 @@ def load() -> ctypes.CDLL:
         lib.hgmm_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+# Kernel launches by wrapper, for showing that a run went through the kernels.
+# The masked em_stats past EG_BMAX children counts apart from the branch-8
+# body, and reg_stats by body (fused_em.reg_stats_body): the lanes body, the
+# top_k body with a register list, the select body past MAX_TOP_K.
+LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "em_stats_masked_wide": 0, "em_step": 0, "assign": 0,
+            "reg_stats": 0, "reg_stats_top_k": 0, "reg_stats_select": 0, "reg_step": 0, "reg_tables": 0,
+            "knn": 0, "probe_logits": 0, "probe_addonly": 0, "probe_stats": 0, "probe_norm": 0, "probe_vpu": 0}
+_LAUNCHES_LOCK = threading.Lock()  # the ranks of an EmulatedMesh launch from threads
+
+
+def reset_launches() -> None:
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to a kernel's count (launch, after a launch that returned 0);
+    inside profiling.tracing(), also to the open request's counter
+    launch.<name>."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
+    if profiling.tracer is not None:
+        profiling.count("launch." + name)
+
+
+def launch(name: str, entry: str, device, *args) -> None:
+    """Call the library's `entry` with `args` and the current stream of
+    `device` (taken at each call: a CUDA graph's capture runs on a side
+    stream), inside that device; raise on a nonzero error code with the
+    library's message, else count the launch as `name`."""
+    with torch.cuda.device(device):
+        err = getattr(load(), entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}: {load().hgmm_error_string(err).decode()}")
+    count_launch(name)
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple | None = None) -> None:
+    """A tensor a kernel reads or writes: on a card, of `dtype`, contiguous,
+    and of `shape` when given."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def sms(device) -> int:
+    """The card's SM count, which every launch plan takes."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -324,6 +324,15 @@ def new_scan(R: torch.Tensor, t: torch.Tensor, n_iters: int, dtype=None) -> RegS
     return RegScan(state, z, z.clone())
 
 
+class RegPartials(NamedTuple):
+    """reg_stats' partial rows [nb, REG_OUT], not yet summed: what a
+    registration step reads. cluster: the card's step kernel's blocks
+    (fused_em.plan_reg_step), planned with the rows' buffer; 0 on the CPU."""
+
+    partial: torch.Tensor
+    cluster: int = 0
+
+
 def pack_reg(st: RegStats) -> torch.Tensor:
     """RegStats -> one [1, 59] partial row (horn, A, b, loglik)."""
     return torch.cat([st.horn.reshape(16), st.A.reshape(36), st.b.reshape(6),
@@ -386,7 +395,8 @@ class EmFit(NamedTuple):
     parameters (pi [K], mu [K, 3], sigma [K, 3, 3]), the packed table of
     them that the next sweep's E-step reads, every sweep's loglik [n_iters],
     and the data's total weight and covariance floor, 0-d tensors on the
-    device (never read on the host)."""
+    device (never read on the host); and the data its sweeps' E-step reads
+    (hgmm_torch.ops.new_fit: on the card the body it launches)."""
 
     pi: torch.Tensor
     mu: torch.Tensor
@@ -395,6 +405,7 @@ class EmFit(NamedTuple):
     logliks: torch.Tensor
     total: torch.Tensor
     cov_floor: torch.Tensor
+    data: object = None
 
     @property
     def params(self) -> MixtureParams:
@@ -421,7 +432,9 @@ class EmPartials(NamedTuple):
     1] - 1 ([ceil(K / branch) + 1] int32) add to the children p branch ..
     p branch + branch - 1 of parent p, and every row to the loglik in its
     last column (em_stats_grouped_kernel). span: the most rows one component
-    sums (em_step's launch plan)."""
+    sums (em_step's launch plan); warps: the card's em_step's warps a
+    component (fused_em.plan_em_step of span), planned with the rows' buffer;
+    0 on the CPU."""
 
     partial: torch.Tensor
     k: int
@@ -429,6 +442,7 @@ class EmPartials(NamedTuple):
     span: int
     branch: int = 0
     parent_off: torch.Tensor | None = None
+    warps: int = 0
 
 
 def partials_of(stats: EmStats) -> EmPartials:

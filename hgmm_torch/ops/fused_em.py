@@ -1,11 +1,11 @@
 """ctypes wrappers of the CUDA kernels in ``hgmm_torch/csrc``.
 
 Counterpart of ``hgmm/ops/fused_em.py``. Each wrapper takes the prepared
-point buffer ``pts4`` [4, N] f32 (rows x, y, z, w; see ``hgmm_torch.ops.prepare``),
-checks device, dtype, shape and contiguity, launches on the current CUDA
-stream, raises on a nonzero CUDA error code and adds one to its entry of
-``LAUNCHES``. They accept CUDA tensors only: the dispatch in
-``hgmm_torch.ops`` sends CPU tensors to the plain versions in ``em_ref``.
+point buffer ``pts4`` [4, N] f32 (rows x, y, z, w; see ``hgmm_torch.ops.prepare``)
+and launches through ``_build.launch`` (the current CUDA stream, a raise on a
+nonzero CUDA error code, one more in ``LAUNCHES``). They accept CUDA tensors
+only: the dispatch in ``hgmm_torch.ops`` sends CPU tensors to the plain
+versions in ``em_ref``.
 
 The kernels compute what the TPU kernels compute with float32 FMAs and an
 exact per-point max in the softmax, so they take no softmax shift; their
@@ -23,8 +23,8 @@ W [10, K] or the packed table (``em_ref.Packed``) that ``em_step``
 sweep launches the body alone (``em_partials``, ``em_partials_grouped``: the
 partial rows, not summed) and then ``em_step``, which sums the rows and runs
 the M-step (launch geometry from ``plan_em_step``): two launches and no host
-read (``new_fit`` holds the state on the card). ``em_stats`` and
-``em_stats_grouped`` add the reduce kernel for their other callers.
+read. ``em_stats`` and ``em_stats_grouped`` add the reduce kernel for their
+other callers.
 
 A registration scan builds its tables once, from the level's mixture in one
 launch (``reg_tables_of``: ``csrc/reg_tables.cu``) or from W, mu, A6, b3
@@ -34,25 +34,34 @@ launch geometry from ``plan_reg_stats``: the lanes body without gating, the
 top_k body with a register list up to MAX_TOP_K, the select body past it)
 and ``reg_step`` (``csrc/reg_step.cu``) read and write it without a host
 sync.
+
+The step path (``em_partials``, ``em_partials_grouped``, ``em_step``,
+``reg_partials``, ``reg_step``) checks, plans and allocates nothing: the
+objects it launches from were checked, planned and given their buffers where
+they were made, once a level (``flat_body``, ``group_by_parent``,
+``bind_fit``; ``reg_tables_of``, ``new_scan``), or once for rows made
+elsewhere (``em_rows``, ``reg_rows``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-import threading
 
 import torch
 
 from hgmm_torch.ops import _build
+from hgmm_torch.ops._build import LAUNCHES, check_tensor, count_launch, launch, reset_launches  # noqa: F401
 from hgmm_torch.ops.em_ref import (
     COV_TYPES,
     REG_OUT,
+    SCAN_DONE,
     SCAN_FLOATS,
     EmFit,
     EmPartials,
     EmStats,
     Packed,
+    RegPartials,
     RegScan,
     RegStats,
     pack_table,
@@ -108,49 +117,10 @@ EMS_MAX_WARPS = 16  # a component's warps, at most
 EMS_ROWS_A_LANE = 12  # partial rows a lane sums (its loads in flight at once) before the plan adds a warp
 EMS_WARPS_PER_SM = 64  # resident warps an SM on the H100
 
-# Kernel launches by wrapper, for showing that a run went through the kernels
-# (ops/knn.py and ops/probes.py count their kernels here too). The masked
-# em_stats past EG_BMAX children counts apart from the branch-8 body, and
-# reg_stats by body (reg_stats_body): the lanes body, the top_k body with a
-# register list, the select body past MAX_TOP_K.
-LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "em_stats_masked_wide": 0, "em_step": 0, "assign": 0,
-            "reg_stats": 0, "reg_stats_top_k": 0, "reg_stats_select": 0, "reg_step": 0, "reg_tables": 0,
-            "knn": 0, "probe_logits": 0, "probe_addonly": 0, "probe_stats": 0, "probe_norm": 0, "probe_vpu": 0}
-
-
-_LAUNCHES_LOCK = threading.Lock()  # the ranks of an EmulatedMesh launch from threads
-
-
-def reset_launches() -> None:
-    with _LAUNCHES_LOCK:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
-
-
-def count_launch(name: str) -> None:
-    """Add one to a kernel's count (each wrapper, where it launches); inside
-    profiling.tracing(), also to the open request's counter launch.<name>."""
-    with _LAUNCHES_LOCK:
-        LAUNCHES[name] += 1
-    if profiling.tracer is not None:
-        profiling.count("launch." + name)
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got one on {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
 def _check_points(pts4: torch.Tensor) -> int:
     if pts4.dim() != 2 or pts4.shape[0] != 4:
         raise ValueError(f"pts4: expected [4, N], got {tuple(pts4.shape)}")
-    _check("pts4", pts4, torch.float32, tuple(pts4.shape))
+    check_tensor("pts4", pts4, torch.float32)
     return pts4.shape[1]
 
 
@@ -162,7 +132,7 @@ def _table(W, device, rows: int | None = None) -> Packed:
         k, wn = W.k, W.wn
         if not 1 <= k <= MAX_K or wn.dim() != 2 or not (rows or k) <= wn.shape[0] or (rows and wn.shape[0] != rows):
             raise ValueError(f"table of shape {tuple(wn.shape)} for K={k}, {rows or k} rows")
-        _check("table", wn, torch.float32, (wn.shape[0], 12))
+        check_tensor("table", wn, torch.float32, (wn.shape[0], 12))
         if wn.device != torch.device(device):
             raise ValueError(f"table: on {wn.device}, the points on {device}")
         return W
@@ -274,61 +244,77 @@ def _parent(parent: torch.Tensor, n: int, branch: int) -> torch.Tensor:
     if branch is None or branch < 1:
         raise ValueError(f"a parent mask needs a branch >= 1, got {branch}")
     parent = parent.to(torch.int32).contiguous()
-    _check("parent", parent, torch.int32, (n,))
+    check_tensor("parent", parent, torch.int32, (n,))
     return parent
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        msg = _build.load().hgmm_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _outlier(outlier_logit) -> tuple[int, float]:
     return (0, 0.0) if outlier_logit is None else (1, float(outlier_logit))
 
 
-def em_partials(pts4: torch.Tensor, W, outlier_logit=None, out: torch.Tensor | None = None) -> EmPartials:
-    """The unmasked em_stats body on a prepared [4, N] buffer, one launch:
-    its partial rows [nb, K*10 + 1], which em_step sums (a fit's sweep); with
-    `out` [K*10 + 1] the reduce kernel also writes their sum there. W is
-    [10, K] or a Packed table (table_rows(K) rows)."""
+@dataclasses.dataclass
+class FlatBody:
+    """The unmasked em_stats body on a prepared [4, N] buffer, checked and
+    planned once (flat_body) and launched by every sweep on it (em_partials):
+    the C entry (the register-tiled body from EMT_MIN_K, else the first one)
+    and its geometry argument (k_pad, or the first body's lanes), the
+    outlier, and the rows em_step reads: `parts` (the body's, one a block)
+    and `row` (their sum: a sharded sweep)."""
+
+    pts4: torch.Tensor
+    k: int
+    entry: str
+    geometry: int
+    outlier: tuple[int, float]
+    parts: EmPartials
+    row: EmPartials
+
+
+def _rows(partial: torch.Tensor, k: int, n_rows: int, span: int, sms: int, branch: int = 0,
+          parent_off: torch.Tensor | None = None) -> EmPartials:
+    """Partial rows as em_step reads them: its warps planned with them."""
+    return EmPartials(partial, k, n_rows, span, branch, parent_off, plan_em_step(k, span, sms).warps)
+
+
+def _one_row(k: int, sms: int, device) -> EmPartials:
+    """The buffer of a body's rows summed to one [1, K*10 + 1] (em_row)."""
+    return _rows(torch.empty((1, k * 10 + 1), dtype=torch.float32, device=device), k, 1, 1, sms)
+
+
+def flat_body(pts4: torch.Tensor, k: int, outlier_logit=None) -> FlatBody:
+    """The unmasked body of K components on pts4: its plan, its blocks (one
+    partial row each) and its buffers."""
     n = _check_points(pts4)
-    k = W.k if isinstance(W, Packed) else W.shape[1]
-    plan = plan_em_tiles(k)
-    wn = _table(W, pts4.device, table_rows(k)).wn
-    sms = _sms(pts4.device)
-    lane_plan = plan_em_lanes(n, k, sms) if plan is None else None
-    nb = lane_plan.blocks if plan is None else plan.blocks(n, sms)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"K={k} outside [1, {MAX_K}]")
+    tiles, sms = plan_em_tiles(k), _build.sms(pts4.device)
+    if tiles is None:
+        lanes = plan_em_lanes(n, k, sms)
+        entry, geometry, nb = "hgmm_em_stats", lanes.lanes, lanes.blocks
+    else:
+        entry, geometry, nb = "hgmm_em_stats_tiled", tiles.k_pad, tiles.blocks(n, sms)
     partial = torch.empty((nb, k * 10 + 1), dtype=torch.float32, device=pts4.device)
-    out_p = None if out is None else out.data_ptr()
-    has_out, out_l = _outlier(outlier_logit)
-    with torch.cuda.device(pts4.device):
-        if plan is None:
-            err = _build.load().hgmm_em_stats(
-                pts4.data_ptr(), n, wn.data_ptr(), k, lane_plan.lanes, has_out, out_l, partial.data_ptr(), nb,
-                out_p, _stream(pts4),
-            )
-        else:
-            err = _build.load().hgmm_em_stats_tiled(
-                pts4.data_ptr(), n, wn.data_ptr(), k, plan.k_pad, has_out, out_l,
-                partial.data_ptr(), nb, out_p, _stream(pts4),
-            )
-    _raise_on(err, "em_stats")
-    count_launch("em_stats")
-    return EmPartials(partial, k, nb, nb)
+    return FlatBody(pts4, k, entry, geometry, _outlier(outlier_logit), _rows(partial, k, nb, nb, sms),
+                    _one_row(k, sms, pts4.device))
+
+
+def em_partials(body: FlatBody, wn: torch.Tensor, out: torch.Tensor | None = None) -> EmPartials:
+    """Launch the unmasked body with the table wn [table_rows(K), 12]: its
+    partial rows in body.parts, which em_step sums (a fit's sweep), and with
+    `out` [K*10 + 1] their sum there by the reduce kernel."""
+    launch("em_stats", body.entry, body.pts4.device, body.pts4.data_ptr(), body.pts4.shape[1], wn.data_ptr(),
+           body.k, body.geometry, *body.outlier, body.parts.partial.data_ptr(), body.parts.n_rows,
+           None if out is None else out.data_ptr())
+    return body.parts
 
 
 def em_stats(pts4: torch.Tensor, W, outlier_logit=None) -> EmStats:
     """Kernel twin of em_ref.em_stats on a prepared [4, N] buffer: the body
     and the reduce; W is [10, K] or a Packed table (table_rows(K) rows)."""
     k = W.k if isinstance(W, Packed) else W.shape[1]
+    body = flat_body(pts4, k, outlier_logit)
     out = torch.empty((k * 10 + 1,), dtype=torch.float32, device=pts4.device)
-    em_partials(pts4, W, outlier_logit, out)
+    em_partials(body, _table(W, pts4.device, table_rows(k)).wn, out)
     return EmStats(S=out[: k * 10].view(k, 10), loglik=out[k * 10])
 
 
@@ -354,45 +340,64 @@ def plan_em_step(k: int, span: int, sms: int) -> StepPlan:
     return StepPlan(max(1, min(EMS_MAX_WARPS, want, room)), k + 1)
 
 
-def em_step(parts, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
-    """Kernel twin of em_ref.em_step (csrc/em_step.cu): one launch after an
-    em_stats body that sums its partial rows (EmPartials, either layout) and
-    writes the fit's parameters, table and logliks[it] on the card from them
-    and the total and cov_floor there, nothing read back."""
-    if not isinstance(parts, EmPartials):
-        raise TypeError(f"em_step: expected an em_stats body's EmPartials, got {type(parts).__name__}")
+def _check_on(what: str, dev, named) -> None:
+    """check_tensor on each (name, tensor, dtype, shape), each on `dev`."""
+    for name, t, dtype, shape in named:
+        check_tensor(name, t, dtype, shape)
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} on {t.device}, expected on {dev}")
+
+
+def bind_fit(body, fit: EmFit) -> EmFit:
+    """The fit state whose sweeps launch on `body` (a FlatBody or
+    ParentGroups) from what this checks once: the parameters, the table,
+    logliks, total and cov_floor float32 on the body's card, of its K, and
+    the table of the rows the body reads (table_rows(K) for the unmasked
+    body, at least K for the grouped one). Returns fit with data = body."""
     k, wn = fit.table.k, fit.table.wn
     rows = wn.shape[0]
-    dev = wn.device
-    width = (parts.branch or k) * 10 + 1
-    n_par = -(-k // parts.branch) if parts.branch else 0
-    checks = [("partial", parts.partial, torch.float32, (parts.partial.shape[0], width)),
-              ("pi", fit.pi, torch.float32, (k,)), ("mu", fit.mu, torch.float32, (k, 3)),
-              ("sigma", fit.sigma, torch.float32, (k, 3, 3)), ("table", wn, torch.float32, (rows, 12)),
-              ("logliks", fit.logliks, torch.float32, tuple(fit.logliks.shape)),
-              ("total", fit.total, torch.float32, ()), ("cov_floor", fit.cov_floor, torch.float32, ())]
+    if body.k != k or rows < k or (isinstance(body, FlatBody) and rows != table_rows(k)):
+        raise ValueError(f"fit: a table of {rows} rows for K={k}, sweeps of K={body.k}")
+    _check_on("fit", body.pts4.device, [
+        ("pi", fit.pi, torch.float32, (k,)), ("mu", fit.mu, torch.float32, (k, 3)),
+        ("sigma", fit.sigma, torch.float32, (k, 3, 3)), ("table", wn, torch.float32, (rows, 12)),
+        ("logliks", fit.logliks, torch.float32, None), ("total", fit.total, torch.float32, ()),
+        ("cov_floor", fit.cov_floor, torch.float32, ())])
+    return fit._replace(data=body)
+
+
+def em_rows(parts, fit: EmFit) -> EmPartials:
+    """Partial rows made outside a body (EmPartials of either layout, such as
+    em_ref.partials_of's one row) as em_step reads them for `fit`: checked
+    against it, their warps planned."""
+    if not isinstance(parts, EmPartials):
+        raise TypeError(f"em_step: expected an em_stats body's EmPartials, got {type(parts).__name__}")
+    k = fit.table.k
+    dev = fit.table.wn.device
+    named = [("partial", parts.partial, torch.float32, (parts.partial.shape[0], (parts.branch or k) * 10 + 1))]
     if parts.branch:
-        checks.append(("parent_off", parts.parent_off, torch.int32, (n_par + 1,)))
-    for name, t, dtype, shape in checks:
-        _check(name, t, dtype, shape)
-        if t.device != dev:
-            raise ValueError(f"em_step: {name} on {t.device}, the table on {dev}")
-    if (not 0 <= it < fit.logliks.shape[0] or cov_type not in COV_TYPES or rows < k or parts.k != k
-            or not 0 <= parts.n_rows <= parts.partial.shape[0]):
-        raise ValueError(f"em_step: sweep {it} of {fit.logliks.shape[0]}, cov_type {cov_type!r}, "
-                         f"{rows} rows for K={k}, partials of K={parts.k} with {parts.n_rows} rows "
-                         f"of {tuple(parts.partial.shape)}, branch {parts.branch}")
-    plan = plan_em_step(k, parts.span, _sms(dev))
-    with torch.cuda.device(dev):
-        err = _build.load().hgmm_em_step(
-            parts.partial.data_ptr(), parts.n_rows,
-            parts.parent_off.data_ptr() if parts.branch else None, parts.branch,
-            fit.total.data_ptr(), fit.cov_floor.data_ptr(), k, rows, float(cov_reg),
-            COV_TYPES.index(cov_type), fit.pi.data_ptr(), fit.mu.data_ptr(), fit.sigma.data_ptr(),
-            wn.data_ptr(), fit.logliks.data_ptr(), it, plan.warps, _stream(wn),
-        )
-    _raise_on(err, "em_step")
-    count_launch("em_step")
+        named.append(("parent_off", parts.parent_off, torch.int32, (-(-k // parts.branch) + 1,)))
+    _check_on("em_step", dev, named)
+    if parts.k != k or not 0 <= parts.n_rows <= parts.partial.shape[0]:
+        raise ValueError(f"em_step: partials of K={parts.k} with {parts.n_rows} rows of "
+                         f"{tuple(parts.partial.shape)}, a fit of K={k}")
+    return _rows(parts.partial, k, parts.n_rows, parts.span, _build.sms(dev), parts.branch, parts.parent_off)
+
+
+def em_step(parts: EmPartials, fit: EmFit, it: int, cov_reg: float = 1e-6, cov_type: str = "full") -> None:
+    """Kernel twin of em_ref.em_step (csrc/em_step.cu): one launch after an
+    em_stats body that sums its partial rows (a body's parts or row, or
+    em_rows') and writes the fit's parameters, table and logliks[it] on the
+    card from them and the total and cov_floor there, nothing read back.
+    `it` indexes the write to logliks, so it is held to the fit's sweeps."""
+    wn = fit.table.wn
+    if not 0 <= it < fit.logliks.shape[0] or cov_type not in COV_TYPES:
+        raise ValueError(f"em_step: sweep {it} of {fit.logliks.shape[0]}, cov_type {cov_type!r}")
+    launch("em_step", "hgmm_em_step", wn.device, parts.partial.data_ptr(), parts.n_rows,
+           parts.parent_off.data_ptr() if parts.branch else None, parts.branch, fit.total.data_ptr(),
+           fit.cov_floor.data_ptr(), fit.table.k, wn.shape[0], float(cov_reg), COV_TYPES.index(cov_type),
+           fit.pi.data_ptr(), fit.mu.data_ptr(), fit.sigma.data_ptr(), wn.data_ptr(), fit.logliks.data_ptr(), it,
+           parts.warps)
 
 
 def plan_parent_chunks(counts: list[int], sms: int) -> tuple[int, list[tuple[int, int, int]]]:
@@ -441,7 +446,9 @@ class ParentGroups:
     """A tree level's points grouped by parent for the masked E-step, built
     once a level (group_by_parent) and reused by every sweep: the live points
     (a parent in range, a nonzero weight) sorted by parent, the chunk table
-    and each parent's first chunk on the card, the partial buffer."""
+    and each parent's first chunk on the card, the body's warps a block and
+    launch counter, and the rows em_step reads: `parts` (a chunk's each) and
+    `row` (their sum: a sharded sweep)."""
 
     pts4: torch.Tensor  # [4, n_live]
     branch: int
@@ -450,7 +457,10 @@ class ParentGroups:
     parent_rows: int  # the most chunks of one parent
     chunks: torch.Tensor  # [n_chunks, 3] int32: parent, first point, count
     parent_off: torch.Tensor  # [n_parents + 1] int32
-    partial: torch.Tensor  # [max(n_chunks, 1), branch*10 + 1]
+    warps: int  # EG_WARPS, or plan_grouped_wide's past EG_BMAX children
+    name: str  # em_stats_masked, or em_stats_masked_wide past EG_BMAX children
+    parts: EmPartials  # partial [max(n_chunks, 1), branch*10 + 1]
+    row: EmPartials
 
     @property
     def n_chunks(self) -> int:
@@ -473,7 +483,9 @@ def group_by_parent(pts4: torch.Tensor, parent: torch.Tensor, branch: int, k: in
     counts = torch.zeros(n_par + 1, dtype=torch.int64, device=key.device).index_add_(
         0, key, torch.ones_like(key))[:n_par].tolist()  # the level's one host read
     order = torch.sort(key, stable=True).indices[: sum(counts)]
-    size, chunks = plan_parent_chunks(counts, _sms(pts4.device))
+    sms = _build.sms(pts4.device)
+    size, chunks = plan_parent_chunks(counts, sms)
+    wide = branch > EG_BMAX
     off, first = [], 0
     for c in counts:
         off.append(first)
@@ -483,43 +495,39 @@ def group_by_parent(pts4: torch.Tensor, parent: torch.Tensor, branch: int, k: in
     # does not make the host wait.
     host = torch.tensor([v for ch in chunks for v in ch] + off, dtype=torch.int32).pin_memory()
     dev_tab = host.to(pts4.device, non_blocking=True)
+    parent_rows = max((b - a for a, b in zip(off, off[1:])), default=0)
+    parent_off = dev_tab[3 * len(chunks):]
+    partial = torch.empty((max(len(chunks), 1), branch * 10 + 1), dtype=torch.float32, device=pts4.device)
     return ParentGroups(
-        pts4=pts4[:, order].contiguous(), branch=branch, k=k, chunk_points=size,
-        parent_rows=max((b - a for a, b in zip(off, off[1:])), default=0),
-        chunks=dev_tab[: 3 * len(chunks)].view(-1, 3), parent_off=dev_tab[3 * len(chunks):],
-        partial=torch.empty((max(len(chunks), 1), branch * 10 + 1), dtype=torch.float32,
-                            device=pts4.device),
+        pts4=pts4[:, order].contiguous(), branch=branch, k=k, chunk_points=size, parent_rows=parent_rows,
+        chunks=dev_tab[: 3 * len(chunks)].view(-1, 3), parent_off=parent_off,
+        warps=plan_grouped_wide(branch).warps if wide else EG_WARPS,
+        name="em_stats_masked_wide" if wide else "em_stats_masked",
+        parts=_rows(partial, k, len(chunks), parent_rows, sms, branch, parent_off),
+        row=_one_row(k, sms, pts4.device),
     )
 
 
-def em_partials_grouped(groups: ParentGroups, W, out: torch.Tensor | None = None) -> EmPartials:
-    """The masked em_stats body on a level's grouped points, one launch: its
-    partial rows [n_chunks, branch*10 + 1] (a chunk's), which em_step sums
-    by parent (a fit's sweep); with `out` [K*10 + 1] the reduce kernel also
-    writes their sum there. W is [10, K] or a Packed table."""
-    k = W.k if isinstance(W, Packed) else W.shape[1]
-    if k != groups.k:
-        raise ValueError(f"em_stats_masked: W has K={k}, the groups were made for K={groups.k}")
-    wn = _table(W, groups.pts4.device).wn
-    warps = plan_grouped_wide(groups.branch).warps if groups.branch > EG_BMAX else EG_WARPS
-    with torch.cuda.device(groups.pts4.device):
-        err = _build.load().hgmm_em_stats_grouped(
-            groups.pts4.data_ptr(), groups.pts4.shape[1], wn.data_ptr(), k, groups.branch,
-            groups.chunks.data_ptr(), groups.n_chunks, groups.parent_off.data_ptr(), warps,
-            groups.partial.data_ptr(), None if out is None else out.data_ptr(), _stream(groups.pts4),
-        )
-    _raise_on(err, "em_stats_masked")
-    count_launch("em_stats_masked_wide" if groups.branch > EG_BMAX else "em_stats_masked")
-    return EmPartials(groups.partial, k, groups.n_chunks, groups.parent_rows, groups.branch,
-                      groups.parent_off)
+def em_partials_grouped(groups: ParentGroups, wn: torch.Tensor, out: torch.Tensor | None = None) -> EmPartials:
+    """Launch the masked body on a level's grouped points with the table wn
+    [>= K, 12]: its partial rows in groups.parts (a chunk's each), which
+    em_step sums by parent (a fit's sweep), and with `out` [K*10 + 1] their
+    sum there by the reduce kernel."""
+    launch(groups.name, "hgmm_em_stats_grouped", groups.pts4.device, groups.pts4.data_ptr(),
+           groups.pts4.shape[1], wn.data_ptr(), groups.k, groups.branch, groups.chunks.data_ptr(), groups.n_chunks,
+           groups.parent_off.data_ptr(), groups.warps, groups.parts.partial.data_ptr(),
+           None if out is None else out.data_ptr())
+    return groups.parts
 
 
 def em_stats_grouped(groups: ParentGroups, W) -> EmStats:
     """Kernel twin of em_ref.em_stats_masked on a level's grouped points: the
     body and the reduce; W is [10, K] or a Packed table."""
     k = W.k if isinstance(W, Packed) else W.shape[1]
+    if k != groups.k:
+        raise ValueError(f"em_stats_masked: W has K={k}, the groups were made for K={groups.k}")
     out = torch.empty((k * 10 + 1,), dtype=torch.float32, device=groups.pts4.device)
-    em_partials_grouped(groups, W, out)
+    em_partials_grouped(groups, _table(W, groups.pts4.device).wn, out)
     return EmStats(S=out[: k * 10].view(k, 10), loglik=out[k * 10])
 
 
@@ -537,16 +545,10 @@ def assign(pts4: torch.Tensor, W, parent=None, branch=None) -> torch.Tensor:
     table = _table(W, pts4.device)
     if parent is not None:
         parent = _parent(parent, n, branch)
-    plan = plan_assign(n, parent is not None, _sms(pts4.device))
+    plan = plan_assign(n, parent is not None, _build.sms(pts4.device))
     out = torch.empty((n,), dtype=torch.int32, device=pts4.device)
-    with torch.cuda.device(pts4.device):
-        err = _build.load().hgmm_assign(
-            pts4.data_ptr(), n, table.wn.data_ptr(), table.k,
-            None if parent is None else parent.data_ptr(), branch or 1, plan.blocks,
-            out.data_ptr(), _stream(pts4),
-        )
-    _raise_on(err, "assign")
-    count_launch("assign")
+    launch("assign", "hgmm_assign", pts4.device, pts4.data_ptr(), n, table.wn.data_ptr(), table.k,
+           None if parent is None else parent.data_ptr(), branch or 1, plan.blocks, out.data_ptr())
     return out
 
 
@@ -663,8 +665,10 @@ def reg_select_smem_bytes(k: int) -> int:
 class RegTables:
     """What a registration scan reuses on every iteration, built once: the
     source buffer, the packed weights wn and aux = [mu | A6 | b3] ([K, 12]
-    each), the gate, the outlier, the launch plan, the partial buffer and,
-    for the top_k body inside profiling.tracing(), its counters."""
+    each), the gate, the outlier, the launch plan, the launch counter of the
+    body the gate selects, the rows reg_step reads (`rows`, a block's each;
+    `row`, their sum: a sharded scan step) and, for the top_k body inside
+    profiling.tracing(), its counters."""
 
     pts4: torch.Tensor
     wn: torch.Tensor
@@ -672,7 +676,9 @@ class RegTables:
     gate: int
     outlier: tuple[int, float]
     plan: RegPlan
-    partial: torch.Tensor
+    body: str
+    rows: RegPartials
+    row: RegPartials
     counters: torch.Tensor | None = None  # the top_k body's TOPK_COUNTERS, under profiling.tracing()
 
     @property
@@ -680,13 +686,9 @@ class RegTables:
         return self.wn.shape[0]
 
 
-def _sms(dev) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
 def _reg_tables(pts4, n: int, wn, aux, top_k, outlier_logit) -> RegTables:
     k = wn.shape[0]
-    plan = plan_reg_stats(n, k, top_k, _sms(pts4.device))
+    plan = plan_reg_stats(n, k, top_k, _build.sms(pts4.device))
     counters = None
     if plan.kmax and profiling.tracer is not None:
         # Summed on the card over every launch with these tables, read once
@@ -694,8 +696,11 @@ def _reg_tables(pts4, n: int, wn, aux, top_k, outlier_logit) -> RegTables:
         counters = torch.zeros(len(TOPK_COUNTERS), dtype=torch.int64, device=pts4.device)
         for i, name in enumerate(TOPK_COUNTERS):
             profiling.count_later(name, counters, i)
-    return RegTables(pts4, wn, aux, _top_k(top_k, k), _outlier(outlier_logit), plan,
-                     torch.empty((plan.blocks, REG_OUT), dtype=torch.float32, device=pts4.device), counters)
+    gate = _top_k(top_k, k)
+    f32 = dict(dtype=torch.float32, device=pts4.device)
+    return RegTables(pts4, wn, aux, gate, _outlier(outlier_logit), plan, reg_stats_body(gate),
+                     reg_rows(torch.empty((plan.blocks, REG_OUT), **f32)),
+                     reg_rows(torch.empty((1, REG_OUT), **f32)), counters)
 
 
 def reg_tables(pts4, W, mu, A6, b3, top_k=None, outlier_logit=None) -> RegTables:
@@ -706,7 +711,7 @@ def reg_tables(pts4, W, mu, A6, b3, top_k=None, outlier_logit=None) -> RegTables
     wn = _table(W, dev).wn
     f32 = dict(dtype=torch.float32, device=dev)
     aux = torch.cat([mu.to(**f32), A6.to(**f32), b3.to(**f32)], dim=1).contiguous()
-    _check("aux", aux, torch.float32, (wn.shape[0], 12))
+    check_tensor("aux", aux, torch.float32, (wn.shape[0], 12))
     return _reg_tables(pts4, n, wn, aux, top_k, outlier_logit)
 
 
@@ -724,46 +729,25 @@ def reg_tables_of(pts4, params: MixtureParams, top_k=None, outlier_logit=None) -
             raise ValueError(f"reg_tables: {name} of shape {tuple(t.shape)}, expected {shape}")
     n = _check_points(pts4)
     dev = pts4.device
-    for (name, shape), t in zip(shapes.items(), params):
-        _check(name, t, torch.float32, shape)
-        if t.device != dev:
-            raise ValueError(f"reg_tables: {name} on {t.device}, the points on {dev}")
+    _check_on("reg_tables", dev, [(name, t, torch.float32, shape) for (name, shape), t in zip(shapes.items(), params)])
     wn = torch.empty((k, 12), dtype=torch.float32, device=dev)
     aux = torch.empty((k, 12), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.load().hgmm_reg_tables(params.pi.data_ptr(), params.mu.data_ptr(),
-                                            params.sigma.data_ptr(), k, wn.data_ptr(), aux.data_ptr(),
-                                            _stream(pts4))
-    _raise_on(err, "reg_tables")
-    count_launch("reg_tables")
+    launch("reg_tables", "hgmm_reg_tables", dev, params.pi.data_ptr(), params.mu.data_ptr(), params.sigma.data_ptr(),
+           k, wn.data_ptr(), aux.data_ptr())
     return _reg_tables(pts4, n, wn, aux, top_k, outlier_logit)
 
 
 def reg_partials(tab: RegTables, pose12: torch.Tensor, done: torch.Tensor | None = None,
-                 out: torch.Tensor | None = None) -> torch.Tensor:
+                 out: torch.Tensor | None = None) -> RegPartials:
     """Launch reg_stats at the pose pose12 [12] (R row-major, t; float32 on
-    the card): the [blocks, 59] partials in tab.partial (and their sum in
-    `out` [59] when given). With `done` (a float32 flag on the card) the
-    kernel returns at once when it is set."""
-    n = tab.pts4.shape[1]
-    for name, t in (("pose12", pose12), ("done", done), ("out", out)):
-        if t is not None:
-            _check(name, t, torch.float32, tuple(t.shape))
-            if t.device != tab.pts4.device:
-                raise ValueError(f"{name}: on {t.device}, the points on {tab.pts4.device}")
-    if pose12.numel() < 12:
-        raise ValueError("pose12: expected [R (9), t (3)]")
-    with torch.cuda.device(tab.pts4.device):
-        err = _build.load().hgmm_reg_stats(
-            tab.pts4.data_ptr(), n, pose12.data_ptr(), None if done is None else done.data_ptr(),
-            tab.wn.data_ptr(), tab.aux.data_ptr(), tab.k, tab.gate, tab.plan.lanes, tab.plan.chunk,
-            *tab.outlier, tab.partial.data_ptr(), tab.plan.blocks,
-            None if tab.counters is None else tab.counters.data_ptr(), None if out is None else out.data_ptr(),
-            _stream(tab.pts4),
-        )
-    _raise_on(err, "reg_stats")
-    count_launch(reg_stats_body(tab.gate))
-    return tab.partial
+    the tables' card): the partials in tab.rows (and their sum in `out` [59]
+    when given). With `done` (a float32 flag on the card) the kernel returns
+    at once when it is set."""
+    launch(tab.body, "hgmm_reg_stats", tab.pts4.device, tab.pts4.data_ptr(), tab.pts4.shape[1], pose12.data_ptr(),
+           None if done is None else done.data_ptr(), tab.wn.data_ptr(), tab.aux.data_ptr(), tab.k, tab.gate,
+           tab.plan.lanes, tab.plan.chunk, *tab.outlier, tab.rows.partial.data_ptr(), tab.plan.blocks,
+           None if tab.counters is None else tab.counters.data_ptr(), None if out is None else out.data_ptr())
+    return tab.rows
 
 
 def reg_stats(pts4, W, mu, A6, b3, pose, top_k=None, outlier_logit=None) -> RegStats:
@@ -780,11 +764,28 @@ def reg_stats(pts4, W, mu, A6, b3, pose, top_k=None, outlier_logit=None) -> RegS
     )
 
 
-def new_scan(R: torch.Tensor, t: torch.Tensor, n_iters: int) -> RegScan:
-    """em_ref.new_scan in float32 on the pose's card."""
-    if not R.is_cuda:
-        raise ValueError(f"new_scan: expected a pose on the card, got one on {R.device}")
-    return em_ref_new_scan(R, t, n_iters, dtype=torch.float32)
+class CardScan(RegScan):
+    """A RegScan checked once for the tables it steps on (scan_of), and
+    `flag`, the one-float view of its done flag that reg_stats reads."""
+
+    flag: torch.Tensor
+
+
+def scan_of(tab: RegTables, state: torch.Tensor, logliks: torch.Tensor, deltas: torch.Tensor) -> CardScan:
+    """A scan's state (state [SCAN_FLOATS], logliks and deltas [n_iters])
+    for the tables `tab`: float32 and contiguous on the tables' card."""
+    _check_on("scan", tab.pts4.device, [("state", state, torch.float32, (SCAN_FLOATS,)),
+                                        ("logliks", logliks, torch.float32, None),
+                                        ("deltas", deltas, torch.float32, tuple(logliks.shape))])
+    scan = CardScan(state, logliks, deltas)
+    scan.flag = state[SCAN_DONE:SCAN_DONE + 1]
+    return scan
+
+
+def new_scan(tab: RegTables, R: torch.Tensor, t: torch.Tensor, n_iters: int) -> CardScan:
+    """em_ref.new_scan in float32 for the tables `tab` (scan_of: the pose on
+    their card)."""
+    return scan_of(tab, *em_ref_new_scan(R, t, n_iters, dtype=torch.float32))
 
 
 def plan_reg_step(nb: int) -> int:
@@ -799,25 +800,26 @@ def plan_reg_step(nb: int) -> int:
     return 1 if nb <= STEP_PASS_ROWS * STEP_UNROLL else STEP_CLUSTER
 
 
-def reg_step(partial: torch.Tensor, scan: RegScan, it: int, solver: int, first: bool, last: bool,
-             tol: float) -> None:
-    """Kernel twin of em_ref.reg_step (csrc/reg_step.cu): one launch, the
-    scan state updated in place on the card, nothing read back."""
+def reg_rows(partial: torch.Tensor) -> RegPartials:
+    """reg_stats rows [nb, 59] (float32 on the card, 16-byte aligned: the
+    kernel reads float4) as reg_step reads them, the step's cluster planned:
+    a table's buffers, or rows made elsewhere."""
     if partial.dim() != 2 or partial.shape[1] != REG_OUT:
         raise ValueError(f"reg_step: partial of shape {tuple(partial.shape)}, expected [nb, {REG_OUT}]")
-    _check("partial", partial, torch.float32, tuple(partial.shape))
-    _check("state", scan.state, torch.float32, (SCAN_FLOATS,))
-    for name, t in (("logliks", scan.logliks), ("deltas", scan.deltas)):
-        _check(name, t, torch.float32, tuple(t.shape))
-    if not 0 <= it < scan.logliks.shape[0] or solver not in (0, 1):
-        raise ValueError(f"reg_step: iteration {it} of {scan.logliks.shape[0]}, solver {solver}")
+    check_tensor("partial", partial, torch.float32)
     if partial.data_ptr() % 16:
         raise ValueError("reg_step: the partial rows must start on a 16-byte boundary (the kernel reads float4)")
-    with torch.cuda.device(partial.device):
-        err = _build.load().hgmm_reg_step(
-            partial.data_ptr(), partial.shape[0], scan.state.data_ptr(), scan.logliks.data_ptr(),
-            scan.deltas.data_ptr(), it, solver, int(first), int(last), float(tol),
-            plan_reg_step(partial.shape[0]), _stream(partial),
-        )
-    _raise_on(err, "reg_step")
-    count_launch("reg_step")
+    return RegPartials(partial, plan_reg_step(partial.shape[0]))
+
+
+def reg_step(rows: RegPartials, scan: RegScan, it: int, solver: int, first: bool, last: bool,
+             tol: float) -> None:
+    """Kernel twin of em_ref.reg_step (csrc/reg_step.cu) on a table's rows or
+    reg_rows': one launch, the scan state updated in place on the card,
+    nothing read back. `it` indexes the writes to logliks and deltas, so it
+    is held to the scan's iterations."""
+    if not 0 <= it < scan.logliks.shape[0] or solver not in (0, 1):
+        raise ValueError(f"reg_step: iteration {it} of {scan.logliks.shape[0]}, solver {solver}")
+    launch("reg_step", "hgmm_reg_step", rows.partial.device, rows.partial.data_ptr(), rows.partial.shape[0],
+           scan.state.data_ptr(), scan.logliks.data_ptr(), scan.deltas.data_ptr(), it, solver, int(first), int(last),
+           float(tol), rows.cluster)

@@ -18,7 +18,7 @@ import dataclasses
 
 import torch
 
-from hgmm_torch.ops import _build, fused_em
+from hgmm_torch.ops import _build
 
 KNN_QPB = 1024  # queries a block: 128 threads x 8 queries (csrc/knn.cu:KNN_QPB)
 KNN_TILE = 512  # targets a shared-memory tile (csrc/knn.cu:KNN_TILE)
@@ -94,7 +94,7 @@ def nearest_neighbor_cuda(query: torch.Tensor, target: torch.Tensor):
     for name, t in (("query", query), ("target", target)):
         if t.dim() != 2 or t.shape[1] != 3:
             raise ValueError(f"{name}: expected [N, 3], got {tuple(t.shape)}")
-        fused_em._check(name, t, torch.float32, tuple(t.shape))
+        _build.check_tensor(name, t, torch.float32)
     if query.device != target.device:
         raise ValueError(f"query on {query.device}, target on {target.device}")
     nq, nt = query.shape[0], target.shape[0]
@@ -104,19 +104,14 @@ def nearest_neighbor_cuda(query: torch.Tensor, target: torch.Tensor):
     d2 = torch.empty((nq,), dtype=torch.float32, device=query.device)
     if nq == 0:
         return idx, d2
-    plan = plan_knn(nq, nt, torch.cuda.get_device_properties(query.device).multi_processor_count)
+    plan = plan_knn(nq, nt, _build.sms(query.device))
     part_idx = part_d2 = None
     if plan.splits > 1:
         part_idx = torch.empty((plan.splits, nq), dtype=torch.int32, device=query.device)
         part_d2 = torch.empty((plan.splits, nq), dtype=torch.float32, device=query.device)
-    with torch.cuda.device(query.device):
-        err = _build.load().hgmm_knn(
-            query.data_ptr(), nq, target.data_ptr(), nt, plan.splits, plan.span,
-            None if part_idx is None else part_idx.data_ptr(),
-            None if part_d2 is None else part_d2.data_ptr(),
-            idx.data_ptr(), d2.data_ptr(), fused_em._stream(query))
-    fused_em._raise_on(err, "knn")
-    fused_em.count_launch("knn")
+    _build.launch("knn", "hgmm_knn", query.device, query.data_ptr(), nq, target.data_ptr(), nt, plan.splits,
+                  plan.span, None if part_idx is None else part_idx.data_ptr(),
+                  None if part_d2 is None else part_d2.data_ptr(), idx.data_ptr(), d2.data_ptr())
     return idx, d2
 
 

@@ -38,7 +38,7 @@ import functools
 import torch
 
 from hgmm_torch.ops import _build
-from hgmm_torch.ops.fused_em import LAUNCHES, _check, _raise_on, _stream, count_launch  # noqa: F401
+from hgmm_torch.ops._build import LAUNCHES, check_tensor, launch  # noqa: F401  (LAUNCHES: graph_us counts)
 
 DEPTH = 80  # contraction depth of the logits product (csrc/probes.cu:DEPTH)
 MAX_REPS = 64  # csrc/probes.cu:MAX_REPS
@@ -325,10 +325,6 @@ def addonly_sass_counts(loops: list[dict[str, int]], vec: int = ADDONLY_VEC) -> 
             "other_per_rep": other / reps}
 
 
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 # --------------------------------------------------------------------------
 # kernel wrappers (CUDA tensors only)
 
@@ -339,7 +335,7 @@ def _loop(steps: int, reps: int) -> None:
 
 
 def _operand(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
-    _check(name, x, dtype, shape)
+    check_tensor(name, x, dtype, shape)
     if x.data_ptr() % 32:
         raise ValueError(f"{name}: expected a 32-byte aligned tensor")
 
@@ -359,15 +355,11 @@ def logits_cuda(wt: torch.Tensor, phi: torch.Tensor, steps: int, reps: int) -> t
     k, t = wt.shape[0], phi.shape[-1]
     _operand("wt", wt, wt.dtype, (k, DEPTH))
     _operand("phi", phi, wt.dtype, (DEPTH, t))
-    plan = plan_logits(k, t, f32, _sms(wt.device))
+    plan = plan_logits(k, t, f32, _build.sms(wt.device))
     eps = _eps_on_card(reps, wt.dtype, wt.device)
     out = torch.empty((k, t), dtype=torch.float32, device=wt.device)
-    with torch.cuda.device(wt.device):
-        err = _build.load().hgmm_probe_logits(
-            wt.data_ptr(), phi.data_ptr(), eps.data_ptr(), k, t, steps, reps, int(f32), plan.tile,
-            out.data_ptr(), _stream(wt))
-    _raise_on(err, "probe_logits")
-    count_launch("probe_logits")
+    launch("probe_logits", "hgmm_probe_logits", wt.device, wt.data_ptr(), phi.data_ptr(), eps.data_ptr(), k, t,
+           steps, reps, int(f32), plan.tile, out.data_ptr())
     return out
 
 
@@ -379,16 +371,12 @@ def stats_cuda(phi32: torch.Tensor, e: torch.Tensor, steps: int, reps: int) -> t
     k, t = e.shape
     _operand("phi32", phi32, e.dtype, (32, t))
     _operand("e", e, e.dtype, (k, t))
-    plan = plan_stats(k, t, f32, _sms(e.device))
+    plan = plan_stats(k, t, f32, _build.sms(e.device))
     eps = _eps_on_card(reps, e.dtype, e.device)
     partial = torch.empty((plan.partials, 32 * k), dtype=torch.float32, device=e.device)
     out = torch.empty((32, k), dtype=torch.float32, device=e.device)
-    with torch.cuda.device(e.device):
-        err = _build.load().hgmm_probe_stats(
-            phi32.data_ptr(), e.data_ptr(), eps.data_ptr(), k, t, steps, reps, int(f32), plan.tile,
-            plan.threads, partial.data_ptr(), out.data_ptr(), _stream(e))
-    _raise_on(err, "probe_stats")
-    count_launch("probe_stats")
+    launch("probe_stats", "hgmm_probe_stats", e.device, phi32.data_ptr(), e.data_ptr(), eps.data_ptr(), k, t,
+           steps, reps, int(f32), plan.tile, plan.threads, partial.data_ptr(), out.data_ptr())
     return out
 
 
@@ -400,32 +388,25 @@ def norm_cuda(ones: torch.Tensor, e: torch.Tensor, steps: int, reps: int) -> tor
     k, t = e.shape
     _operand("ones", ones, torch.bfloat16, (8, k))
     _operand("e", e, torch.bfloat16, (k, t))
-    plan = plan_norm(k, t, _sms(e.device))
+    plan = plan_norm(k, t, _build.sms(e.device))
     eps = _eps_on_card(reps, torch.bfloat16, e.device)
     partial = torch.empty((plan.partials, 8 * t), dtype=torch.float32, device=e.device)
     out = torch.empty((8, t), dtype=torch.float32, device=e.device)
-    with torch.cuda.device(e.device):
-        err = _build.load().hgmm_probe_norm(
-            ones.data_ptr(), e.data_ptr(), eps.data_ptr(), k, t, steps, reps, plan.tile,
-            plan.threads, partial.data_ptr(), out.data_ptr(), _stream(e))
-    _raise_on(err, "probe_norm")
-    count_launch("probe_norm")
+    launch("probe_norm", "hgmm_probe_norm", e.device, ones.data_ptr(), e.data_ptr(), eps.data_ptr(), k, t, steps,
+           reps, plan.tile, plan.threads, partial.data_ptr(), out.data_ptr())
     return out
 
 
 def addonly_cuda(x: torch.Tensor, steps: int, reps: int) -> torch.Tensor:
     """Kernel twin of addonly_ref: x float32, its element count a multiple of 4."""
     _loop(steps, reps)
-    _operand("x", x, torch.float32, tuple(x.shape))
+    _operand("x", x, torch.float32, None)
     _need(x.numel() >= 4 and x.numel() % 4 == 0, f"addonly: {x.numel()} elements, need a multiple of 4")
-    plan = plan_addonly(x.numel(), _sms(x.device))
+    plan = plan_addonly(x.numel(), _build.sms(x.device))
     eps = _eps_on_card(reps, torch.float32, x.device)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _build.load().hgmm_probe_addonly(x.data_ptr(), eps.data_ptr(), x.numel(), steps, reps,
-                                               plan.blocks, out.data_ptr(), _stream(x))
-    _raise_on(err, "probe_addonly")
-    count_launch("probe_addonly")
+    launch("probe_addonly", "hgmm_probe_addonly", x.device, x.data_ptr(), eps.data_ptr(), x.numel(), steps, reps,
+           plan.blocks, out.data_ptr())
     return out
 
 
@@ -433,16 +414,12 @@ def vpu_cuda(x: torch.Tensor, steps: int, reps: int, mode: str = "exp2") -> torc
     """Kernel twin of vpu_ref: x float32, any shape."""
     _loop(steps, reps)
     _check_mode(mode)
-    _check("x", x, torch.float32, tuple(x.shape))
+    check_tensor("x", x, torch.float32)
     _need(x.numel() >= 1, "vpu: empty input")
-    plan = plan_vpu(x.numel(), _sms(x.device))
+    plan = plan_vpu(x.numel(), _build.sms(x.device))
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _build.load().hgmm_probe_vpu(x.data_ptr(), x.numel(), steps, reps, int(mode == "exp2"),
-                                           plan.chains, plan.blocks, plan.threads, out.data_ptr(),
-                                           _stream(x))
-    _raise_on(err, "probe_vpu")
-    count_launch("probe_vpu")
+    launch("probe_vpu", "hgmm_probe_vpu", x.device, x.data_ptr(), x.numel(), steps, reps, int(mode == "exp2"),
+           plan.chains, plan.blocks, plan.threads, out.data_ptr())
     return out
 
 

@@ -165,8 +165,7 @@ def _scan(prep, params: MixtureParams, mesh, pose: Pose, n_iters, method, tol, t
     """One registration scan on this rank's prepared rows, each step's
     statistics summed on the rank (ops.reg_row) and over the mesh."""
     problem = ops.reg_problem_of(prep, _on(params, mesh.device), top_k, outlier_logit)
-    return run_registration_scan(lambda scan: mesh.all_reduce_(ops.reg_row(problem, scan)),
-                                 pose.R, pose.t, n_iters, method, tol, wls_inner)
+    return run_registration_scan(problem, pose.R, pose.t, n_iters, method, tol, wls_inner, mesh)
 
 
 @per_rank

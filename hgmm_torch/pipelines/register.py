@@ -8,7 +8,7 @@ Counterpart of ``hgmm/pipelines/register.py``. Methods:
 The iterate runs a fixed number of iterations with `done` carried, as the
 reference's lax.scan does, and nothing crosses to the host inside a scan:
 the pose, the iteration's start, the outputs and the done flag live in one
-state buffer (``ops.new_scan``). Each step is two launches on the card, the
+state buffer (``ops.new_scan``, made for the level's tables). Each step is two launches on the card, the
 statistics kernel (``ops.reg_partials``: ``csrc/reg_stats.cu``, which returns
 at once when the scan is done) and the step kernel (``ops.reg_step``: ``csrc/reg_step.cu``,
 the partials' sum and the pose solve); a sharded run puts its all_reduce of
@@ -49,11 +49,14 @@ class RegistrationResult(typing.NamedTuple):
     converged: torch.Tensor  # [] bool
 
 
-def run_registration_scan(stats_fn, init_R, init_t, n_iters: int, method: str, tol, wls_inner: int):
-    """The shared registration iterate: a Horn phase, then a WLS phase.
+def run_registration_scan(problem, init_R, init_t, n_iters: int, method: str, tol, wls_inner: int, mesh=None):
+    """The shared registration iterate on a level's tables (ops.reg_problem_of):
+    a Horn phase, then a WLS phase.
 
-    stats_fn(scan) -> [nb, 59] reg_stats rows at the scan's pose (horn 16,
-    A 36, b 6, loglik; summed by the step). Every iteration runs: once `done`
+    Each step reads the [nb, 59] reg_stats rows at the scan's pose (horn 16,
+    A 36, b 6, loglik; summed by the step): ops.reg_partials, or with a mesh
+    (hgmm_torch.parallel) this rank's rows summed to one (ops.reg_row) and
+    added over the mesh. Every iteration runs: once `done`
     is set (delta < tol), the statistics and the step do no work, and the
     outputs re-emit the last live (loglik, delta), so logliks[-1] and
     deltas[-1] always hold the converged state. `done` carries from the Horn
@@ -68,15 +71,19 @@ def run_registration_scan(stats_fn, init_R, init_t, n_iters: int, method: str, t
         raise ValueError(f"unknown registration method {method!r}")
     n_horn = n_iters // 2 if method == "horn+wls" else (n_iters if method == "horn" else 0)
     with span("hgmm_torch.reg.scan"):
-        scan = ops.new_scan(init_R, init_t, n_iters)
+        scan = ops.new_scan(problem, init_R, init_t, n_iters)
         profiling.count("reg.steps", n_horn + (n_iters - n_horn) * max(wls_inner, 1))
         profiling.count_later("reg.live_steps", scan.state, SCAN_LIVE)
         for it in range(n_iters):
             solver = 0 if it < n_horn else 1
             steps = 1 if solver == 0 else max(wls_inner, 1)
             for s in range(steps):
-                ops.reg_step(stats_fn(scan), scan, it, solver, first=s == 0, last=s == steps - 1,
-                             tol=tol)
+                if mesh is None:
+                    rows = ops.reg_partials(problem, scan)
+                else:
+                    rows = ops.reg_row(problem, scan)
+                    mesh.all_reduce_(rows.partial)
+                ops.reg_step(rows, scan, it, solver, first=s == 0, last=s == steps - 1, tol=tol)
         R, t = scan.pose
         return (R, t, scan.done), scan.logliks, scan.deltas
 
@@ -109,10 +116,8 @@ def _register_points(prep, params, init_pose, n_iters, method, tol, top_k, outli
     with span("hgmm_torch.reg.prep"):
         # The level's tables and the partials, once for the scan.
         problem = ops.reg_problem_of(prep, params, top_k, outlier_logit)
-    (R, t, done), logliks, deltas = run_registration_scan(
-        lambda scan: ops.reg_partials(problem, scan), init_pose.R, init_pose.t, n_iters, method,
-        tol, wls_inner
-    )
+    (R, t, done), logliks, deltas = run_registration_scan(problem, init_pose.R, init_pose.t, n_iters, method,
+                                                          tol, wls_inner)
     return RegistrationResult(pose=Pose(R, t), logliks=logliks, deltas=deltas, converged=done)
 
 

@@ -840,20 +840,21 @@ def test_reg_step_against_its_twin(cuda, solver, first, last, nb):
     from hgmm_torch import ops
 
     pts, W, mu, A6, b3 = _scan_inputs(cuda)
-    prob = ops.reg_problem(pts, W, mu, A6, b3)
-    scan = ops.new_scan(so3_exp(torch.tensor([0.05, 0.1, -0.1], device=cuda)),
+    prob = fused_em.reg_tables(prepare(pts).pts4, W, mu, A6, b3)
+    scan = ops.new_scan(prob, so3_exp(torch.tensor([0.05, 0.1, -0.1], device=cuda)),
                         torch.tensor([0.1, 0.0, 0.2], device=cuda), 4)
     scan.state[em_ref.SCAN_START:em_ref.SCAN_START + 12] = scan.state[:12] + 0.01
     scan.state[em_ref.SCAN_LL] = -7.0
     twin = em_ref.RegScan(*(t.cpu().clone() for t in scan))
-    part = ops.reg_partials(prob, scan).clone()
+    part = ops.reg_partials(prob, scan).partial.clone()
     if nb is not None:
         part = _split_rows(part, nb, nb)
+    rows = fused_em.reg_rows(part)
     again = em_ref.RegScan(*(t.clone() for t in scan))
     before = fused_em.LAUNCHES["reg_step"]
-    ops.reg_step(part, scan, 2, solver, first, last, 1e-7)
+    ops.reg_step(rows, scan, 2, solver, first, last, 1e-7)
     assert fused_em.LAUNCHES["reg_step"] == before + 1
-    ops.reg_step(part, again, 2, solver, first, last, 1e-7)
+    ops.reg_step(rows, again, 2, solver, first, last, 1e-7)
     assert all(torch.equal(a, b) for a, b in zip(scan, again))
     em_ref.reg_step(part.cpu(), twin, 2, solver, first, last, 1e-7)
     # float64 in the kernel, float32 in the twin: the pose to float32 rounding
@@ -866,18 +867,59 @@ def test_reg_step_done_changes_nothing(cuda):
     from hgmm_torch import ops
 
     pts, W, mu, A6, b3 = _scan_inputs(cuda)
-    prob = ops.reg_problem(pts, W, mu, A6, b3)
-    scan = ops.new_scan(torch.eye(3, device=cuda), torch.zeros(3, device=cuda), 3)
+    prob = fused_em.reg_tables(prepare(pts).pts4, W, mu, A6, b3)
+    scan = ops.new_scan(prob, torch.eye(3, device=cuda), torch.zeros(3, device=cuda), 3)
     scan.state[em_ref.SCAN_DONE] = 1.0
     scan.state[em_ref.SCAN_LL_LAST] = -5.0
     scan.state[em_ref.SCAN_D_LAST] = 0.25
-    prob.partial.fill_(float("nan"))
+    prob.rows.partial.fill_(float("nan"))
     before = scan.state.clone()
     part = ops.reg_partials(prob, scan)  # returns at once: the partials stay NaN
-    assert bool(torch.isnan(part).all())
+    assert bool(torch.isnan(part.partial).all())
     ops.reg_step(part, scan, 1, 1, True, True, 1e-7)
     assert torch.equal(scan.state, before)
     assert scan.logliks.tolist() == [0.0, -5.0, 0.0] and scan.deltas.tolist() == [0.0, 0.25, 0.0]
+
+
+def test_a_scan_state_of_the_wrong_dtype_is_refused_where_it_is_made(cuda):
+    """reg_step checks nothing: scan_of, which new_scan goes through, refuses
+    a state that is not float32."""
+    pts, W, mu, A6, b3 = _scan_inputs(cuda)
+    tab = fused_em.reg_tables(prepare(pts).pts4, W, mu, A6, b3)
+    scan = fused_em.new_scan(tab, torch.eye(3, device=cuda), torch.zeros(3, device=cuda), 4)
+    with pytest.raises(ValueError, match="state: expected torch.float32"):
+        fused_em.scan_of(tab, scan.state.double(), scan.logliks, scan.deltas)
+
+
+def test_tables_and_a_scan_on_different_devices_are_refused_where_the_scan_is_made(cuda):
+    """reg_partials checks nothing: new_scan refuses a pose off the tables'
+    card (a state made there would be)."""
+    from hgmm_torch import ops
+
+    pts, W, mu, A6, b3 = _scan_inputs(cuda)
+    tab = fused_em.reg_tables(prepare(pts).pts4, W, mu, A6, b3)
+    with pytest.raises(ValueError, match="state: expected a CUDA tensor"):
+        ops.new_scan(tab, torch.eye(3), torch.zeros(3), 4)
+    if torch.cuda.device_count() > 1:
+        other = torch.device("cuda", 1)
+        with pytest.raises(ValueError, match="state on cuda:1"):
+            ops.new_scan(tab, torch.eye(3, device=other), torch.zeros(3, device=other), 4)
+
+
+@pytest.mark.parametrize("k", [8, 40])
+def test_a_fit_table_of_the_wrong_row_count_is_refused_where_the_fit_is_made(cuda, k):
+    """em_partials and em_step check nothing: bind_fit, which ops.new_fit
+    goes through, refuses a table of other rows than the unmasked body reads
+    (table_rows: K = 40 reads 64) and a state that is not float32."""
+    p = _mixture(k, k + 3, cuda)
+    body = fused_em.flat_body(prepare(_inputs(1000, k, cuda)[0]).pts4, k)
+    total, cf = torch.tensor(1000.0, device=cuda), torch.tensor(1e-4, device=cuda)
+    fused_em.bind_fit(body, em_ref.new_fit(p, 2, total, cf, fused_em.table_rows(k)))
+    with pytest.raises(ValueError, match="rows"):
+        fused_em.bind_fit(body, em_ref.new_fit(p, 2, total, cf, fused_em.table_rows(k) + 1))
+    with pytest.raises(ValueError, match="pi: expected torch.float32"):
+        fused_em.bind_fit(body, em_ref.new_fit(MixtureParams(*(a.double() for a in p)), 2, total, cf,
+                                               fused_em.table_rows(k)))
 
 
 @pytest.mark.parametrize("n", [16_384, 437_645])
@@ -891,16 +933,15 @@ def test_reg_step_counts_live_steps_as_its_twin(cuda, n):
     from hgmm_torch import ops
     from hgmm_torch.data.synthetic import make_cloud
     from hgmm_torch.models.gmm import Gmm
-    from hgmm_torch.pipelines.register import model_terms
 
     target = make_cloud(n, "trefoil", seed=4, device=cuda)
     params = Gmm.fit(target, k=64, n_iters=10, generator=torch.Generator().manual_seed(5))[0].params
     R0 = so3_exp(torch.tensor([0.03, -0.05, 0.04], device=cuda))
     source = (target - torch.tensor([0.02, 0.0, -0.01], device=cuda)) @ R0
-    prob = ops.reg_problem(source, *model_terms(params))
+    prob = ops.reg_problem_of(source, params)
     n_iters, n_horn, wls_inner, tol = 20, 4, 2, 1e-5
-    scan = ops.new_scan(torch.eye(3, device=cuda), torch.zeros(3, device=cuda), n_iters)
-    rows = ops.reg_partials(prob, scan).shape[0]
+    scan = ops.new_scan(prob, torch.eye(3, device=cuda), torch.zeros(3, device=cuda), n_iters)
+    rows = ops.reg_partials(prob, scan).partial.shape[0]
     assert (fused_em.plan_reg_step(rows) == fused_em.STEP_CLUSTER) == (n == 437_645)
     for it in range(n_iters):
         solver = 0 if it < n_horn else 1
@@ -909,7 +950,7 @@ def test_reg_step_counts_live_steps_as_its_twin(cuda, n):
             part = ops.reg_partials(prob, scan)
             twin = em_ref.RegScan(*(t.cpu().clone() for t in scan))
             ops.reg_step(part, scan, it, solver, s == 0, s == steps - 1, tol)
-            em_ref.reg_step(part.cpu(), twin, it, solver, s == 0, s == steps - 1, tol)
+            em_ref.reg_step(part.partial.cpu(), twin, it, solver, s == 0, s == steps - 1, tol)
             assert float(scan.state[em_ref.SCAN_LIVE]) == float(twin.state[em_ref.SCAN_LIVE])
     deltas = scan.deltas.tolist()
     live = next((i + 1 for i, d in enumerate(deltas) if d < tol), n_iters)
@@ -1276,13 +1317,13 @@ def test_em_step_against_its_twin(cuda, k, cov_type):
     p = _mixture(k, k + 51, cuda, dead=(0,))
     st = em_ref.em_stats(pts, pack_loglik_weights(p), w)
     total, cf = w.sum(), torch.tensor(1e-4, device=cuda)
-    fit = ops.new_fit(p, 3, total, cf)
+    fit = ops.new_fit(prepare(pts, w), p, 3, total, cf)
     rows = fit.table.wn.shape[0]
     assert rows == fused_em.table_rows(k)
     f64 = em_ref.new_fit(MixtureParams(*(a.cpu().double() for a in p)), 3, total.cpu().double(),
                          cf.cpu().double(), rows)
     before = fused_em.LAUNCHES["em_step"]
-    ops.em_step(em_ref.partials_of(st), fit, 1, 1e-6, cov_type)
+    ops.em_step(fused_em.em_rows(em_ref.partials_of(st), fit), fit, 1, 1e-6, cov_type)
     assert fused_em.LAUNCHES["em_step"] == before + 1
     em_ref.em_step(em_ref.EmStats(st.S.cpu().double(), st.loglik.cpu().double()), f64, 1, 1e-6, cov_type)
     for name in ("pi", "mu", "sigma"):
@@ -1320,18 +1361,20 @@ def test_em_step_on_partial_rows_against_its_twin(cuda, k, layout, cov_type):
     w[::4] = 0.0
     p = _mixture(k, k + 61, cuda, dead=(0,))
     W = pack_loglik_weights(p)
-    p4 = prepare(pts, w).pts4
+    data = prepare(pts, w)
     if layout == "plain":
-        parts = fused_em.em_partials(p4, W)
+        table = em_ref.pack_table(W, fused_em.table_rows(k))
+        parts = fused_em.em_partials(fused_em.flat_body(data.pts4, k), table.wn)
     else:
         branch = 16 if layout == "grouped16" else 8
         parent = torch.randint(-1, -(-k // branch), (n,), generator=torch.Generator().manual_seed(k)).to(cuda)
-        parts = fused_em.em_partials_grouped(fused_em.group_by_parent(p4, parent, branch, k), W)
+        data = fused_em.group_by_parent(data.pts4, parent, branch, k)
+        parts = fused_em.em_partials_grouped(data, em_ref.pack_table(W).wn)
     host = parts._replace(partial=parts.partial.cpu(),
                           parent_off=None if parts.parent_off is None else parts.parent_off.cpu())
     st = em_ref.sum_partials(host)
     total, cf = w.sum(), torch.tensor(1e-4, device=cuda)
-    fits = [ops.new_fit(p, 2, total, cf, masked=layout != "plain") for _ in range(2)]
+    fits = [ops.new_fit(data, p, 2, total, cf) for _ in range(2)]
     rows = fits[0].table.wn.shape[0]
     f64 = em_ref.new_fit(MixtureParams(*(a.cpu().double() for a in p)), 2, total.cpu().double(),
                          cf.cpu().double(), rows)

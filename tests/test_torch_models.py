@@ -222,7 +222,7 @@ def test_fits_through_the_partial_rows_twin_equal_the_fits_on_summed_statistics(
     cases = (("flat", prep, init, None), ("grouped", groups, seed_children(level0.params, 8), parent))
     for name, data, start, par in cases:
         fit = tgmm.em_sweeps(data, start, 6, total, cf, cov_type=cov_type)
-        before, chunked = (ops.new_fit(start, 6, total, cf, masked=par is not None) for _ in range(2))
+        before, chunked = (ops.new_fit(data, start, 6, total, cf) for _ in range(2))
         for it in range(6):
             st = ops.em_stats(data, before.table) if par is None else ops.em_stats_grouped(data, before.table)
             em_ref.em_step(st, before, it, 1e-6, cov_type)

@@ -393,16 +393,17 @@ def test_em_step_on_partial_rows_is_hgmms_mstep_and_packing(layout, k, weighted,
 
 def test_em_partials_on_the_cpu_are_the_plain_statistics_as_one_row():
     """ops.em_partials on the CPU: one plain row, S then the loglik, for a
-    Prepared buffer and for grouped points; summed it is the statistics."""
+    fit on a Prepared buffer and on grouped points; summed it is the
+    statistics."""
     pts = torch.from_numpy(_points(5, 500))
     m = _mixture(6, 16)
     W = tg.pack_loglik_weights(_tp(m))
     prep = ops.prepare(pts)
-    parts = ops.em_partials(prep, W)
+    parts = ops.em_partials(ops.new_fit(prep, _tp(m), 1, 500.0, 1e-3))
     assert parts.partial.shape == (1, 16 * 10 + 1) and (parts.n_rows, parts.span, parts.branch) == (1, 1, 0)
     st = ops.em_stats(prep, W)
     assert torch.equal(tref.sum_partials(parts).S, st.S) and torch.equal(tref.sum_partials(parts).loglik, st.loglik)
     parent = torch.from_numpy(np.random.default_rng(3).integers(-1, 2, 500).astype(np.int32))
-    grouped = ops.em_partials(ops.group_by_parent(prep, parent, 8, 16), W)
+    grouped = ops.em_partials(ops.new_fit(ops.group_by_parent(prep, parent, 8, 16), _tp(m), 1, 500.0, 1e-3))
     ref = ops.em_stats_masked(prep, W, parent, 8)
     assert torch.equal(tref.sum_partials(grouped).S, ref.S)

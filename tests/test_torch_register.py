@@ -133,11 +133,14 @@ def test_converged_scan_re_emits_last_live_values():
     assert lls[-1] != 0.0
 
 
-def test_done_carries_from_horn_into_wls():
+def test_done_carries_from_horn_into_wls(monkeypatch):
     """A Horn phase that converges skips every WLS iteration, as the JAX
     scan's carry does (hgmm/pipelines/register.py:113-124): the statistics
     are asked for every step of the fixed-count scan, live only once, and
-    the WLS steps, whose statistics would move the pose, change nothing."""
+    the WLS steps, whose statistics would move the pose, change nothing.
+    The statistics are a stand-in for ops.reg_partials, which the scan looks
+    up at each step."""
+    from hgmm_torch import ops
     from hgmm_torch.ops import em_ref
 
     live = []
@@ -146,12 +149,13 @@ def test_done_carries_from_horn_into_wls():
     horn = P.T @ P  # virtual targets == sources: Horn returns the identity
     row = em_ref.pack_reg(em_ref.RegStats(horn, torch.eye(6), torch.ones(6), torch.tensor(-1.0)))
 
-    def stats_fn(scan):
+    def stats_fn(problem, scan):
         live.append(not bool(scan.done))
-        return row
+        return em_ref.RegPartials(row)
 
+    monkeypatch.setattr(ops, "reg_partials", stats_fn)
     (R, t, done), lls, deltas = treg.run_registration_scan(
-        stats_fn, torch.eye(3), torch.zeros(3), 10, "horn+wls", 1e-5, 2)
+        None, torch.eye(3), torch.zeros(3), 10, "horn+wls", 1e-5, 2)
     assert bool(done) and sum(live) == 1 and len(live) == 5 + 5 * 2
     assert lls.shape == (10,) and deltas.shape == (10,)
     np.testing.assert_array_equal(lls.numpy(), -1.0)
@@ -160,7 +164,7 @@ def test_done_carries_from_horn_into_wls():
     torch.testing.assert_close(R, torch.eye(3), rtol=0, atol=1e-6)
     torch.testing.assert_close(t, torch.zeros(3), rtol=0, atol=1e-6)
     with pytest.raises(ValueError):
-        treg.run_registration_scan(stats_fn, torch.eye(3), torch.zeros(3), 4, "icp", 1e-7, 2)
+        treg.run_registration_scan(None, torch.eye(3), torch.zeros(3), 4, "icp", 1e-7, 2)
 
 
 # --------------------------------------------------------------------------

@@ -410,7 +410,7 @@ PORT_EXTRAS = {
     "models": set(),
     "ops": {"EmFit", "EmPartials", "Grouped", "Packed", "RegProblem", "RegScan", "em_partials",
             "em_row", "em_stats_grouped", "em_step", "group_by_parent", "new_fit", "new_scan",
-            "reg_partials", "reg_problem", "reg_problem_of", "reg_row", "reg_step"},
+            "reg_partials", "reg_problem_of", "reg_row", "reg_step"},
     "parallel": {"EmulatedMesh", "ShardedPoints"},
 }
 REEXPORTS = [

@@ -257,6 +257,45 @@ def test_count_and_count_launch_go_to_the_open_request(launches):
     assert launches["reg_step"] == before + 4  # every launch, traced or not
 
 
+def test_launch_counts_only_a_launch_that_returned_zero(launches, monkeypatch):
+    """_build.launch on a stand-in library: the entry gets the arguments and
+    the device's current stream; a nonzero code raises with the library's
+    message and counts nothing; a zero code counts once in LAUNCHES and,
+    inside tracing(), once as launch.<name> in the open request."""
+    import contextlib
+    from types import SimpleNamespace
+
+    from hgmm_torch.ops import _build
+
+    calls = []
+
+    class Lib:
+        code = 0
+
+        def hgmm_reg_step(self, *args):
+            calls.append(args)
+            return self.code
+
+        def hgmm_error_string(self, err):
+            return b"invalid argument"
+
+    lib = Lib()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=7))
+    before = launches["reg_step"]
+    lib.code = 1
+    with tracing() as tr, span("r"):
+        with pytest.raises(RuntimeError, match="reg_step: CUDA error 1: invalid argument"):
+            _build.launch("reg_step", "hgmm_reg_step", "cuda:0", 3, None)
+    assert launches["reg_step"] == before and tr.summary()[0]["counts"] == {}
+    lib.code = 0
+    with tracing() as tr, span("r"):
+        _build.launch("reg_step", "hgmm_reg_step", "cuda:0", 3, None)
+    assert launches["reg_step"] == before + 1 and tr.summary()[0]["counts"] == {"launch.reg_step": 1}
+    assert calls == [(3, None, 7)] * 2
+
+
 def test_count_later_reads_the_value_after_the_block():
     state = torch.zeros(32)
     with tracing() as tr:
@@ -358,15 +397,14 @@ def test_scan_live_steps_follow_the_live_iteration_rule(method, tol):
 
 def test_twin_step_adds_a_live_step_only_while_not_done():
     from hgmm_torch import ops
-    from hgmm_torch.pipelines.register import model_terms
 
     src, tgt = _pair(800, seed=7)
-    problem = ops.reg_problem(tgt, *model_terms(Gmm.fit(tgt, k=8, n_iters=5)[0].params))
+    problem = ops.reg_problem_of(tgt, Gmm.fit(tgt, k=8, n_iters=5)[0].params)
     scan = em_ref.new_scan(torch.eye(3), torch.zeros(3), 4)
-    em_ref.reg_step(ops.reg_partials(problem, scan), scan, 0, 0, True, True, 0.0)
-    em_ref.reg_step(ops.reg_partials(problem, scan), scan, 1, 1, True, False, 0.0)
+    em_ref.reg_step(ops.reg_partials(problem, scan).partial, scan, 0, 0, True, True, 0.0)
+    em_ref.reg_step(ops.reg_partials(problem, scan).partial, scan, 1, 1, True, False, 0.0)
     assert float(scan.state[em_ref.SCAN_LIVE]) == 2.0 and not bool(scan.done)
-    em_ref.reg_step(ops.reg_partials(problem, scan), scan, 1, 1, False, True, 1.0)  # done
+    em_ref.reg_step(ops.reg_partials(problem, scan).partial, scan, 1, 1, False, True, 1.0)  # done
     assert float(scan.state[em_ref.SCAN_LIVE]) == 3.0 and bool(scan.done)
     em_ref.reg_step(torch.zeros((1, em_ref.REG_OUT)), scan, 2, 0, True, True, 1.0)
     assert float(scan.state[em_ref.SCAN_LIVE]) == 3.0
