@@ -1,7 +1,7 @@
 """Two trees' kernels on the same card, in one process each: outputs and times.
 
     python hgmm_torch/benchmarks/kernel_compare.py --root TREE --save A.pt [--device cpu] [--n N]
-        [--probes-only]
+        [--probes-only | --scan-only]
     python hgmm_torch/benchmarks/kernel_compare.py --diff A.pt B.pt
 
 A change to a kernel is compared with its parent inside one call on one card,
@@ -42,6 +42,16 @@ debug mode): ``register_pair`` (config2_tree_8x3) at N and one odometry pair
 (config 4's tree fit and registration on the bucket). ``--diff`` prints, for
 every output of the two files, ``bit-equal`` or the largest gap.
 
+A level's registration scan (``scan_outputs``, alone with ``--scan-only``):
+at the levels of ``dragon_to_map`` (K = 8, 64 and the cut's, no gate) and of
+``dragon_config3_topk`` (K = 64, 512, top_k 8, outlier 0), run as the
+pipeline runs it (``run_registration_scan``: in a tree with ``ops.reg_scan``
+one host call a level) and as the step loop of the wrappers driven from
+Python; the state and outputs of both are saved, and the host µs a step of
+each timed. ``--scan-only`` needs no ``ops.reg_scan`` in TREE (the pipeline
+path then steps from Python), so this script compares a parent without the
+one call against the working tree (``--root``).
+
 The unit-rate probes (``probe_times``, alone with ``--probes-only``): at the
 two MXU shapes (K = 512, T = 2048 and K = 64, T = 8192) every probe's output
 at 3 x 6 and 1,024 x 6 products (the bf16 logits, stats and norm also with
@@ -77,7 +87,7 @@ MAX_SHARE = 1.05  # of a bound: above it a reading is a wrong count (chip_smoke.
 
 
 def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = BENCH_K,
-        probes_only: bool = False) -> tuple[dict, dict]:
+        probes_only: bool = False, scan_only: bool = False) -> tuple[dict, dict]:
     """TREE's kernels on the fixed inputs: (outputs by name, times in ms)."""
     sys.path.insert(0, str(root))
     import numpy as np
@@ -93,8 +103,8 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
     if Path(hgmm_torch.__file__).resolve().parent != root / "hgmm_torch":
         raise SystemExit(f"imported hgmm_torch from {hgmm_torch.__file__}, not from {root}")
     dev = resolve_device(device)
-    if probes_only:
-        out, times = probe_times(torch, dev)
+    if probes_only or scan_only:
+        out, times = probe_times(torch, dev) if probes_only else scan_outputs(np, torch, dev, n)
         return {name: tuple(t.cpu() for t in ts) for name, ts in out.items()}, times
     rng = np.random.default_rng(123)
     pts = torch.from_numpy(rng.standard_normal((n, 3), dtype=np.float32)).to(dev)
@@ -136,6 +146,9 @@ def run(root: Path, device, n: int = N, bench_n: int = BENCH_N, bench_k: int = B
     times.update(chunk_times(np, torch, dev, n))
     times.update(step_times(np, torch, dev, n))
     times.update(pair_counts(np, torch, dev, n))
+    scan_out, scan_t = scan_outputs(np, torch, dev, n)
+    out.update(scan_out)
+    times.update(scan_t)
     probe_out, probe_t = probe_times(torch, dev)
     out.update(probe_out)
     times.update(probe_t)
@@ -464,6 +477,86 @@ def step_times(np, torch, dev, n) -> dict:
     return out
 
 
+SCAN_ITERS, SCAN_METHOD, SCAN_INNER, SCAN_TOL = 50, "horn+wls", 2, 1e-7  # the presets' scan
+SCAN_REPS = 5
+
+
+def scan_outputs(np, torch, dev, n) -> tuple[dict, dict]:
+    """One level's scan from the identity, on n trefoil points moved by a
+    fixed pose, onto a tree (8 x 3, 12 sweeps) fitted to them on `dev`: at
+    `dragon_to_map`'s levels (K = 8, 64, and the cut at 0.02; no gate, no
+    outlier) and `dragon_config3_topk`'s gated ones (K = 64, 512, top_k 8,
+    outlier 0), SCAN_ITERS iterations of SCAN_METHOD. Two paths from tables
+    and a state made alike: "pipeline", run_registration_scan as register_tree
+    calls it, and "loop", ops.reg_partials and ops.reg_step a step from
+    Python. Outputs: each path's state, logliks and deltas, and the tree's
+    levels (the inputs). Times: host µs a step (the call to its return) and
+    wall µs a step (to the sync after it), medians of SCAN_REPS runs, and
+    whether the two paths' outputs are bit-equal in this tree."""
+    import statistics
+    import time
+
+    from hgmm_torch import ops
+    from hgmm_torch.data.synthetic import make_cloud
+    from hgmm_torch.models.gmm_tree import GmmTree
+    from hgmm_torch.models.se3 import Pose, so3_exp
+    from hgmm_torch.ops.em_ref import SCAN_LIVE
+    from hgmm_torch.pipelines.register import run_registration_scan
+
+    target = make_cloud(n, "trefoil", seed=4, device=dev)
+    moved = Pose(so3_exp(torch.tensor([0.03, -0.05, 0.04], device=dev)), torch.tensor([0.02, 0.0, -0.01], device=dev))
+    source = moved.apply(target)
+    tree, _ = GmmTree.fit(target, branch=BRANCH, levels=3, em_iters=12, generator=torch.Generator().manual_seed(0))
+    cut = tree.cut_mixture(0.02)
+    levels = {"map_K8": (tree.levels[0], None, None), "map_K64": (tree.levels[1], None, None),
+              f"map_K{cut.k}_cut": (cut, None, None), "topk8_K64": (tree.levels[1], 8, 0.0),
+              "topk8_K512": (tree.levels[2], 8, 0.0)}
+    prep = ops.prepare(source)
+    eye, zero = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    n_horn = SCAN_ITERS // 2
+    steps = n_horn + (SCAN_ITERS - n_horn) * SCAN_INNER
+    # The step loop's rule written out here, not taken from the tree, so that
+    # the "loop" path is the same in a tree without scan_schedule.
+    schedule = [(it, 0, True, True) if it < n_horn else (it, 1, s == 0, s == SCAN_INNER - 1)
+                for it in range(SCAN_ITERS) for s in range(1 if it < n_horn else SCAN_INNER)]
+
+    def pipeline(problem):
+        return run_registration_scan(problem, eye, zero, SCAN_ITERS, SCAN_METHOD, SCAN_TOL, SCAN_INNER)
+
+    def loop(problem):
+        scan = ops.new_scan(problem, eye, zero, SCAN_ITERS)
+        for it, solver, first, last in schedule:
+            ops.reg_step(ops.reg_partials(problem, scan), scan, it, solver, first, last, SCAN_TOL)
+        return scan
+
+    out = {f"scan_tree_level{i}": tuple(p) for i, p in enumerate(tree.levels)}
+    times = {"scan_steps": steps}
+    for key, (params, top_k, outlier) in levels.items():
+        problem = ops.reg_problem_of(prep, params, top_k, outlier)
+        (R, t, done), lls, deltas = pipeline(problem)
+        scan = loop(problem)
+        out[f"scan_{key}_pipeline"] = (R, t, done, lls, deltas)
+        out[f"scan_{key}_loop"] = (*scan.pose, scan.done, scan.logliks, scan.deltas, scan.state)
+        times[f"scan_{key}_paths_bit_equal"] = all(
+            torch.equal(a, b) for a, b in zip(out[f"scan_{key}_pipeline"], out[f"scan_{key}_loop"]))
+        times[f"scan_{key}_live_steps"] = float(scan.state[SCAN_LIVE])
+        for path, fn in (("pipeline", pipeline), ("loop", loop)):
+            host, wall = [], []
+            for _ in range(SCAN_REPS + 1):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(problem)
+                t1 = time.perf_counter()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                host.append((t1 - t0) * 1e6 / steps)
+                wall.append((time.perf_counter() - t0) * 1e6 / steps)
+            times[f"scan_{key}_{path}_host_us_a_step"] = statistics.median(host[1:])
+            times[f"scan_{key}_{path}_wall_us_a_step"] = statistics.median(wall[1:])
+    return out, times
+
+
 def norm_operands(torch, k: int, dev) -> dict:
     """The norm probe's A operands [8, K] bf16 beside make_inputs' all-ones
     one: "random", seeded standard normal (it varies along K and between
@@ -662,6 +755,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--bench-n", type=int, default=BENCH_N)
     ap.add_argument("--bench-k", type=int, default=BENCH_K)
     ap.add_argument("--probes-only", action="store_true", help="run and time the unit-rate probes alone")
+    ap.add_argument("--scan-only", action="store_true", help="run and time a level's registration scan alone")
     args = ap.parse_args(argv)
     if (args.save is None) == (args.diff is None):
         ap.error("give either --save FILE or --diff A B")
@@ -670,7 +764,7 @@ def main(argv=None) -> dict:
         print(json.dumps({"diff": report}), flush=True)
         return report
     outputs, times = run(args.root.resolve(), args.device, args.n, args.bench_n, args.bench_k,
-                         args.probes_only)
+                         args.probes_only, args.scan_only)
     torch.save(outputs, args.save)
     print(json.dumps({"root": str(args.root), **times}), flush=True)
     return times

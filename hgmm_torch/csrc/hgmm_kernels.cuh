@@ -139,4 +139,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 cudaError_t launch_reduce_partials(const float* partial, int nb, int m, float* out,
                                    cudaStream_t stream);
 
+// One registration step (csrc/reg_step.cu, hgmm_reg_step's arguments) on
+// `stream`; hgmm_reg_scan (csrc/reg_stats.cu) launches a scan's steps
+// through it.
+cudaError_t launch_reg_step(const float* partial, int nb, float* scan, float* logliks, float* deltas, int it,
+                            int solver, int first, int last, double tol, int blocks, cudaStream_t stream);
+
 }  // namespace hgmm

@@ -647,16 +647,42 @@ cudaError_t launch_reg(Kernel kernel, int nb, size_t smem, cudaStream_t s, Args.
   return cudaGetLastError();
 }
 
-// The top_k body with a list of KMAX and chunks of `chunk` components.
-template <int KMAX, typename... Args>
-cudaError_t launch_top_k(int chunk, int nb, int k, cudaStream_t s, Args... args) {
+// go(kernel, smem, args...) with the top_k body of a list of KMAX and chunks
+// of `chunk` components.
+template <int KMAX, typename Go, typename... Args>
+cudaError_t with_top_k(int chunk, int k, Go& go, Args... args) {
   const size_t smem = reg_top_k_smem_bytes(k, chunk);
   switch (chunk) {
-    case 1: return launch_reg(reg_stats_top_k_kernel<KMAX, 1>, nb, smem, s, args...);
-    case 2: return launch_reg(reg_stats_top_k_kernel<KMAX, 2>, nb, smem, s, args...);
-    case 4: return launch_reg(reg_stats_top_k_kernel<KMAX, 4>, nb, smem, s, args...);
-    case 8: return launch_reg(reg_stats_top_k_kernel<KMAX, 8>, nb, smem, s, args...);
-    case 16: return launch_reg(reg_stats_top_k_kernel<KMAX, 16>, nb, smem, s, args...);
+    case 1: return go(reg_stats_top_k_kernel<KMAX, 1>, smem, args...);
+    case 2: return go(reg_stats_top_k_kernel<KMAX, 2>, smem, args...);
+    case 4: return go(reg_stats_top_k_kernel<KMAX, 4>, smem, args...);
+    case 8: return go(reg_stats_top_k_kernel<KMAX, 8>, smem, args...);
+    case 16: return go(reg_stats_top_k_kernel<KMAX, 16>, smem, args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// go(kernel, smem, args...) with the body that top_k, lanes and chunk select
+// (hgmm_reg_stats' arguments), its dynamic shared memory and its arguments:
+// the one choice of a body, for a launch and for a scan's launches.
+template <typename Go>
+cudaError_t with_reg_body(const float* p, int n, const float* pose, const float* dn, const float* w,
+                          const float* a, int k, int top_k, int lanes, int chunk, int has_outlier, float outlier,
+                          float* part, unsigned long long* cnt, Go go) {
+  const size_t smem = reg_stats_smem_bytes(k);
+  if (top_k < 0 || top_k >= k) return cudaErrorInvalidValue;
+  if (top_k > 32)
+    return go(reg_stats_select_kernel, reg_select_smem_bytes(k), p, n, pose, dn, w, a, k, top_k, has_outlier,
+              outlier, part);
+  if (top_k > 8) return with_top_k<33>(chunk, k, go, p, n, pose, dn, w, a, k, top_k, has_outlier, outlier, part, cnt);
+  if (top_k > 0) return with_top_k<9>(chunk, k, go, p, n, pose, dn, w, a, k, top_k, has_outlier, outlier, part, cnt);
+  switch (lanes) {
+    case 1: return go(reg_stats_lanes_kernel<1>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
+    case 2: return go(reg_stats_lanes_kernel<2>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
+    case 4: return go(reg_stats_lanes_kernel<4>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
+    case 8: return go(reg_stats_lanes_kernel<8>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
+    case 16: return go(reg_stats_lanes_kernel<16>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
+    case 32: return go(reg_stats_lanes_kernel<32>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -679,36 +705,54 @@ int hgmm_reg_stats(const void* pts4, int n, const void* pose12, const void* done
                    float outlier, void* partial, int nb, void* counters, void* out, void* stream) {
   using namespace hgmm;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const float*>(pts4);
-  const auto* pose = static_cast<const float*>(pose12);
-  const auto* dn = static_cast<const float*>(done);
-  const auto* w = static_cast<const float*>(wn);
-  const auto* a = static_cast<const float*>(aux);
   auto* part = static_cast<float*>(partial);
-  auto* cnt = static_cast<unsigned long long*>(counters);
-  const size_t smem = reg_stats_smem_bytes(k);
-  cudaError_t err;
-  if (top_k < 0 || top_k >= k) return (int)cudaErrorInvalidValue;
-  if (top_k > 32) {
-    err = launch_reg(reg_stats_select_kernel, nb, reg_select_smem_bytes(k), s, p, n, pose, dn, w, a, k,
-                     top_k, has_outlier, outlier, part);
-  } else if (top_k > 8) {
-    err = launch_top_k<33>(chunk, nb, k, s, p, n, pose, dn, w, a, k, top_k, has_outlier, outlier, part, cnt);
-  } else if (top_k > 0) {
-    err = launch_top_k<9>(chunk, nb, k, s, p, n, pose, dn, w, a, k, top_k, has_outlier, outlier, part, cnt);
-  } else {
-    switch (lanes) {
-      case 1: err = launch_reg(reg_stats_lanes_kernel<1>, nb, smem, s, p, n, pose, dn, w, a, k, has_outlier, outlier, part); break;
-      case 2: err = launch_reg(reg_stats_lanes_kernel<2>, nb, smem, s, p, n, pose, dn, w, a, k, has_outlier, outlier, part); break;
-      case 4: err = launch_reg(reg_stats_lanes_kernel<4>, nb, smem, s, p, n, pose, dn, w, a, k, has_outlier, outlier, part); break;
-      case 8: err = launch_reg(reg_stats_lanes_kernel<8>, nb, smem, s, p, n, pose, dn, w, a, k, has_outlier, outlier, part); break;
-      case 16: err = launch_reg(reg_stats_lanes_kernel<16>, nb, smem, s, p, n, pose, dn, w, a, k, has_outlier, outlier, part); break;
-      case 32: err = launch_reg(reg_stats_lanes_kernel<32>, nb, smem, s, p, n, pose, dn, w, a, k, has_outlier, outlier, part); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
+  const cudaError_t err = with_reg_body(
+      static_cast<const float*>(pts4), n, static_cast<const float*>(pose12), static_cast<const float*>(done),
+      static_cast<const float*>(wn), static_cast<const float*>(aux), k, top_k, lanes, chunk, has_outlier, outlier,
+      part, static_cast<unsigned long long*>(counters),
+      [&](auto kernel, size_t smem, auto... args) { return launch_reg(kernel, nb, smem, s, args...); });
   if (err != cudaSuccess || out == nullptr) return (int)err;
   return (int)launch_reduce_partials(part, nb, NOUT, static_cast<float*>(out), s);
+}
+
+// A registration scan's `steps` steps on its state `scan` (float32, layout in
+// hgmm_kernels.cuh), from one host call: for each step the reg_stats launch
+// of hgmm_reg_stats at the pose scan[SCAN_POSE..] with the done flag
+// scan[SCAN_DONE] (no sum), then the reg_step launch of hgmm_reg_step on its
+// [nb, 59] partials, both on `stream`, in the order and with the arguments
+// of those two entries called a step at a time. The reg_stats arguments
+// are hgmm_reg_stats'; logliks, deltas, tol and blocks hgmm_reg_step's.
+// schedule: [steps, 4] ints on the host, a step's (it, solver, first, last)
+// (pipelines/register.py:scan_schedule). The body's dynamic shared memory is
+// set once a call. Returns the first nonzero CUDA code, with the index of
+// its step in *failed_step, else 0.
+int hgmm_reg_scan(const void* pts4, int n, void* scan, const void* wn, const void* aux, int k, int top_k,
+                  int lanes, int chunk, int has_outlier, float outlier, void* partial, int nb, void* counters,
+                  void* logliks, void* deltas, double tol, int blocks, const int* schedule, int steps,
+                  int* failed_step, void* stream) {
+  using namespace hgmm;
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* state = static_cast<float*>(scan);
+  auto* part = static_cast<float*>(partial);
+  int step = 0;
+  const cudaError_t err = with_reg_body(
+      static_cast<const float*>(pts4), n, state + SCAN_POSE, state + SCAN_DONE, static_cast<const float*>(wn),
+      static_cast<const float*>(aux), k, top_k, lanes, chunk, has_outlier, outlier, part,
+      static_cast<unsigned long long*>(counters), [&](auto kernel, size_t smem, auto... args) {
+        cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        for (; e == cudaSuccess && step < steps; ++step) {
+          const int* row = schedule + 4 * step;
+          kernel<<<nb, RS_THREADS, smem, s>>>(args...);
+          e = cudaGetLastError();
+          if (e == cudaSuccess)
+            e = launch_reg_step(part, nb, state, static_cast<float*>(logliks), static_cast<float*>(deltas), row[0],
+                                row[1], row[2], row[3], tol, blocks, s);
+          if (e != cudaSuccess) break;  // `step` stays the failed one's
+        }
+        return e;
+      });
+  if (err != cudaSuccess) *failed_step = step;
+  return (int)err;
 }
 
 }  // extern "C"

@@ -456,6 +456,32 @@ __global__ void __launch_bounds__(STEP_THREADS)
   }
 }
 
+// One reg_step launch on `s` (hgmm_reg_step's arguments); the scan's one
+// call (csrc/reg_stats.cu:hgmm_reg_scan) launches its steps through it too.
+cudaError_t launch_reg_step(const float* partial, int nb, float* scan, float* logliks, float* deltas, int it,
+                            int solver, int first, int last, double tol, int blocks, cudaStream_t s) {
+  if (nb < 1 || solver < 0 || solver > 1 || reinterpret_cast<size_t>(partial) % 16 != 0 ||
+      (blocks != 1 && blocks != STEP_CLUSTER))
+    return cudaErrorInvalidValue;
+  if (blocks == 1) {  // a plain launch: a cluster launch, even of one block, costs ~1 us more (PERF.md)
+    reg_step_kernel<<<1, STEP_THREADS, 0, s>>>(partial, nb, scan, logliks, deltas, it, solver, first, last, tol);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(STEP_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;  // the whole grid is one cluster
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, reg_step_kernel, partial, nb, scan, logliks, deltas, it, solver, first, last, tol);
+}
+
 }  // namespace hgmm
 
 extern "C" {
@@ -468,31 +494,9 @@ extern "C" {
 // 16-byte aligned. Returns the CUDA error code of the launch.
 int hgmm_reg_step(const void* partial, int nb, void* scan, void* logliks, void* deltas, int it,
                   int solver, int first, int last, double tol, int blocks, void* stream) {
-  if (nb < 1 || solver < 0 || solver > 1 || reinterpret_cast<size_t>(partial) % 16 != 0 ||
-      (blocks != 1 && blocks != hgmm::STEP_CLUSTER))
-    return (int)cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (blocks == 1) {  // a plain launch: a cluster launch, even of one block, costs ~1 us more (PERF.md)
-    hgmm::reg_step_kernel<<<1, hgmm::STEP_THREADS, 0, s>>>(
-        static_cast<const float*>(partial), nb, static_cast<float*>(scan), static_cast<float*>(logliks),
-        static_cast<float*>(deltas), it, solver, first, last, tol);
-    return (int)cudaGetLastError();
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks, 1, 1);
-  cfg.blockDim = dim3(hgmm::STEP_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;  // the whole grid is one cluster
-  attr[0].val.clusterDim.x = blocks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, hgmm::reg_step_kernel, static_cast<const float*>(partial), nb,
-                                 static_cast<float*>(scan), static_cast<float*>(logliks),
-                                 static_cast<float*>(deltas), it, solver, first, last, tol);
+  return (int)hgmm::launch_reg_step(static_cast<const float*>(partial), nb, static_cast<float*>(scan),
+                                    static_cast<float*>(logliks), static_cast<float*>(deltas), it, solver, first,
+                                    last, tol, blocks, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -12,7 +12,8 @@ made for its data (on the card the E-step body alone, its partial rows not
 summed), then ``em_step``, which sums the rows and runs the M-step. A
 registration scan's step is ``reg_partials`` on the tables
 ``reg_problem_of`` made and the state ``new_scan`` made for them, then
-``reg_step``. On the card everything those steps launch from was checked,
+``reg_step``; ``reg_scan`` runs a scan's steps, on the card from one host
+call. On the card everything those steps launch from was checked,
 planned and allocated where the fit, the tables and the scan were made. A
 sharded sweep or scan step sums this device's rows to one row first
 (``em_row``, ``reg_row``) and adds that row over the mesh.
@@ -260,3 +261,14 @@ def reg_step(rows: em_ref.RegPartials, scan: RegScan, it: int, solver: int, firs
     if scan.state.is_cuda:
         return fused_em.reg_step(rows, scan, it, solver, first, last, tol)
     return em_ref.reg_step(rows.partial, scan, it, solver, first, last, tol)
+
+
+def reg_scan(problem, scan: RegScan, steps: tuple, tol: float) -> None:
+    """A scan's steps, (it, solver, first, last) each (the registration's
+    scan_schedule), on the scan in place: on the card one host call that
+    launches each step's reg_partials and reg_step (fused_em.reg_scan); on
+    the CPU reg_partials and reg_step a step from Python."""
+    if isinstance(problem, fused_em.RegTables):
+        return fused_em.reg_scan(problem, scan, steps, tol)
+    for it, solver, first, last in steps:
+        reg_step(reg_partials(problem, scan), scan, it, solver, first, last, tol)

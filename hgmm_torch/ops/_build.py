@@ -10,7 +10,8 @@ SASS (``cuobjdump --dump-sass``), read for the tensor-core instructions a
 kernel holds, as ``<library>.sass`` at first use. The library is loaded with
 ``ctypes``. Nothing here runs at import time.
 
-Every kernel wrapper of ``hgmm_torch.ops`` launches through ``launch``: the
+Every kernel wrapper of ``hgmm_torch.ops`` launches through ``launch`` (a
+registration scan's one call, ``fused_em.reg_scan``, through ``call``): the
 tensors' card, its current stream, the library's error code and the count of
 launches by wrapper (``LAUNCHES``) are decided here alone. ``check_tensor`` is
 the tensor test the wrappers share.
@@ -52,6 +53,7 @@ _SIGNATURES = {
     "hgmm_em_stats_tiled": (_P, _I, _P, _I, _I, _I, _F, _P, _I, _P, _P),
     "hgmm_reg_stats": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _P, _P, _P),
     "hgmm_reg_step": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _D, _I, _P),
+    "hgmm_reg_scan": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _P, _P, _P, _D, _I, _P, _I, _P, _P),
     "hgmm_reg_tables": (_P, _P, _P, _I, _P, _P, _P),
     "hgmm_em_stats_grouped": (_P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P),
     "hgmm_assign": (_P, _I, _P, _I, _P, _I, _I, _P, _P),
@@ -277,25 +279,32 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
-def count_launch(name: str) -> None:
-    """Add one to a kernel's count (launch, after a launch that returned 0);
-    inside profiling.tracing(), also to the open request's counter
-    launch.<name>."""
+def count_launch(name: str, n: int = 1) -> None:
+    """Add n to a kernel's count (launch, after a launch that returned 0;
+    hgmm_reg_scan's launches after the call); inside profiling.tracing(),
+    also to the open request's counter launch.<name>."""
     with _LAUNCHES_LOCK:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
     if profiling.tracer is not None:
-        profiling.count("launch." + name)
+        profiling.count("launch." + name, n)
 
 
-def launch(name: str, entry: str, device, *args) -> None:
+def call(name: str, entry: str, device, *args, failed_step: ctypes.c_int | None = None) -> None:
     """Call the library's `entry` with `args` and the current stream of
     `device` (taken at each call: a CUDA graph's capture runs on a side
     stream), inside that device; raise on a nonzero error code with the
-    library's message, else count the launch as `name`."""
+    library's message (and the step the entry wrote to `failed_step`, for an
+    entry that launches a scan's steps)."""
     with torch.cuda.device(device):
         err = getattr(load(), entry)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err}: {load().hgmm_error_string(err).decode()}")
+        at = "" if failed_step is None else f" at step {failed_step.value}"
+        raise RuntimeError(f"{name}: CUDA error {err}{at}: {load().hgmm_error_string(err).decode()}")
+
+
+def launch(name: str, entry: str, device, *args) -> None:
+    """call() an entry that makes one launch, then count it as `name`."""
+    call(name, entry, device, *args)
     count_launch(name)
 
 

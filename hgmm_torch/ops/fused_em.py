@@ -33,10 +33,11 @@ launch (``reg_tables_of``: ``csrc/reg_tables.cu``) or from W, mu, A6, b3
 launch geometry from ``plan_reg_stats``: the lanes body without gating, the
 top_k body with a register list up to MAX_TOP_K, the select body past it)
 and ``reg_step`` (``csrc/reg_step.cu``) read and write it without a host
-sync.
+sync. ``reg_scan`` launches a whole scan's steps, those two kernels a step,
+from one host call (``hgmm_reg_scan``).
 
 The step path (``em_partials``, ``em_partials_grouped``, ``em_step``,
-``reg_partials``, ``reg_step``) checks, plans and allocates nothing: the
+``reg_partials``, ``reg_step``, ``reg_scan``) checks, plans and allocates nothing: the
 objects it launches from were checked, planned and given their buffers where
 they were made, once a level (``flat_body``, ``group_by_parent``,
 ``bind_fit``; ``reg_tables_of``, ``new_scan``), or once for rows made
@@ -45,8 +46,10 @@ elsewhere (``em_rows``, ``reg_rows``).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
+import itertools
 
 import torch
 
@@ -823,3 +826,36 @@ def reg_step(rows: RegPartials, scan: RegScan, it: int, solver: int, first: bool
     launch("reg_step", "hgmm_reg_step", rows.partial.device, rows.partial.data_ptr(), rows.partial.shape[0],
            scan.state.data_ptr(), scan.logliks.data_ptr(), scan.deltas.data_ptr(), it, solver, int(first), int(last),
            float(tol), rows.cluster)
+
+
+@functools.lru_cache(maxsize=64)
+def _schedule_rows(steps: tuple) -> ctypes.Array:
+    """A scan's steps (pipelines/register.py:scan_schedule) as hgmm_reg_scan
+    reads them: [steps, 4] ints on the host, a step's (it, solver, first,
+    last)."""
+    return (ctypes.c_int * (4 * len(steps)))(*map(int, itertools.chain.from_iterable(steps)))
+
+
+def reg_scan(tab: RegTables, scan: RegScan, steps: tuple, tol: float) -> None:
+    """A scan's steps on its state, in place, from one host call
+    (csrc/reg_stats.cu:hgmm_reg_scan): for each (it, solver, first, last) of
+    `steps` the reg_partials launch and then the reg_step launch on the
+    table's rows that the two wrappers would make, in the same order, on the
+    current stream, nothing read back. After the call the launches count as
+    the wrappers count theirs (tab.body and reg_step, a step each), and the
+    steps as reg.native_steps; a nonzero code raises with its step's index
+    and counts nothing."""
+    if not steps:
+        return
+    if steps[0][0] < 0 or steps[-1][0] >= scan.logliks.shape[0]:
+        raise ValueError(f"reg_scan: iterations {steps[0][0]}..{steps[-1][0]} of {scan.logliks.shape[0]}")
+    failed = ctypes.c_int(-1)
+    _build.call("reg_scan", "hgmm_reg_scan", tab.pts4.device, tab.pts4.data_ptr(), tab.pts4.shape[1],
+                scan.state.data_ptr(), tab.wn.data_ptr(), tab.aux.data_ptr(), tab.k, tab.gate, tab.plan.lanes,
+                tab.plan.chunk, *tab.outlier, tab.rows.partial.data_ptr(), tab.plan.blocks,
+                None if tab.counters is None else tab.counters.data_ptr(), scan.logliks.data_ptr(),
+                scan.deltas.data_ptr(), float(tol), tab.rows.cluster, _schedule_rows(steps), len(steps),
+                ctypes.byref(failed), failed_step=failed)
+    count_launch(tab.body, len(steps))
+    count_launch("reg_step", len(steps))
+    profiling.count("reg.native_steps", len(steps))

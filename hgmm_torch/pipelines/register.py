@@ -11,8 +11,10 @@ the pose, the iteration's start, the outputs and the done flag live in one
 state buffer (``ops.new_scan``, made for the level's tables). Each step is two launches on the card, the
 statistics kernel (``ops.reg_partials``: ``csrc/reg_stats.cu``, which returns
 at once when the scan is done) and the step kernel (``ops.reg_step``: ``csrc/reg_step.cu``,
-the partials' sum and the pose solve); a sharded run puts its all_reduce of
-the 59 statistics between them. On the CPU both are the plain versions.
+the partials' sum and the pose solve); a scan's steps (``scan_schedule``)
+launch from one host call there (``ops.reg_scan``). A sharded run steps from
+Python and puts its all_reduce of the 59 statistics between the two. On the
+CPU both are the plain versions, a step at a time.
 
 The source buffer is prepared once a registration (``ops.prepare``) and each
 level's tables are built from its mixture by ``ops.reg_problem_of``: on the
@@ -21,13 +23,15 @@ card one launch (``csrc/reg_tables.cu``), on the CPU ``model_terms``.
 Spans (``utils/profiling.span``): ``hgmm_torch.reg`` the whole registration,
 ``.reg.cut`` the complexity cut of the last level, ``.reg.prep`` a level's
 tables, ``.reg.scan`` a level's iterate. Counters: ``reg.steps`` the steps
-launched, ``reg.live_steps`` those run before done (the scan state's
-SCAN_LIVE, read after the traced block); on the card a gated level's tables
-add the top_k body's own (``fused_em.TOPK_COUNTERS``).
+launched, ``reg.native_steps`` those launched by the one host call,
+``reg.live_steps`` those run before done (the scan state's SCAN_LIVE, read
+after the traced block); on the card a gated level's tables add the top_k
+body's own (``fused_em.TOPK_COUNTERS``).
 """
 
 from __future__ import annotations
 
+import functools
 import typing
 
 import torch
@@ -49,9 +53,32 @@ class RegistrationResult(typing.NamedTuple):
     converged: torch.Tensor  # [] bool
 
 
+class ScanStep(typing.NamedTuple):
+    it: int  # the iteration, which indexes logliks and deltas
+    solver: int  # 0 Horn, 1 WLS (Gauss-Newton)
+    first: bool  # the iteration's first step: records its start pose and loglik
+    last: bool  # its last: writes logliks[it], deltas[it] and done
+
+
+@functools.lru_cache(maxsize=64)
+def scan_schedule(n_iters: int, method: str, wls_inner: int) -> tuple[ScanStep, ...]:
+    """A scan's steps in order, known on the host from the iteration index:
+    "horn+wls" runs Horn for the first n_iters // 2 iterations, then WLS; a
+    Horn iteration is one step, a WLS iteration max(wls_inner, 1)."""
+    if method not in ("horn", "wls", "horn+wls"):
+        raise ValueError(f"unknown registration method {method!r}")
+    n_horn = n_iters // 2 if method == "horn+wls" else (n_iters if method == "horn" else 0)
+    out = []
+    for it in range(n_iters):
+        solver = 0 if it < n_horn else 1
+        steps = 1 if solver == 0 else max(wls_inner, 1)
+        out.extend(ScanStep(it, solver, s == 0, s == steps - 1) for s in range(steps))
+    return tuple(out)
+
+
 def run_registration_scan(problem, init_R, init_t, n_iters: int, method: str, tol, wls_inner: int, mesh=None):
     """The shared registration iterate on a level's tables (ops.reg_problem_of):
-    a Horn phase, then a WLS phase.
+    a Horn phase, then a WLS phase (scan_schedule).
 
     Each step reads the [nb, 59] reg_stats rows at the scan's pose (horn 16,
     A 36, b 6, loglik; summed by the step): ops.reg_partials, or with a mesh
@@ -62,28 +89,25 @@ def run_registration_scan(problem, init_R, init_t, n_iters: int, method: str, to
     deltas[-1] always hold the converged state. `done` carries from the Horn
     phase into the WLS phase. A WLS iteration takes wls_inner Gauss-Newton
     steps, refreshing the statistics each time; its loglik is its first
-    statistics'. Horn or WLS is known on the host from the iteration index.
+    statistics'. Without a mesh the steps go to ops.reg_scan (on the card
+    one host call); a mesh steps from here, its all_reduce between a step's
+    two launches.
 
     Returns ((R, t, done), logliks [n_iters], deltas [n_iters]), done a bool
     tensor on the pose's device.
     """
-    if method not in ("horn", "wls", "horn+wls"):
-        raise ValueError(f"unknown registration method {method!r}")
-    n_horn = n_iters // 2 if method == "horn+wls" else (n_iters if method == "horn" else 0)
+    steps = scan_schedule(n_iters, method, wls_inner)
     with span("hgmm_torch.reg.scan"):
         scan = ops.new_scan(problem, init_R, init_t, n_iters)
-        profiling.count("reg.steps", n_horn + (n_iters - n_horn) * max(wls_inner, 1))
+        profiling.count("reg.steps", len(steps))
         profiling.count_later("reg.live_steps", scan.state, SCAN_LIVE)
-        for it in range(n_iters):
-            solver = 0 if it < n_horn else 1
-            steps = 1 if solver == 0 else max(wls_inner, 1)
-            for s in range(steps):
-                if mesh is None:
-                    rows = ops.reg_partials(problem, scan)
-                else:
-                    rows = ops.reg_row(problem, scan)
-                    mesh.all_reduce_(rows.partial)
-                ops.reg_step(rows, scan, it, solver, first=s == 0, last=s == steps - 1, tol=tol)
+        if mesh is None:
+            ops.reg_scan(problem, scan, steps, tol)
+        else:
+            for it, solver, first, last in steps:
+                rows = ops.reg_row(problem, scan)
+                mesh.all_reduce_(rows.partial)
+                ops.reg_step(rows, scan, it, solver, first, last, tol)
         R, t = scan.pose
         return (R, t, scan.done), scan.logliks, scan.deltas
 

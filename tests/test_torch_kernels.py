@@ -959,6 +959,103 @@ def test_reg_step_counts_live_steps_as_its_twin(cuda, n):
     assert float(scan.state[em_ref.SCAN_LIVE]) == want
 
 
+_SCAN_PROBLEMS = {}
+
+
+def _scan_problem(cuda, n, k):
+    """A moved trefoil of n points and a K-component fit of it (made once a
+    shape): a scan that converges as a level's does."""
+    from hgmm_torch.data.synthetic import make_cloud
+    from hgmm_torch.models.gmm import Gmm
+
+    if (n, k) not in _SCAN_PROBLEMS:
+        target = make_cloud(n, "trefoil", seed=4, device=cuda)
+        params = Gmm.fit(target, k=k, n_iters=10, generator=torch.Generator().manual_seed(5))[0].params
+        R0 = so3_exp(torch.tensor([0.03, -0.05, 0.04], device=cuda))
+        _SCAN_PROBLEMS[n, k] = ((target - torch.tensor([0.02, 0.0, -0.01], device=cuda)) @ R0, params)
+    return _SCAN_PROBLEMS[n, k]
+
+
+# body: (points, K, top_k, outlier, the plan's lanes, reg_step's blocks)
+SCAN_BODIES = {
+    "lanes1": (437_645, 64, None, None, 1, fused_em.STEP_CLUSTER),
+    "lanes4": (16_384, 64, None, -3.0, 4, 1),
+    "top_k8": (437_645, 64, 8, 0.0, 1, fused_em.STEP_CLUSTER),
+    "top_k32": (16_384, 64, 32, 0.0, 1, 1),
+    "select64": (16_384, 128, 64, 0.0, 32, fused_em.STEP_CLUSTER),  # a warp a point: 528 rows
+}
+
+
+@pytest.mark.parametrize("tol", [1e-4, 0.0])
+@pytest.mark.parametrize("method,wls_inner", [("horn", 2), ("wls", 1), ("wls", 3), ("horn+wls", 2)])
+@pytest.mark.parametrize("body", list(SCAN_BODIES))
+def test_reg_scan_from_one_call_is_the_step_loop(cuda, body, method, wls_inner, tol):
+    """ops.reg_scan (one host call, hgmm_reg_scan) against the wrappers
+    driven a step at a time from Python, each from tables and a state made
+    the same way: the whole state (pose, start, SCAN_LIVE, done), logliks,
+    deltas, the last partial rows and the gated body's counters bit-equal,
+    and the same launches counted, in LAUNCHES and as launch.<name>. Each
+    body: the lanes body at 1 and 4 lanes, the top_k body at top_k 8 and 32,
+    the select body at 64; reg_step on its cluster (past 256 rows) and on
+    one block; tol 1e-4 stops early, tol 0 never."""
+    from hgmm_torch import ops
+    from hgmm_torch.pipelines.register import scan_schedule
+    from hgmm_torch.utils import profiling
+
+    n, k, top_k, outlier, lanes, blocks = SCAN_BODIES[body]
+    source, params = _scan_problem(cuda, n, k)
+    n_iters = 24
+    steps = scan_schedule(n_iters, method, wls_inner)
+    R0, t0 = torch.eye(3, device=cuda), torch.zeros(3, device=cuda)
+    runs, launched = [], []
+    with profiling.tracing() as tr:
+        for name in ("loop", "one_call"):
+            with profiling.span(name):
+                tab = ops.reg_problem_of(source, params, top_k, outlier)
+                assert (tab.plan.lanes, tab.rows.cluster) == (lanes, blocks)
+                scan = ops.new_scan(tab, R0, t0, n_iters)
+                before = dict(fused_em.LAUNCHES)
+                if name == "loop":
+                    for it, solver, first, last in steps:
+                        ops.reg_step(ops.reg_partials(tab, scan), scan, it, solver, first, last, tol)
+                else:
+                    ops.reg_scan(tab, scan, steps, tol)
+                launched.append({key: v - before[key] for key, v in fused_em.LAUNCHES.items() if v != before[key]})
+                runs.append((tab, scan))
+    (loop_tab, loop_scan), (tab, scan) = runs
+    for a, b in zip(loop_scan, scan):
+        assert torch.equal(a, b)
+    assert torch.equal(loop_tab.rows.partial, tab.rows.partial)
+    assert (loop_tab.counters is None) == (top_k is None or top_k > fused_em.MAX_TOP_K)
+    if loop_tab.counters is not None:
+        assert torch.equal(loop_tab.counters, tab.counters)
+    assert launched[0] == launched[1] == {tab.body: len(steps), "reg_step": len(steps)}
+    loop_counts, counts = (r["counts"] for r in tr.summary())
+    assert counts == {**loop_counts, "reg.native_steps": len(steps)}
+    live = float(scan.state[em_ref.SCAN_LIVE])
+    assert (live < len(steps)) == (tol > 0) and bool(scan.done) == (tol > 0)
+
+
+def test_reg_scan_raises_with_the_failed_step(cuda):
+    """A launch the library refuses raises with its step: a lanes count of
+    no body at step 0 (before any launch), a solver of no step at step 3."""
+    from hgmm_torch import ops
+    from hgmm_torch.pipelines.register import ScanStep, scan_schedule
+
+    source, params = _scan_problem(cuda, 16_384, 64)
+    tab = ops.reg_problem_of(source, params)
+    scan = ops.new_scan(tab, torch.eye(3, device=cuda), torch.zeros(3, device=cuda), 6)
+    steps = scan_schedule(6, "horn", 2)
+    odd = dataclasses.replace(tab, plan=dataclasses.replace(tab.plan, lanes=3))
+    before = dict(fused_em.LAUNCHES)
+    with pytest.raises(RuntimeError, match="reg_scan: CUDA error 1 at step 0"):
+        ops.reg_scan(odd, scan, steps, 0.0)
+    with pytest.raises(RuntimeError, match="reg_scan: CUDA error 1 at step 3"):
+        ops.reg_scan(tab, scan, steps[:3] + (ScanStep(3, 2, True, True),) + steps[4:], 0.0)
+    assert fused_em.LAUNCHES == before
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("method", ["horn", "wls", "horn+wls"])
 def test_register_points_on_the_card_matches_the_cpu(cuda, method):
     """The whole scan with no host read: the pose within the float32/float64

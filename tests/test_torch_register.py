@@ -167,6 +167,25 @@ def test_done_carries_from_horn_into_wls(monkeypatch):
         treg.run_registration_scan(None, torch.eye(3), torch.zeros(3), 4, "icp", 1e-7, 2)
 
 
+@pytest.mark.parametrize("n_iters,method,wls_inner,want", [
+    (5, "horn+wls", 2, [(0, 0, 1, 1), (1, 0, 1, 1), (2, 1, 1, 0), (2, 1, 0, 1), (3, 1, 1, 0), (3, 1, 0, 1),
+                        (4, 1, 1, 0), (4, 1, 0, 1)]),
+    (2, "wls", 3, [(0, 1, 1, 0), (0, 1, 0, 0), (0, 1, 0, 1), (1, 1, 1, 0), (1, 1, 0, 0), (1, 1, 0, 1)]),
+    (2, "wls", 0, [(0, 1, 1, 1), (1, 1, 1, 1)]),
+    (3, "horn", 4, [(0, 0, 1, 1), (1, 0, 1, 1), (2, 0, 1, 1)]),
+    (1, "horn+wls", 2, [(0, 1, 1, 0), (0, 1, 0, 1)]),
+    (0, "horn+wls", 2, []),
+])
+def test_scan_schedule_is_the_step_loops_order(n_iters, method, wls_inner, want):
+    """The steps of a scan, (it, solver, first, last) each, in the order the
+    step loop ran them: Horn for the first n_iters // 2 iterations of
+    horn+wls, one step an iteration; a WLS iteration max(wls_inner, 1) steps,
+    its first recording the start and its last writing the outputs."""
+    got = treg.scan_schedule(n_iters, method, wls_inner)
+    assert [tuple(map(int, step)) for step in got] == want
+    assert treg.scan_schedule(n_iters, method, wls_inner) is got  # made once, then shared
+
+
 # --------------------------------------------------------------------------
 # the fixed-count scan with `done` carried, and its step's plain twin
 

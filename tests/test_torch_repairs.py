@@ -402,15 +402,16 @@ def test_dispatch_takes_point_weights_in_the_reference_position():
 DO_NOT_COPY = {"PHI_PAD", "set_backend", "get_backend"}
 # What the port's packages have besides the reference's: in ops the fit state
 # and the registration scan on the card, their types, a scan's tables built
-# from the level's mixture (reg_problem_of), and a sharded sweep's and scan
-# step's one summed row (em_row, reg_row); in parallel the in-process
+# from the level's mixture (reg_problem_of), a scan's steps from one call
+# (reg_scan), and a sharded sweep's and scan step's one summed row (em_row,
+# reg_row); in parallel the in-process
 # emulation of R ranks and the type of a rank's own rows (shard_points_from_
 # host returns it where the reference returns a global jax.Array).
 PORT_EXTRAS = {
     "models": set(),
     "ops": {"EmFit", "EmPartials", "Grouped", "Packed", "RegProblem", "RegScan", "em_partials",
             "em_row", "em_stats_grouped", "em_step", "group_by_parent", "new_fit", "new_scan",
-            "reg_partials", "reg_problem_of", "reg_row", "reg_step"},
+            "reg_partials", "reg_problem_of", "reg_row", "reg_scan", "reg_step"},
     "parallel": {"EmulatedMesh", "ShardedPoints"},
 }
 REEXPORTS = [

@@ -257,14 +257,33 @@ def test_count_and_count_launch_go_to_the_open_request(launches):
     assert launches["reg_step"] == before + 4  # every launch, traced or not
 
 
+def _stand_in_card(monkeypatch, lib):
+    """The kernel library replaced by `lib`, torch's device and current
+    stream (7) by stand-ins: a wrapper's call runs on the CPU."""
+    import contextlib
+    from types import SimpleNamespace
+
+    from hgmm_torch.ops import _build
+
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=7))
+
+
+def _cpu_tables(gate: int, body: str, counters=None) -> fused_em.RegTables:
+    """A RegTables of CPU tensors: 100 points, K = 8, 3 blocks of 2 lanes,
+    reg_step on one block; what the step path passes on, unchecked."""
+    rows = em_ref.RegPartials(torch.zeros((3, em_ref.REG_OUT)), 1)
+    return fused_em.RegTables(torch.zeros((4, 100)), torch.zeros((8, 12)), torch.zeros((8, 12)), gate,
+                              (1, -8.0), fused_em.RegPlan(lanes=2, blocks=3, kmax=0, chunk=1), body, rows,
+                              em_ref.RegPartials(torch.zeros((1, em_ref.REG_OUT)), 1), counters)
+
+
 def test_launch_counts_only_a_launch_that_returned_zero(launches, monkeypatch):
     """_build.launch on a stand-in library: the entry gets the arguments and
     the device's current stream; a nonzero code raises with the library's
     message and counts nothing; a zero code counts once in LAUNCHES and,
     inside tracing(), once as launch.<name> in the open request."""
-    import contextlib
-    from types import SimpleNamespace
-
     from hgmm_torch.ops import _build
 
     calls = []
@@ -280,9 +299,7 @@ def test_launch_counts_only_a_launch_that_returned_zero(launches, monkeypatch):
             return b"invalid argument"
 
     lib = Lib()
-    monkeypatch.setattr(_build, "load", lambda: lib)
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=7))
+    _stand_in_card(monkeypatch, lib)
     before = launches["reg_step"]
     lib.code = 1
     with tracing() as tr, span("r"):
@@ -294,6 +311,93 @@ def test_launch_counts_only_a_launch_that_returned_zero(launches, monkeypatch):
         _build.launch("reg_step", "hgmm_reg_step", "cuda:0", 3, None)
     assert launches["reg_step"] == before + 1 and tr.summary()[0]["counts"] == {"launch.reg_step": 1}
     assert calls == [(3, None, 7)] * 2
+
+
+@pytest.mark.parametrize("gate,body", [(0, "reg_stats"), (4, "reg_stats_top_k")])
+def test_reg_scan_is_one_call_counted_as_its_steps_launches(launches, monkeypatch, gate, body):
+    """fused_em.reg_scan on a stand-in library: hgmm_reg_scan gets the
+    tables' and the scan's pointers and plan, the schedule as [steps, 4] ints
+    (scan_schedule's rows) and the device's current stream. A zero code counts
+    each step's two launches under the names the wrappers count them (the
+    table's body, reg_step) and adds the steps to reg.native_steps; a nonzero
+    code raises with the step the entry reports and counts nothing."""
+    from hgmm_torch.pipelines.register import scan_schedule
+
+    calls = []
+
+    class Lib:
+        code, failed_at = 0, -1
+
+        def hgmm_reg_scan(self, *args):
+            *head, schedule, steps, failed, stream = args
+            calls.append((head, list(schedule), steps, stream))
+            failed._obj.value = self.failed_at
+            return self.code
+
+        def hgmm_error_string(self, err):
+            return b"an illegal memory access was encountered"
+
+    lib = Lib()
+    _stand_in_card(monkeypatch, lib)
+    tab = _cpu_tables(gate, body, torch.zeros(3, dtype=torch.int64) if gate else None)
+    scan = fused_em.CardScan(*em_ref.new_scan(torch.eye(3), torch.zeros(3), 5, dtype=torch.float32))
+    steps = scan_schedule(5, "horn+wls", 2)
+    before = dict(launches)
+    lib.code, lib.failed_at = 700, 4
+    with tracing() as tr, span("r"):
+        with pytest.raises(RuntimeError, match="reg_scan: CUDA error 700 at step 4: an illegal memory"):
+            fused_em.reg_scan(tab, scan, steps, 1e-7)
+    assert launches == before and tr.summary()[0]["counts"] == {}
+    lib.code = 0
+    with tracing() as tr, span("r"):
+        fused_em.reg_scan(tab, scan, steps, 1e-7)
+    n = len(steps)
+    assert n == 2 + 3 * 2
+    assert tr.summary()[0]["counts"] == {f"launch.{body}": n, "launch.reg_step": n, "reg.native_steps": n}
+    assert {k: launches[k] - before[k] for k in launches if launches[k] != before[k]} == {body: n, "reg_step": n}
+    head = [tab.pts4.data_ptr(), 100, scan.state.data_ptr(), tab.wn.data_ptr(), tab.aux.data_ptr(), 8, gate, 2, 1,
+            1, -8.0, tab.rows.partial.data_ptr(), 3, None if not gate else tab.counters.data_ptr(),
+            scan.logliks.data_ptr(), scan.deltas.data_ptr(), 1e-7, 1]
+    schedule = [v for step in steps for v in (step.it, step.solver, int(step.first), int(step.last))]
+    assert calls == [(head, schedule, n, 7)] * 2
+    fused_em.reg_scan(tab, scan, (), 1e-7)  # no step: no call
+    assert len(calls) == 2
+    with pytest.raises(ValueError, match="iterations"):
+        fused_em.reg_scan(tab, scan, scan_schedule(6, "horn", 2), 1e-7)  # past the scan's 5 iterations
+
+
+@pytest.mark.parametrize("ranks", [None, 2])
+def test_the_cpu_and_a_mesh_step_from_python(monkeypatch, ranks):
+    """On the CPU and with a mesh the scan steps from Python: ops.reg_step
+    gets scan_schedule's steps one by one (on each rank), and
+    reg.native_steps stays 0 beside reg.steps."""
+    from hgmm_torch import ops
+    from hgmm_torch.parallel import EmulatedMesh, sharded_register_points
+    from hgmm_torch.pipelines.register import scan_schedule
+
+    seen = {}
+    step = ops.reg_step
+
+    def recording_step(rows, scan, it, solver, first, last, tol):
+        seen.setdefault(threading.get_ident(), []).append((it, solver, first, last))
+        return step(rows, scan, it, solver, first, last, tol)
+
+    monkeypatch.setattr(ops, "reg_step", recording_step)
+    src, tgt = _pair(600, seed=8)
+    params = Gmm.fit(tgt, k=8, n_iters=4)[0].params
+    kw = dict(n_iters=5, method="horn+wls", tol=0.0, wls_inner=3)
+    with tracing() as tr:
+        if ranks is None:
+            with span("r"):
+                register_points(src, params, **kw)
+        else:
+            sharded_register_points(src, params, EmulatedMesh(ranks, "cpu"), **kw)
+    requests = tr.summary()
+    assert len(requests) == (ranks or 1) == len(seen)
+    want = list(scan_schedule(5, "horn+wls", 3))
+    assert all(got == want for got in seen.values())
+    for r in requests:
+        assert r["counts"]["reg.steps"] == len(want) and "reg.native_steps" not in r["counts"]
 
 
 def test_count_later_reads_the_value_after_the_block():
