@@ -20,6 +20,7 @@ import torch
 from hgmm_torch.convert import to_numpy
 from hgmm_torch.models.se3 import Pose, se3_exp, se3_log
 from hgmm_torch.pipelines.pose_graph import EdgeList
+from hgmm_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass
@@ -115,7 +116,17 @@ def detect_loop_closures(
     thresholds are comparable with the chain logliks. mesh: verification fits
     and registrations run points-sharded over it (run_odometry's mesh).
     Returns an EdgeList on the poses' device, or None when nothing passed.
+
+    Traced as ``hgmm_torch.odo.closures``, each verification as
+    ``hgmm_torch.odo.closure``; counters ``closure.candidates`` (proposed),
+    ``closure.verified``, ``closure.accepted``, ``closure.registrations``
+    (forward and reciprocal) and ``closure.fits`` (frame models fitted).
     """
+    with span("hgmm_torch.odo.closures"):
+        return _detect(frames, result, odo_cfg, config, mesh, metrics)
+
+
+def _detect(frames, result, odo_cfg, config, mesh, metrics) -> EdgeList | None:
     from hgmm_torch.pipelines.odometry import _fit_frame_model, _register_to_model, frame_generator
 
     cfg = config or ClosureConfig()
@@ -124,6 +135,9 @@ def detect_loop_closures(
     # max_candidates is a verification budget: neighbourhood-redundant
     # candidates are skipped for free before the budget is charged.
     cands = propose_candidates(result.abs_poses, cfg)
+    count("closure.candidates", len(cands))
+    for name in ("closure.verified", "closure.accepted", "closure.registrations", "closure.fits"):
+        count(name, 0)  # each counter shows in a trace, at 0 where nothing ran
     if not cands:
         return None
     t_all = np.stack([to_numpy(p.t) for p in result.abs_poses])
@@ -142,6 +156,7 @@ def detect_loop_closures(
 
     def model_of(idx: int):
         if idx not in models:
+            count("closure.fits")
             models[idx] = _fit_frame_model(frames[idx], odo_cfg,
                                            frame_generator(odo_cfg.seed, idx), mesh)
         return models[idx]
@@ -167,23 +182,27 @@ def detect_loop_closures(
         if _near_used(i, j, used, cfg.min_separation):
             continue
         verified += 1
-        init = result.abs_poses[i].inverse().compose(result.abs_poses[j])
-        res = _register_to_model(model_of(i), frames[j], odo_cfg, init, mesh)
-        delta = float(res.deltas[-1])
-        ll_pp = float(res.logliks[-1]) / max(float(np.sum(frames[j][1])), 1.0)
-        ok_conv = bool(res.converged) or delta < cfg.accept_delta
-        ok_ll = (not np.isfinite(ll_ref)) or (ll_pp >= ll_ref + cfg.accept_loglik_margin)
-        pose, ok_recip, recip_d = res.pose, True, None
-        if ok_conv and ok_ll and cfg.reciprocal_tol is not None:
-            rev = _register_to_model(model_of(j), frames[i], odo_cfg, init.inverse(), mesh)
-            ok_recip, pose, recip_d = reciprocal_check(res.pose, rev.pose,
-                                                       cfg.reciprocal_tol * med_step)
-            ok_recip = ok_recip and (bool(rev.converged) or float(rev.deltas[-1]) < cfg.accept_delta)
-        accepted_flag = bool(ok_conv and ok_ll and ok_recip)
-        if metrics is not None:
-            metrics.log({"event": "loop_closure_candidate", "i": i, "j": j,
-                         "accepted": accepted_flag, "loglik_pp": ll_pp, "loglik_ref": ll_ref,
-                         "delta": delta, "reciprocal_disagreement": recip_d})
+        count("closure.verified")
+        with span("hgmm_torch.odo.closure"):
+            init = result.abs_poses[i].inverse().compose(result.abs_poses[j])
+            res = _register_to_model(model_of(i), frames[j], odo_cfg, init, mesh)
+            count("closure.registrations")
+            delta = float(res.deltas[-1])
+            ll_pp = float(res.logliks[-1]) / max(float(np.sum(frames[j][1])), 1.0)
+            ok_conv = bool(res.converged) or delta < cfg.accept_delta
+            ok_ll = (not np.isfinite(ll_ref)) or (ll_pp >= ll_ref + cfg.accept_loglik_margin)
+            pose, ok_recip, recip_d = res.pose, True, None
+            if ok_conv and ok_ll and cfg.reciprocal_tol is not None:
+                rev = _register_to_model(model_of(j), frames[i], odo_cfg, init.inverse(), mesh)
+                count("closure.registrations")
+                ok_recip, pose, recip_d = reciprocal_check(res.pose, rev.pose,
+                                                           cfg.reciprocal_tol * med_step)
+                ok_recip = ok_recip and (bool(rev.converged) or float(rev.deltas[-1]) < cfg.accept_delta)
+            accepted_flag = bool(ok_conv and ok_ll and ok_recip)
+            if metrics is not None:
+                metrics.log({"event": "loop_closure_candidate", "i": i, "j": j,
+                             "accepted": accepted_flag, "loglik_pp": ll_pp, "loglik_ref": ll_ref,
+                             "delta": delta, "reciprocal_disagreement": recip_d})
         if not accepted_flag:
             continue
         # Log-likelihood-derived weight: at-or-above chain quality earns the
@@ -191,13 +210,14 @@ def detect_loop_closures(
         # overlaps.
         rel_q = 0.0 if not np.isfinite(ll_ref) else min(ll_pp - ll_ref, 0.0)
         accepted.append((i, j, pose, cfg.weight_scale * float(np.exp(max(rel_q, -3.0)))))
+        count("closure.accepted")
         used.update((i, j))
     if budget_skipped:
         warnings.warn(
             f"detect_loop_closures: verification budget (max_candidates={cfg.max_candidates}) "
             f"left {budget_skipped} distinct candidate neighborhoods unverified — raise "
             f"ClosureConfig.max_candidates to cover more revisits",
-            stacklevel=2,
+            stacklevel=3,
         )
     if not accepted:
         return None

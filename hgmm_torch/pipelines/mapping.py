@@ -20,6 +20,7 @@ import torch
 from hgmm_torch.convert import to_numpy
 from hgmm_torch.models.gmm_tree import GmmTree
 from hgmm_torch.models.se3 import Pose
+from hgmm_torch.utils.profiling import count, span
 
 
 def _to_bucket(points, bucket, rng, weights=None, device=None):
@@ -100,20 +101,35 @@ def build_map(frames, poses, config: MapConfig | None = None, mesh=None) -> GmmT
     """Fit the global GMM-tree map to the fused world cloud, on the poses'
     device. mesh: the fit runs points-sharded over it
     (parallel.sharded_tree_fit, the config-5 program: at KITTI scale the fused
-    cloud is the 10M+-point workload of BASELINE.json:11)."""
-    cfg = config or MapConfig()
-    fused = fuse_frames(frames, poses, voxel=cfg.voxel)
-    pts, weights = _to_bucket(fused, cfg.bucket, np.random.default_rng(cfg.seed),
-                              device=poses[0].R.device)
-    generator = torch.Generator().manual_seed(cfg.seed)
-    if mesh is not None:
-        from hgmm_torch.parallel import sharded_tree_fit
+    cloud is the 10M+-point workload of BASELINE.json:11).
 
-        return sharded_tree_fit(pts, mesh, branch=cfg.branch, levels=cfg.levels,
-                                em_iters=cfg.em_iters, generator=generator, point_weights=weights)
-    tree, _ = GmmTree.fit(pts, branch=cfg.branch, levels=cfg.levels, em_iters=cfg.em_iters,
-                          generator=generator, point_weights=weights)
-    return tree
+    Traced as ``hgmm_torch.map``, holding ``hgmm_torch.map.fuse`` (the fused,
+    voxelized cloud put in its bucket on the device) and ``hgmm_torch.map.fit``;
+    counters ``map.fused_points`` (the cloud offered to the bucket) and
+    ``map.dropped_points`` (subsampled away by it)."""
+    cfg = config or MapConfig()
+    with span("hgmm_torch.map"):
+        with span("hgmm_torch.map.fuse"):
+            fused = fuse_frames(frames, poses, voxel=cfg.voxel)
+            _count_bucket(fused.shape[0], cfg.bucket)
+            pts, weights = _to_bucket(fused, cfg.bucket, np.random.default_rng(cfg.seed),
+                                      device=poses[0].R.device)
+        generator = torch.Generator().manual_seed(cfg.seed)
+        with span("hgmm_torch.map.fit"):
+            if mesh is not None:
+                from hgmm_torch.parallel import sharded_tree_fit
+
+                return sharded_tree_fit(pts, mesh, branch=cfg.branch, levels=cfg.levels,
+                                        em_iters=cfg.em_iters, generator=generator,
+                                        point_weights=weights)
+            tree, _ = GmmTree.fit(pts, branch=cfg.branch, levels=cfg.levels, em_iters=cfg.em_iters,
+                                  generator=generator, point_weights=weights)
+            return tree
+
+
+def _count_bucket(n: int, bucket: int) -> None:
+    count("map.fused_points", n)
+    count("map.dropped_points", max(n - bucket, 0))
 
 
 def localize(
@@ -185,30 +201,34 @@ def update_map(
     level 0 (GmmTree.fit(init0=...)), on the map's device; with a mesh the
     refit runs points-sharded (parallel.sharded_tree_fit)."""
     cfg = config or MapConfig()
-    fused_new = fuse_frames(frames, poses, voxel=cfg.voxel)
-    n_new = fused_new.shape[0]
-    if carry_points is None:
-        carry_points = min(n_new, cfg.bucket // 2)
-    old_pts = sample_mixture(map_tree.leaf_mixture(), carry_points, seed=cfg.seed + 1)
-    pts = np.concatenate([fused_new, old_pts])
-    # Old evidence mass = old_new_ratio x new mass, whatever the sample counts.
-    w = np.concatenate([
-        np.ones(n_new, np.float32),
-        np.full(carry_points, old_new_ratio * n_new / max(carry_points, 1), np.float32),
-    ])
-    init0 = map_tree.levels[0]
-    pts_t, w_t = _to_bucket(pts, cfg.bucket, np.random.default_rng(cfg.seed), weights=w,
-                            device=init0.mu.device)
-    if int(init0.pi.shape[0]) != cfg.branch:
-        raise ValueError(
-            f"map branch {init0.pi.shape[0]} != MapConfig.branch {cfg.branch}: the warm "
-            f"start must match the tree layout"
-        )
-    if mesh is not None:
-        from hgmm_torch.parallel import sharded_tree_fit
+    with span("hgmm_torch.map"):
+        with span("hgmm_torch.map.fuse"):
+            fused_new = fuse_frames(frames, poses, voxel=cfg.voxel)
+            n_new = fused_new.shape[0]
+            if carry_points is None:
+                carry_points = min(n_new, cfg.bucket // 2)
+            old_pts = sample_mixture(map_tree.leaf_mixture(), carry_points, seed=cfg.seed + 1)
+            pts = np.concatenate([fused_new, old_pts])
+            # Old evidence mass = old_new_ratio x new mass, whatever the sample counts.
+            w = np.concatenate([
+                np.ones(n_new, np.float32),
+                np.full(carry_points, old_new_ratio * n_new / max(carry_points, 1), np.float32),
+            ])
+            init0 = map_tree.levels[0]
+            _count_bucket(pts.shape[0], cfg.bucket)
+            pts_t, w_t = _to_bucket(pts, cfg.bucket, np.random.default_rng(cfg.seed), weights=w,
+                                    device=init0.mu.device)
+        if int(init0.pi.shape[0]) != cfg.branch:
+            raise ValueError(
+                f"map branch {init0.pi.shape[0]} != MapConfig.branch {cfg.branch}: the warm "
+                f"start must match the tree layout"
+            )
+        with span("hgmm_torch.map.fit"):
+            if mesh is not None:
+                from hgmm_torch.parallel import sharded_tree_fit
 
-        return sharded_tree_fit(pts_t, mesh, branch=cfg.branch, levels=cfg.levels,
-                                em_iters=cfg.em_iters, point_weights=w_t, init0=init0)
-    tree, _ = GmmTree.fit(pts_t, branch=cfg.branch, levels=cfg.levels, em_iters=cfg.em_iters,
-                          point_weights=w_t, init0=init0)
-    return tree
+                return sharded_tree_fit(pts_t, mesh, branch=cfg.branch, levels=cfg.levels,
+                                        em_iters=cfg.em_iters, point_weights=w_t, init0=init0)
+            tree, _ = GmmTree.fit(pts_t, branch=cfg.branch, levels=cfg.levels, em_iters=cfg.em_iters,
+                                  point_weights=w_t, init0=init0)
+            return tree

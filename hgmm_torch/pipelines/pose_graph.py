@@ -20,6 +20,7 @@ from torch.func import jacfwd, vmap
 
 from hgmm_torch.models.se3 import Pose, se3_exp, se3_log
 from hgmm_torch.parallel.mesh import per_rank
+from hgmm_torch.utils.profiling import count, span
 
 
 class EdgeList(NamedTuple):
@@ -110,7 +111,16 @@ def refine_pose_graph(
 
     Edge endpoints are validated first: an out-of-range index raises
     ValueError (the JAX package's eager check; a gather on the card would
-    fault instead)."""
+    fault instead). Traced as ``hgmm_torch.pg.refine``, with the counters
+    ``pg.iters`` and ``pg.edges``."""
+    with span("hgmm_torch.pg.refine"):
+        count("pg.iters", n_iters)
+        count("pg.edges", int(edges.i.numel()))
+        return _refine_dense(R, t, edges, n_iters, damping, gauge_weight, robust_delta)
+
+
+def _refine_dense(R, t, edges: EdgeList, n_iters: int, damping: float, gauge_weight: float,
+                  robust_delta: float | None) -> PoseGraphResult:
     m = int(R.shape[0])
     idx = torch.cat([edges.i, edges.j]).cpu()
     bad = idx[(idx < 0) | (idx >= m)]
@@ -309,8 +319,18 @@ def refine_chain_sharded(
     placement and float rounding.
 
     Falls back to the dense solver when the chain is too short to shard
-    (M - 1 < S). Closure endpoints out of range raise ValueError.
+    (M - 1 < S). Closure endpoints out of range raise ValueError. Traced as
+    refine_pose_graph is: ``hgmm_torch.pg.refine``, ``pg.iters``, ``pg.edges``.
     """
+    with span("hgmm_torch.pg.refine"):
+        count("pg.iters", n_iters)
+        count("pg.edges", int(R.shape[0]) - 1 + (0 if closures is None else int(closures.i.numel())))
+        return _refine_chain(R, t, edge_R, edge_t, mesh, n_iters, damping, gauge_weight, edge_weight,
+                             closures, robust_delta)
+
+
+def _refine_chain(R, t, edge_R, edge_t, mesh, n_iters, damping, gauge_weight, edge_weight, closures,
+                  robust_delta) -> PoseGraphResult:
     s, rank = mesh.size, mesh.rank
     m = int(R.shape[0])
     dev, dtype = R.device, R.dtype
@@ -330,13 +350,12 @@ def refine_chain_sharded(
         if m > 512:
             warnings.warn(
                 f"refine_chain_sharded: cannot shard a {m}-node chain over {s} ranks (m - 1 < "
-                f"ranks); falling back to the dense O(M^3) solver", stacklevel=2)
+                f"ranks); falling back to the dense O(M^3) solver", stacklevel=3)
         edges = EdgeList(torch.arange(m - 1, device=dev), torch.arange(1, m, device=dev), edge_R,
                          edge_t, edge_weight)
         if closures is not None:
             edges = concat_edge_lists(edges, closures)
-        return refine_pose_graph(R, t, edges, n_iters=n_iters, damping=damping,
-                                 gauge_weight=gauge_weight, robust_delta=robust_delta)
+        return _refine_dense(R, t, edges, n_iters, damping, gauge_weight, robust_delta)
 
     seg = _chain_segmentation(m, s, ci + cj)
     l1, p_ret, n_int, g = seg["l_seg"] + 1, seg["p_ret"], seg["n_int"], seg["g_tot"]

@@ -6,8 +6,10 @@ of ``jax.profiler``.
 
 Spans and counters. The program marks its phases with ``span(name)`` (the
 names are ``hgmm_torch.fit``, ``.fit.init``, ``.fit.sweeps``, ``.fit.group``,
-``hgmm_torch.reg``, ``.reg.cut``, ``.reg.prep``, ``.reg.scan`` and
-``hgmm_torch.odo.frames``, ``.odo.pair``, ``.odo.upload``) and counts with
+``hgmm_torch.reg``, ``.reg.cut``, ``.reg.prep``, ``.reg.scan``,
+``hgmm_torch.odo.frames``, ``.odo.pair``, ``.odo.upload``, the back end's
+``hgmm_torch.odo.closures``, ``.odo.closure``, ``hgmm_torch.pg.refine``,
+``hgmm_torch.map``, ``.map.fuse`` and ``.map.fit``) and counts with
 ``count(name, n)``. Off, a span is one shared object that does nothing.
 Under a running ``torch.profiler`` a span is also a ``record_function``, so
 it shows in the Chrome trace as a ``user_annotation`` on the device events'

@@ -512,3 +512,104 @@ def test_twin_step_adds_a_live_step_only_while_not_done():
     assert float(scan.state[em_ref.SCAN_LIVE]) == 3.0 and bool(scan.done)
     em_ref.reg_step(torch.zeros((1, em_ref.REG_OUT)), scan, 2, 0, True, True, 1.0)
     assert float(scan.state[em_ref.SCAN_LIVE]) == 3.0
+
+
+# (g) the SLAM back end: closures, the pose graph, the map
+
+
+def _loop_scans(n_frames=12, n=900):
+    """A scene seen from n_frames poses that come back to the start: every
+    pair j - i > 5 lies near enough to be a closure candidate."""
+    scene = make_cloud_np(n, "trefoil", seed=1)
+    out = []
+    for k in range(n_frames):
+        a = 0.03 * np.sin(2 * np.pi * k / 6)
+        R = so3_exp(torch.tensor([0.0, 0.0, a])).numpy()
+        t = np.float32([0.02 * np.cos(2 * np.pi * k / 6), 0.0, 0.0])
+        out.append((scene @ R.T + t).astype(np.float32))
+    return out
+
+
+def _back_end(scans, n_iters=3):
+    from hgmm_torch.pipelines.loop_closure import ClosureConfig
+    from hgmm_torch.pipelines.mapping import MapConfig, build_map
+    from hgmm_torch.pipelines.odometry import refine_odometry
+
+    cfg = OdometryConfig(k=8, branch=2, levels=2, fit_iters=2, reg_iters=3, bucket=512, device="cpu")
+    res = run_odometry(scans, cfg, detect_closures=True,
+                       closure_config=ClosureConfig(radius_steps=100.0, max_candidates=2))
+    refined = refine_odometry(res, n_iters=n_iters)
+    tree = build_map(scans, refined.poses(), MapConfig(branch=2, levels=2, em_iters=2, voxel=0.0,
+                                                        bucket=4096))
+    return res, refined, tree
+
+
+def _names(tree):
+    name, children = tree
+    return name, [c[0] for c in children]
+
+
+def test_back_end_spans_nest_and_count():
+    scans = _loop_scans()
+    with pytest.warns(UserWarning, match="verification budget"):
+        with tracing() as tr:
+            res, _, _ = _back_end(scans)
+    requests = tr.summary()
+    by_name = {r["name"]: (i, r) for i, r in enumerate(requests)}
+    i, closures = by_name["hgmm_torch.odo.closures"]
+    top, children = _names(_tree(tr, i))
+    assert top == "hgmm_torch.odo.closures" and children == ["hgmm_torch.odo.closure"] * 2
+    for name, kids in _tree(tr, i)[1]:  # a verification: its frames' fits and registrations
+        work = [k[0] for k in kids if k[0] != "hgmm_torch.odo.upload"]
+        assert work[:2] == ["hgmm_torch.fit", "hgmm_torch.reg"]
+    c = closures["counts"]
+    accepted = 0 if res.closures is None else int(res.closures.i.numel())
+    assert c["closure.verified"] == 2 and c["closure.accepted"] == accepted
+    assert c["closure.candidates"] >= c["closure.verified"]
+    assert c["closure.verified"] <= c["closure.registrations"] <= 2 * c["closure.verified"]
+    assert 1 <= c["closure.fits"] <= c["closure.registrations"]
+    assert closures["spans"]["hgmm_torch.fit"] == c["closure.fits"]
+    i, refine = by_name["hgmm_torch.pg.refine"]
+    assert _tree(tr, i) == _leaf("hgmm_torch.pg.refine")
+    assert refine["counts"] == {"pg.iters": 3, "pg.edges": len(scans) - 1 + accepted}
+    i, mapped = by_name["hgmm_torch.map"]
+    fit2 = (FIT_TREE3[0], FIT_TREE3[1][:4])  # a two-level tree
+    assert _tree(tr, i) == ("hgmm_torch.map", [_leaf("hgmm_torch.map.fuse"), ("hgmm_torch.map.fit", [fit2])])
+    fused = len(scans) * 900
+    assert mapped["counts"] == {"map.fused_points": fused, "map.dropped_points": fused - 4096}
+
+
+def test_update_map_and_the_sharded_refine_trace_as_the_dense():
+    from hgmm_torch.parallel import EmulatedMesh
+    from hgmm_torch.pipelines.mapping import MapConfig, build_map, update_map
+    from hgmm_torch.pipelines.pose_graph import odometry_chain_edges, refine_chain_sharded
+
+    scans = _loop_scans(n_frames=4)
+    cfg = MapConfig(branch=2, levels=2, em_iters=2, voxel=0.0, bucket=4096)
+    poses = [Pose.identity(device="cpu")] * 4
+    tree = build_map(scans[:2], poses[:2], cfg)
+    rel = [Pose(so3_exp(torch.tensor([0.0, 0.0, 0.01 * k])), torch.tensor([0.1, 0.0, 0.0])) for k in range(5)]
+    edges = odometry_chain_edges(rel)
+    R, t = torch.eye(3).expand(6, 3, 3).clone(), torch.zeros(6, 3)
+    with tracing() as tr:
+        update_map(tree, scans[2:], poses[2:], cfg)
+        refine_chain_sharded(R, t, edges.R, edges.t, EmulatedMesh(2, "cpu"), n_iters=2)
+    requests = tr.summary()
+    assert requests[0]["name"] == "hgmm_torch.map"
+    assert _names(_tree(tr, 0)) == ("hgmm_torch.map", ["hgmm_torch.map.fuse", "hgmm_torch.map.fit"])
+    assert requests[0]["counts"] == {"map.fused_points": 2 * 1800, "map.dropped_points": 0}  # new + carried
+    refines = [r for r in requests if r["name"] == "hgmm_torch.pg.refine"]
+    assert len(refines) == 2  # one a rank
+    assert all(r["counts"] == {"pg.iters": 2, "pg.edges": 5} and r["spans"] == {"hgmm_torch.pg.refine": 1}
+               for r in refines)
+
+
+def test_back_end_records_nothing_with_no_tracer(record_calls, monkeypatch):
+    def recorded(*a, **k):
+        raise AssertionError("a span was recorded with no tracer on")
+
+    monkeypatch.setattr(profiling.Tracer, "_open", recorded)
+    monkeypatch.setattr(profiling.Tracer, "_count", recorded)
+    with pytest.warns(UserWarning, match="verification budget"):
+        _back_end(_loop_scans())
+    assert profiling.tracer is None and record_calls.calls == 0
