@@ -175,6 +175,7 @@ eager calls' beside it), the last line {"ok": true, "device": ...}. Any failure 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
@@ -224,13 +225,15 @@ PATH_KERNELS = {"register_pair": TREE_PATH, "cli_icp": ("knn",),
                                          "reg_step", "reg_tables") for t in (64, 128)}}
 SOURCES = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu", "em_stats_masked_wide": "em_stats.cu",
            "em_step": "em_step.cu", "assign": "assign.cu",
-           "reg_stats": "reg_stats.cu", "reg_stats_top_k": "reg_stats.cu", "reg_stats_select": "reg_stats.cu",
+           "reg_stats": "reg_stats.cu", "reg_stats_tiled": "reg_stats.cu", "reg_stats_top_k": "reg_stats.cu",
+           "reg_stats_select": "reg_stats.cu",
            "reg_step": "reg_step.cu",
            "reg_tables": "reg_tables.cu", "knn": "knn.cu",
            **{name: "probes.cu" for name in PROBES}}
 REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops/fused_em.py:559",
             "em_stats_masked_wide": "hgmm/ops/fused_em.py:559",
             "assign": "hgmm/ops/fused_em.py:859", "reg_stats": "hgmm/ops/fused_em.py:920",
+            "reg_stats_tiled": "hgmm/ops/fused_em.py:920",
             "reg_stats_top_k": "hgmm/ops/fused_em.py:920", "reg_stats_select": "hgmm/ops/fused_em.py:920",
             # no TPU kernel: the XLA ops of the reference's scan steps
             "reg_step": "hgmm/pipelines/register.py:80", "em_step": "hgmm/models/gmm.py:121",
@@ -786,7 +789,8 @@ def check_reg_top_k(torch, pts, w, W, mu, A6, b3, pose, top_k, outlier, errs, ma
     w = (torch.ones_like(pts[:, 0]) if w is None else w) * (~near)
     got = fused_em.reg_stats(prepare(pts, w).pts4, W, mu, A6, b3, pose, top_k, outlier)
     ref = em_ref.reg_stats(pts, W, mu, A6, b3, pose, w, top_k, outlier)
-    name = fused_em.reg_stats_body(fused_em._top_k(top_k, W.shape[1]))
+    plan = fused_em.plan_reg_stats(pts.shape[0], W.shape[1], top_k, fused_em._build.sms(pts.device))
+    name = fused_em.reg_stats_body(fused_em._top_k(top_k, W.shape[1]), plan)
     check_reg(torch, got, ref, int((w > 0).sum()), errs, name)
     return share
 
@@ -1226,6 +1230,9 @@ def main_path(torch, dev):
 
 
 def require_launched(counts, path):
+    """Every kernel of the path launched; the ungated reg_stats counts under
+    reg_stats or reg_stats_tiled, as its plan picks by N."""
+    counts = {**counts, "reg_stats": counts["reg_stats"] + counts["reg_stats_tiled"]}
     missing = [name for name in PATH_KERNELS[path] if counts[name] == 0]
     if missing:
         raise CheckFailed(f"{path}: kernels never launched: {missing}")
@@ -1245,7 +1252,7 @@ def add_bound(name, entry) -> None:
         kb = kernel_bound(name, n=entry["n"], k=entry["k"], top_k=entry["top_k"])
     elif name == "assign":
         kb = kernel_bound(name, n=entry["n"], k=entry["k"], branch=8 if entry["masked"] else None)
-    elif name in ("reg_stats", "reg_stats_top_k"):
+    elif name in ("reg_stats", "reg_stats_tiled", "reg_stats_top_k"):
         kb = kernel_bound("reg_stats", n=entry["n"], k=entry["k"], top_k=entry.get("top_k"))
     elif name == "reg_step":
         kb = kernel_bound(name, nb=entry["nb"])
@@ -1591,21 +1598,28 @@ def slice_checks(torch, dev, errs):
                                   tree.cut_mixture(kw["complexity_threshold"]))):
         W, mu, A6, b3 = model_terms(params)
         k = W.shape[1]
-        check_reg(torch, fused_em.reg_stats(src.pts4, W, mu, A6, b3, pose),
-                  em_ref.reg_stats(source, W, mu, A6, b3, pose), n, errs)
         # "ms": the launch a scan makes each step (tables built once);
         # "wrapper_ms": the standalone call, tables and the reduction included.
         tab = fused_em.reg_tables(src.pts4, W, mu, A6, b3)
+        check_reg(torch, fused_em.reg_stats(src.pts4, W, mu, A6, b3, pose),
+                  em_ref.reg_stats(source, W, mu, A6, b3, pose), n, errs, tab.body)
         reg_tables_check(torch, params, fused_em.reg_tables_of(src.pts4, params), errs)
         # "ms": a level's tables by the kernel; "plain_ms": the torch ops it
         # replaced on the card (model_terms, pack_table and the cat).
         record("reg_tables", k, lambda: fused_em.reg_tables_of(src.pts4, params),
                lambda: fused_em.reg_tables(src.pts4, *model_terms(params)), headline=lvl == 2)
         pose12 = torch.cat([pose[0].reshape(9), pose[1]]).contiguous()
-        record("reg_stats", k, lambda: fused_em.reg_partials(tab, pose12),
+        record(tab.body, k, lambda: fused_em.reg_partials(tab, pose12),
                lambda: em_ref.reg_stats(source, W, mu, A6, b3, pose), headline=lvl == 2,
                wrapper_ms=cuda_ms(torch, lambda: fused_em.reg_stats(src.pts4, W, mu, A6, b3, pose)),
-               lanes=tab.plan.lanes, blocks=tab.plan.blocks)
+               lanes=tab.plan.lanes, points=tab.plan.points, blocks=tab.plan.blocks)
+        if tab.body != "reg_stats":  # the one-point lanes body beside the tiled one
+            nb = min(-(-n // fused_em.RS_THREADS), fused_em.RS_BLOCKS_PER_SM * fused_em._build.sms(dev))
+            one = dataclasses.replace(tab, plan=fused_em.RegPlan(lanes=1, blocks=nb, kmax=0), body="reg_stats",
+                                      rows=fused_em.reg_rows(torch.empty((nb, 59), dtype=torch.float32, device=dev)))
+            record("reg_stats", k, lambda: fused_em.reg_partials(one, pose12),
+                   lambda: em_ref.reg_stats(source, W, mu, A6, b3, pose), headline=lvl == 2,
+                   lanes=1, points=1, blocks=one.plan.blocks)
     # reg_step on the leaves' partials at the final pose, as the main path's
     # last level launches it (a WLS step; tol 0 never sets done).
     scan = fused_em.new_scan(tab, pose[0], pose[1], 1)

@@ -19,9 +19,9 @@
 //
 // What bounds it on the card: at K = 512 arithmetic (10 FMA for a logit, one
 // exp2 and 13 FMA a point and component), at K = 8 the 16 bytes a point and
-// the launch. Two bodies, chosen in Python (ops/fused_em.py:plan_reg_stats):
+// the launch. Three bodies, chosen in Python (ops/fused_em.py:plan_reg_stats):
 //
-// reg_stats_lanes_kernel<L> (no top_k): L lanes of a warp share a point and
+// reg_stats_lanes_kernel<L, 1> (no top_k): L lanes of a warp share a point and
 //   split its K components (lane l takes j = l, l + L, ...), so a call at the
 //   odometry bucket (N = 16,384) runs L times as many threads as points and
 //   fills the card; L is 1 where the points alone fill it. Each logit is
@@ -30,6 +30,29 @@
 //   to m, rescaled by exp2(m_old - m_new) once a chunk (an online softmax).
 //   The L lanes then merge (m, s, red) by xor shuffles in a fixed order; lane
 //   0 of the group adds the outlier term and the point's statistics.
+//
+// reg_stats_lanes_kernel<1, TP> (no top_k, TP = 4: the tiled body, where
+//   the points fill the card several times over). At one lane a point the
+//   body runs, for each point and component, six broadcast LDS.128 (the
+//   weight row for the logit, the aux row for the sums) beside its ~23 FMA,
+//   the exp2f's range fix-up, the j < k test and the loop's bookkeeping:
+//   it is bound by the instructions a scheduler can start, not by the
+//   float32 pipe the roofline counts. The tile holds TP of the thread's grid-stride points in
+//   registers (psi, m, s, red: 23 floats each; x is read again and y is
+//   psi's linear part at the end), so each row read from shared memory once
+//   a chunk feeds TP points and the loop's bookkeeping is paid once for TP;
+//   the TP chains are independent, which hides the FMA and LDS latencies at
+//   one block an SM. The tables are padded in shared memory to a multiple of
+//   RS_CHUNK rows with inert rows (logit -inf, aux 0: e = 0), so the inner
+//   loop has no j < k test, and a chunk's exp2 and its rescale are one
+//   MUFU.EX2 each (exp2_ftz). Each point's arithmetic is otherwise the
+//   one-lane body's, in its order, and a thread adds its points in the same
+//   order, so on the same grid the partials are the one-lane body's, bit for
+//   bit (tests/test_torch_kernels.py; exp2_ftz differs only where a term is
+//   below 2^-126 of the point's largest). SASS instructions a point and
+//   component in the chunk loop (cuobjdump, sm_90a): 46.3 at one point a
+//   thread (370 for a chunk of 8), 32.9 at 4 (1,053 for 8 components of 4
+//   points), against the 22.5 FMA the roofline counts.
 //
 // reg_stats_top_k_kernel<KMAX, C> (top_k gating, em_ref.top_k_mask_logits):
 //   one thread a point, its K components in chunks of C consecutive ones (C
@@ -91,18 +114,21 @@ constexpr int RS_WARPS = RS_THREADS / 32;
 constexpr int RS_CHUNK = 8;  // components of a lane between two rescales
 
 // Load the weight and aux tables ([K, 12] each, three float4 a row) into
-// shared memory.
+// shared memory as kp >= k rows: rows k..kp-1 are inert, zero weights and a
+// bias of -inf (logit -inf, so e = 0), aux 0.
 __device__ __forceinline__ void load_tables(float4* w4, float4* a4, const float* wn, const float* aux,
-                                            int k) {
-  for (int idx = threadIdx.x; idx < 3 * k; idx += RS_THREADS) {
-    w4[idx] = reinterpret_cast<const float4*>(wn)[idx];
-    a4[idx] = reinterpret_cast<const float4*>(aux)[idx];
+                                            int k, int kp) {
+  for (int idx = threadIdx.x; idx < 3 * kp; idx += RS_THREADS) {
+    const bool real = idx < 3 * k;
+    w4[idx] = real ? reinterpret_cast<const float4*>(wn)[idx]
+                   : make_float4(0.0f, idx % 3 == 2 ? -INFINITY : 0.0f, 0.0f, 0.0f);  // bias c.y
+    a4[idx] = real ? reinterpret_cast<const float4*>(aux)[idx] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 
-// red += e [mu_j | A6_j | b3_j]
-__device__ __forceinline__ void add_aux(float (&red)[12], float e, const float4* a4, int j) {
-  const float4 a = a4[3 * j], b = a4[3 * j + 1], c = a4[3 * j + 2];
+// red += e [mu_j | A6_j | b3_j] from row j of aux as three float4 (a, b, c).
+__device__ __forceinline__ void add_aux3(float (&red)[12], float e, const float4 a, const float4 b,
+                                         const float4 c) {
   red[0] = fmaf(e, a.x, red[0]);
   red[1] = fmaf(e, a.y, red[1]);
   red[2] = fmaf(e, a.z, red[2]);
@@ -115,6 +141,11 @@ __device__ __forceinline__ void add_aux(float (&red)[12], float e, const float4*
   red[9] = fmaf(e, c.y, red[9]);
   red[10] = fmaf(e, c.z, red[10]);
   red[11] = fmaf(e, c.w, red[11]);
+}
+
+// The same with the row in shared memory.
+__device__ __forceinline__ void add_aux(float (&red)[12], float e, const float4* a4, int j) {
+  add_aux3(red, e, a4[3 * j], a4[3 * j + 1], a4[3 * j + 2]);
 }
 
 // A point's statistics from its contraction red, Gaussian sum s and softmax
@@ -200,18 +231,157 @@ __device__ __forceinline__ float rescale(float a, float m) {
   return a == m ? 1.0f : exp2f((a - m) * LOG2E);
 }
 
-template <int L>
-__global__ void __launch_bounds__(RS_THREADS)
+// exp2(x) by the SFU alone (one MUFU.EX2): a result below 2^-126 is 0, where
+// exp2f's range fix-up (a compare and two FMUL) keeps it subnormal. Next to
+// the point's largest term, 1, such a term adds nothing.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// rescale() with exp2_ftz.
+__device__ __forceinline__ float rescale_ftz(float a, float m) {
+  return a == m ? 1.0f : exp2_ftz((a - m) * LOG2E);
+}
+
+// The tiled body's table rows: K rounded up to RS_CHUNK.
+__host__ __device__ constexpr int tiled_rows(int k) { return (k + RS_CHUNK - 1) / RS_CHUNK * RS_CHUNK; }
+
+// Q points of one thread, i, i + stride, ..., i + (Q - 1) stride, all < n,
+// through the component loop together: each weight and aux row read from
+// shared memory once a chunk feeds Q points, whose psi, m, s and red stay in
+// registers. Each point's arithmetic is the lanes body's at one lane, in its
+// order (the logits of a chunk, its max, one rescale, then the chunk's exp2
+// and sums; the outlier term, finish_soft, add_point), with exp2_ftz for the
+// chunk's terms and rescale, and the points are added to acc in the
+// thread's order.
+template <int Q>
+__device__ __forceinline__ void reg_tile(float (&acc)[NACC], const float* __restrict__ pts4, int n, long long i,
+                                         long long stride, const float* pose, const float4* w4, const float4* a4,
+                                         int kp, int has_outlier, float outlier) {
+  Psi p[Q];
+  float m[Q], s[Q], red[Q][12];
+#pragma unroll
+  for (int u = 0; u < Q; ++u) {
+    const long long iu = i + u * stride;
+    const float x0 = pts4[iu], x1 = pts4[(size_t)n + iu], x2 = pts4[2 * (size_t)n + iu];
+    p[u] = features(fmaf(pose[0], x0, fmaf(pose[1], x1, fmaf(pose[2], x2, pose[9]))),
+                    fmaf(pose[3], x0, fmaf(pose[4], x1, fmaf(pose[5], x2, pose[10]))),
+                    fmaf(pose[6], x0, fmaf(pose[7], x1, fmaf(pose[8], x2, pose[11]))));
+    m[u] = -INFINITY;
+    s[u] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 12; ++c) red[u][c] = 0.0f;
+  }
+  for (int j0 = 0; j0 < kp; j0 += RS_CHUNK) {
+    float l[Q][RS_CHUNK], mc[Q];
+#pragma unroll
+    for (int u = 0; u < Q; ++u) mc[u] = m[u];
+#pragma unroll
+    for (int q = 0; q < RS_CHUNK; ++q) {
+      const float4* w = w4 + 3 * (j0 + q);
+      const float4 a = w[0], b = w[1], c = w[2];
+#pragma unroll
+      for (int u = 0; u < Q; ++u) {
+        l[u][q] = logit3(a, b, c, p[u]);
+        mc[u] = fmaxf(mc[u], l[u][q]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < Q; ++u) {
+      const float f = rescale_ftz(m[u], mc[u]);
+      s[u] = __fmul_rn(s[u], f);  // rounded apart, as the one-lane body's: no FMA with the chunk's first term
+#pragma unroll
+      for (int c = 0; c < 12; ++c) red[u][c] *= f;
+      m[u] = mc[u];
+    }
+#pragma unroll
+    for (int q = 0; q < RS_CHUNK; ++q) {
+      const float4* x = a4 + 3 * (j0 + q);
+      const float4 a = x[0], b = x[1], c = x[2];
+#pragma unroll
+      for (int u = 0; u < Q; ++u) {
+        const float e = exp2_ftz((l[u][q] - m[u]) * LOG2E);
+        s[u] += e;
+        add_aux3(red[u], e, a, b, c);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < Q; ++u) {
+    const long long iu = i + u * stride;
+    if (has_outlier && outlier > m[u]) {
+      const float f = rescale(m[u], outlier);
+      s[u] *= f;
+#pragma unroll
+      for (int c = 0; c < 12; ++c) red[u][c] *= f;
+      m[u] = outlier;
+    }
+    const Soft r = finish_soft(m[u], fmaxf(m[u], NEG_INF) * LOG2E, s[u], has_outlier, outlier,
+                               pts4[3 * (size_t)n + iu]);
+    acc[NACC - 1] += r.lse;
+    if (r.scale == 0.0f) continue;  // dead or zero-weight: no statistics
+    // x read again; y is psi's linear part.
+    add_point(acc, pts4[iu], pts4[(size_t)n + iu], pts4[2 * (size_t)n + iu], p[u].v[6], p[u].v[7], p[u].v[8],
+              red[u], s[u], r.scale);
+  }
+}
+
+// The lanes body at one lane and TP > 1 points a thread: a thread takes its
+// grid-stride points (i = block RS_THREADS + thread, then + stride) in
+// order, TP at a time while TP remain, then 2 (TP = 4) and 1 at a time.
+template <int TP>
+__device__ __forceinline__ void reg_stats_tiled(const float* __restrict__ pts4, int n,
+                                                const float* __restrict__ pose12, const float* __restrict__ wn,
+                                                const float* __restrict__ aux, int k, int has_outlier,
+                                                float outlier, float* __restrict__ partial, float4* smem4) {
+  __shared__ float pose[12];  // read a point at a time: registers for the tile
+  const int kp = tiled_rows(k);  // no j < k test in the component loop
+  float4* w4 = smem4;
+  float4* a4 = w4 + 3 * kp;
+  float* red_s = reinterpret_cast<float*>(a4 + 3 * kp);
+  load_tables(w4, a4, wn, aux, k, kp);
+  if (threadIdx.x < 12) pose[threadIdx.x] = pose12[threadIdx.x];
+  float acc[NACC];
+#pragma unroll
+  for (int c = 0; c < NACC; ++c) acc[c] = 0.0f;
+  __syncthreads();
+
+  const long long stride = (long long)gridDim.x * RS_THREADS;
+  long long i = (long long)blockIdx.x * RS_THREADS + threadIdx.x;
+  for (; i + (TP - 1) * stride < n; i += TP * stride)
+    reg_tile<TP>(acc, pts4, n, i, stride, pose, w4, a4, kp, has_outlier, outlier);
+  if constexpr (TP > 2) {
+    if (i + stride < n) {
+      reg_tile<2>(acc, pts4, n, i, stride, pose, w4, a4, kp, has_outlier, outlier);
+      i += 2 * stride;
+    }
+  }
+  if (i < n) reg_tile<1>(acc, pts4, n, i, stride, pose, w4, a4, kp, has_outlier, outlier);
+  write_partial(acc, red_s, partial);
+}
+
+// Registers for 2 blocks an SM (128 a thread), except at TP = 4: its tile
+// (psi, m, s, red and a chunk's logits of 4 points, beside acc) takes 240,
+// one block an SM (at TP = 2, capped at 128, it spilled and ran slower).
+template <int L, int TP>
+__global__ void __launch_bounds__(RS_THREADS, TP == 4 ? 1 : 2)
     reg_stats_lanes_kernel(const float* __restrict__ pts4, int n, const float* __restrict__ pose12,
                            const float* __restrict__ done, const float* __restrict__ wn,
                            const float* __restrict__ aux, int k, int has_outlier, float outlier,
                            float* __restrict__ partial) {
+  static_assert(TP == 1 || L == 1, "several points a thread only at one lane a point");
   if (done != nullptr && *done != 0.0f) return;  // a converged scan: same branch in every block
   extern __shared__ float4 smem4[];
+  if constexpr (TP > 1) {
+    reg_stats_tiled<TP>(pts4, n, pose12, wn, aux, k, has_outlier, outlier, partial, smem4);
+    return;
+  }
   float4* w4 = smem4;
   float4* a4 = w4 + 3 * k;
   float* red_s = reinterpret_cast<float*>(a4 + 3 * k);
-  load_tables(w4, a4, wn, aux, k);
+  load_tables(w4, a4, wn, aux, k, k);
   float P[12];
 #pragma unroll
   for (int c = 0; c < 12; ++c) P[c] = pose12[c];  // R row-major, then t
@@ -662,13 +832,13 @@ cudaError_t with_top_k(int chunk, int k, Go& go, Args... args) {
   }
 }
 
-// go(kernel, smem, args...) with the body that top_k, lanes and chunk select
-// (hgmm_reg_stats' arguments), its dynamic shared memory and its arguments:
-// the one choice of a body, for a launch and for a scan's launches.
+// go(kernel, smem, args...) with the body that top_k, lanes, points and chunk
+// select (hgmm_reg_stats' arguments), its dynamic shared memory and its
+// arguments: the one choice of a body, for a launch and for a scan's launches.
 template <typename Go>
 cudaError_t with_reg_body(const float* p, int n, const float* pose, const float* dn, const float* w,
-                          const float* a, int k, int top_k, int lanes, int chunk, int has_outlier, float outlier,
-                          float* part, unsigned long long* cnt, Go go) {
+                          const float* a, int k, int top_k, int lanes, int points, int chunk, int has_outlier,
+                          float outlier, float* part, unsigned long long* cnt, Go go) {
   const size_t smem = reg_stats_smem_bytes(k);
   if (top_k < 0 || top_k >= k) return cudaErrorInvalidValue;
   if (top_k > 32)
@@ -676,13 +846,17 @@ cudaError_t with_reg_body(const float* p, int n, const float* pose, const float*
               outlier, part);
   if (top_k > 8) return with_top_k<33>(chunk, k, go, p, n, pose, dn, w, a, k, top_k, has_outlier, outlier, part, cnt);
   if (top_k > 0) return with_top_k<9>(chunk, k, go, p, n, pose, dn, w, a, k, top_k, has_outlier, outlier, part, cnt);
+  if (lanes == 1 && points == 4)
+    return go(reg_stats_lanes_kernel<1, 4>, reg_stats_smem_bytes(tiled_rows(k)), p, n, pose, dn, w, a, k,
+              has_outlier, outlier, part);
+  if (points != 1) return cudaErrorInvalidValue;
   switch (lanes) {
-    case 1: return go(reg_stats_lanes_kernel<1>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
-    case 2: return go(reg_stats_lanes_kernel<2>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
-    case 4: return go(reg_stats_lanes_kernel<4>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
-    case 8: return go(reg_stats_lanes_kernel<8>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
-    case 16: return go(reg_stats_lanes_kernel<16>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
-    case 32: return go(reg_stats_lanes_kernel<32>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
+    case 1: return go(reg_stats_lanes_kernel<1, 1>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
+    case 2: return go(reg_stats_lanes_kernel<2, 1>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
+    case 4: return go(reg_stats_lanes_kernel<4, 1>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
+    case 8: return go(reg_stats_lanes_kernel<8, 1>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
+    case 16: return go(reg_stats_lanes_kernel<16, 1>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
+    case 32: return go(reg_stats_lanes_kernel<32, 1>, smem, p, n, pose, dn, w, a, k, has_outlier, outlier, part);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -694,22 +868,23 @@ extern "C" {
 // The [nb, 59] partials of em_ref.reg_stats at the pose pose12 = [R
 // row-major (9), t (3)] (and, with out != NULL, their float64 sum into
 // out[59]: horn 16, A 36, b 6, loglik). wn and aux are [K, 12]. top_k: 0 =
-// no gating (the lanes body with `lanes` in {1, 2, 4, 8, 16, 32}), 1..32 <
+// no gating (the lanes body with `lanes` in {1, 2, 4, 8, 16, 32}, and at one
+// lane `points` in {1, 4} points a thread; 1 at more lanes), 1..32 <
 // K the top_k body with chunks of `chunk` in {1, 2, 4, 8, 16} components
 // and, when counters != NULL, its int64 [3] counters, 33..K-1 the select
-// body (a warp a point, `lanes` ignored). `chunk` and `counters` are read by
-// the top_k body alone. done: NULL, or a flag the kernel returns on when it
+// body (a warp a point, `lanes` ignored). `points` is read by the ungated
+// body alone, `chunk` and `counters` by the top_k body alone. done: NULL, or a flag the kernel returns on when it
 // is nonzero. Returns the CUDA error code (0 on success).
 int hgmm_reg_stats(const void* pts4, int n, const void* pose12, const void* done, const void* wn,
-                   const void* aux, int k, int top_k, int lanes, int chunk, int has_outlier,
+                   const void* aux, int k, int top_k, int lanes, int points, int chunk, int has_outlier,
                    float outlier, void* partial, int nb, void* counters, void* out, void* stream) {
   using namespace hgmm;
   const auto s = static_cast<cudaStream_t>(stream);
   auto* part = static_cast<float*>(partial);
   const cudaError_t err = with_reg_body(
       static_cast<const float*>(pts4), n, static_cast<const float*>(pose12), static_cast<const float*>(done),
-      static_cast<const float*>(wn), static_cast<const float*>(aux), k, top_k, lanes, chunk, has_outlier, outlier,
-      part, static_cast<unsigned long long*>(counters),
+      static_cast<const float*>(wn), static_cast<const float*>(aux), k, top_k, lanes, points, chunk, has_outlier,
+      outlier, part, static_cast<unsigned long long*>(counters),
       [&](auto kernel, size_t smem, auto... args) { return launch_reg(kernel, nb, smem, s, args...); });
   if (err != cudaSuccess || out == nullptr) return (int)err;
   return (int)launch_reduce_partials(part, nb, NOUT, static_cast<float*>(out), s);
@@ -727,7 +902,7 @@ int hgmm_reg_stats(const void* pts4, int n, const void* pose12, const void* done
 // set once a call. Returns the first nonzero CUDA code, with the index of
 // its step in *failed_step, else 0.
 int hgmm_reg_scan(const void* pts4, int n, void* scan, const void* wn, const void* aux, int k, int top_k,
-                  int lanes, int chunk, int has_outlier, float outlier, void* partial, int nb, void* counters,
+                  int lanes, int points, int chunk, int has_outlier, float outlier, void* partial, int nb, void* counters,
                   void* logliks, void* deltas, double tol, int blocks, const int* schedule, int steps,
                   int* failed_step, void* stream) {
   using namespace hgmm;
@@ -737,7 +912,7 @@ int hgmm_reg_scan(const void* pts4, int n, void* scan, const void* wn, const voi
   int step = 0;
   const cudaError_t err = with_reg_body(
       static_cast<const float*>(pts4), n, state + SCAN_POSE, state + SCAN_DONE, static_cast<const float*>(wn),
-      static_cast<const float*>(aux), k, top_k, lanes, chunk, has_outlier, outlier, part,
+      static_cast<const float*>(aux), k, top_k, lanes, points, chunk, has_outlier, outlier, part,
       static_cast<unsigned long long*>(counters), [&](auto kernel, size_t smem, auto... args) {
         cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         for (; e == cudaSuccess && step < steps; ++step) {

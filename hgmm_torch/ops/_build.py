@@ -51,9 +51,9 @@ _SIGNATURES = {
     "hgmm_em_stats": (_P, _I, _P, _I, _I, _I, _F, _P, _I, _P, _P),
     "hgmm_em_step": (_P, _I, _P, _I, _P, _P, _I, _I, _D, _I, _P, _P, _P, _P, _P, _I, _I, _P),
     "hgmm_em_stats_tiled": (_P, _I, _P, _I, _I, _I, _F, _P, _I, _P, _P),
-    "hgmm_reg_stats": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _P, _P, _P),
+    "hgmm_reg_stats": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _I, _P, _P, _P),
     "hgmm_reg_step": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _D, _I, _P),
-    "hgmm_reg_scan": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _P, _P, _P, _D, _I, _P, _I, _P, _P),
+    "hgmm_reg_scan": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _I, _P, _P, _P, _D, _I, _P, _I, _P, _P),
     "hgmm_reg_tables": (_P, _P, _P, _I, _P, _P, _P),
     "hgmm_em_stats_grouped": (_P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P),
     "hgmm_assign": (_P, _I, _P, _I, _P, _I, _I, _P, _P),
@@ -266,9 +266,11 @@ def load() -> ctypes.CDLL:
 # Kernel launches by wrapper, for showing that a run went through the kernels.
 # The masked em_stats past EG_BMAX children counts apart from the branch-8
 # body, and reg_stats by body (fused_em.reg_stats_body): the lanes body, the
-# top_k body with a register list, the select body past MAX_TOP_K.
+# tiled one (several points a thread), the top_k body with a register list,
+# the select body past MAX_TOP_K.
 LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "em_stats_masked_wide": 0, "em_step": 0, "assign": 0,
-            "reg_stats": 0, "reg_stats_top_k": 0, "reg_stats_select": 0, "reg_step": 0, "reg_tables": 0,
+            "reg_stats": 0, "reg_stats_tiled": 0, "reg_stats_top_k": 0, "reg_stats_select": 0, "reg_step": 0,
+            "reg_tables": 0,
             "knn": 0, "probe_logits": 0, "probe_addonly": 0, "probe_stats": 0, "probe_norm": 0, "probe_vpu": 0}
 _LAUNCHES_LOCK = threading.Lock()  # the ranks of an EmulatedMesh launch from threads
 

@@ -30,7 +30,8 @@ A registration scan builds its tables once, from the level's mixture in one
 launch (``reg_tables_of``: ``csrc/reg_tables.cu``) or from W, mu, A6, b3
 (``reg_tables``), and its state lives on the card (``new_scan``):
 ``reg_partials`` (``csrc/reg_stats.cu``,
-launch geometry from ``plan_reg_stats``: the lanes body without gating, the
+launch geometry from ``plan_reg_stats``: the lanes body without gating,
+tiled with several points a thread where the points fill the card, the
 top_k body with a register list up to MAX_TOP_K, the select body past it)
 and ``reg_step`` (``csrc/reg_step.cu``) read and write it without a host
 sync. ``reg_scan`` launches a whole scan's steps, those two kernels a step,
@@ -104,6 +105,13 @@ SMEM_LIMIT = 232_448  # bytes of shared memory a block can use on the H100 (227 
 RS_THREADS = 256
 RS_MIN_WARPS_PER_SM = 8  # below it the plan gives a point more lanes
 RS_BLOCKS_PER_SM = 4  # cap of the grid, so of the partial rows
+# The tiled lanes body (one lane, RS_TILE_POINTS points a thread): one wave of
+# RS_TILE_BLOCKS_PER_SM blocks an SM, as many as its registers let reside
+# (the kernel's __launch_bounds__), where that wave's threads get at least
+# RS_TILE_MIN_POINTS points each.
+RS_TILE_POINTS = 4
+RS_TILE_BLOCKS_PER_SM = 1
+RS_TILE_MIN_POINTS = 2
 RS_CHUNKS = (1, 2, 4, 8, 16)  # chunk sizes of the top_k body (csrc/reg_stats.cu:launch_top_k)
 TK_LOGIT = 10  # instructions a logit (9 FMA and an add), in plan_top_k_chunk's cost
 TK_STAGE = 5  # instructions an entry of a list insertion, in plan_top_k_chunk's cost
@@ -555,12 +563,14 @@ def assign(pts4: torch.Tensor, W, parent=None, branch=None) -> torch.Tensor:
     return out
 
 
-def reg_stats_body(gate: int) -> str:
-    """The launch counter of the reg_stats body a table's gate (_top_k)
-    selects: "reg_stats" (the lanes body, no gating), "reg_stats_top_k" (the
-    register-list body, 1 <= gate <= MAX_TOP_K), "reg_stats_select" past it."""
+def reg_stats_body(gate: int, plan: RegPlan) -> str:
+    """The launch counter of the reg_stats body a table's gate (_top_k) and
+    plan select: "reg_stats" (the lanes body, no gating, a point a thread),
+    "reg_stats_tiled" (the same with plan.points > 1 points a thread),
+    "reg_stats_top_k" (the register-list body, 1 <= gate <= MAX_TOP_K),
+    "reg_stats_select" past it."""
     if not gate:
-        return "reg_stats"
+        return "reg_stats_tiled" if plan.points > 1 else "reg_stats"
     return "reg_stats_top_k" if gate <= MAX_TOP_K else "reg_stats_select"
 
 
@@ -577,16 +587,18 @@ def _top_k(top_k, k: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class RegPlan:
     """Launch geometry of reg_stats (csrc/reg_stats.cu): `lanes` lanes of a
-    warp share a point and split its K components (the lanes body; 1 with
-    top_k <= MAX_TOP_K, the one-thread-a-point top_k body, whose list holds
-    `kmax` chunk maxima of `chunk` components each; 32 past it, the select
-    body, a warp a point), `blocks` blocks of RS_THREADS threads,
-    grid-stride; one partial row a block."""
+    warp share a point and split its K components (the lanes body, at one
+    lane with `points` points a thread; 1 with top_k <= MAX_TOP_K, the
+    one-thread-a-point top_k body, whose list holds `kmax` chunk maxima of
+    `chunk` components each; 32 past it, the select body, a warp a point),
+    `blocks` blocks of RS_THREADS threads, grid-stride; one partial row a
+    block."""
 
     lanes: int
     blocks: int
     kmax: int  # 0: no register list (no gating, or the select body)
     chunk: int = 1  # components a list entry stands for (the top_k body; 1 elsewhere)
+    points: int = 1  # points a thread takes through its component loop at once (the lanes body at one lane)
 
     def points_per_block(self) -> int:
         return RS_THREADS // self.lanes
@@ -630,11 +642,15 @@ def plan_reg_stats(n: int, k: int, top_k, sms: int) -> RegPlan:
     than RS_MIN_WARPS_PER_SM warps an SM (the odometry bucket, N = 16,384,
     gets 4); 1 with top_k <= MAX_TOP_K, 32 with a larger top_k < K. The top_k
     body's chunk: plan_top_k_chunk (1 for every other body). Blocks: one a
-    RS_THREADS / lanes points, at most RS_BLOCKS_PER_SM an SM. Shared
-    memory: the two [K, 12] tables and the warps' sums, 96 K + 1,408 bytes
-    (csrc/reg_stats.cu:reg_stats_smem_bytes); the top_k body's
-    reg_top_k_smem_bytes, the select body's reg_select_smem_bytes. All inside
-    the card's limit up to MAX_K."""
+    RS_THREADS / lanes points, at most RS_BLOCKS_PER_SM an SM. Without a
+    gate, at one lane, where one wave of RS_TILE_BLOCKS_PER_SM blocks an SM
+    gives each thread RS_TILE_MIN_POINTS points or more (N >= 67,584 on 132
+    SMs: the dragon's 437,645 and the KITTI bucket's 131,072), the tiled body:
+    RS_TILE_POINTS points a thread, that one wave. Shared memory: the two [K,
+    12] tables and the warps' sums, 96 K + 1,408 bytes
+    (csrc/reg_stats.cu:reg_stats_smem_bytes; the tiled body's K rounded up
+    to 8); the top_k body's reg_top_k_smem_bytes, the select body's
+    reg_select_smem_bytes. All inside the card's limit up to MAX_K."""
     if n < 1 or not 1 <= k <= MAX_K or sms < 1:
         raise ValueError(f"reg_stats: N={n}, K={k}, {sms} SMs")
     gate = _top_k(top_k, k)
@@ -643,6 +659,9 @@ def plan_reg_stats(n: int, k: int, top_k, sms: int) -> RegPlan:
     lanes, kmax = 1, (0 if not gate else (9 if gate <= 8 else 33))
     while not gate and 2 * lanes <= min(32, k) and n * lanes < RS_MIN_WARPS_PER_SM * sms * 32:
         lanes *= 2
+    wave = RS_TILE_BLOCKS_PER_SM * sms
+    if not gate and lanes == 1 and n >= RS_TILE_MIN_POINTS * RS_THREADS * wave:
+        return RegPlan(lanes=1, blocks=wave, kmax=0, points=RS_TILE_POINTS)
     blocks = max(1, min(-(-n * lanes // RS_THREADS), RS_BLOCKS_PER_SM * sms))
     return RegPlan(lanes=lanes, blocks=blocks, kmax=kmax, chunk=plan_top_k_chunk(k, gate) if gate else 1)
 
@@ -701,7 +720,7 @@ def _reg_tables(pts4, n: int, wn, aux, top_k, outlier_logit) -> RegTables:
             profiling.count_later(name, counters, i)
     gate = _top_k(top_k, k)
     f32 = dict(dtype=torch.float32, device=pts4.device)
-    return RegTables(pts4, wn, aux, gate, _outlier(outlier_logit), plan, reg_stats_body(gate),
+    return RegTables(pts4, wn, aux, gate, _outlier(outlier_logit), plan, reg_stats_body(gate, plan),
                      reg_rows(torch.empty((plan.blocks, REG_OUT), **f32)),
                      reg_rows(torch.empty((1, REG_OUT), **f32)), counters)
 
@@ -748,7 +767,7 @@ def reg_partials(tab: RegTables, pose12: torch.Tensor, done: torch.Tensor | None
     at once when it is set."""
     launch(tab.body, "hgmm_reg_stats", tab.pts4.device, tab.pts4.data_ptr(), tab.pts4.shape[1], pose12.data_ptr(),
            None if done is None else done.data_ptr(), tab.wn.data_ptr(), tab.aux.data_ptr(), tab.k, tab.gate,
-           tab.plan.lanes, tab.plan.chunk, *tab.outlier, tab.rows.partial.data_ptr(), tab.plan.blocks,
+           tab.plan.lanes, tab.plan.points, tab.plan.chunk, *tab.outlier, tab.rows.partial.data_ptr(), tab.plan.blocks,
            None if tab.counters is None else tab.counters.data_ptr(), None if out is None else out.data_ptr())
     return tab.rows
 
@@ -852,7 +871,7 @@ def reg_scan(tab: RegTables, scan: RegScan, steps: tuple, tol: float) -> None:
     failed = ctypes.c_int(-1)
     _build.call("reg_scan", "hgmm_reg_scan", tab.pts4.device, tab.pts4.data_ptr(), tab.pts4.shape[1],
                 scan.state.data_ptr(), tab.wn.data_ptr(), tab.aux.data_ptr(), tab.k, tab.gate, tab.plan.lanes,
-                tab.plan.chunk, *tab.outlier, tab.rows.partial.data_ptr(), tab.plan.blocks,
+                tab.plan.points, tab.plan.chunk, *tab.outlier, tab.rows.partial.data_ptr(), tab.plan.blocks,
                 None if tab.counters is None else tab.counters.data_ptr(), scan.logliks.data_ptr(),
                 scan.deltas.data_ptr(), float(tol), tab.rows.cluster, _schedule_rows(steps), len(steps),
                 ctypes.byref(failed), failed_step=failed)

@@ -140,32 +140,37 @@ def test_config_file_is_the_preset():
 
 @pytest.mark.parametrize("gate", [0, 1, 8, 9, 32, 33, 64, 511])
 def test_each_gate_counts_under_its_body(gate):
-    """0 (no gate) counts as reg_stats and past MAX_TOP_K as
-    reg_stats_select, as before reg_stats_top_k existed; the register-list
-    body, and only it, counts as reg_stats_top_k. The plan agrees: one
-    thread a point and a register list exactly there."""
-    name = fused_em.reg_stats_body(gate)
-    assert name in fused_em.LAUNCHES
-    want = "reg_stats" if gate == 0 else ("reg_stats_top_k" if gate <= fused_em.MAX_TOP_K
-                                         else "reg_stats_select")
-    assert name == want
+    """0 (no gate) counts as reg_stats (reg_stats_tiled at the dragon's N,
+    where the plan tiles it) and past MAX_TOP_K as reg_stats_select, as
+    before reg_stats_top_k existed; the register-list body, and only it,
+    counts as reg_stats_top_k. The plan agrees: one thread a point and a
+    register list exactly there."""
     plan = fused_em.plan_reg_stats(437_645, 512, gate or None, 132)
+    name = fused_em.reg_stats_body(gate, plan)
+    assert name in fused_em.LAUNCHES
+    want = "reg_stats_tiled" if gate == 0 else ("reg_stats_top_k" if gate <= fused_em.MAX_TOP_K
+                                               else "reg_stats_select")
+    assert name == want
+    assert fused_em.reg_stats_body(gate, fused_em.plan_reg_stats(16_384, 512, gate or None, 132)) == (
+        "reg_stats" if gate == 0 else want)
     assert (plan.kmax > 0) == (name == "reg_stats_top_k")
     assert (plan.lanes == 32) == (name == "reg_stats_select")
 
 
 @pytest.mark.parametrize("top_k,bodies", [
-    (None, ["reg_stats"] * 3),
-    (8, ["reg_stats", "reg_stats_top_k", "reg_stats_top_k"]),
-    (64, ["reg_stats", "reg_stats", "reg_stats_select"]),
-    (512, ["reg_stats"] * 3),
+    (None, ["reg_stats_tiled"] * 3),
+    (8, ["reg_stats_tiled", "reg_stats_top_k", "reg_stats_top_k"]),
+    (64, ["reg_stats_tiled", "reg_stats_tiled", "reg_stats_select"]),
+    (512, ["reg_stats_tiled"] * 3),
 ])
 def test_a_tree_registration_counts_its_levels_by_body(top_k, bodies):
-    """Levels K = 8, 64, 512: the body each level's gate (fused_em._top_k)
-    selects. An ungated registration counts every step under reg_stats, as
-    before; the config-3 preset (top_k 8) counts its K = 64 and 512 levels
-    under reg_stats_top_k, and the three names add up to the steps."""
-    got = [fused_em.reg_stats_body(fused_em._top_k(top_k, k)) for k in (8, 64, 512)]
+    """Levels K = 8, 64, 512 at the config-3 cell's 437,645 points: the body
+    each level's gate (fused_em._top_k) and plan select. An ungated level
+    counts under reg_stats_tiled, the lanes body a thread takes several
+    points through; the config-3 preset (top_k 8) counts its K = 64 and 512
+    levels under reg_stats_top_k, and the names add up to the steps."""
+    got = [fused_em.reg_stats_body(fused_em._top_k(top_k, k), fused_em.plan_reg_stats(437_645, k, top_k, 132))
+           for k in (8, 64, 512)]
     assert got == bodies
     assert roofline_gated.top_k_body(8, top_k) is False
     assert [roofline_gated.top_k_body(k, top_k) for k in (8, 64, 512)] == [

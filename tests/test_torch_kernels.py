@@ -677,6 +677,72 @@ def test_reg_stats_every_lane_count(cuda, k, n):
         _close(out[58], ref.loglik, 1e-4, 1e-6)
 
 
+def _tiled_problem(k, n, outlier, dev):
+    """Tables at K (two dead components), n points (131,072: a zero-weight
+    tail past 120,000, as the KITTI bucket pads), a pose, and em_ref's
+    reg_stats on them."""
+    params = _mixture(k, k + 41, dev, dead=(1, k // 2) if k > 2 else (1,))
+    pts, w = _inputs(n, k + 42, dev)
+    if n == 131_072:
+        w[120_000:] = 0.0
+    W = pack_loglik_weights(params)
+    A, b, _ = precision_terms(params)
+    pose = (so3_exp(torch.tensor([0.1, -0.2, 0.3], device=dev)), torch.tensor([0.05, 0.0, -0.1], device=dev))
+    ref = em_ref.reg_stats(pts, W, params.mu, sym_pack(A), b, pose, w, None, outlier)
+    tab = fused_em.reg_tables(prepare(pts, w).pts4, W, params.mu, sym_pack(A), b, None, outlier)
+    return tab, torch.cat([pose[0].reshape(9), pose[1]]).contiguous(), ref
+
+
+def _with_plan(tab, plan):
+    """tab on another plan, with partial rows of its own."""
+    rows = fused_em.reg_rows(torch.empty((plan.blocks, em_ref.REG_OUT), device=tab.pts4.device))
+    return dataclasses.replace(tab, plan=plan, body=fused_em.reg_stats_body(tab.gate, plan), rows=rows)
+
+
+@pytest.mark.parametrize("points", [fused_em.RS_TILE_POINTS])
+@pytest.mark.parametrize("k", [8, 12, 64, 384, 512])
+@pytest.mark.parametrize("n", [1, 33, 1000, 131_072, 437_645])
+@pytest.mark.parametrize("outlier", [None, -2.0])
+def test_reg_stats_tiled_at_every_point_count(cuda, points, k, n, outlier):
+    """The tiled lanes body at the points a thread the plan gives, K on and
+    off its chunk of 8 (its inert padding rows), dead components, the
+    outlier on and off; one block at small N (a thread's 1, or 3 and 4
+    points: the tile, then 2 and 1 at a time), one wave of 132 at the
+    KITTI bucket (with its zero-weight tail) and the dragon's N: within
+    test_reg_stats_every_lane_count's tolerances of em_ref, and its partial
+    rows bit-equal to the one-point lanes body's on the same grid (the same
+    points a thread, added in the same order), counted as reg_stats_tiled."""
+    tab, pose12, ref = _tiled_problem(k, n, outlier, cuda)
+    blocks = 1 if n <= 1000 else 132
+    tiled = _with_plan(tab, fused_em.RegPlan(lanes=1, blocks=blocks, kmax=0, points=points))
+    one = _with_plan(tab, fused_em.RegPlan(lanes=1, blocks=blocks, kmax=0))
+    assert (tiled.body, one.body) == ("reg_stats_tiled", "reg_stats")
+    s = max(n, 300) / 300
+    before = dict(fused_em.LAUNCHES)
+    out = torch.empty(59, device=cuda)
+    fused_em.reg_partials(tiled, pose12, out=out)
+    assert fused_em.LAUNCHES["reg_stats_tiled"] == before["reg_stats_tiled"] + 1
+    _close(out[:16].view(4, 4), ref.horn, 2e-3, 2e-3 * s)
+    _close(out[16:52].view(6, 6), ref.A, 2e-3, 2e-2 * s)
+    _close(out[52:58], ref.b, 2e-3, 2e-2 * s)
+    _close(out[58], ref.loglik, 1e-4, 1e-6)
+    fused_em.reg_partials(one, pose12)
+    assert torch.equal(tiled.rows.partial, one.rows.partial)
+
+
+@pytest.mark.parametrize("points", [fused_em.RS_TILE_POINTS])
+def test_reg_stats_tiled_done_writes_nothing(cuda, points):
+    """With the scan's done flag set the tiled body returns at once: the
+    partial rows keep what they held."""
+    tab, pose12, _ = _tiled_problem(64, 131_072, -8.0, cuda)
+    tiled = _with_plan(tab, fused_em.RegPlan(lanes=1, blocks=132, kmax=0, points=points))
+    tiled.rows.partial.fill_(float("nan"))
+    fused_em.reg_partials(tiled, pose12, torch.ones(1, device=cuda))
+    assert bool(torch.isnan(tiled.rows.partial).all())
+    fused_em.reg_partials(tiled, pose12, torch.zeros(1, device=cuda))
+    assert bool(torch.isfinite(tiled.rows.partial).all())
+
+
 @pytest.mark.parametrize("top_k", [1, 8, 32])
 def test_reg_stats_top_k_list_overflows_on_many_ties(cuda, top_k):
     """Every component nine times over: more logits tie at the threshold
@@ -922,14 +988,16 @@ def test_a_fit_table_of_the_wrong_row_count_is_refused_where_the_fit_is_made(cud
                                                fused_em.table_rows(k)))
 
 
-@pytest.mark.parametrize("n", [16_384, 437_645])
-def test_reg_step_counts_live_steps_as_its_twin(cuda, n):
+@pytest.mark.parametrize("n,one_point", [(16_384, False), (437_645, True), (437_645, False)])
+def test_reg_step_counts_live_steps_as_its_twin(cuda, n, one_point):
     """SCAN_LIVE, the steps run with done unset, from the kernel and from its
     twin on the same scan: each step of a converging scan (4 Horn iterations, then WLS) on the
     card, the twin stepped from the card's state before it on the same rows.
-    437,645 points give the clustered step (past 256 rows). The count after
-    the scan is the live iterations (up to and including the first delta
-    below tol) in steps: a Horn iteration one, a WLS iteration wls_inner."""
+    437,645 points on the one-point lanes body's 528 blocks give the
+    clustered step (past 256 rows); on the plan's tiled body, 132 rows and
+    one block. The count after the scan is the live iterations (up to and
+    including the first delta below tol) in steps: a Horn iteration one, a
+    WLS iteration wls_inner."""
     from hgmm_torch import ops
     from hgmm_torch.data.synthetic import make_cloud
     from hgmm_torch.models.gmm import Gmm
@@ -939,10 +1007,13 @@ def test_reg_step_counts_live_steps_as_its_twin(cuda, n):
     R0 = so3_exp(torch.tensor([0.03, -0.05, 0.04], device=cuda))
     source = (target - torch.tensor([0.02, 0.0, -0.01], device=cuda)) @ R0
     prob = ops.reg_problem_of(source, params)
+    if one_point:
+        blocks = fused_em.RS_BLOCKS_PER_SM * fused_em._build.sms(cuda)
+        prob = _with_plan(prob, fused_em.RegPlan(lanes=1, blocks=blocks, kmax=0))
     n_iters, n_horn, wls_inner, tol = 20, 4, 2, 1e-5
     scan = ops.new_scan(prob, torch.eye(3, device=cuda), torch.zeros(3, device=cuda), n_iters)
     rows = ops.reg_partials(prob, scan).partial.shape[0]
-    assert (fused_em.plan_reg_step(rows) == fused_em.STEP_CLUSTER) == (n == 437_645)
+    assert (fused_em.plan_reg_step(rows) == fused_em.STEP_CLUSTER) == one_point
     for it in range(n_iters):
         solver = 0 if it < n_horn else 1
         steps = 1 if solver == 0 else wls_inner
@@ -978,7 +1049,9 @@ def _scan_problem(cuda, n, k):
 
 # body: (points, K, top_k, outlier, the plan's lanes, reg_step's blocks)
 SCAN_BODIES = {
-    "lanes1": (437_645, 64, None, None, 1, fused_em.STEP_CLUSTER),
+    "lanes1": (50_000, 64, None, None, 1, 1),
+    "tiled": (437_645, 64, None, None, 1, 1),  # one wave of 132 blocks: 132 rows
+    "tiled_kitti": (131_072, 512, None, -8.0, 1, 1),
     "lanes4": (16_384, 64, None, -3.0, 4, 1),
     "top_k8": (437_645, 64, 8, 0.0, 1, fused_em.STEP_CLUSTER),
     "top_k32": (16_384, 64, 32, 0.0, 1, 1),
@@ -995,7 +1068,8 @@ def test_reg_scan_from_one_call_is_the_step_loop(cuda, body, method, wls_inner, 
     the same way: the whole state (pose, start, SCAN_LIVE, done), logliks,
     deltas, the last partial rows and the gated body's counters bit-equal,
     and the same launches counted, in LAUNCHES and as launch.<name>. Each
-    body: the lanes body at 1 and 4 lanes, the top_k body at top_k 8 and 32,
+    body: the lanes body at 1 and 4 lanes and tiled (the dragon's N, and
+    the KITTI bucket's at K = 512), the top_k body at top_k 8 and 32,
     the select body at 64; reg_step on its cluster (past 256 rows) and on
     one block; tol 1e-4 stops early, tol 0 never."""
     from hgmm_torch import ops
@@ -1034,6 +1108,32 @@ def test_reg_scan_from_one_call_is_the_step_loop(cuda, body, method, wls_inner, 
     assert counts == {**loop_counts, "reg.native_steps": len(steps)}
     live = float(scan.state[em_ref.SCAN_LIVE])
     assert (live < len(steps)) == (tol > 0) and bool(scan.done) == (tol > 0)
+
+
+@pytest.mark.parametrize("tol", [1e-7, 0.0])
+def test_reg_scan_tiled_75_steps_is_the_step_loop(cuda, tol):
+    """A dragon level's scan on the tiled body (50 horn+wls iterations with
+    2 WLS steps: 75 steps) from one host call lands on the state, logliks
+    and deltas of the same steps launched from Python, bit for bit."""
+    from hgmm_torch import ops
+    from hgmm_torch.pipelines.register import scan_schedule
+
+    source, params = _scan_problem(cuda, 437_645, 64)
+    steps = scan_schedule(50, "horn+wls", 2)
+    assert len(steps) == 75
+    runs = []
+    for one_call in (False, True):
+        tab = ops.reg_problem_of(source, params)
+        assert tab.body == "reg_stats_tiled"
+        scan = ops.new_scan(tab, torch.eye(3, device=cuda), torch.zeros(3, device=cuda), 50)
+        if one_call:
+            ops.reg_scan(tab, scan, steps, tol)
+        else:
+            for it, solver, first, last in steps:
+                ops.reg_step(ops.reg_partials(tab, scan), scan, it, solver, first, last, tol)
+        runs.append(scan)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_reg_scan_raises_with_the_failed_step(cuda):
@@ -1084,26 +1184,31 @@ def test_register_points_on_the_card_matches_the_cpu(cuda, method):
     torch.testing.assert_close(card.logliks.cpu()[-1], cpu.logliks[-1], rtol=1e-4, atol=0)
 
 
+@pytest.mark.parametrize("n", [20_000, 140_000])
 @pytest.mark.parametrize("top_k", [None, 8, 64])
-def test_register_tree_counts_each_reg_stats_body(cuda, top_k):
+def test_register_tree_counts_each_reg_stats_body(cuda, top_k, n):
     """A tree registration (K = 8, 64, 512) launches one reg_stats a step,
     counted by body: the lanes body where nothing gates (K <= top_k, or no
-    top_k), reg_stats_top_k where 1 <= top_k <= MAX_TOP_K < K gates,
-    reg_stats_select past it; the three add up to the steps."""
+    top_k), tiled (reg_stats_tiled) where the points also fill the card
+    twice over (140,000 points), reg_stats_top_k where 1 <= top_k <=
+    MAX_TOP_K < K gates, reg_stats_select past it; the four add up to the
+    steps."""
     from hgmm_torch.data.synthetic import make_cloud
     from hgmm_torch.models.gmm_tree import GmmTree
     from hgmm_torch.pipelines.register import register_tree
 
-    cloud = make_cloud(20_000, "trefoil", seed=12, device=cuda)
+    cloud = make_cloud(n, "trefoil", seed=12, device=cuda)
     tree, _ = GmmTree.fit(cloud, branch=8, levels=3, em_iters=4, generator=torch.Generator().manual_seed(13))
-    names = ("reg_stats", "reg_stats_top_k", "reg_stats_select")
+    names = ("reg_stats", "reg_stats_tiled", "reg_stats_top_k", "reg_stats_select")
     before = dict(fused_em.LAUNCHES)
     register_tree(cloud, tree, n_iters=10, method="horn+wls", top_k=top_k, outlier_logit=0.0)
     torch.cuda.synchronize()
     got = {name: fused_em.LAUNCHES[name] - before[name] for name in names}
     steps = 5 + 5 * 2  # a level: 5 Horn steps, then 5 WLS iterations of 2 steps
-    body = {None: ["reg_stats"] * 3, 8: ["reg_stats"] + ["reg_stats_top_k"] * 2,
-            64: ["reg_stats"] * 2 + ["reg_stats_select"]}[top_k]
+    free = "reg_stats_tiled" if fused_em.plan_reg_stats(n, 8, None, fused_em._build.sms(cuda)).points > 1 else "reg_stats"
+    assert (free == "reg_stats_tiled") == (n == 140_000)
+    body = {None: [free] * 3, 8: [free] + ["reg_stats_top_k"] * 2,
+            64: [free] * 2 + ["reg_stats_select"]}[top_k]
     assert got == {name: steps * body.count(name) for name in names}
     assert sum(got.values()) == fused_em.LAUNCHES["reg_step"] - before["reg_step"] == 3 * steps
 

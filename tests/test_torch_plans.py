@@ -20,6 +20,7 @@ Tolerances of the emulated E-step are the strict ones of
 tests/test_fused_em.py:55-56 (atol scaled by N / 300, with a floor of one).
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -610,6 +611,39 @@ def test_plan_reg_stats_refuses_what_the_kernel_does_not_take():
         fused_em.plan_reg_stats(0, 64, None, SMS)
     with pytest.raises(ValueError):
         fused_em.plan_reg_stats(100, fused_em.MAX_K + 1, None, SMS)
+
+
+@pytest.mark.parametrize("n", SIZES + (67_583, 67_584, 131_072))
+@pytest.mark.parametrize("k", [1, 8, 12, 64, 384, 512, 2048])
+@pytest.mark.parametrize("top_k", [None, 1, 8, 64])
+def test_plan_reg_stats_tiles_where_the_points_fill_the_card(n, k, top_k):
+    """Ungated, at one lane, where one wave of RS_TILE_BLOCKS_PER_SM blocks
+    an SM gives each thread RS_TILE_MIN_POINTS points or more (67,584 on
+    132 SMs), the plan tiles the lanes body: RS_TILE_POINTS (4) points
+    a thread, that one wave of blocks, counted as reg_stats_tiled; so the
+    dragon's 437,645 and the KITTI bucket's 131,072 take it at every K, the
+    odometry bucket (16,384) keeps 4 lanes of one point, and a gated plan
+    keeps one point a thread. Blocks stay within RS_BLOCKS_PER_SM an SM, and
+    the tables padded to a multiple of 8 rows fit the card up to MAX_K."""
+    plan = fused_em.plan_reg_stats(n, k, top_k, SMS)
+    gate = fused_em._top_k(top_k, k)
+    wave = fused_em.RS_TILE_BLOCKS_PER_SM * SMS
+    tiled = not gate and n >= fused_em.RS_TILE_MIN_POINTS * fused_em.RS_THREADS * wave
+    assert fused_em.RS_TILE_POINTS == 4  # the one tiled body the library builds (csrc/reg_stats.cu)
+    if tiled:
+        assert plan == fused_em.RegPlan(lanes=1, blocks=wave, kmax=0, chunk=1, points=fused_em.RS_TILE_POINTS)
+    else:
+        assert plan.points == 1
+    assert fused_em.reg_stats_body(gate, plan) == ("reg_stats_tiled" if tiled else fused_em.reg_stats_body(
+        gate, dataclasses.replace(plan, points=1)))
+    if not gate and n in (131_072, 437_645):
+        assert tiled
+    if not gate and n == 16_384 and k >= 8:
+        assert (plan.lanes, plan.points) == (4, 1)
+    if n == 67_583:
+        assert not tiled
+    assert 1 <= plan.blocks <= fused_em.RS_BLOCKS_PER_SM * SMS
+    assert 96 * -(-fused_em.MAX_K // 8) * 8 + 4 * 8 * 44 <= SMEM_LIMIT  # reg_stats_smem_bytes(tiled_rows(K))
 
 
 def emulate_reg_lanes(x, W, mu, A6, b3, pose, weights, outlier, lanes):

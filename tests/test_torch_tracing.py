@@ -355,7 +355,7 @@ def test_reg_scan_is_one_call_counted_as_its_steps_launches(launches, monkeypatc
     assert n == 2 + 3 * 2
     assert tr.summary()[0]["counts"] == {f"launch.{body}": n, "launch.reg_step": n, "reg.native_steps": n}
     assert {k: launches[k] - before[k] for k in launches if launches[k] != before[k]} == {body: n, "reg_step": n}
-    head = [tab.pts4.data_ptr(), 100, scan.state.data_ptr(), tab.wn.data_ptr(), tab.aux.data_ptr(), 8, gate, 2, 1,
+    head = [tab.pts4.data_ptr(), 100, scan.state.data_ptr(), tab.wn.data_ptr(), tab.aux.data_ptr(), 8, gate, 2, 1, 1,
             1, -8.0, tab.rows.partial.data_ptr(), 3, None if not gate else tab.counters.data_ptr(),
             scan.logliks.data_ptr(), scan.deltas.data_ptr(), 1e-7, 1]
     schedule = [v for step in steps for v in (step.it, step.solver, int(step.first), int(step.last))]
