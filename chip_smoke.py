@@ -139,7 +139,11 @@ Run from the root of a checkout. It
    bound; knn and every tree kernel launched; then the shapes it newly puts
    on a path, each against its plain version and timed: em_stats K = 64
    unmasked, reg_stats at K = 64 and at the tree's leaves and adaptive cut
-   with outlier 0.0); scaling at 262,144 points a rank, K = 64, 20 sweeps on
+   with outlier 0.0); bunny_flat, BASELINE config 1 at the bunny's 35,947
+   points (bunny_flat_phase: register_pair(model_kind="flat") within the pose
+   bounds, em_stats_tiled launched once a sweep and the one-lane reg_stats
+   once a scan step, none of reg_stats_tiled, then both bodies at that shape
+   against their plain versions and timed); scaling at 262,144 points a rank, K = 64, 20 sweeps on
    the NCCL world of one process (the one-rank sharded fit bit-equal to the
    unsharded one); odometry_suite at its defaults (64 frames, bucket 16,384,
    with e2e; a device-only trace a phase for its device busy time: a
@@ -186,6 +190,7 @@ import time
 from pathlib import Path
 
 N_POINTS = 437_645
+BUNNY_POINTS = 35_947  # BASELINE config 1: the Stanford bunny's vertices (bun_zipper.ply)
 GT_OMEGA = (0.0, 0.0, 0.25)
 GT_T = (0.05, -0.04, 0.06)
 # tests/test_register.py:45-50
@@ -212,25 +217,30 @@ PROBES = ("probe_logits", "probe_addonly", "probe_stats", "probe_norm", "probe_v
 PATH_KERNELS = {"register_pair": TREE_PATH, "cli_icp": ("knn",),
                 "cli_register_config3": TREE_PATH + ("reg_stats_top_k",),
                 "cli_odometry": TREE_PATH, "cli_odometry_closures": TREE_PATH,
-                "cli_localize": ("reg_stats", "reg_step", "reg_tables"), "cli_bench": ("em_stats",), "probes": PROBES,
+                "cli_localize": ("reg_stats", "reg_step", "reg_tables"), "cli_bench": ("em_stats_tiled",),
+                "probes": PROBES,
                 "shard": TREE_PATH, "cli_odometry_sharded": TREE_PATH,
                 "cli_odometry_closures_sharded": TREE_PATH,
                 "cli_localize_sharded": ("reg_stats", "reg_step", "reg_tables"),
-                "registration_suite": TREE_PATH + ("knn",), "odometry_suite": TREE_PATH,
-                "odometry_suite_sharded": TREE_PATH, "scaling": ("em_stats", "em_step"),
+                "registration_suite": TREE_PATH + ("knn", "em_stats_tiled"),
+                "bunny_flat": ("em_stats_tiled", "em_step", "reg_stats", "reg_step", "reg_tables"),
+                "odometry_suite": TREE_PATH,
+                "odometry_suite_sharded": TREE_PATH, "scaling": ("em_stats_tiled", "em_step"),
                 "branch16_pair": WIDE_PATH, "cli_fit_branch16": ("em_stats", "em_stats_masked_wide", "em_step",
                                                                  "assign"),
                 "branch12_pair": WIDE_PATH,
                 **{f"config3_top_k{t}": ("em_stats", "em_stats_masked", "em_step", "assign", "reg_stats_select",
                                          "reg_step", "reg_tables") for t in (64, 128)}}
-SOURCES = {"em_stats": "em_stats.cu", "em_stats_masked": "em_stats.cu", "em_stats_masked_wide": "em_stats.cu",
+SOURCES = {"em_stats": "em_stats.cu", "em_stats_tiled": "em_stats.cu", "em_stats_masked": "em_stats.cu",
+           "em_stats_masked_wide": "em_stats.cu",
            "em_step": "em_step.cu", "assign": "assign.cu",
            "reg_stats": "reg_stats.cu", "reg_stats_tiled": "reg_stats.cu", "reg_stats_top_k": "reg_stats.cu",
            "reg_stats_select": "reg_stats.cu",
            "reg_step": "reg_step.cu",
            "reg_tables": "reg_tables.cu", "knn": "knn.cu",
            **{name: "probes.cu" for name in PROBES}}
-REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops/fused_em.py:559",
+REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_tiled": "hgmm/ops/fused_em.py:559",
+            "em_stats_masked": "hgmm/ops/fused_em.py:559",
             "em_stats_masked_wide": "hgmm/ops/fused_em.py:559",
             "assign": "hgmm/ops/fused_em.py:859", "reg_stats": "hgmm/ops/fused_em.py:920",
             "reg_stats_tiled": "hgmm/ops/fused_em.py:920",
@@ -244,7 +254,7 @@ REPLACES = {"em_stats": "hgmm/ops/fused_em.py:559", "em_stats_masked": "hgmm/ops
             "probe_norm": "benchmarks/mxu_microbench.py:106",
             "probe_vpu": "benchmarks/vpu_microbench.py:52"}
 # The path a kernel's `launches` are read from, where it is not register_pair.
-MAIN_PATH = {"knn": "cli_icp", **{name: "probes" for name in PROBES},
+MAIN_PATH = {"knn": "cli_icp", **{name: "probes" for name in PROBES}, "em_stats_tiled": "cli_bench",
              "em_stats_masked_wide": "branch16_pair", "reg_stats_top_k": "cli_register_config3",
              "reg_stats_select": "config3_top_k64"}
 # The bench path. Probe checks: bfloat16 operands carry identical bits in the
@@ -687,6 +697,8 @@ def run_suites(torch, dev, work, errs, timings) -> dict:
     counts = {}
     counts["registration_suite"], rec = registration_suite_phase(torch, dev, errs, timings)
     log({"phase": "registration_suite", **rec})
+    counts["bunny_flat"], rec = bunny_flat_phase(torch, dev, errs, timings)
+    log({"phase": "bunny_flat", **rec})
     counts["scaling"], rec = scaling_phase(torch, dev)
     log({"phase": "scaling", **rec})
     odo_counts, rec = odometry_suite_phase(torch, dev, work)
@@ -1244,8 +1256,9 @@ def add_bound(name, entry) -> None:
     hgmm_torch.eval.roofline.kernel_bound on this entry's own shape."""
     from hgmm_torch.eval.roofline import kernel_bound
 
-    if name in ("em_stats", "em_stats_masked"):
-        kb = kernel_bound(name, n=entry["n"], k=entry["k"], branch=8)
+    if name in ("em_stats", "em_stats_tiled", "em_stats_masked"):
+        kb = kernel_bound("em_stats" if name == "em_stats_tiled" else name, n=entry["n"], k=entry["k"],
+                          branch=8)
     elif name == "em_stats_masked_wide":
         kb = kernel_bound(name, n=entry["n"], k=entry["k"], branch=entry["branch"])
     elif name == "reg_stats_select":
@@ -1477,8 +1490,8 @@ def cli_bench(torch, dev, errs, timings):
     if rec["vs_baseline"] > MAX_SHARE:
         raise CheckFailed(f"cli bench: vs_baseline {rec['vs_baseline']} above {MAX_SHARE}: a share "
                           f"over 105 % of a roofline is a wrong count")
-    if counts["em_stats"] < bench.SWEEPS:
-        raise CheckFailed(f"cli bench: em_stats launched {counts['em_stats']} times, fewer than "
+    if counts["em_stats_tiled"] < bench.SWEEPS:
+        raise CheckFailed(f"cli bench: em_stats_tiled launched {counts['em_stats_tiled']} times, fewer than "
                           f"one chain's {bench.SWEEPS}")
     require_launched(counts, "cli_bench")
 
@@ -1489,13 +1502,13 @@ def cli_bench(torch, dev, errs, timings):
     pts = torch.from_numpy(pts_np).to(dev)
     prep = prepare(pts)
     n, k = pts.shape[0], W.shape[1]
-    check_em(torch, "em_stats", fused_em.em_stats(prep.pts4, W), em_ref.em_stats(pts, W), n, errs)
-    timings["em_stats"].append({"k": k, "n": n, "masked": False, "bench": True,
-                                "ms": cuda_ms(torch, lambda: fused_em.em_stats(prep.pts4, W)),
-                                "plain_ms": cuda_ms(torch, lambda: em_ref.em_stats(pts, W), reps=2,
-                                                    warmup=1), "headline": False})
+    check_em(torch, "em_stats_tiled", fused_em.em_stats(prep.pts4, W), em_ref.em_stats(pts, W), n, errs)
+    timings["em_stats_tiled"].append({"k": k, "n": n, "masked": False, "bench": True,
+                                      "ms": cuda_ms(torch, lambda: fused_em.em_stats(prep.pts4, W)),
+                                      "plain_ms": cuda_ms(torch, lambda: em_ref.em_stats(pts, W), reps=2,
+                                                          warmup=1), "headline": True})
     log({"phase": "cli_bench", "wall_s": wall, "record": rec, "n": n, "k": k,
-         "sweeps": bench.SWEEPS, "launches": counts, "kernel": timings["em_stats"][-1]})
+         "sweeps": bench.SWEEPS, "launches": counts, "kernel": timings["em_stats_tiled"][-1]})
     return counts
 
 
@@ -2917,8 +2930,8 @@ def registration_suite_phase(torch, dev, errs, timings) -> tuple:
     tree, _ = GmmTree.fit(cloud, **suite.TREE, generator=torch.Generator().manual_seed(4))
     tgt, src = prepare(cloud), prepare(source)
     W = pack_loglik_weights(gmm.params)
-    check_em(torch, "em_stats", fused_em.em_stats(tgt.pts4, W), em_ref.em_stats(cloud, W), n, errs)
-    timings["em_stats"].append(timed_shape(
+    check_em(torch, "em_stats_tiled", fused_em.em_stats(tgt.pts4, W), em_ref.em_stats(cloud, W), n, errs)
+    timings["em_stats_tiled"].append(timed_shape(
         torch, lambda: fused_em.em_stats(tgt.pts4, W), lambda: em_ref.em_stats(cloud, W),
         k=suite.FLAT_K, n=n, masked=False, path="registration_suite",
         body_ms=device_ms(torch, sweep_body(torch, tgt.pts4, W))))
@@ -2938,6 +2951,69 @@ def registration_suite_phase(torch, dev, errs, timings) -> tuple:
             outlier_logit=outlier, path=f"registration_suite {name}", lanes=tab.plan.lanes,
             blocks=tab.plan.blocks))
     return counts, {"n": n, "wall_s": wall, "start_rmse": start_rmse, "records": records}
+
+
+def bunny_flat_phase(torch, dev, errs, timings) -> tuple:
+    """BASELINE config 1 at the bunny's BUNNY_POINTS, the bunny_flat64 cell's
+    path: register_pair(model_kind="flat") with CONFIG1_FLAT64 (K = 64, 20
+    sweeps, 50 horn iterations) on the smoke's pair cut to BUNNY_POINTS,
+    within the pose bounds (BOUNDS), with the counters at 0: each sweep one
+    launch of the register-tiled em_stats (em_stats_tiled, none of the first
+    body), each scan step one of the one-lane reg_stats body (reg_stats, none
+    of reg_stats_tiled), one reg_tables; then at that shape the mixture the
+    path fits (the same start draw) through em_stats and the registration's
+    tables through reg_partials at the final pose, each against its plain
+    version (check_em, check_reg) and timed."""
+    import hgmm_torch
+    from hgmm_torch.configs.presets import CONFIG1_FLAT64 as p
+    from hgmm_torch.models.gmm import Gmm
+    from hgmm_torch.ops import em_ref, fused_em, prepare
+    from hgmm_torch.ops.gaussians import pack_loglik_weights
+    from hgmm_torch.pipelines.register import model_terms
+
+    n = BUNNY_POINTS
+    source, target, gt = make_pair(torch, n, dev)
+    seed = 5
+    torch.cuda.synchronize()
+    fused_em.reset_launches()
+    t0 = time.perf_counter()
+    res = hgmm_torch.register_pair(source, target=target, model_kind=p.model_kind, k=p.k,
+                                   fit_iters=p.fit_iters, n_iters=p.reg_iters, method=p.method,
+                                   generator=torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fused_em.LAUNCHES)
+    errors = pose_errors(source, res.pose, gt)
+    for key, bound in BOUNDS.items():
+        if not errors[key] < bound:
+            raise CheckFailed(f"bunny_flat: {key} = {errors[key]} not below {bound}")
+    require_launched(counts, "bunny_flat")
+    want = {"em_stats": 0, "em_stats_tiled": p.fit_iters, "em_step": p.fit_iters, "reg_stats": p.reg_iters,
+            "reg_stats_tiled": 0, "reg_step": p.reg_iters, "reg_tables": 1}
+    launched = {name: counts[name] for name in want}
+    if launched != want:
+        raise CheckFailed(f"bunny_flat: launches {launched}, not {want}")
+
+    gmm, _ = Gmm.fit(target, k=p.k, n_iters=p.fit_iters, generator=torch.Generator().manual_seed(seed))
+    tgt, src = prepare(target), prepare(source)
+    W = pack_loglik_weights(gmm.params)
+    check_em(torch, "em_stats_tiled", fused_em.em_stats(tgt.pts4, W), em_ref.em_stats(target, W), n, errs)
+    timings["em_stats_tiled"].append(timed_shape(
+        torch, lambda: fused_em.em_stats(tgt.pts4, W), lambda: em_ref.em_stats(target, W),
+        k=p.k, n=n, masked=False, path="bunny_flat", body_ms=device_ms(torch, sweep_body(torch, tgt.pts4, W))))
+    Wr, mu, A6, b3 = model_terms(gmm.params)
+    tab = fused_em.reg_tables(src.pts4, Wr, mu, A6, b3)
+    if (tab.body, tab.plan.lanes, tab.plan.points) != ("reg_stats", 1, 1):
+        raise CheckFailed(f"bunny_flat: reg_stats planned as {tab.body} {tab.plan}, not the one-lane body")
+    pose = (res.pose.R, res.pose.t)
+    ref = lambda: em_ref.reg_stats(source, Wr, mu, A6, b3, pose)  # noqa: E731
+    check_reg(torch, fused_em.reg_stats(src.pts4, Wr, mu, A6, b3, pose), ref(), n, errs)
+    pose12 = torch.cat([pose[0].reshape(9), pose[1]]).contiguous()
+    timings["reg_stats"].append(timed_shape(
+        torch, lambda: fused_em.reg_partials(tab, pose12), ref, k=p.k, n=n, outlier_logit=None,
+        path="bunny_flat", lanes=tab.plan.lanes, blocks=tab.plan.blocks))
+    return counts, {"n": n, "k": p.k, "wall_s": wall, "errors": errors, "bounds": BOUNDS,
+                    "launches": launched, "reg_plan": dataclasses.asdict(tab.plan)}
 
 
 def odometry_suite_phase(torch, dev, work) -> tuple:

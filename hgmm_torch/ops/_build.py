@@ -264,11 +264,13 @@ def load() -> ctypes.CDLL:
 
 
 # Kernel launches by wrapper, for showing that a run went through the kernels.
-# The masked em_stats past EG_BMAX children counts apart from the branch-8
-# body, and reg_stats by body (fused_em.reg_stats_body): the lanes body, the
-# tiled one (several points a thread), the top_k body with a register list,
-# the select body past MAX_TOP_K.
-LAUNCHES = {"em_stats": 0, "em_stats_masked": 0, "em_stats_masked_wide": 0, "em_step": 0, "assign": 0,
+# The unmasked em_stats counts by body (the first one, and the register-tiled
+# one from K = 33: em_stats_tiled), the masked em_stats past EG_BMAX children
+# apart from the branch-8 body, and reg_stats by body (fused_em.reg_stats_body):
+# the lanes body, the tiled one (several points a thread), the top_k body with
+# a register list, the select body past MAX_TOP_K.
+LAUNCHES = {"em_stats": 0, "em_stats_tiled": 0, "em_stats_masked": 0, "em_stats_masked_wide": 0, "em_step": 0,
+            "assign": 0,
             "reg_stats": 0, "reg_stats_tiled": 0, "reg_stats_top_k": 0, "reg_stats_select": 0, "reg_step": 0,
             "reg_tables": 0,
             "knn": 0, "probe_logits": 0, "probe_addonly": 0, "probe_stats": 0, "probe_norm": 0, "probe_vpu": 0}

@@ -17,7 +17,9 @@ geometry of ``plan_em_tiles``; unmasked calls with K <= 32 the first one, a
 point on 1 to 4 lanes (``plan_em_lanes``); masked calls run by parent chunks
 over the points sorted by parent (``group_by_parent``, ``plan_parent_chunks``):
 the grouped body up to EG_BMAX children a parent, the wide one past it
-(``plan_grouped_wide``). K, the mask and the branch alone decide. Each takes
+(``plan_grouped_wide``). K, the mask and the branch alone decide, and each
+body counts its launches under its own name (``em_stats``, ``em_stats_tiled``,
+``em_stats_masked``, ``em_stats_masked_wide``). Each takes
 W [10, K] or the packed table (``em_ref.Packed``) that ``em_step``
 (``csrc/em_step.cu``) writes. A fit's
 sweep launches the body alone (``em_partials``, ``em_partials_grouped``: the
@@ -280,6 +282,12 @@ class FlatBody:
     parts: EmPartials
     row: EmPartials
 
+    @property
+    def name(self) -> str:
+        """The launch counter: the C entry without the library's prefix
+        (em_stats_tiled, or em_stats for the first body)."""
+        return self.entry.removeprefix("hgmm_")
+
 
 def _rows(partial: torch.Tensor, k: int, n_rows: int, span: int, sms: int, branch: int = 0,
           parent_off: torch.Tensor | None = None) -> EmPartials:
@@ -312,8 +320,9 @@ def flat_body(pts4: torch.Tensor, k: int, outlier_logit=None) -> FlatBody:
 def em_partials(body: FlatBody, wn: torch.Tensor, out: torch.Tensor | None = None) -> EmPartials:
     """Launch the unmasked body with the table wn [table_rows(K), 12]: its
     partial rows in body.parts, which em_step sums (a fit's sweep), and with
-    `out` [K*10 + 1] their sum there by the reduce kernel."""
-    launch("em_stats", body.entry, body.pts4.device, body.pts4.data_ptr(), body.pts4.shape[1], wn.data_ptr(),
+    `out` [K*10 + 1] their sum there by the reduce kernel. Counted as the
+    body's name."""
+    launch(body.name, body.entry, body.pts4.device, body.pts4.data_ptr(), body.pts4.shape[1], wn.data_ptr(),
            body.k, body.geometry, *body.outlier, body.parts.partial.data_ptr(), body.parts.n_rows,
            None if out is None else out.data_ptr())
     return body.parts

@@ -90,6 +90,46 @@ def test_em_stats_all_components_dead(cuda, k):
     assert float(got.S.abs().max()) == 0.0 and float(got.loglik) == 0.0
 
 
+def test_the_bunny_shape_bodies_against_their_twins(cuda):
+    """BASELINE config 1's shapes (35,947 points, K = 64, no outlier): the
+    plans put the fit's E-step on the register-tiled body (em_stats_tiled,
+    one block an SM over 141 tiles) and the registration's statistics on the
+    one-lane, one-point lanes body (reg_stats_lanes_kernel<1, 1>, counted as
+    reg_stats, 141 blocks); each against its plain twin with test_em_stats'
+    and test_reg_stats_every_lane_count's tolerances, one launch each,
+    counted under its body."""
+    n, k = 35_947, 64
+    sms = fused_em._build.sms(cuda)
+    params = _mixture(k, 71, cuda, dead=(3,))
+    pts, _ = _inputs(n, 72, cuda)
+    p4 = prepare(pts).pts4
+    W = pack_loglik_weights(params)
+    A, b, _ = precision_terms(params)
+    pose = (so3_exp(torch.tensor([0.1, -0.2, 0.3], device=cuda)),
+            torch.tensor([0.05, 0.0, -0.1], device=cuda))
+    body = fused_em.flat_body(p4, k)
+    tab = fused_em.reg_tables(p4, W, params.mu, sym_pack(A), b)
+    assert (body.name, body.entry, body.parts.n_rows) == ("em_stats_tiled", "hgmm_em_stats_tiled",
+                                                          min(sms, 141))
+    assert tab.body == "reg_stats" and tab.plan == fused_em.plan_reg_stats(n, k, None, sms)
+    if sms == 132:
+        assert tab.plan == fused_em.RegPlan(lanes=1, blocks=141, kmax=0, chunk=1, points=1)
+    names = ("em_stats", "em_stats_tiled", "reg_stats", "reg_stats_tiled")
+    before = dict(fused_em.LAUNCHES)
+    got = fused_em.em_stats(p4, W)
+    out = torch.empty(59, device=cuda)
+    fused_em.reg_partials(tab, torch.cat([pose[0].reshape(9), pose[1]]).contiguous(), out=out)
+    assert {name: fused_em.LAUNCHES[name] - before[name] for name in names} == {
+        "em_stats": 0, "em_stats_tiled": 1, "reg_stats": 1, "reg_stats_tiled": 0}
+    _check_em(got, em_ref.em_stats(pts, W), n)
+    ref = em_ref.reg_stats(pts, W, params.mu, sym_pack(A), b, pose)
+    s = n / 300
+    _close(out[:16].view(4, 4), ref.horn, 2e-3, 2e-3 * s)
+    _close(out[16:52].view(6, 6), ref.A, 2e-3, 2e-2 * s)
+    _close(out[52:58], ref.b, 2e-3, 2e-2 * s)
+    _close(out[58], ref.loglik, 1e-4, 1e-6)
+
+
 @pytest.mark.parametrize("k", [64, 512])
 def test_em_stats_masked(cuda, k):
     n = 20_000
@@ -635,12 +675,14 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 def test_bench_on_the_card(cuda, capsys):
     """run_bench at a small size on the card: the sweep launches the kernel
-    and agrees with the plain version."""
+    (the register-tiled body at K = 64, counted as em_stats_tiled) and agrees
+    with the plain version."""
     from hgmm_torch import bench, convert
 
     fused_em.reset_launches()
     res = bench.run_bench(device="cuda", n=1 << 16, k=64, sweeps=3)
-    assert fused_em.LAUNCHES["em_stats"] == 3 * 7  # 2 warm-up chains + 5 timed
+    assert fused_em.LAUNCHES["em_stats_tiled"] == 3 * 7  # 2 warm-up chains + 5 timed
+    assert fused_em.LAUNCHES["em_stats"] == 0
     mix, pts = bench.bench_problem(1 << 16, 64)
     W = pack_loglik_weights(convert.mixture_from_numpy(*mix, device=cuda))
     _check_em(res["stats"], em_ref.em_stats(torch.from_numpy(pts).to(cuda), W), 1 << 16)
@@ -662,7 +704,8 @@ def test_reg_stats_every_lane_count(cuda, k, n):
     pts, w = _inputs(n, k + 22, cuda)
     W = pack_loglik_weights(params)
     A, b, _ = precision_terms(params)
-    pose = (so3_exp(torch.tensor([0.1, -0.2, 0.3], device=cuda)), torch.tensor([0.05, 0.0, -0.1], device=cuda))
+    pose = (so3_exp(torch.tensor([0.1, -0.2, 0.3], device=cuda)),
+            torch.tensor([0.05, 0.0, -0.1], device=cuda))
     ref = em_ref.reg_stats(pts, W, params.mu, sym_pack(A), b, pose, w, None, -2.0)
     tab = fused_em.reg_tables(prepare(pts, w).pts4, W, params.mu, sym_pack(A), b, None, -2.0)
     pose12 = torch.cat([pose[0].reshape(9), pose[1]]).contiguous()
@@ -803,7 +846,8 @@ def _top_k_counts(cuda, params, n, top_k, passes=1):
     pts, w = _inputs(n, 47, cuda)
     W = pack_loglik_weights(params)
     A, b, _ = precision_terms(params)
-    pose = (so3_exp(torch.tensor([0.1, -0.2, 0.3], device=cuda)), torch.tensor([0.05, 0.0, -0.1], device=cuda))
+    pose = (so3_exp(torch.tensor([0.1, -0.2, 0.3], device=cuda)),
+            torch.tensor([0.05, 0.0, -0.1], device=cuda))
     p = prepare(pts, w).pts4
     with profiling.count_syncs(), profiling.tracing():  # the first call's set-up, and the sync mode's
         with profiling.span("warm"):
@@ -1649,7 +1693,7 @@ def test_fit_sweeps_on_the_card_make_no_host_sync(cuda, case):
                 fit = em_sweeps(data, start, sweeps, total, cf)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-            estep = "em_stats_masked" if case == "grouped64" else "em_stats"
+            estep = {"flat8": "em_stats", "flat64": "em_stats_tiled", "grouped64": "em_stats_masked"}[case]
             assert fused_em.LAUNCHES[estep] - before[estep] == sweeps
             assert fused_em.LAUNCHES["em_step"] - before["em_step"] == sweeps
             kernels = []
@@ -1702,7 +1746,7 @@ def test_sharded_em_fit_on_the_card(cuda, nccl_world, mesh_kind, k, weighted):
     """sharded_em_fit over NCCL at world size 1 and on 4 emulated ranks
     against the unsharded em_fit on the card from one init, with the
     tolerances of tests/test_parallel.py:36-39; one E-step launch (body and
-    reduce) and one em_step a sweep on each rank."""
+    reduce, counted by body) and one em_step a sweep on each rank."""
     from hgmm_torch.models.gmm import em_fit
     from hgmm_torch.parallel import sharded_em_fit
 
@@ -1715,7 +1759,8 @@ def test_sharded_em_fit_on_the_card(cuda, nccl_world, mesh_kind, k, weighted):
     got, ll = sharded_em_fit(pts, init, mesh, n_iters=6, point_weights=w)
     torch.cuda.synchronize()
     ranks = mesh.size
-    assert fused_em.LAUNCHES["em_stats"] == 6 * ranks and fused_em.LAUNCHES["em_step"] == 6 * ranks
+    body = "em_stats" if k < fused_em.EMT_MIN_K else "em_stats_tiled"
+    assert fused_em.LAUNCHES[body] == 6 * ranks and fused_em.LAUNCHES["em_step"] == 6 * ranks
     _close(got.pi, ref.pi, 1e-4, 1e-6)
     _close(got.mu, ref.mu, 1e-4, 1e-5)
     _close(got.sigma, ref.sigma, 1e-3, 1e-5)

@@ -366,6 +366,74 @@ def test_reg_scan_is_one_call_counted_as_its_steps_launches(launches, monkeypatc
         fused_em.reg_scan(tab, scan, scan_schedule(6, "horn", 2), 1e-7)  # past the scan's 5 iterations
 
 
+def _stand_in_flat_bodies(monkeypatch):
+    """A fit's unmasked E-step through fused_em on the CPU: ops.new_fit binds
+    a Prepared buffer to fused_em.flat_body (the card's plan at 132 SMs) and
+    the stand-in library writes the plain statistics at the fit's table into
+    the body's first partial row, the others zero, so em_step's plain twin
+    sums what the plain sweep would. A tree's grouped levels stay on the
+    CPU's plain path."""
+    from hgmm_torch import ops
+    from hgmm_torch.ops import _build
+
+    bodies = {}
+
+    class Lib:
+        def hgmm_em_stats(self, pts4, n, wn, k, geometry, has_outlier, outlier, partial, n_rows, out, stream):
+            body, table = bodies[partial]
+            stats = em_ref.em_stats(body.pts4[:3].T, table, body.pts4[3])
+            body.parts.partial.zero_()
+            body.parts.partial[0] = em_ref.partials_of(stats).partial[0]
+            return 0
+
+        hgmm_em_stats_tiled = hgmm_em_stats
+
+    _stand_in_card(monkeypatch, Lib())
+    monkeypatch.setattr(_build, "sms", lambda dev: 132)
+    monkeypatch.setattr(fused_em, "check_tensor", lambda *a, **k: None)
+    plain_new_fit = ops.new_fit
+
+    def new_fit(data, init, n_iters, total, cov_floor):
+        fit = plain_new_fit(data, init, n_iters, total, cov_floor)
+        if not isinstance(data, ops.Prepared):
+            return fit
+        body = fused_em.flat_body(data.pts4, init.k)
+        bodies[body.parts.partial.data_ptr()] = (body, fit.table)
+        return fit._replace(data=body)
+
+    monkeypatch.setattr(ops, "new_fit", new_fit)
+
+
+@pytest.mark.parametrize("kind", ["flat64", "tree"])
+def test_em_stats_launches_count_by_body(launches, monkeypatch, kind):
+    """A flat K = 64 fit launches the register-tiled E-step body once a sweep,
+    counted as launch.em_stats_tiled (and em_stats_tiled in LAUNCHES); a tree
+    fit's level 0 (K = 8) launches the first body, still counted as
+    launch.em_stats, and a tree raises no em_stats_tiled. The fits equal the
+    plain ones bit for bit: the stand-in body hands em_step the same sums."""
+    from hgmm_torch.models.gmm_tree import GmmTree
+
+    _, tgt = _pair(2000)
+
+    def fit():
+        g = torch.Generator().manual_seed(5)
+        if kind == "flat64":
+            return [Gmm.fit(tgt, k=64, n_iters=6, generator=g)[0].params]
+        return GmmTree.fit(tgt, branch=8, levels=2, em_iters=4, generator=g)[0].levels
+
+    plain = fit()
+    _stand_in_flat_bodies(monkeypatch)
+    before = dict(launches)
+    with tracing() as tr:
+        got = fit()
+    (req,) = tr.summary()
+    want = {"launch.em_stats_tiled": 6} if kind == "flat64" else {"launch.em_stats": 4}
+    assert {k: v for k, v in req["counts"].items() if k.startswith("launch.")} == want
+    assert {k: launches[k] - before[k] for k in launches if launches[k] != before[k]} == {
+        name.split(".", 1)[1]: n for name, n in want.items()}
+    assert all(torch.equal(a, b) for p, q in zip(got, plain) for a, b in zip(p, q))
+
+
 @pytest.mark.parametrize("ranks", [None, 2])
 def test_the_cpu_and_a_mesh_step_from_python(monkeypatch, ranks):
     """On the CPU and with a mesh the scan steps from Python: ops.reg_step
